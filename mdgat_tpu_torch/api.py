@@ -1,0 +1,203 @@
+"""Inference API: load weights, match keypoint clouds, fit the rigid pose.
+
+Port of ``mdgat_tpu/api.py::Matcher``. Pairs are padded to 128-keypoint
+buckets with validity masks (padded results equal unpadded), descriptors
+are L2-normalised on the host as the reference data layer does
+(``load_data.py:290-292``), a batch runs as one forward on ``device``, and
+``register`` adds the reference's one-step SVD pose fit
+(``utils/utils_test.py:73-110``).
+
+    >>> m = Matcher("model.npz", device="cuda")          # doctest: +SKIP
+    >>> out = m.match_batch(pairs)                       # doctest: +SKIP
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from mdgat_tpu_torch.core.checkpoint import (load_npz, load_pth_state_dict,
+                                             state_dict_from_numpy)
+from mdgat_tpu_torch.core.config import Config, test_defaults
+from mdgat_tpu_torch.models.mdgat import MDGAT
+
+_BUCKET = 128
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def np_kabsch(P: np.ndarray, Q: np.ndarray) -> np.ndarray:
+    """One-step SVD fit T: P -> Q (``solve_icp``, no reflection fix, like
+    the reference); a copy of ``mdgat_tpu/eval/metrics.py::np_kabsch``."""
+    up, uq = P.mean(axis=0), Q.mean(axis=0)
+    U, _, Vh = np.linalg.svd((Q - uq).T @ (P - up))
+    R = U @ Vh
+    t = uq - R @ up
+    T = np.zeros((4, 4))
+    T[:3, :3] = R
+    T[:3, 3] = t
+    T[3, 3] = 1.0
+    return T
+
+
+class Matcher:
+    """MDGAT matcher for library use.
+
+    Weights, one of: ``checkpoint`` (a native ``.npz`` of the JAX package
+    or a reference ``.pth``); ``params=`` and ``bn_state=`` trees of numpy
+    arrays; or ``seed=`` for a seeded random init.
+    ``device`` (required) is where the model runs ("cpu", "cuda",
+    "cuda:1", ...); a CUDA device that is not there raises. ``overrides`` are
+    :class:`~mdgat_tpu_torch.core.config.Config` fields on top of the eval
+    preset (``test_defaults()``), e.g. ``compute_dtype="bfloat16"`` or
+    ``use_kernels=False``.
+    """
+
+    def __init__(self, checkpoint: Optional[str] = None, *, device,
+                 params=None, bn_state=None, seed: Optional[int] = None,
+                 **overrides):
+        self.cfg: Config = test_defaults().replace(**overrides)
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("Matcher(device='cuda'): no CUDA device")
+            # full-precision f32 products on the card (TF32 keeps ~3 digits)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.meta: Dict = {}
+        state_dict = None
+        if checkpoint is not None:
+            if checkpoint.endswith(".pth"):
+                state_dict = load_pth_state_dict(checkpoint)
+            else:
+                params, bn_state, self.meta = load_npz(checkpoint)
+        if params is not None or bn_state is not None:
+            if params is None or bn_state is None:
+                raise ValueError("pass BOTH params and bn_state")
+            state_dict = state_dict_from_numpy(params, bn_state, self.cfg)
+        self.model = MDGAT(self.cfg)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict, strict=True)
+        elif seed is not None:
+            self.model.reset_parameters(seed)
+        else:
+            raise ValueError("pass a checkpoint path, params and bn_state, "
+                             "or a seed")
+        self.model.to(self.device).eval()
+
+    # ------------------------------------------------------------------
+    def _pad_cloud(self, kp, desc, score, dt):
+        kp = np.asarray(kp, dt)
+        desc = np.asarray(desc, dt)
+        n = len(kp)
+        score = (np.full((n,), 20.0, dt) if score is None
+                 else np.asarray(score, dt))
+        tgt = max(_round_up(n, _BUCKET), _BUCKET)
+        out_kp = np.zeros((tgt, 3), dt)
+        out_ds = np.zeros((tgt, desc.shape[1]), dt)
+        out_sc = np.zeros((tgt,), dt)
+        mask = np.zeros((tgt,), bool)
+        out_kp[:n], out_ds[:n], out_sc[:n], mask[:n] = kp, desc, score, True
+        return out_kp, out_ds, out_sc, mask, n
+
+    def match(self, kp0, desc0, kp1, desc1, score0=None, score1=None,
+              normalize: bool = True) -> Dict[str, np.ndarray]:
+        """Match one pair: ``kp*`` [n, 3], ``desc*`` [n, 33] FPFH,
+        ``score*`` [n] saliencies (a constant when None). Returns numpy
+        ``matches0`` [n0] / ``matches1`` [n1] (-1 = unmatched) and
+        ``matching_scores0/1``."""
+        return self.match_batch(
+            [dict(kp0=kp0, desc0=desc0, kp1=kp1, desc1=desc1,
+                  score0=score0, score1=score1)], normalize)[0]
+
+    def prepare_batch(self, pairs, normalize: bool = True):
+        """(batch dict of tensors on ``device``, per-pair true sizes):
+        each cloud zero-padded to the batch's largest 128-bucket, with
+        masks, descriptors L2-normalised."""
+        dt = np.dtype(self.cfg.compute_dtype if self.cfg.compute_dtype
+                      != "bfloat16" else "float32")
+        padded = []
+        for p in pairs:
+            k0, d0, s0, m0, n0 = self._pad_cloud(
+                p["kp0"], p["desc0"], p.get("score0"), dt)
+            k1, d1, s1, m1, n1 = self._pad_cloud(
+                p["kp1"], p["desc1"], p.get("score1"), dt)
+            if normalize:
+                for d, n in ((d0, n0), (d1, n1)):
+                    nrm = np.linalg.norm(d[:n], axis=1, keepdims=True)
+                    d[:n] /= np.maximum(nrm, 1e-12)
+            padded.append((k0, d0, s0, m0, k1, d1, s1, m1))
+
+        def stack(i):
+            tgt = max(x[i].shape[0] for x in padded)
+            out = np.zeros((len(padded), tgt) + padded[0][i].shape[1:],
+                           padded[0][i].dtype)
+            for b, x in enumerate(padded):
+                out[b, : x[i].shape[0]] = x[i]
+            return torch.from_numpy(out).to(self.device)
+
+        names = ("keypoints0", "descriptors0", "scores0", "mask0",
+                 "keypoints1", "descriptors1", "scores1", "mask1")
+        sizes = [(len(p["kp0"]), len(p["kp1"])) for p in pairs]
+        return {name: stack(i) for i, name in enumerate(names)}, sizes
+
+    def match_batch(self, pairs, normalize: bool = True):
+        """Match many pairs in one forward (the serving path). ``pairs``:
+        dicts with ``kp0, desc0, kp1, desc1`` and optional ``score0,
+        score1``. Returns one :meth:`match` dict per pair."""
+        pairs = list(pairs)
+        if not pairs:
+            return []
+        batch, sizes = self.prepare_batch(pairs, normalize)
+        with torch.inference_mode():
+            out = self.model(batch)
+        ma0 = out["matches0"].cpu().numpy()
+        ma1 = out["matches1"].cpu().numpy()
+        msc0 = out["matching_scores0"].float().cpu().numpy()
+        msc1 = out["matching_scores1"].float().cpu().numpy()
+        return [{
+            "matches0": ma0[b, :n0].copy(),
+            "matches1": ma1[b, :n1].copy(),
+            "matching_scores0": msc0[b, :n0].copy(),
+            "matching_scores1": msc1[b, :n1].copy(),
+        } for b, (n0, n1) in enumerate(sizes)]
+
+    def register(self, kp0, desc0, kp1, desc1, score0=None, score1=None,
+                 normalize: bool = True, min_matches: int = 4,
+                 inlier_radius: float = 1.0) -> Dict:
+        """Match + one-step SVD pose fit. Adds ``T`` (4x4, cloud 1 into
+        cloud 0's frame; None under ``max(min_matches, 3)`` matches),
+        ``n_matches`` and ``inliers``."""
+        out = self.match(kp0, desc0, kp1, desc1, score0, score1,
+                         normalize=normalize)
+        return self._pose_fit(out, kp0, kp1, min_matches, inlier_radius)
+
+    def register_batch(self, pairs, normalize: bool = True,
+                       min_matches: int = 4, inlier_radius: float = 1.0):
+        """:meth:`register` over many pairs, matched in one forward."""
+        pairs = list(pairs)
+        outs = self.match_batch(pairs, normalize=normalize)
+        return [self._pose_fit(out, p["kp0"], p["kp1"], min_matches,
+                               inlier_radius)
+                for p, out in zip(pairs, outs)]
+
+    @staticmethod
+    def _pose_fit(out: Dict, kp0, kp1, min_matches: int,
+                  inlier_radius: float) -> Dict:
+        valid = out["matches0"] >= 0
+        out["n_matches"] = int(valid.sum())
+        if out["n_matches"] < max(min_matches, 3):  # SVD needs >= 3
+            out["T"], out["inliers"] = None, 0
+            return out
+        mk0 = np.asarray(kp0, np.float64)[valid]
+        mk1 = np.asarray(kp1, np.float64)[out["matches0"][valid]]
+        T = np_kabsch(mk1, mk0)
+        moved = mk1 @ T[:3, :3].T + T[:3, 3]
+        out["T"] = T
+        out["inliers"] = int(
+            (np.linalg.norm(moved - mk0, axis=1) < inlier_radius).sum())
+        return out

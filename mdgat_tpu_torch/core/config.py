@@ -1,0 +1,149 @@
+"""Configuration for the PyTorch port.
+
+A copy of ``mdgat_tpu/core/config.py`` (that package's ``__init__`` pulls
+in JAX, so the port never imports it). Same fields and defaults, same
+``train_defaults()`` / ``test_defaults()`` presets of the reference entry
+points. The JAX package's accelerator knobs (Pallas gates, shard_map, mesh
+sizes, layer scanning, remat, multi-host) collapse into one switch,
+``use_kernels``: the device a model is placed on decides where it runs, and
+on a CUDA device ``use_kernels`` routes the GNN layers and the Sinkhorn
+through the hand-written kernels of ``mdgat_tpu_torch/csrc``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+
+# The reference's k-schedule default (train.py:61, test.py:83): None entries
+# mean full attention for that layer.
+DEFAULT_K: Tuple[Optional[int], ...] = (128, None, 128, None, 64, None, 64, None)
+
+
+@dataclasses.dataclass
+class Config:
+    # --- model architecture (reference models/mdgat.py:316-323) ---
+    descriptor_dim: int = 128
+    keypoint_encoder: Tuple[int, ...] = (32, 64, 128)
+    descriptor_encoder: Tuple[int, ...] = (64, 128)  # 'descritor_encoder' (sic) upstream
+    num_heads: int = 4
+    L: int = 9                      # GNN has 2*L alternating self/cross layers
+    k: Optional[Tuple[Optional[int], ...]] = DEFAULT_K
+    net: str = "mdgat"              # mdgat | superglue | raw
+    descriptor: str = "FPFH"        # FPFH | FPFH_gloabal | FPFH_only | pointnet | pointnetmsg
+    sinkhorn_iterations: int = 20   # CLI default (train.py:21); model default was 100
+    match_threshold: float = 0.2
+    loss_method: str = "gap_loss"   # superglue | triplet_loss | gap_loss
+    triplet_loss_gamma: float = 0.5
+    mutual_check: bool = False
+    train_step: int = 3             # staged training for pointnet descriptors
+
+    # --- data pipeline (reference load_data.py) ---
+    dataset: str = "kitti"
+    keypoints: str = "USIP"
+    max_keypoints: int = 512
+    ensure_kpts_num: bool = True
+    threshold: float = 0.5          # GT correspondence distance threshold (m)
+    memory_is_enough: bool = True
+    train_path: str = "./KITTI/"
+    keypoints_path: str = "./KITTI/keypoints/tsf_256_FPFH_16384-512-k1k16-2d-nonoise"
+    txt_path: str = "./KITTI/preprocess-random-full"
+    score_min: float = 10.0         # USIP score filter (load_data.py:183)
+
+    # --- training (reference train.py) ---
+    learning_rate: float = 1e-4
+    epoch: int = 1000
+    batch_size: int = 64
+    resume: bool = False
+    resume_model: str = "./your_model.pth"
+    model_out_path: str = "./checkpoint"
+
+    # --- execution ---
+    compute_dtype: str = "float32"  # float32 | bfloat16 | float64
+    param_dtype: str = "float32"
+    use_kernels: bool = True        # CUDA tensors run the csrc/ kernels
+    prefetch: int = 2
+    seed: int = 0
+
+    # ------------------------------------------------------------------
+    @property
+    def gnn_layer_names(self) -> List[str]:
+        # both nets alternate self/cross for 2L layers
+        # (models/mdgat.py:335, models/superglue.py:232)
+        return ["self", "cross"] * self.L
+
+    def layer_k_schedule(self, num_keypoints: int) -> List[Optional[int]]:
+        """Per-layer top-k values (None = full attention).
+
+        Mirrors the gating in the reference GNN forward
+        (``models/mdgat.py:268-272``): layer i is dynamic iff
+        ``i > 2L - 1 - len(k)`` with ``k = k_list[i - 2L + len(k_list)]``.
+        ``net='raw'`` (or k=None) disables dynamic attention everywhere
+        (``train.py:130-132``).
+        """
+        n_layers = 2 * self.L
+        if self.k is None or self.net in ("raw", "superglue"):
+            return [None] * n_layers
+        ks: List[Optional[int]] = []
+        klist = list(self.k)
+        for i in range(n_layers):
+            if i > n_layers - 1 - len(klist):
+                kk = klist[i - n_layers + len(klist)]
+                if kk is not None and kk >= num_keypoints:
+                    kk = None  # top-k over >= all points is full attention
+                ks.append(kk)
+            else:
+                ks.append(None)
+        return ks
+
+    def model_name(self) -> str:
+        """Run-name scheme of the reference (``train.py:130-136``)."""
+        kstr = _k_repr(self.k)
+        base = "{}-k{}-batch{}-{}-{}-{}".format(
+            self.net, kstr, self.batch_size, self.loss_method,
+            self.descriptor, self.keypoints)
+        if not self.mutual_check:
+            base = "nomutualcheck-" + base
+        return base
+
+    def run_dir(self, root: str) -> str:
+        """Log/checkpoint directory scheme (``train.py:138-151``)."""
+        kstr = _k_repr(self.k)
+        path = "{}/{}/{}{}-k{}-{}-{}".format(
+            root, self.dataset, self.net, self.L, kstr,
+            self.loss_method, self.descriptor)
+        if self.descriptor in ("pointnet", "pointnetmsg"):
+            path = "{}/train_step{}".format(path, self.train_step)
+        return "{}/{}".format(path, self.model_name())
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def _k_repr(k) -> str:
+    if k is None:
+        return "None"
+    return "[{}]".format(", ".join(str(x) for x in k))
+
+
+def train_defaults(**overrides) -> Config:
+    """Preset matching ``train.py`` argparse defaults (``train.py:16-123``)."""
+    return Config().replace(**overrides)
+
+
+def test_defaults(**overrides) -> Config:
+    """Preset matching ``test.py`` argparse defaults (``test.py:18-126``).
+
+    Divergences from the train preset, as in the reference: batch_size=1,
+    max_keypoints=256, ensure_kpts_num=False, loss_method='triplet_loss',
+    memory_is_enough=False.
+    """
+    cfg = Config().replace(
+        batch_size=1,
+        max_keypoints=256,
+        ensure_kpts_num=False,
+        loss_method="triplet_loss",
+        memory_is_enough=False,
+    )
+    return cfg.replace(**overrides)

@@ -1,0 +1,105 @@
+"""Attentional GNN with the multiplex-dynamic-graph k-schedule.
+
+Port of ``mdgat_tpu/models/gnn.py`` (reference ``AttentionalPropagation`` /
+``AttentionalGNN``, ``models/mdgat.py:239-276``): 2L alternating self and
+cross layers, each ``x += MLP(cat(x, MHA(x, source)))``; late layers use
+dynamic top-k attention per the k-schedule. Self layers attend to the
+cloud itself, cross layers to the other cloud; a layer's weights serve
+both clouds, and both clouds read the descriptors from before the layer.
+
+On a CUDA tensor with ``use_kernels`` each layer runs the hand-written
+kernels (``ops/cuda/layer.py``) on weights prepared once per model (cached
+here until a parameter or buffer changes). Otherwise it runs the plain
+eval path below. The JAX package's layer-pair scan, remat and
+context-parallel axis have no counterpart: PyTorch runs eagerly.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from mdgat_tpu_torch.ops.attention import multi_head_attention
+from mdgat_tpu_torch.ops.cuda.layer import (LayerWeights, fused_layer,
+                                            prepare_layer_weights)
+from mdgat_tpu_torch.ops.mlp import Conv1x1, apply_mlp, mlp, reset_mlp
+
+
+class MultiHeadedAttention(nn.Module):
+    """The reference's ``attn`` submodule: ``proj`` (q, k, v) and
+    ``merge``, all 1x1 convs."""
+
+    def __init__(self, d: int, *, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.proj = nn.ModuleList([Conv1x1(d, d, dtype=dtype, device=device)
+                                   for _ in range(3)])
+        self.merge = Conv1x1(d, d, dtype=dtype, device=device)
+
+
+class AttentionalPropagation(nn.Module):
+    def __init__(self, feature_dim: int, num_heads: int, *,
+                 dtype: torch.dtype, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.attn = MultiHeadedAttention(feature_dim, dtype=dtype,
+                                         device=device)
+        self.mlp = mlp([feature_dim * 2, feature_dim * 2, feature_dim],
+                       dtype=dtype, device=device)
+        self._kernel_weights: Optional[LayerWeights] = None
+        self._kernel_key = None
+
+    def forward(self, x, source, topk: Optional[int],
+                kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The plain eval residual update ``MLP(cat(x, MHA(x, source)))``
+        (concat-free first conv)."""
+        message = multi_head_attention(self.attn, x, source, topk,
+                                       self.num_heads, kv_mask=kv_mask)
+        return apply_mlp(self.mlp, (x, message))
+
+    def kernel_weights(self) -> LayerWeights:
+        """Kernel operands, prepared on first use and again only after a
+        parameter or buffer changed (moved, loaded or edited in place)."""
+        key = tuple((t.data_ptr(), t._version)
+                    for t in list(self.parameters()) + list(self.buffers()))
+        if self._kernel_key != key:
+            self._kernel_weights = prepare_layer_weights(self, torch.float32)
+            self._kernel_key = key
+        return self._kernel_weights
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        for conv in list(self.attn.proj) + [self.attn.merge]:
+            conv.reset_parameters(generator)
+        reset_mlp(self.mlp, generator, zero_last_bias=True)
+
+
+class AttentionalGNN(nn.Module):
+    def __init__(self, feature_dim: int, layer_names: Sequence[str],
+                 num_heads: int, *, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.names: List[str] = list(layer_names)
+        self.layers = nn.ModuleList([
+            AttentionalPropagation(feature_dim, num_heads, dtype=dtype,
+                                   device=device)
+            for _ in self.names])
+
+    def forward(self, desc0, desc1, k_schedule: Sequence[Optional[int]],
+                mask0: Optional[torch.Tensor] = None,
+                mask1: Optional[torch.Tensor] = None,
+                use_kernels: bool = True):
+        kernels = use_kernels and desc0.device.type == "cuda"
+        for layer, name, k in zip(self.layers, self.names, k_schedule):
+            if name == "cross":
+                src0, src1, kvm0, kvm1 = desc1, desc0, mask1, mask0
+            else:
+                src0, src1, kvm0, kvm1 = desc0, desc1, mask0, mask1
+            if kernels:
+                w = layer.kernel_weights()
+                desc0, desc1 = (fused_layer(desc0, src0, kvm0, k, w),
+                                fused_layer(desc1, src1, kvm1, k, w))
+            else:
+                desc0, desc1 = (desc0 + layer(desc0, src0, k, kvm0),
+                                desc1 + layer(desc1, src1, k, kvm1))
+        return desc0, desc1

@@ -1,0 +1,124 @@
+"""MDGAT, the paper model: the eval forward with FPFH descriptors.
+
+Port of ``mdgat_tpu/models/mdgat.py`` (reference ``MDGAT``,
+``models/mdgat.py:315-603``): keypoint and descriptor encoders -> 2L-layer
+attentional GNN with the dynamic top-k schedule -> final 1x1 projection ->
+scaled descriptor inner-product scores -> dustbin log-Sinkhorn -> match
+decision (+ the loss when ground truth is given).
+
+Module names follow the reference, so ``state_dict()`` keys are the
+upstream ones (``kenc.encoder.*``, ``denc.encoder.*``, ``gnn.layers.*``,
+``final_proj.*``, ``bin_score``) and reference ``.pth`` files load with
+``strict=True``.
+
+Precision: the encoders and the GNN run in ``compute_dtype``; the scores,
+the transport, the decision and the loss run in at least float32
+(``models/mdgat.py:230-239`` of the JAX package). On a CUDA device with
+``use_kernels`` the GNN layers and the Sinkhorn run the hand-written
+kernels; everything else is plain PyTorch. ``forward`` is eval only:
+training comes with a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+from torch import nn
+
+from mdgat_tpu_torch.core.config import Config
+from mdgat_tpu_torch.models.encoders import DescriptorEncoder, KeypointEncoder
+from mdgat_tpu_torch.models.gnn import AttentionalGNN
+from mdgat_tpu_torch.ops.cuda.sinkhorn import log_optimal_transport_kernel
+from mdgat_tpu_torch.ops.losses import gap_loss, superglue_nll_loss, triplet_loss
+from mdgat_tpu_torch.ops.matching import match_decision
+from mdgat_tpu_torch.ops.mlp import Conv1x1
+from mdgat_tpu_torch.ops.transport import log_optimal_transport
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "float64": torch.float64,
+            "bfloat16": torch.bfloat16}[name]
+
+
+class MDGAT(nn.Module):
+    def __init__(self, config: Config, device=None):
+        super().__init__()
+        if config.descriptor != "FPFH":
+            raise NotImplementedError(
+                f"descriptor {config.descriptor!r}: the port runs FPFH only")
+        self.config = config
+        dtype = torch_dtype(config.param_dtype)
+        fd = config.descriptor_dim
+        kw = dict(dtype=dtype, device=device)
+        self.kenc = KeypointEncoder(fd, config.keypoint_encoder, **kw)
+        self.denc = DescriptorEncoder(fd, config.descriptor_encoder, **kw)
+        self.gnn = AttentionalGNN(fd, config.gnn_layer_names,
+                                  config.num_heads, **kw)
+        self.final_proj = Conv1x1(fd, fd, **kw)
+        self.bin_score = nn.Parameter(torch.tensor(1.0, **kw))
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int):
+        """Seeded init with ``torch.nn.Conv1d``'s defaults (kaiming-uniform,
+        zero final biases where the reference zeroes them), BN at identity,
+        ``bin_score`` 1.0 (``models/mdgat.py:359``)."""
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        self.kenc.reset_parameters(g)
+        self.denc.reset_parameters(g)
+        for layer in self.gnn.layers:
+            layer.reset_parameters(g)
+        self.final_proj.reset_parameters(g)
+        self.bin_score.fill_(1.0)
+
+    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``data``: keypoints0/1 [B, N, 3], scores0/1 [B, N],
+        descriptors0/1 [B, N, 33], optional mask0/1 [B, N] bool and
+        gt_matches0/1 [B, N] int (-1 = unmatched). Returns matches0/1,
+        matching_scores0/1 and, with ground truth, loss [B]."""
+        cfg = self.config
+        dt = torch_dtype(cfg.compute_dtype)
+        mask0, mask1 = data.get("mask0"), data.get("mask1")
+        desc0 = (self.denc(data["descriptors0"].to(dt))
+                 + self.kenc(data["keypoints0"].to(dt), data["scores0"].to(dt)))
+        desc1 = (self.denc(data["descriptors1"].to(dt))
+                 + self.kenc(data["keypoints1"].to(dt), data["scores1"].to(dt)))
+
+        k_sched = cfg.layer_k_schedule(desc0.shape[1])
+        desc0, desc1 = self.gnn(desc0, desc1, k_sched, mask0, mask1,
+                                use_kernels=cfg.use_kernels)
+        mdesc0, mdesc1 = self.final_proj(desc0), self.final_proj(desc1)
+
+        ot_dtype = torch.float32 if dt == torch.bfloat16 else dt
+        scores = torch.matmul(mdesc0.to(ot_dtype),
+                              mdesc1.to(ot_dtype).transpose(1, 2))
+        scores = scores / math.sqrt(cfg.descriptor_dim)
+        alpha = self.bin_score.to(ot_dtype)
+        if cfg.use_kernels and scores.device.type == "cuda":
+            ot = log_optimal_transport_kernel(scores, alpha,
+                                              cfg.sinkhorn_iterations,
+                                              mask0, mask1)
+        else:
+            ot = log_optimal_transport(scores, alpha, cfg.sinkhorn_iterations,
+                                       mask0, mask1)
+        res = match_decision(ot, cfg.loss_method, cfg.match_threshold,
+                             cfg.mutual_check, mask0, mask1)
+        out = {"matches0": res.matches0, "matches1": res.matches1,
+               "matching_scores0": res.matching_scores0,
+               "matching_scores1": res.matching_scores1}
+        if "gt_matches0" in data:
+            gt0 = data["gt_matches0"].long()
+            gt1 = data["gt_matches1"].long()
+            if cfg.loss_method == "superglue":
+                out["loss"] = superglue_nll_loss(ot, gt0, gt1, mask0, mask1)
+            elif cfg.loss_method == "triplet_loss":
+                out["loss"] = triplet_loss(ot, gt0, gt1,
+                                           cfg.triplet_loss_gamma, mask0,
+                                           mask1)
+            elif cfg.loss_method == "gap_loss":
+                out["loss"] = gap_loss(ot, gt0, gt1, cfg.triplet_loss_gamma,
+                                       mask0, mask1)
+            else:
+                raise ValueError(f"Invalid loss_method: {cfg.loss_method}")
+        return out

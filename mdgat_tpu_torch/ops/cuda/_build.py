@@ -1,0 +1,134 @@
+"""Build and load the hand-written Hopper kernels of ``mdgat_tpu_torch/csrc``.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+shared library with a plain C interface, under ``mdgat_tpu_torch/_build/``
+(listed in ``.gitignore``). The file name carries a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads as it is.
+The library is loaded with ``ctypes`` (no PyTorch headers: the build takes
+seconds, not the minutes of ``torch.utils.cpp_extension``). Every pointer
+and the stream go through as ``c_void_p``; each entry returns its
+``cudaError_t``, which the wrappers turn into an exception.
+
+Nothing here runs at import: the CPU tests import every module, and a
+CPU-only installation has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v"]
+
+# io dtype codes of the C entry points (csrc/common.cuh: IoDtype)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: name -> argtypes (all return cudaError_t as int)
+_SIGNATURES = {
+    # q, k, v, mask, o, thr, B, H, N, M, Dh, topk, scale, io_dtype, stream
+    "mdgat_topk_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _F, _I, _P],
+    # a1, a1_dtype, a1_heads, a2, K1, K2, w, bias, res, out, out_dtype,
+    # out_heads, rows_per_batch, R, C, relu, stream
+    "mdgat_gemm": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                   _I, _I, _P],
+    # Z, log_mu, log_nu, scalars, out, bin_row, bin_col, corner, B, N, M,
+    # iters, stream
+    "mdgat_sinkhorn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+
+class KernelLibrary:
+    """The loaded ``.so`` plus what its build cost (``build_seconds`` is 0
+    when an existing build was reused) and the compiler's resource report
+    (``ptxas_log``: registers, shared memory and spills per kernel)."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float,
+                 ptxas_log: str):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = build_seconds
+        self.ptxas_log = ptxas_log
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.mdgat_error_string.argtypes = [_I]
+        lib.mdgat_error_string.restype = ctypes.c_char_p
+
+    def call(self, name: str, *args) -> None:
+        err = getattr(self.lib, name)(*args)
+        if err != 0:
+            what = self.lib.mdgat_error_string(err).decode()
+            raise RuntimeError(f"{name} failed: {what} (cudaError_t {err})")
+
+
+def _sources():
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def _nvcc() -> str:
+    # torch's lookup: $CUDA_HOME / $CUDA_PATH, then nvcc on PATH, then the
+    # toolkit's default install prefix
+    from torch.utils.cpp_extension import CUDA_HOME
+    nvcc = Path(CUDA_HOME or "") / "bin" / "nvcc"
+    if not CUDA_HOME or not nvcc.exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return str(nvcc)
+
+
+_LOCK = threading.Lock()
+_LIBRARY = None
+
+
+def library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library, once per process."""
+    global _LIBRARY
+    with _LOCK:
+        if _LIBRARY is None:
+            _LIBRARY = _build_and_load()
+        return _LIBRARY
+
+
+def _build_and_load() -> KernelLibrary:
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    tag = h.hexdigest()[:16]
+    out = BUILD_DIR / f"libmdgat_kernels_{tag}.so"
+    log_path = BUILD_DIR / f"libmdgat_kernels_{tag}.log"
+    seconds = 0.0
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cu = [str(p) for p in srcs if p.suffix == ".cu"]
+        # build to a private name, then rename: a process building at the
+        # same time never loads a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log_path.write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError("nvcc failed:\n" + proc.stderr[-8000:])
+        os.replace(tmp, out)
+    log = log_path.read_text() if log_path.exists() else ""
+    return KernelLibrary(ctypes.CDLL(str(out)), out, seconds, log)
