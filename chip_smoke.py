@@ -11,7 +11,8 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    against its plain PyTorch twin on the same inputs: top-k / dense
    attention (B=64, H=4, N=M=256, Dh=32, k=128/64/dense, ragged masks, f32
    and bf16; and B=8, N=M=1024), the GEMM and the whole eval layer at
-   D=128, the Sinkhorn (64x256x256 and 8x1024x1024, 20 iterations); and
+   D=128, the Sinkhorn (64x256x256, the training step's 64x512x512 and
+   8x1024x1024, 20 iterations); and
    shapes off that path (ragged N and M, head sizes 8-64, odd GEMMs);
 4. the serving path: the flagship MDGAT (L=9, D=128, default k-schedule,
    20 Sinkhorn iterations) with seeded weights behind
@@ -24,9 +25,26 @@ Phases, each of which fails the run (exit code != 0) when it fails:
 5. times: CUDA-event times of each kernel and of the whole forward, for
    the kernel path and the plain path, beside the card's name and power
    limit; then a torch.profiler window over three kernel-path forwards
-   (device time by kernel, the device's busy share).
+   (device time by kernel, the device's busy share);
+6. per-kernel parity of the training kernels at the training shapes (B=64,
+   N=M=512, D=128, 4 heads; k=128, k=64 and dense; ragged masks; self and
+   cross) and at odd shapes: the fused-MHA forward (out, thr, lse), its
+   backward (all ten gradients, bit-equal from run to run, selection equal
+   to the forward's on every row) and the Sinkhorn replay backward (dZ,
+   dalpha), each against its plain twin under autograd on the card;
+7. the training path: ``create_train_state`` with seeded weights and three
+   steps of ``make_train_step`` on a synthetic batch of 64 pairs at 512
+   keypoints, with the launch counters zeroed just before and read just
+   after (36 fused-MHA forwards, 36 backwards, 1 Sinkhorn forward and 1
+   backward per step); the same steps with ``use_kernels=False`` on the
+   card, and four of the pairs on the CPU: losses and gradient norms agree,
+   the loss is finite and falls; the peak memory of both arms; a
+   torch.profiler window over one kernel-path step; then times per kernel
+   and per step (kernel / plain, in turns).
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel (its
+time beside the plain twin's, the card's bound for the same work and, where
+one PyTorch call computes the same function, that call's time); the
 last line is ``{"ok": true, "device": {...}}``. Full results also go to
 ``chip_smoke_out/chip_smoke.json``, with ``ptxas.log`` and ``profile.txt``.
 Without a CUDA device, or without the package beside this script, it
@@ -54,7 +72,28 @@ OUT_DIR = os.path.join(REPO, "chip_smoke_out")
 # digits), the internals are f32 on both sides.
 TOL = {"attention_f32": 1e-4, "attention_bf16": 2e-2, "layer_f32": 1e-3,
        "layer_bf16": 1e-1, "gemm_f32": 1e-4, "gemm_bf16_rel": 1e-2,
-       "sinkhorn_f32": 1e-4}
+       "sinkhorn_f32": 1e-4,
+       # fused MHA: out, thr, lse absolute; a gradient's error is taken
+       # relative to max(1, its largest entry): the weight gradients sum
+       # 32768 rows in f32, in another order than torch does
+       "mha_out": 1e-4, "mha_grad": 1e-4,
+       # forward attention output against the one the backward rebuilds
+       # from thr and lse (every row): rounding only, no flipped entry
+       "mha_selection_gap": 1e-4,
+       # Sinkhorn backward: dZ relative to max(1, largest entry), dalpha
+       # relative; 20 iterations replayed and reversed in f32
+       "sinkhorn_bwd": 1e-4,
+       # train steps, kernel path against plain path on the card and
+       # against the CPU: relative. The two paths keep different f32 sums
+       # through 18 layers forward and backward, near-tie rows may select
+       # differently, and from the second step on the weights differ by
+       # Adam's noise steps (at most lr on entries whose gradient is zero
+       # in exact arithmetic)
+       "train_loss_rel": 2e-3, "train_grad_norm_rel": 2e-2}
+# published peaks of one H100 SXM (dense, no sparsity): f32 outside the
+# tensor cores, and HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 # Query rows whose k-th and (k+1)-th valid scores lie within this gap are
 # near ties: the two sides may keep different sets there, legitimately,
 # because the score sums run in other orders. They are counted and left
@@ -66,6 +105,19 @@ MIN_AGREEMENT = 0.999
 def require(ok: bool, what: str):
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+class Counter:
+    """A wrapper's launch count: an integer attribute of the wrapper."""
+
+    def __init__(self, wrapper, attr: str = "launches"):
+        self.wrapper, self.attr = wrapper, attr
+
+    def reset(self):
+        setattr(self.wrapper, self.attr, 0)
+
+    def read(self) -> int:
+        return getattr(self.wrapper, self.attr)
 
 
 def card_line() -> str:
@@ -88,6 +140,24 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" | "operations"): the least time the card could take:
+    each input read once and each output written once at the HBM rate, or
+    the f32 operations at the FMA peak, whichever is longer."""
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def abba_ms(kernel_fn, plain_fn, reps: int, warmup: int = 1):
+    """(kernel ms, plain ms), the better of two turns each, taken in the
+    order plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain_fn, reps, warmup)
+    k1 = cuda_ms(kernel_fn, reps, warmup)
+    k2 = cuda_ms(kernel_fn, reps, warmup)
+    p2 = cuda_ms(plain_fn, reps, warmup)
+    return min(k1, k2), min(p1, p2)
 
 
 def near_tie_rows(s, valid, k: int):
@@ -269,7 +339,7 @@ def check_sinkhorn(rng, dev, report):
     import torch
     from mdgat_tpu_torch.ops.cuda import sinkhorn as S
     worst = 0.0
-    for b, n in ((64, 256), (8, 1024)):
+    for b, n in ((64, 256), (64, 512), (8, 1024)):   # serving, training, wide
         scores = torch.from_numpy(rng.normal(size=(b, n, n)).astype(np.float32)).to(dev)
         rm = ragged_mask(rng, b, n, int(0.78 * n), dev)
         cm = ragged_mask(rng, b, n, int(0.78 * n), dev)
@@ -359,18 +429,20 @@ def serving(rng, dev, report, counters):
     torch.cuda.synchronize()
 
     for c in counters.values():
-        c.launches = 0
+        c.reset()
     t0 = time.perf_counter()
     outs = [matcher.match_batch(r) for r in requests]
     regs = matcher.register_batch(reg_pairs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
+    launches = {name: c.read() for name, c in counters.items()}
     forwards = len(requests) + 1
     print(f"serving: {forwards} forwards of 64 pairs in {wall:.3f} s host "
           f"wall; launches {launches}")
-    for name, c in counters.items():
+    for name in ("topk_attention", "eval_layer", "gemm", "sinkhorn"):
         report[name]["launches"] = launches[name]
+    require(launches["fused_mha_fwd"] == 0 and launches["sinkhorn_bwd"] == 0,
+            "a training kernel ran on the serving path")
     require(launches["eval_layer"] == 36 * forwards,
             f"layer launches {launches['eval_layer']} != 36 per forward")
     require(launches["topk_attention"] == 36 * forwards,
@@ -433,6 +505,16 @@ def timings(rng, dev, report, card, matcher, plain, pairs):
     times["gemm_q_proj"] = (
         cuda_ms(lambda: Lk.gemm(x2, w.wq, w.bq)),
         cuda_ms(lambda: x2 @ w.wq + w.bq))
+    # the one PyTorch call for the same function, timed here and used
+    # nowhere in the port: addmm (cuBLAS) for the GEMM; SDPA for dense
+    # unmasked attention. Top-k attention, the whole layer and the Sinkhorn
+    # have no such call.
+    library = {"gemm_q_proj": cuda_ms(lambda: torch.addmm(w.bq, x2, w.wq))}
+    times["attention_dense_unmasked"] = (
+        cuda_ms(lambda: A.topk_attention(q, k, v, None, 0, dh ** -0.5)),
+        cuda_ms(lambda: A.topk_attention_reference(q, k, v, None, 0, dh ** -0.5)))
+    library["attention_dense_unmasked"] = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
     u = torch.relu(torch.from_numpy(rng.normal(size=(b * n, 256)).astype(np.float32)).to(dev))
     times["gemm_mlp2_residual"] = (
         cuda_ms(lambda: Lk.gemm(u, w.w2, w.b2, res=x2)),
@@ -476,15 +558,38 @@ def timings(rng, dev, report, card, matcher, plain, pairs):
 
     print(f"times on {card} (CUDA events, ms per call; kernel / plain):")
     for key, (t_k, t_p) in times.items():
-        print(f"  {key}: {t_k:.4f} / {t_p:.4f}")
-    report["topk_attention"].update(ms=times["attention_k128"][0],
-                                    plain_ms=times["attention_k128"][1])
-    report["eval_layer"].update(ms=times["layer_k128"][0],
-                                plain_ms=times["layer_k128"][1])
-    report["gemm"].update(ms=times["gemm_mlp2_residual"][0],
-                          plain_ms=times["gemm_mlp2_residual"][1])
-    report["sinkhorn"].update(ms=times["sinkhorn_64x256x256"][0],
-                              plain_ms=times["sinkhorn_64x256x256"][1])
+        lib = f" / library call {library[key]:.4f}" if key in library else ""
+        print(f"  {key}: {t_k:.4f} / {t_p:.4f}{lib}")
+
+    # bounds at the timed shapes (b=64, h=4, n=m=256, dh=32, D=128, f32),
+    # counting what this run's mask needs: scores against valid keys only,
+    # the entries the mask and k keep, projections of valid keys only
+    d, kk = h * dh, 128
+    rows = b * n
+    keys = mask.sum().item()                        # valid keys of the batch
+    kept = torch.clamp(mask.sum(1), max=kk).sum().item() * h * n
+    attn_flops = 2.0 * h * n * dh * keys + 2.0 * kept * dh
+    attn_bytes = 4 * 4.0 * b * h * n * dh + b * n + 4.0 * b * h * n
+    gemm_flops, gemm_bytes = 2.0 * rows * d * d, 4.0 * (2 * rows * d + d * d + d)
+    layer_flops = (2 * gemm_flops + 2 * 2.0 * keys * d * d + attn_flops
+                   + 2.0 * rows * 2 * d * (2 * d + d))
+    layer_bytes = 2 * 4.0 * rows * d + b * n + 4.0 * (4 * d * d + 4 * d * d
+                                                     + 2 * d * d + 7 * d)
+    valid = (mask.sum(1).float() ** 2).sum().item()
+    sk_bytes, sk_flops = 2 * 4.0 * b * n * n, 20 * 2 * 5.0 * valid
+    for name, key, nbytes, flops in (
+            ("topk_attention", "attention_k128", attn_bytes, attn_flops),
+            ("eval_layer", "layer_k128", layer_bytes, layer_flops),
+            ("gemm", "gemm_q_proj", gemm_bytes, gemm_flops),
+            ("sinkhorn", "sinkhorn_64x256x256", sk_bytes, sk_flops)):
+        ms, by = bound(nbytes, flops)
+        report[name].update(ms=times[key][0], plain_ms=times[key][1],
+                            bound_ms=ms, bound_by=by,
+                            library_ms=library.get(key))
+    dense_flops = 4.0 * b * h * n * n * dh
+    report["_bounds_serving"] = dict(
+        attention_dense_unmasked=bound(attn_bytes - b * n, dense_flops))
+    report["_library_ms"] = library
     report["_times_ms"] = {k: {"kernel": a, "plain": p}
                            for k, (a, p) in times.items()}
 
@@ -518,6 +623,480 @@ def profile(matcher, pairs, card):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
               f"{e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: parity of the training kernels
+# ---------------------------------------------------------------------------
+
+def _random_attn(seed, dev, d, heads):
+    """Blocked weights of a seeded MultiHeadedAttention, as leaf tensors."""
+    import torch
+    from mdgat_tpu_torch.models.gnn import MultiHeadedAttention
+    from mdgat_tpu_torch.ops.cuda.mha import blocked_weights
+    attn = MultiHeadedAttention(d, dtype=torch.float32)
+    g = torch.Generator().manual_seed(seed)
+    for conv in list(attn.proj) + [attn.merge]:
+        conv.reset_parameters(g)
+    with torch.no_grad():
+        return [w.to(dev) for w in blocked_weights(attn, heads)]
+
+
+def _rel_err(a, b):
+    """max|a - b| over max(1, max|b|)."""
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1.0)).item()
+
+
+def frozen_selection_gap(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv,
+                         wm, bm) -> float:
+    """Largest difference between the attention output of the forward
+    kernel and the one the backward's rows kernel rebuilds from ``thr`` and
+    ``lse``, over every row, near ties included. The two agree to rounding
+    (about 1e-6) exactly when the backward keeps the entries the forward
+    kept; one flipped entry moves a row by that entry's probability."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import attention as A
+    from mdgat_tpu_torch.ops.cuda import mha as M
+    from mdgat_tpu_torch.ops.cuda.layer import gemm
+    b, n, d = x.shape
+    m = source.shape[1]
+    f32 = torch.float32
+    with torch.no_grad():
+        q = gemm(x, wq, bq, out_dtype=f32, out_heads=h, rows_per_batch=n)
+        k = gemm(source, wk, bk, out_dtype=f32, out_heads=h, rows_per_batch=m)
+        v = gemm(source, wv, bv, out_dtype=f32, out_heads=h, rows_per_batch=m)
+        o, thr, lse = A.topk_attention(q, k, v, kv_mask, int(topk or 0), 1.0,
+                                       return_lse=True)
+        o_again = M._attention_backward(q, k, v, torch.zeros_like(q), kv_mask,
+                                        thr, lse)[0]
+    return (o.permute(0, 2, 1, 3).reshape(b * n, d) - o_again).abs().max().item()
+
+
+def mha_case(rng, dev, b, n, m, d, heads, k, selfattn, seed):
+    """One fused-MHA comparison, kernel against twin under autograd on the
+    card: (worst error of out/thr/lse, worst gradient error, selection gap,
+    near-tie rows left out, rows)."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import mha as M
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    w = _random_attn(seed, dev, d, heads)
+    x = t(b, n, d)
+    src = x if selfattn else t(b, m, d)
+    m = src.shape[1]
+    mask = ragged_mask(rng, b, m, int(0.78 * m), dev)
+
+    # near ties, from the twin's scores: the rows the two sides may select
+    # differently; their cotangent is zero, so they reach no gradient
+    with torch.no_grad():
+        q = (x @ w[0] + w[1]).reshape(b, n, heads, -1).transpose(1, 2)
+        kk = (src @ w[2] + w[3]).reshape(b, m, heads, -1).transpose(1, 2)
+        s = q @ kk.transpose(-1, -2)
+        tie = near_tie_rows(s, mask[:, None, None, :].expand(s.shape),
+                            k or 0).any(1)                      # [B, N]
+        del q, kk, s
+    g = t(b, n, d) * (~tie)[:, :, None]
+
+    def run(fn, **kw):
+        leaves = [x.clone().requires_grad_()]
+        if not selfattn:
+            leaves.append(src.clone().requires_grad_())
+        ws = [p.clone().requires_grad_() for p in w]
+        out = fn(leaves[0], leaves[-1], mask, k, heads, *ws, **kw)
+        grads = torch.autograd.grad(out, leaves + ws, g)
+        return out.detach(), grads
+
+    out, grads = run(M.fused_mha)
+    _, grads2 = run(M.fused_mha)
+    out_ref, grads_ref = run(M.fused_mha_reference)
+    out_f, thr, lse = M.fused_mha_forward(x, src, mask, k, heads, *w)
+    with torch.no_grad():
+        _, thr_ref, lse_ref = M.fused_mha_reference(x, src, mask, k, heads, *w,
+                                                    return_residuals=True)
+    gap = frozen_selection_gap(x, src, mask, k, heads, *w)
+    torch.cuda.synchronize()
+    keep = ~tie
+    fwd_err = max((out - out_ref).abs().amax(-1)[keep].max().item(),
+                  (out_f - out).abs().max().item(),
+                  (thr - thr_ref).abs()[..., 0].amax(1)[keep].max().item(),
+                  (lse - lse_ref).abs()[..., 0].amax(1)[keep].max().item())
+    grad_err = max(_rel_err(a, r) for a, r in zip(grads, grads_ref))
+    same_bits = all(torch.equal(a, c) for a, c in zip(grads, grads2))
+    require(same_bits, "fused-MHA backward differs from run to run")
+    require(all(torch.isfinite(a).all().item() for a in grads),
+            "fused-MHA backward: non-finite gradient")
+    return fwd_err, grad_err, gap, int(tie.sum()), tie.numel()
+
+
+def check_gemm_modes(rng, dev, report):
+    """The GEMM modes the fused-MHA backward adds: W read transposed, no
+    bias, and the transposed-A split-K product with its column sums."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import layer as Lk
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    worst = 0.0
+    for r, k1, c in ((64 * 512, 128, 128), (1000, 45, 70), (513, 128, 64)):
+        a, b2 = t(r, k1), t(r, c)
+        dw, db = Lk.gemm_tn(a, b2)
+        dw2, db2 = Lk.gemm_tn(a, b2)
+        require(torch.equal(dw, dw2) and torch.equal(db, db2),
+                "gemm_tn differs from run to run")
+        err = max(_rel_err(dw, a.t() @ b2), _rel_err(db, b2.sum(0)))
+        print(f"gemm_tn {k1}x{r}x{c}: max rel err of a^T b and column sums "
+              f"{err:.3e} (tol {TOL['mha_grad']:g}); bit-equal over two runs")
+        require(err <= TOL["mha_grad"], "gemm_tn disagrees")
+        worst = max(worst, err)
+    report["gemm_tn"]["max_abs_err"] = worst
+    a1, a2, w = t(111, 45), t(111, 13), t(70, 58)
+    y = Lk.gemm(a1, w, None, a2=a2, w_trans=True)
+    err = (y - torch.cat([a1, a2], 1) @ w.t()).abs().max().item()
+    print(f"gemm 111x58x70 two A, W transposed, no bias: max err {err:.3e} "
+          f"tol {TOL['gemm_f32']:g}")
+    require(err <= TOL["gemm_f32"], "transposed-W gemm disagrees")
+    a, b2 = t(64 * 512, 128), t(64 * 512, 128)
+    ms, plain = abba_ms(lambda: Lk.gemm_tn(a, b2),
+                        lambda: (a.t() @ b2, b2.sum(0)), 10)
+    lib = cuda_ms(lambda: torch.matmul(a.t(), b2))
+    bms, by = bound(4.0 * (2 * a.numel() + 128 * 128 + 128),
+                    2.0 * a.shape[0] * 128 * 128)
+    print(f"gemm_tn 128x32768x128: {ms:.4f} ms / plain {plain:.4f} / "
+          f"torch.matmul alone {lib:.4f}")
+    report["gemm_tn"].update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                             library_ms=lib)
+
+
+def check_fused_mha(rng, dev, report):
+    cases = [  # b, n, m, d, heads, k, self-attention
+        (64, 512, 512, 128, 4, 128, True), (64, 512, 512, 128, 4, 64, True),
+        (64, 512, 512, 128, 4, None, False), (64, 512, 512, 128, 4, 128, False),
+        (3, 37, 45, 32, 4, 8, False), (2, 70, 300, 64, 2, 16, False),
+        (2, 33, 50, 256, 4, None, False), (3, 40, 40, 64, 4, 8, True),
+        (2, 100, 700, 128, 4, 64, False)]
+    worst_f = worst_g = 0.0
+    for i, (b, n, m, d, heads, k, selfattn) in enumerate(cases):
+        f, g, gap, ties, rows = mha_case(rng, dev, b, n, m, d, heads, k,
+                                         selfattn, 20 + i)
+        name = (f"fused_mha b{b} n{n} m{m} d{d} h{heads} k{k} "
+                f"{'self' if selfattn else 'cross'}")
+        print(f"{name}: out/thr/lse max err {f:.3e} (tol {TOL['mha_out']:g}), "
+              f"ten gradients max rel err {g:.3e} (tol {TOL['mha_grad']:g}), "
+              f"forward vs rebuilt attention output {gap:.3e} "
+              f"(tol {TOL['mha_selection_gap']:g}); backward bit-equal over "
+              f"two runs; near-tie rows left out {ties} of {rows}")
+        require(f <= TOL["mha_out"], f"{name}: forward disagrees")
+        require(g <= TOL["mha_grad"], f"{name}: backward disagrees")
+        require(gap <= TOL["mha_selection_gap"],
+                f"{name}: the backward's selection differs from the forward's")
+        if i < 4:
+            worst_f, worst_g = max(worst_f, f), max(worst_g, g)
+    report["fused_mha_fwd"]["max_abs_err"] = worst_f
+    report["fused_mha_bwd"]["max_abs_err"] = worst_g
+
+
+def sinkhorn_bwd_case(rng, dev, b, n, m, iters=20):
+    """(dZ error relative to max(1, max|dZ_ref|), dalpha relative error)
+    of the kernel entry against the plain transport under autograd, with
+    cotangents that are zero on padding; the four outputs of that forward
+    are held to the forward's tolerance on the way."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import sinkhorn as S
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    scores = t(b, n, m)
+    rm = ragged_mask(rng, b, n, int(0.78 * n), dev)
+    cm = ragged_mask(rng, b, m, int(0.78 * m), dev)
+    cot = (t(b, n, m) * (rm[:, :, None] & cm[:, None, :]), t(b, m) * cm,
+           t(b, n) * rm, t(b))
+
+    def run(fn):
+        sc = scores.clone().requires_grad_()
+        alpha = torch.tensor(0.7, device=dev, requires_grad=True)
+        ot = fn(sc, alpha, iters, rm, cm)
+        return ot, torch.autograd.grad(list(ot), [sc, alpha], list(cot))
+
+    ot, (dz, da) = run(S.log_optimal_transport_kernel)
+    ref, (dz_ref, da_ref) = run(S.log_optimal_transport_reference)
+    torch.cuda.synchronize()
+    vb = rm[:, :, None] & cm[:, None, :]
+    fwd_err = max((ot.dense - ref.dense).abs()[vb].max().item(),
+                  (ot.bin_row - ref.bin_row).abs()[cm].max().item(),
+                  (ot.bin_col - ref.bin_col).abs()[rm].max().item(),
+                  (ot.corner - ref.corner).abs().max().item())
+    require(fwd_err <= TOL["sinkhorn_f32"],
+            f"sinkhorn {b}x{n}x{m}: the forward under autograd disagrees "
+            f"({fwd_err:.3e})")
+    require(torch.isfinite(dz).all().item() and torch.isfinite(da).item(),
+            "sinkhorn backward: non-finite gradient")
+    require(not dz[~vb].any().item(),
+            "sinkhorn backward: gradient on padding")
+    return _rel_err(dz, dz_ref), abs((da - da_ref).item()) / max(1.0, abs(da_ref.item()))
+
+
+def check_sinkhorn_bwd(rng, dev, report):
+    worst = 0.0
+    for i, (b, n, m) in enumerate(((64, 512, 512), (8, 1024, 1024), (3, 37, 45),
+                                   (2, 100, 300), (2, 50, 1000), (2, 300, 200))):
+        ez, ea = sinkhorn_bwd_case(rng, dev, b, n, m)
+        print(f"sinkhorn_bwd {b}x{n}x{m} 20 it: dZ rel err {ez:.3e}, dalpha "
+              f"rel err {ea:.3e} (tol {TOL['sinkhorn_bwd']:g})")
+        require(max(ez, ea) <= TOL["sinkhorn_bwd"],
+                f"sinkhorn_bwd {b}x{n}x{m} disagrees")
+        if i == 0:
+            worst = max(ez, ea)
+    report["sinkhorn_bwd"]["max_abs_err"] = worst
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 3
+
+
+def train_batch(seed, count, n_points, dev):
+    import torch
+    from mdgat_tpu_torch.data.pipeline import (collate_pairs, model_inputs,
+                                               prepare_batch)
+    from mdgat_tpu_torch.data.synthetic import SyntheticDataset
+    data = SyntheticDataset(n_pairs=count, n_points=n_points, seed=seed)
+    host = collate_pairs(data.pairs, max_keypoints=n_points)
+    return host, model_inputs(prepare_batch(host, 0.5, False, dev))
+
+
+def run_steps(state, batch, steps):
+    import torch
+    from mdgat_tpu_torch.train import make_train_step
+    step = make_train_step()
+    out = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        out.append((m["loss"].item(), m["grad_norm"].item()))
+    return out
+
+
+def training(dev, report, counters):
+    import torch
+    from mdgat_tpu_torch.core.config import train_defaults
+    from mdgat_tpu_torch.data.pipeline import model_inputs, prepare_batch
+    from mdgat_tpu_torch.train import create_train_state
+
+    cfg = train_defaults()
+    print(f"train config: L={cfg.L} D={cfg.descriptor_dim} heads={cfg.num_heads} "
+          f"k={cfg.k} sinkhorn_iterations={cfg.sinkhorn_iterations} "
+          f"loss={cfg.loss_method} lr={cfg.learning_rate} batch={cfg.batch_size} "
+          f"max_keypoints={cfg.max_keypoints} compute={cfg.compute_dtype}")
+    host, batch = train_batch(1, cfg.batch_size, cfg.max_keypoints, dev)
+    n_gt = int((batch["gt_matches0"] >= 0).sum())
+    require(batch["keypoints0"].shape == (64, 512, 3) and n_gt > 64 * 200,
+            "training batch shape or ground truth")
+
+    state = create_train_state(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    kern = run_steps(state, batch, TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    launches = {name: c.read() for name, c in counters.items()}
+    peak_kernel = torch.cuda.max_memory_allocated()
+    print(f"training: {TRAIN_STEPS} steps of 64 pairs x 512 keypoints in "
+          f"{wall:.3f} s host wall ({n_gt} ground-truth matches0); launches "
+          f"{launches}")
+    per_step = {"fused_mha_fwd": 36, "fused_mha_bwd": 36, "sinkhorn": 1,
+                "sinkhorn_bwd": 1}
+    for name, want in per_step.items():
+        require(launches[name] == want * TRAIN_STEPS,
+                f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, "
+                f"not {want} per step")
+    require(launches["eval_layer"] == 0, "the eval layer ran in a train step")
+    for name in ("fused_mha_fwd", "fused_mha_bwd", "sinkhorn_bwd", "gemm_tn"):
+        report[name]["launches"] = launches[name]
+    report["sinkhorn"]["train_launches"] = launches["sinkhorn"]
+    print(f"per step: fused_mha forward {launches['fused_mha_fwd'] // TRAIN_STEPS}"
+          f" / backward {launches['fused_mha_bwd'] // TRAIN_STEPS} / sinkhorn "
+          f"forward {launches['sinkhorn'] // TRAIN_STEPS} / backward "
+          f"{launches['sinkhorn_bwd'] // TRAIN_STEPS}; inside them "
+          f"{launches['gemm'] // TRAIN_STEPS} GEMM, "
+          f"{launches['gemm_tn'] // TRAIN_STEPS} transposed GEMM and "
+          f"{launches['topk_attention'] // TRAIN_STEPS} attention launches")
+
+    plain_cfg = cfg.replace(use_kernels=False)
+    plain_state = create_train_state(plain_cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain = run_steps(plain_state, batch, TRAIN_STEPS)
+    peak_plain = torch.cuda.max_memory_allocated()
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    for i, ((lk, gk), (lp, gp)) in enumerate(zip(kern, plain)):
+        print(f"  step {i + 1}: loss {lk:.6f} (plain {lp:.6f}), grad_norm "
+              f"{gk:.6f} (plain {gp:.6f})")
+        require(np.isfinite([lk, gk]).all(), "non-finite loss or grad_norm")
+        require(rel(lk, lp) <= TOL["train_loss_rel"],
+                f"step {i + 1}: loss disagrees with the plain path")
+        require(rel(gk, gp) <= TOL["train_grad_norm_rel"],
+                f"step {i + 1}: grad_norm disagrees with the plain path")
+    require(kern[-1][0] < kern[0][0], "the loss did not fall")
+    for p in state.model.parameters():
+        require(torch.isfinite(p).all().item(), "non-finite parameter")
+    print(f"peak memory over the steps: kernel path {peak_kernel / 2**30:.3f} "
+          f"GiB, plain path {peak_plain / 2**30:.3f} GiB")
+
+    # four of the pairs: the card's kernel path against the CPU
+    small = {k: v[:4] for k, v in host.items()}
+    on_card = run_steps(create_train_state(cfg, device=dev, seed=0),
+                        model_inputs(prepare_batch(small, 0.5, False, dev)), 2)
+    on_cpu = run_steps(create_train_state(cfg, device="cpu", seed=0),
+                       model_inputs(prepare_batch(small, 0.5, False, "cpu")), 2)
+    for i, ((lk, gk), (lc, gc)) in enumerate(zip(on_card, on_cpu)):
+        print(f"  4 pairs, step {i + 1}: loss {lk:.6f} (CPU {lc:.6f}), "
+              f"grad_norm {gk:.6f} (CPU {gc:.6f})")
+        require(rel(lk, lc) <= TOL["train_loss_rel"]
+                and rel(gk, gc) <= TOL["train_grad_norm_rel"],
+                f"4 pairs, step {i + 1}: the card disagrees with the CPU")
+    report["_training"] = dict(
+        steps=TRAIN_STEPS, wall_s=wall, launches=launches, kernel=kern,
+        plain=plain, card_4_pairs=on_card, cpu_4_pairs=on_cpu,
+        peak_bytes_kernel=peak_kernel, peak_bytes_plain=peak_plain)
+    return state, plain_state, batch
+
+
+def profile_train(state, batch, card, report):
+    """torch.profiler over one kernel-path training step: device time by
+    kernel and the device's busy share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from mdgat_tpu_torch.train import make_train_step
+    step = make_train_step()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    require(device_ms > 0, "the profiler saw no device time in a train step")
+    table = prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=30)
+    with open(os.path.join(OUT_DIR, "profile.txt"), "a") as f:
+        f.write(f"\none training step, kernel path\n{table}\n")
+    print(f"profile on {card}: 1 training step, window {window_ms:.3f} ms "
+          f"host, device kernel time {device_ms:.3f} ms, busy share "
+          f"{device_ms / window_ms:.3f}")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
+              f"{e.key[:90]}")
+    report["_train_profile"] = dict(
+        window_ms=window_ms, device_ms=device_ms,
+        kernels=[dict(name=e.key[:120], count=e.count,
+                      ms=e.self_device_time_total / 1e3) for e in top])
+
+
+def train_timings(rng, dev, report, card, state, plain_state, batch):
+    """Times of the training kernels at the training shapes and of the
+    whole step, kernel / plain in turns, with each kernel's bound."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import mha as M
+    from mdgat_tpu_torch.ops.cuda import sinkhorn as S
+    from mdgat_tpu_torch.train import make_train_step
+
+    b, n, d, h, dh, k = 64, 512, 128, 4, 32, 128
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    w = _random_attn(3, dev, d, h)
+    x, g = t(b, n, d), t(b, n, d)
+    mask = ragged_mask(rng, b, n, 400, dev)
+    times = {}
+    for kk in (k, None):
+        tag = f"k{kk or 0}"
+        times[f"fused_mha_fwd_{tag}"] = abba_ms(
+            lambda: M.fused_mha_forward(x, x, mask, kk, h, *w),
+            lambda: M.fused_mha_reference(x, x, mask, kk, h, *w), 10)
+        # backward alone: the kernel launches on saved residuals; the twin's
+        # autograd walk over a retained graph
+        _, thr, lse = M.fused_mha_forward(x, x, mask, kk, h, *w)
+        xr = x.clone().requires_grad_()
+        wr = [p.clone().requires_grad_() for p in w]
+        out_ref = M.fused_mha_reference(xr, xr, mask, kk, h, *wr)
+        times[f"fused_mha_bwd_{tag}"] = abba_ms(
+            lambda: M._mha_backward(x, x, mask, thr, lse, g, h, *w[:7]),
+            lambda: torch.autograd.grad(out_ref, [xr] + wr, g,
+                                        retain_graph=True), 5)
+        del out_ref
+
+    scores = t(b, n, n)
+    cot = [t(b, n, n), t(b, n), t(b, n), t(b)]
+    graphs = {}
+    for name, fn in (("kernel", S.log_optimal_transport_kernel),
+                     ("plain", S.log_optimal_transport_reference)):
+        sc = scores.clone().requires_grad_()
+        alpha = torch.tensor(1.0, device=dev, requires_grad=True)
+        graphs[name] = (list(fn(sc, alpha, 20, mask, mask)), [sc, alpha])
+    times["sinkhorn_bwd_64x512x512"] = abba_ms(
+        lambda: torch.autograd.grad(*graphs["kernel"], cot, retain_graph=True),
+        lambda: torch.autograd.grad(*graphs["plain"], cot, retain_graph=True), 3)
+    del graphs
+    times["sinkhorn_fwd_64x512x512"] = abba_ms(
+        lambda: S.log_optimal_transport_kernel(scores, 1.0, 20, mask, mask),
+        lambda: S.log_optimal_transport_reference(scores, 1.0, 20, mask, mask), 3)
+
+    step = make_train_step()
+    times["train_step_64x512"] = abba_ms(lambda: step(state, batch),
+                                         lambda: step(plain_state, batch), 2)
+
+    print(f"training times on {card} (CUDA events, ms per call; kernel / plain):")
+    for key, (t_k, t_p) in times.items():
+        print(f"  {key}: {t_k:.4f} / {t_p:.4f}")
+    report["_times_ms"].update({key: {"kernel": a, "plain": p}
+                                for key, (a, p) in times.items()})
+
+    # bounds at the timed shapes, counting what this run's mask needs:
+    # scores against valid keys only, the (row, key) entries the mask and k
+    # keep, and key-side products (k, v, dsrc, dwk, dwv) over valid keys
+    # only. The timed calls are self-attention: x is read once.
+    keys = mask.sum().item()
+    kept = torch.clamp(mask.sum(1), max=k).sum().item() * h * n
+    proj_q, proj_k = 2.0 * b * n * d * d, 2.0 * keys * d * d
+    score = 2.0 * h * n * dh * keys
+    act = 4.0 * b * n * d
+    # forward: x in, out out; weights, mask; thr and lse out
+    fwd_bytes = 2 * act + 4 * 4 * (d * d + d) + b * n + 2 * 4 * b * h * n
+    # q and merge; k and v; scores; e @ v
+    fwd_flops = 2 * proj_q + 2 * proj_k + score + 2.0 * kept * dh
+    # backward: x, g, thr, lse in; dx, dsrc and the weight gradients out
+    bwd_bytes = 4 * act + 2 * 4 * 4 * (d * d + d) + b * n + 2 * 4 * b * h * n
+    # q, do, dx, dwq, dwm; k, v, the two halves of dsrc, dwk, dwv; scores;
+    # o, dp, dq, dk, dv over kept entries
+    bwd_flops = 5 * proj_q + 6 * proj_k + score + 5 * 2.0 * kept * dh
+    slab = 4.0 * b * n * n
+    valid = (mask.sum(1).float() ** 2).sum().item()
+    sk_fwd_flops = 20 * 2 * 5.0 * valid
+    sk_bwd_flops = sk_fwd_flops + 20 * 14.0 * valid
+    for name, key, nbytes, flops in (
+            ("fused_mha_fwd", "fused_mha_fwd_k128", fwd_bytes, fwd_flops),
+            ("fused_mha_bwd", "fused_mha_bwd_k128", bwd_bytes, bwd_flops),
+            ("sinkhorn_bwd", "sinkhorn_bwd_64x512x512", 3 * slab, sk_bwd_flops)):
+        ms, by = bound(nbytes, flops)
+        report[name].update(ms=times[key][0], plain_ms=times[key][1],
+                            bound_ms=ms, bound_by=by, library_ms=None)
+    report["_bounds_train"] = dict(
+        sinkhorn_fwd_64x512x512=bound(2 * slab, sk_fwd_flops))
 
 
 def main() -> int:
@@ -554,9 +1133,28 @@ def main() -> int:
           f"stores (at most {max(spills, default=0)} bytes); full report in "
           f"chip_smoke_out/ptxas.log")
 
-    counters = {"topk_attention": A.topk_attention, "eval_layer": Lk.fused_layer,
-                "gemm": Lk.gemm, "sinkhorn": S.log_optimal_transport_kernel}
+    from mdgat_tpu_torch.ops.cuda import mha as M
+    counters = {
+        "topk_attention": Counter(A.topk_attention),
+        "eval_layer": Counter(Lk.fused_layer), "gemm": Counter(Lk.gemm),
+        "sinkhorn": Counter(S.log_optimal_transport_kernel),
+        "fused_mha_fwd": Counter(M.fused_mha, "forward_launches"),
+        "fused_mha_bwd": Counter(M.fused_mha, "backward_launches"),
+        "sinkhorn_bwd": Counter(S.log_optimal_transport_kernel,
+                                "backward_launches"),
+        "gemm_tn": Counter(Lk.gemm_tn)}
     report = {
+        "fused_mha_fwd": dict(route="cuda",
+                              source="mdgat_tpu_torch/csrc/attention.cu",
+                              replaces="mdgat_tpu/ops/pallas/attention.py:933"),
+        "fused_mha_bwd": dict(route="cuda",
+                              source="mdgat_tpu_torch/csrc/mha_bwd.cu",
+                              replaces="mdgat_tpu/ops/pallas/attention.py:995"),
+        "gemm_tn": dict(route="cuda", source="mdgat_tpu_torch/csrc/gemm.cu",
+                        replaces="mdgat_tpu/ops/pallas/attention.py:995"),
+        "sinkhorn_bwd": dict(route="cuda",
+                             source="mdgat_tpu_torch/csrc/sinkhorn_bwd.cu",
+                             replaces="mdgat_tpu/ops/pallas/sinkhorn.py:281"),
         "topk_attention": dict(route="cuda", source="mdgat_tpu_torch/csrc/attention.cu",
                                replaces="mdgat_tpu/ops/pallas/attention.py:524"),
         "eval_layer": dict(route="cuda", source="mdgat_tpu_torch/csrc/gemm.cu",
@@ -574,11 +1172,23 @@ def main() -> int:
     matcher, plain, pairs = serving(rng, dev, report, counters)
     timings(rng, dev, report, card, matcher, plain, pairs)
     profile(matcher, pairs, card)
+    del matcher, plain
+    torch.cuda.empty_cache()
+    check_gemm_modes(rng, dev, report)
+    check_fused_mha(rng, dev, report)
+    check_sinkhorn_bwd(rng, dev, report)
+    torch.cuda.empty_cache()
+    state, plain_state, batch = training(dev, report, counters)
+    profile_train(state, batch, card, report)
+    train_timings(rng, dev, report, card, state, plain_state, batch)
 
     kernels = [dict(name=name, **{k: report[name][k] for k in
                                   ("route", "source", "replaces", "launches",
-                                   "max_abs_err", "ms", "plain_ms")})
-               for name in counters]
+                                   "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")})
+               for name in report if not name.startswith("_")]
+    for kern in kernels:
+        require(kern["launches"] > 0, f"{kern['name']}: never launched")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__,
                        cuda=torch.version.cuda, report=report), f, indent=1)

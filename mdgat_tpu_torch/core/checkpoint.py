@@ -15,6 +15,20 @@ reference ``.pth`` files, all as state dicts with the upstream key names.
   ``module.`` prefix.
 
 Load any of them with ``model.load_state_dict(sd, strict=True)``.
+
+Training checkpoints are the reference's ``.pth`` with its five fields
+(``train.py:288-294``): ``net`` (``module.``-prefixed keys, as DataParallel
+writes them), ``optimizer`` (``Adam.state_dict()``, moments included),
+``epoch``, ``lr_schedule`` and ``loss``. :func:`save_train_checkpoint`
+writes one from a ``TrainState``; :func:`load_train_checkpoint` resumes
+one, either with the saved moments, so that the next step is the one the
+saved run would have taken, or as the reference does (``train.py:160-163,
+203``): weights only, under a fresh Adam at the checkpointed learning rate.
+
+The way back to the JAX package for a trained step needs no second
+function: ``state_dict_from_numpy`` applied to a JAX tree of parameters,
+gradients or updated parameters (numpy leaves) names it like the port's
+``named_parameters()``, and the tests compare under those names.
 """
 
 from __future__ import annotations
@@ -126,3 +140,37 @@ def load_pth_state_dict(path: str) -> Dict[str, torch.Tensor]:
     sd = ckpt["net"] if "net" in ckpt else ckpt
     return {(k[len("module."):] if k.startswith("module.") else k): v
             for k, v in sd.items()}
+
+
+def save_train_checkpoint(path: str, state, epoch: int = 0,
+                          loss: float = 0.0) -> None:
+    """Write ``state`` (a ``TrainState``) as a reference-layout ``.pth``."""
+    lr = float(state.optimizer.param_groups[0]["lr"])
+    net = {f"module.{k}": v.detach().cpu()
+           for k, v in state.model.state_dict().items()}
+    torch.save({"net": net, "optimizer": state.optimizer.state_dict(),
+                "epoch": int(epoch), "lr_schedule": lr, "loss": float(loss)},
+               path)
+
+
+def load_train_checkpoint(path: str, state, fresh_optimizer: bool = False
+                          ) -> Dict[str, Any]:
+    """Resume ``state`` in place from a training ``.pth``; returns
+    ``{epoch, lr_schedule, loss}``. By default the optimizer state is
+    restored too (moments and step counts; a reference checkpoint carries
+    them as well). ``fresh_optimizer`` reproduces the reference's resume
+    instead: a new Adam at the checkpointed learning rate."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(
+        {(k[len("module."):] if k.startswith("module.") else k): v
+         for k, v in ckpt["net"].items()}, strict=True)
+    lr = float(ckpt.get("lr_schedule", 0.0))
+    if fresh_optimizer or not ckpt["optimizer"].get("state"):
+        state.optimizer = torch.optim.Adam(state.model.parameters(), lr=lr)
+        state.step = 0
+    else:
+        state.optimizer.load_state_dict(ckpt["optimizer"])
+        steps = [int(s["step"]) for s in state.optimizer.state.values()]
+        state.step = max(steps, default=0)
+    return {"epoch": int(ckpt.get("epoch", 0)), "lr_schedule": lr,
+            "loss": float(ckpt.get("loss", 0.0))}

@@ -8,6 +8,15 @@ sizes, layer scanning, remat, multi-host) collapse into one switch,
 ``use_kernels``: the device a model is placed on decides where it runs, and
 on a CUDA device ``use_kernels`` routes the GNN layers and the Sinkhorn
 through the hand-written kernels of ``mdgat_tpu_torch/csrc``.
+
+In eval mode that is the whole-layer kernels and the Sinkhorn forward. In
+training mode it is two kernel pairs: each layer's attention runs the
+fused-MHA forward and backward (projections, selection, softmax, merge and
+all their gradients), and the transport runs the Sinkhorn forward with its
+replay backward. The layer's MLP and train-mode BatchNorm, the encoders,
+the score product and the loss stay plain PyTorch under autograd: the JAX
+package's train step with ``pallas_train_layer=False``. Its whole-layer
+train kernels and its gap-loss kernel are not ported yet.
 """
 
 from __future__ import annotations

@@ -22,6 +22,11 @@
 // fit at M=1024) and forms e @ V, one output dim per lane, scaled by
 // 1/denom. Internals are f32 for f32 and bf16 inputs.
 //
+// With a non-null `lse` the kernel also writes the per-row logsumexp over
+// the kept entries, max + log(max(denom, 1e-30)): the second residual of
+// the fused-MHA forward (_mha_fwd_kernel), from which its backward rebuilds
+// the probabilities. An all-masked row gives thr = +1e30 and lse = -1e30.
+//
 // What bounds it on the H100: shared-memory bandwidth. Each score and each
 // PV term is one FMA fed by one shared-memory read (q sits in registers,
 // e is a broadcast), so the kernel runs far below the FMA peak; the search
@@ -55,8 +60,9 @@ template <typename T, int DH, int C>
 __global__ void __launch_bounds__(kWarps * 32)
 topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                      T* __restrict__ o, float* __restrict__ thr, int H, int N,
-                      int M, int topk, float scale, int rpw) {
+                      T* __restrict__ o, float* __restrict__ thr,
+                      float* __restrict__ lse, int H, int N, int M, int topk,
+                      float scale, int rpw) {
   extern __shared__ float smem[];
   constexpr int LD = DH + 1;
   float* kv = smem;              // [M][LD]: K in phase 1, V in phase 2
@@ -93,9 +99,7 @@ topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float acc = 0.f;
       bool ok = false;
       if (j < M) {
-        const float* kr = kv + j * LD;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) acc = fmaf(qr[d], kr[d], acc);
+        acc = score_dot<DH>(qr, kv + j * LD);
         ok = mb[j] != 0;
       }
       s[c] = ok ? acc * scale : kBigNeg;
@@ -147,6 +151,8 @@ topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (lane == 0) {
       inv_denom[slot] = 1.f / fmaxf(sum, 1e-30f);
       thr[static_cast<size_t>(bh) * N + n] = row_thr;
+      if (lse != nullptr)
+        lse[static_cast<size_t>(bh) * N + n] = mx + logf(fmaxf(sum, 1e-30f));
     }
   }
   __syncthreads();
@@ -190,9 +196,10 @@ topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH, int C>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* mask, void* o, float* thr, int B, int H,
-                   int N, int M, int topk, float scale, cudaStream_t stream) {
-  const int rpw = M <= 512 ? 4 : 2;  // rows per warp: fits ew in smem
+                   const uint8_t* mask, void* o, float* thr, float* lse, int B,
+                   int H, int N, int M, int topk, float scale,
+                   cudaStream_t stream) {
+  const int rpw = M <= 256 ? 4 : 2;  // rows per warp: two blocks an SM above 256
   const size_t smem = (static_cast<size_t>(M) * (DH + 1) +
                        static_cast<size_t>(kWarps) * rpw * M) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -203,33 +210,35 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid((N + rows_per_block - 1) / rows_per_block, B * H);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), thr, H, N, M, topk,
-      scale, rpw);
+      static_cast<const T*>(v), mask, static_cast<T*>(o), thr, lse, H, N, M,
+      topk, scale, rpw);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
 cudaError_t dispatch_c(const void* q, const void* k, const void* v,
-                       const uint8_t* mask, void* o, float* thr, int B, int H,
-                       int N, int M, int topk, float scale,
+                       const uint8_t* mask, void* o, float* thr, float* lse,
+                       int B, int H, int N, int M, int topk, float scale,
                        cudaStream_t stream) {
   if (M <= 256)
-    return launch<T, DH, 8>(q, k, v, mask, o, thr, B, H, N, M, topk, scale, stream);
+    return launch<T, DH, 8>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
+  if (M <= 512)
+    return launch<T, DH, 16>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
   if (M <= 1024)
-    return launch<T, DH, 32>(q, k, v, mask, o, thr, B, H, N, M, topk, scale, stream);
+    return launch<T, DH, 32>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
-                        const uint8_t* mask, void* o, float* thr, int B, int H,
-                        int N, int M, int Dh, int topk, float scale,
+                        const uint8_t* mask, void* o, float* thr, float* lse,
+                        int B, int H, int N, int M, int Dh, int topk, float scale,
                         cudaStream_t stream) {
   switch (Dh) {
-    case 8: return dispatch_c<T, 8>(q, k, v, mask, o, thr, B, H, N, M, topk, scale, stream);
-    case 16: return dispatch_c<T, 16>(q, k, v, mask, o, thr, B, H, N, M, topk, scale, stream);
-    case 32: return dispatch_c<T, 32>(q, k, v, mask, o, thr, B, H, N, M, topk, scale, stream);
-    case 64: return dispatch_c<T, 64>(q, k, v, mask, o, thr, B, H, N, M, topk, scale, stream);
+    case 8: return dispatch_c<T, 8>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
+    case 16: return dispatch_c<T, 16>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
+    case 32: return dispatch_c<T, 32>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
+    case 64: return dispatch_c<T, 64>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -238,19 +247,22 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
 }  // namespace mdgat
 
 // q [B,H,N,Dh], k/v [B,H,M,Dh] (f32 or bf16, contiguous), mask [B,M] uint8,
-// o [B,H,N,Dh] (input dtype), thr [B,H,N] f32. topk 0 = dense.
+// o [B,H,N,Dh] (input dtype), thr [B,H,N] f32, lse [B,H,N] f32 or null.
+// topk 0 = dense.
 extern "C" cudaError_t mdgat_topk_attention(
     const void* q, const void* k, const void* v, const void* mask, void* o,
-    void* thr, int B, int H, int N, int M, int Dh, int topk, float scale,
-    int io_dtype, cudaStream_t stream) {
+    void* thr, void* lse, int B, int H, int N, int M, int Dh, int topk,
+    float scale, int io_dtype, cudaStream_t stream) {
   using namespace mdgat;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || topk < 0) return cudaErrorInvalidValue;
   const auto* m = static_cast<const uint8_t*>(mask);
   auto* t = static_cast<float*>(thr);
+  auto* l = static_cast<float*>(lse);
   if (io_dtype == kF32)
-    return dispatch_dh<float>(q, k, v, m, o, t, B, H, N, M, Dh, topk, scale, stream);
+    return dispatch_dh<float>(q, k, v, m, o, t, l, B, H, N, M, Dh, topk, scale, stream);
   if (io_dtype == kBF16)
-    return dispatch_dh<__nv_bfloat16>(q, k, v, m, o, t, B, H, N, M, Dh, topk, scale, stream);
+    return dispatch_dh<__nv_bfloat16>(q, k, v, m, o, t, l, B,
+                                      H, N, M, Dh, topk, scale, stream);
   return cudaErrorInvalidValue;
 }
 

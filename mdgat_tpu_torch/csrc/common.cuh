@@ -48,6 +48,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The attention score of one (query, key) pair: q . k over the head dim as
+// one FMA chain in ascending d, starting from 0. The fused-MHA backward
+// re-evaluates `s >= thr` on recomputed scores, so the forward that
+// produced thr and both backward passes all form s here: the same values
+// through the same chain give the same bits, and no kept entry flips.
+template <int DH, typename A, typename B>
+__device__ __forceinline__ float score_dot(const A* q, const B* k) {
+  float acc = 0.f;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) acc = fmaf(q[d], k[d], acc);
+  return acc;
+}
+
 // Sets the dynamic shared-memory cap of a kernel when it asks for more
 // than the default 48 KB (Hopper allows 227 KB per block).
 template <typename Kernel>

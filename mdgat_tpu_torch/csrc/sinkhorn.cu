@@ -32,66 +32,10 @@
 // and 8 pairs at N=1024 only 8; splitting a pair over a cluster with
 // distributed shared memory is later work.
 
-#include "common.cuh"
+#include "sinkhorn_common.cuh"
 
 namespace mdgat {
 namespace {
-
-// block-wide max and sum; every thread gets the result
-template <int THREADS>
-__device__ float block_max(float x, float* red) {
-  x = warp_max(x);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float r = red[0];
-  for (int i = 1; i < THREADS / 32; ++i) r = fmaxf(r, red[i]);
-  return r;
-}
-
-template <int THREADS>
-__device__ float block_sum(float x, float* red) {
-  x = warp_sum(x);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float r = red[0];
-  for (int i = 1; i < THREADS / 32; ++i) r += red[i];
-  return r;
-}
-
-// lse over [vec | extra] shifted by `shift`:
-//   target - (log(sum exp(vec - mx) + exp(extra - mx)) + mx + shift)
-// with mx = max(max(vec), extra) -- the bin-row / bin-column updates.
-template <int THREADS>
-__device__ float bin_update(const float* vec, int len, float extra,
-                            float target, float shift, float* red) {
-  float m = -CUDART_INF_F;
-  for (int i = threadIdx.x; i < len; i += THREADS) m = fmaxf(m, vec[i]);
-  const float mx = fmaxf(block_max<THREADS>(m, red), extra);
-  float s = 0.f;
-  for (int i = threadIdx.x; i < len; i += THREADS) s += expf(vec[i] - mx);
-  s = block_sum<THREADS>(s, red) + expf(extra - mx);
-  return target - (logf(s) + mx + shift);
-}
-
-// Loads kBatch rows of column j (rows i0, i0 + G, ...) before any of them
-// is used, so kBatch loads are in flight per thread: the column pass is
-// bound by L2 latency otherwise. The mask is applied after the load.
-constexpr int kBatch = 8;
-
-__device__ __forceinline__ void load_column_batch(float (&zr)[kBatch],
-                                                  const float* __restrict__ Zb,
-                                                  int i0, int G, int N, int M,
-                                                  int j) {
-#pragma unroll
-  for (int r = 0; r < kBatch; ++r) {
-    const int i = i0 + r * G;
-    zr[r] = i < N ? __ldg(Zb + static_cast<size_t>(i) * M + j) : 0.f;
-  }
-}
 
 template <int C, int THREADS>
 __global__ void __launch_bounds__(THREADS)
@@ -111,15 +55,11 @@ sinkhorn_kernel(const float* __restrict__ Z, const float* __restrict__ log_mu,
   __shared__ float red[kWarps];
 
   const int b = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   const float half_neg = 0.5f * kBigNeg;
   const float alpha = scalars[b * 4 + 0], lmub = scalars[b * 4 + 1];
   const float lnub = scalars[b * 4 + 2], norm = scalars[b * 4 + 3];
   const float* Zb = Z + static_cast<size_t>(b) * N * M;
-  // column pass layout: `span` columns per sweep, G row groups per column
-  const int span = M < THREADS ? M : THREADS;
-  const int G = THREADS / span;
-  const int g = tid / span, jl = tid % span;
 
   for (int i = tid; i < N; i += THREADS) {
     lmu[i] = log_mu[static_cast<size_t>(b) * N + i];
@@ -134,86 +74,14 @@ sinkhorn_kernel(const float* __restrict__ Z, const float* __restrict__ log_mu,
 
   for (int it = 0; it < iters; ++it) {
     // u: row logsumexp over [Z + v | alpha + vbin], one warp per row
-    const float row_bin = alpha + vbin;
-    for (int i = warp; i < N; i += kWarps) {
-      const bool rv = lmu[i] > half_neg;
-      float t[C];
-      float m = -CUDART_INF_F;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int j = lane + 32 * c;
-        t[c] = j < M ? __ldg(Zb + static_cast<size_t>(i) * M + j) : 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int j = lane + 32 * c;
-        if (j < M) {
-          t[c] = ((rv && lnu[j] > half_neg) ? t[c] : kBigNeg) + v[j];
-          m = fmaxf(m, t[c]);
-        }
-      }
-      const float mm = fmaxf(warp_max(m), row_bin);
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        if (lane + 32 * c < M) s += expf(t[c] - mm);
-      s = warp_sum(s) + expf(row_bin - mm);
-      if (lane == 0) u[i] = lmu[i] - (logf(s) + mm);
-    }
+    row_pass<C, THREADS>(Zb, lmu, lnu, v, u, N, M, alpha + vbin);
     __syncthreads();
     // bin row: lse over [alpha + v | alpha + vbin]
-    ubin = bin_update<THREADS>(v, M, vbin, lmub, alpha, red);
-
+    ubin = lmub - bin_lse<THREADS>(v, M, vbin, alpha, red);
     // v: column logsumexp over [Z + u ; alpha + ubin]
-    const float col_bin = alpha + ubin;
-    for (int j0 = 0; j0 < M; j0 += span) {
-      const int j = j0 + jl;
-      const bool active = g < G && j < M;
-      const bool cv = active && lnu[j] > half_neg;
-      float m = -CUDART_INF_F;
-      if (active) {
-        for (int i0 = g; i0 < N; i0 += kBatch * G) {
-          float zr[kBatch];
-          load_column_batch(zr, Zb, i0, G, N, M, j);
-#pragma unroll
-          for (int r = 0; r < kBatch; ++r) {
-            const int i = i0 + r * G;
-            if (i < N) m = fmaxf(m, ((cv && lmu[i] > half_neg) ? zr[r] : kBigNeg) + u[i]);
-          }
-        }
-      }
-      part[tid] = m;
-      __syncthreads();
-      if (active && g == 0) {
-        for (int gg = 1; gg < G; ++gg) m = fmaxf(m, part[gg * span + jl]);
-        colmax[jl] = fmaxf(m, col_bin);
-      }
-      __syncthreads();
-      float s = 0.f;
-      if (active) {
-        const float mm = colmax[jl];
-        for (int i0 = g; i0 < N; i0 += kBatch * G) {
-          float zr[kBatch];
-          load_column_batch(zr, Zb, i0, G, N, M, j);
-#pragma unroll
-          for (int r = 0; r < kBatch; ++r) {
-            const int i = i0 + r * G;
-            if (i < N) s += expf(((cv && lmu[i] > half_neg) ? zr[r] : kBigNeg) + u[i] - mm);
-          }
-        }
-      }
-      part[tid] = s;
-      __syncthreads();
-      if (active && g == 0) {
-        for (int gg = 1; gg < G; ++gg) s += part[gg * span + jl];
-        const float mm = colmax[jl];
-        s += expf(col_bin - mm);
-        v[j] = lnu[j] - (logf(s) + mm);
-      }
-      __syncthreads();
-    }
+    col_pass<THREADS>(Zb, lmu, lnu, u, v, part, colmax, N, M, alpha + ubin);
     // bin column: lse over [alpha + u ; alpha + ubin]
-    vbin = bin_update<THREADS>(u, N, ubin, lnub, alpha, red);
+    vbin = lnub - bin_lse<THREADS>(u, N, ubin, alpha, red);
   }
 
   float* ob = out + static_cast<size_t>(b) * N * M;

@@ -1,19 +1,21 @@
 """Keypoint and FPFH descriptor encoders (``models/mdgat.py:144-188``).
 
 Port of the FPFH arm of ``mdgat_tpu/models/encoders.py``: point-wise MLPs
-over ``[B, N, C]`` with the reference's zero-initialised final bias.
+over ``[B, N, C]`` with the reference's zero-initialised final bias. In
+training mode ``valid_mask`` keeps padded points out of the BatchNorm
+statistics.
 Module and attribute names (``encoder``) follow the reference so the
 state-dict keys are ``kenc.encoder.*`` / ``denc.encoder.*``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from mdgat_tpu_torch.ops.mlp import mlp, reset_mlp
+from mdgat_tpu_torch.ops.mlp import apply_mlp, mlp, reset_mlp
 
 
 class KeypointEncoder(nn.Module):
@@ -25,8 +27,11 @@ class KeypointEncoder(nn.Module):
         self.encoder = mlp([4] + list(layers) + [feature_dim], dtype=dtype,
                            device=device)
 
-    def forward(self, kpts: torch.Tensor, scores: torch.Tensor):
-        return self.encoder(torch.cat([kpts, scores[..., None]], dim=-1))
+    def forward(self, kpts: torch.Tensor, scores: torch.Tensor,
+                valid_mask: Optional[torch.Tensor] = None):
+        return apply_mlp(self.encoder,
+                         torch.cat([kpts, scores[..., None]], dim=-1),
+                         valid_mask)
 
     def reset_parameters(self, generator: torch.Generator):
         reset_mlp(self.encoder, generator, zero_last_bias=True)
@@ -41,8 +46,9 @@ class DescriptorEncoder(nn.Module):
         self.encoder = mlp([in_dim] + list(layers) + [feature_dim],
                            dtype=dtype, device=device)
 
-    def forward(self, desc: torch.Tensor):
-        return self.encoder(desc)
+    def forward(self, desc: torch.Tensor,
+                valid_mask: Optional[torch.Tensor] = None):
+        return apply_mlp(self.encoder, desc, valid_mask)
 
     def reset_parameters(self, generator: torch.Generator):
         reset_mlp(self.encoder, generator, zero_last_bias=True)

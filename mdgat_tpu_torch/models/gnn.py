@@ -7,10 +7,19 @@ dynamic top-k attention per the k-schedule. Self layers attend to the
 cloud itself, cross layers to the other cloud; a layer's weights serve
 both clouds, and both clouds read the descriptors from before the layer.
 
-On a CUDA tensor with ``use_kernels`` each layer runs the hand-written
-kernels (``ops/cuda/layer.py``) on weights prepared once per model (cached
-here until a parameter or buffer changes). Otherwise it runs the plain
-eval path below. The JAX package's layer-pair scan, remat and
+Eval mode: on a CUDA tensor with ``use_kernels`` each layer runs the
+whole-layer kernels (``ops/cuda/layer.py``) on weights prepared once per
+model (cached here until a parameter or buffer changes); otherwise the
+plain path.
+
+Training mode (``module.train()``): a layer is applied to cloud 0, then to
+cloud 1, so its BatchNorm sees per-cloud batch statistics and its running
+stats move twice per layer (``models/gnn.py:95-96``, ``:133-139`` of the JAX
+package). The layer is ``fused_mha`` (the hand-written forward / backward
+pair of ``ops/cuda/mha.py`` on a CUDA tensor with ``use_kernels``) followed
+by the plain MLP with train-mode BatchNorm and the residual: the JAX
+package's train step with ``pallas_train_layer=False``. Its whole-layer
+train kernels are not ported yet. The layer-pair scan, remat and the
 context-parallel axis have no counterpart: PyTorch runs eagerly.
 """
 
@@ -51,12 +60,17 @@ class AttentionalPropagation(nn.Module):
         self._kernel_key = None
 
     def forward(self, x, source, topk: Optional[int],
-                kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The plain eval residual update ``MLP(cat(x, MHA(x, source)))``
-        (concat-free first conv)."""
+                kv_mask: Optional[torch.Tensor] = None,
+                valid_mask: Optional[torch.Tensor] = None,
+                use_kernels: bool = False) -> torch.Tensor:
+        """The residual update ``MLP(cat(x, MHA(x, source)))`` (concat-free
+        first conv). ``valid_mask`` marks the valid points of ``x`` for the
+        training-mode BN statistics; ``use_kernels`` routes the attention
+        of a CUDA tensor to the fused-MHA kernel pair."""
         message = multi_head_attention(self.attn, x, source, topk,
-                                       self.num_heads, kv_mask=kv_mask)
-        return apply_mlp(self.mlp, (x, message))
+                                       self.num_heads, kv_mask=kv_mask,
+                                       use_kernels=use_kernels)
+        return apply_mlp(self.mlp, (x, message), valid_mask)
 
     def kernel_weights(self) -> LayerWeights:
         """Kernel operands, prepared on first use and again only after a
@@ -95,7 +109,12 @@ class AttentionalGNN(nn.Module):
                 src0, src1, kvm0, kvm1 = desc1, desc0, mask1, mask0
             else:
                 src0, src1, kvm0, kvm1 = desc0, desc1, mask0, mask1
-            if kernels:
+            if self.training:
+                # cloud 0 first: the BN running stats move in that order
+                delta0 = layer(desc0, src0, k, kvm0, mask0, use_kernels)
+                delta1 = layer(desc1, src1, k, kvm1, mask1, use_kernels)
+                desc0, desc1 = desc0 + delta0, desc1 + delta1
+            elif kernels:
                 w = layer.kernel_weights()
                 desc0, desc1 = (fused_layer(desc0, src0, kvm0, k, w),
                                 fused_layer(desc1, src1, kvm1, k, w))

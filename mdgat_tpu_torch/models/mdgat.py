@@ -1,4 +1,4 @@
-"""MDGAT, the paper model: the eval forward with FPFH descriptors.
+"""MDGAT, the paper model, with FPFH descriptors: eval and train forward.
 
 Port of ``mdgat_tpu/models/mdgat.py`` (reference ``MDGAT``,
 ``models/mdgat.py:315-603``): keypoint and descriptor encoders -> 2L-layer
@@ -15,8 +15,14 @@ Precision: the encoders and the GNN run in ``compute_dtype``; the scores,
 the transport, the decision and the loss run in at least float32
 (``models/mdgat.py:230-239`` of the JAX package). On a CUDA device with
 ``use_kernels`` the GNN layers and the Sinkhorn run the hand-written
-kernels; everything else is plain PyTorch. ``forward`` is eval only:
-training comes with a later slice.
+kernels; everything else is plain PyTorch.
+
+``module.train()`` selects the training forward (``apply(train=True)`` of
+the JAX package): BatchNorm on batch statistics over valid points, running
+stats updated cloud 0 then cloud 1; with ``use_kernels`` on a CUDA device
+each layer's attention is the fused-MHA forward / backward kernel pair and
+the transport is the Sinkhorn kernel with its replay backward, so
+``loss.backward()`` runs on hand-written kernels too.
 """
 
 from __future__ import annotations
@@ -80,10 +86,12 @@ class MDGAT(nn.Module):
         cfg = self.config
         dt = torch_dtype(cfg.compute_dtype)
         mask0, mask1 = data.get("mask0"), data.get("mask1")
-        desc0 = (self.denc(data["descriptors0"].to(dt))
-                 + self.kenc(data["keypoints0"].to(dt), data["scores0"].to(dt)))
-        desc1 = (self.denc(data["descriptors1"].to(dt))
-                 + self.kenc(data["keypoints1"].to(dt), data["scores1"].to(dt)))
+        desc0 = (self.denc(data["descriptors0"].to(dt), mask0)
+                 + self.kenc(data["keypoints0"].to(dt), data["scores0"].to(dt),
+                             mask0))
+        desc1 = (self.denc(data["descriptors1"].to(dt), mask1)
+                 + self.kenc(data["keypoints1"].to(dt), data["scores1"].to(dt),
+                             mask1))
 
         k_sched = cfg.layer_k_schedule(desc0.shape[1])
         desc0, desc1 = self.gnn(desc0, desc1, k_sched, mask0, mask1,
@@ -95,15 +103,13 @@ class MDGAT(nn.Module):
                               mdesc1.to(ot_dtype).transpose(1, 2))
         scores = scores / math.sqrt(cfg.descriptor_dim)
         alpha = self.bin_score.to(ot_dtype)
-        if cfg.use_kernels and scores.device.type == "cuda":
-            ot = log_optimal_transport_kernel(scores, alpha,
-                                              cfg.sinkhorn_iterations,
-                                              mask0, mask1)
-        else:
-            ot = log_optimal_transport(scores, alpha, cfg.sinkhorn_iterations,
-                                       mask0, mask1)
-        res = match_decision(ot, cfg.loss_method, cfg.match_threshold,
-                             cfg.mutual_check, mask0, mask1)
+        transport = (log_optimal_transport_kernel
+                     if cfg.use_kernels and scores.device.type == "cuda"
+                     else log_optimal_transport)
+        ot = transport(scores, alpha, cfg.sinkhorn_iterations, mask0, mask1)
+        with torch.no_grad():
+            res = match_decision(ot, cfg.loss_method, cfg.match_threshold,
+                                 cfg.mutual_check, mask0, mask1)
         out = {"matches0": res.matches0, "matches1": res.matches1,
                "matching_scores0": res.matching_scores0,
                "matching_scores1": res.matching_scores1}

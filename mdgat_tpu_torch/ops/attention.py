@@ -48,18 +48,27 @@ def topk_threshold(s: torch.Tensor, valid: torch.Tensor,
 
 
 def attention_core(s: torch.Tensor, v: torch.Tensor,
-                   kv_mask: Optional[torch.Tensor], topk: Optional[int]):
+                   kv_mask: Optional[torch.Tensor], topk: Optional[int],
+                   return_lse: bool = False):
     """Scores ``s`` [B, H, N, M] (accumulation dtype) -> (out [B, H, N,
     Dh] in ``s.dtype``, threshold [B, H, N, 1]). ``topk`` None or 0 is
-    dense masked attention (threshold ``BIG_NEG``)."""
+    dense masked attention (threshold ``BIG_NEG``). With ``return_lse``
+    also the per-row logsumexp over the kept entries, ``max + log(denom)``
+    (``-1e30`` for an all-masked row).
+
+    Differentiable in ``s`` and ``v``. The selection is a boolean mask
+    ``s >= kth`` and the row max only shifts the softmax, so no gradient
+    flows through the threshold or the max: the frozen-selection
+    semantics of the reference's scatter backward
+    (``models/mdgat.py:196-210``)."""
     if kv_mask is None:
         valid = torch.ones(s.shape, dtype=torch.bool, device=s.device)
     else:
         valid = kv_mask[:, None, None, :].expand(s.shape)
     s = torch.where(valid, s, BIG_NEG)
-    mx = s.amax(dim=-1, keepdim=True)          # pre-selection row max
+    mx = s.detach().amax(dim=-1, keepdim=True)  # pre-selection row max
     if topk:
-        thr = topk_threshold(s, valid, topk)
+        thr = topk_threshold(s.detach(), valid, topk)
         keep = valid & (s >= thr)
     else:
         thr = torch.full(s.shape[:-1] + (1,), BIG_NEG, dtype=s.dtype,
@@ -68,6 +77,8 @@ def attention_core(s: torch.Tensor, v: torch.Tensor,
     e = torch.exp(torch.where(keep, s - mx, BIG_NEG))
     denom = e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.matmul(e, v.to(s.dtype)) * (1.0 / denom)
+    if return_lse:
+        return out, thr, mx + torch.log(denom.detach())
     return out, thr
 
 
@@ -109,10 +120,18 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def multi_head_attention(attn, x, source, topk: Optional[int],
                          num_heads: int,
-                         kv_mask: Optional[torch.Tensor] = None):
+                         kv_mask: Optional[torch.Tensor] = None,
+                         use_kernels: bool = False):
     """MultiHeadedAttention of ``models/mdgat.py:213-237``. ``attn`` holds
     ``proj`` (q, k, v :class:`~mdgat_tpu_torch.ops.mlp.Conv1x1`) and
-    ``merge``; topk None selects dense attention."""
+    ``merge``; topk None selects dense attention. Differentiable. With
+    ``use_kernels`` a CUDA tensor goes through the fused-MHA kernel pair
+    (``ops/cuda/mha.py``: projections, attention and merge forward and
+    backward on hand-written kernels); otherwise the plain path below."""
+    if use_kernels and x.device.type == "cuda":
+        from mdgat_tpu_torch.ops.cuda.mha import blocked_weights, fused_mha
+        return fused_mha(x, source, kv_mask, topk, num_heads,
+                         *blocked_weights(attn, num_heads))
     q = split_heads(attn.proj[0](x), num_heads)
     k = split_heads(attn.proj[1](source), num_heads)
     v = split_heads(attn.proj[2](source), num_heads)

@@ -1,6 +1,7 @@
 """Build and load the hand-written Hopper kernels of ``mdgat_tpu_torch/csrc``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and links the objects into one
 shared library with a plain C interface, under ``mdgat_tpu_torch/_build/``
 (listed in ``.gitignore``). The file name carries a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads as it is.
@@ -30,8 +31,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-              "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 # io dtype codes of the C entry points (csrc/common.cuh: IoDtype)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,13 +39,22 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (all return cudaError_t as int)
 _SIGNATURES = {
-    # q, k, v, mask, o, thr, B, H, N, M, Dh, topk, scale, io_dtype, stream
-    "mdgat_topk_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _F, _I, _P],
+    # q, k, v, mask, o, thr, lse, B, H, N, M, Dh, topk, scale, io_dtype,
+    # stream
+    "mdgat_topk_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _F, _I, _P],
     # a1, a1_dtype, a1_heads, a2, K1, K2, w, bias, res, out, out_dtype,
-    # out_heads, rows_per_batch, R, C, relu, stream
+    # out_heads, rows_per_batch, R, C, relu, w_trans, stream
     "mdgat_gemm": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                   _I, _I, _P],
+                   _I, _I, _I, _P],
+    # a, b, partial, dw, db, R, K1, C, rows_per_split, splits, stream
+    "mdgat_gemm_tn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k, v, dout, mask, thr, lse, o_full, dq_full, dk_full, dv_full,
+    # delta, B, H, N, M, Dh, stream
+    "mdgat_mha_attention_bwd": [_P] * 12 + [_I] * 5 + [_P],
+    # Z, log_mu, log_nu, scalars, d_out, d_bin_row, d_bin_col, d_corner, dZ,
+    # dalpha, B, N, M, iters, stream
+    "mdgat_sinkhorn_bwd": [_P] * 10 + [_I] * 4 + [_P],
     # Z, log_mu, log_nu, scalars, out, bin_row, bin_col, corner, B, N, M,
     # iters, stream
     "mdgat_sinkhorn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -116,19 +125,29 @@ def _build_and_load() -> KernelLibrary:
     seconds = 0.0
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = [str(p) for p in srcs if p.suffix == ".cu"]
-        # build to a private name, then rename: a process building at the
-        # same time never loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+        cu = [p for p in srcs if p.suffix == ".cu"]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        # private names, then one rename: a process building at the same
+        # time never loads a half-written library
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            objs = [os.path.join(work, p.stem + ".o") for p in cu]
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(p), "-o", o],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for p, o in zip(cu, objs)]
+            logs = [proc.communicate()[0] for proc in procs]
+            log_path.write_text("".join(logs))
+            for p, proc, log in zip(cu, procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {p.name}:\n"
+                                       + log[-8000:])
+            tmp = os.path.join(work, "lib.so")
+            link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError("nvcc link failed:\n" + link.stderr[-8000:])
+            os.replace(tmp, out)
         seconds = time.perf_counter() - t0
-        log_path.write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError("nvcc failed:\n" + proc.stderr[-8000:])
-        os.replace(tmp, out)
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(ctypes.CDLL(str(out)), out, seconds, log)

@@ -8,8 +8,11 @@ it on the H100.
 :func:`topk_attention` takes q ``[B, H, N, Dh]``, k and v ``[B, H, M, Dh]``
 (float32 or bfloat16), a key mask ``[B, M]`` and ``topk`` (0 = dense), and
 returns the output ``[B, H, N, Dh]`` in the input dtype and the per-row
-threshold ``[B, H, N, 1]`` in float32. A CUDA tensor launches the kernel;
-a CPU tensor takes :func:`topk_attention_reference`. Nothing falls back:
+threshold ``[B, H, N, 1]`` in float32; with ``return_lse`` also the per-row
+logsumexp over the kept entries ``[B, H, N, 1]``, the residual from which
+the fused-MHA backward (``ops/cuda/mha.py``) rebuilds the probabilities. A
+CUDA tensor launches the kernel; a CPU tensor takes
+:func:`topk_attention_reference`. Nothing falls back:
 a CUDA call the kernel cannot take raises.
 """
 
@@ -27,19 +30,23 @@ MAX_KEYS = 1024
 
 
 def topk_attention_reference(q, k, v, kv_mask: Optional[torch.Tensor],
-                             topk: int, scale: float):
+                             topk: int, scale: float,
+                             return_lse: bool = False):
     """Plain PyTorch twin of the kernel: the same selection and softmax
     (``ops/attention.py``), f32 internals for f32/bf16 inputs."""
     acc = acc_dtype(q.dtype)
     s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
-    out, thr = attention_core(s, v, kv_mask, topk)
+    out, thr, lse = attention_core(s, v, kv_mask, topk, return_lse=True)
+    if return_lse:
+        return out.to(q.dtype), thr.to(torch.float32), lse.to(torch.float32)
     return out.to(q.dtype), thr.to(torch.float32)
 
 
 def topk_attention(q, k, v, kv_mask: Optional[torch.Tensor], topk: int,
-                   scale: float):
+                   scale: float, return_lse: bool = False):
     if q.device.type == "cpu":
-        return topk_attention_reference(q, k, v, kv_mask, topk, scale)
+        return topk_attention_reference(q, k, v, kv_mask, topk, scale,
+                                        return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     b, h, n, dh = q.shape
@@ -60,14 +67,17 @@ def topk_attention(q, k, v, kv_mask: Optional[torch.Tensor], topk: int,
                "inputs must be contiguous and on one device")
     out = torch.empty_like(q)
     thr = torch.empty((b, h, n, 1), dtype=torch.float32, device=q.device)
+    lse = torch.empty_like(thr) if return_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         library().call("mdgat_topk_attention", q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                       thr.data_ptr(), b, h, n, m, dh, int(topk),
-                       float(scale), DTYPE_CODES[q.dtype], stream)
+                       thr.data_ptr(),
+                       lse.data_ptr() if return_lse else None, b, h, n, m,
+                       dh, int(topk), float(scale), DTYPE_CODES[q.dtype],
+                       stream)
     topk_attention.launches += 1
-    return out, thr
+    return (out, thr, lse) if return_lse else (out, thr)
 
 
 topk_attention.launches = 0

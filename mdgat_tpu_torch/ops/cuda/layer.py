@@ -119,18 +119,23 @@ def fused_layer_reference(x, src, kv_mask: Optional[torch.Tensor],
 
 
 def gemm(a1, w, bias, *, a2=None, relu=False, res=None, out_dtype=None,
-         a1_heads=0, out_heads=0, rows_per_batch=0):
+         a1_heads=0, out_heads=0, rows_per_batch=0, w_trans=False):
     """``[relu](cat(a1, a2) @ w + bias) [+ res]`` on the kernel of
     ``csrc/gemm.cu`` (CUDA tensors only). ``a1`` is ``[R, K1]`` or, with
     ``a1_heads``, a head-split ``[B, H, rows_per_batch, K1/H]``; the
     output is ``[R, C]`` or, with ``out_heads``, ``[B, H, rows_per_batch,
-    C/H]``."""
+    C/H]``. With ``w_trans``, ``w`` is ``[C, K]`` and stands for its
+    transpose (the backward products ``dq @ wq^T``); that mode takes no
+    bias (``bias=None``), the plain mode needs one."""
     if a1.device.type != "cuda":
         raise ValueError("the GEMM kernel takes CUDA tensors")
     k1 = a1.shape[-1] * (a1_heads or 1)
     r = a1.numel() // k1
     k2 = 0 if a2 is None else a2.shape[-1]
-    c = w.shape[1]
+    if w_trans:
+        w_k, c = w.shape[1], w.shape[0]
+    else:
+        w_k, c = w.shape
     out_dtype = out_dtype or a1.dtype
     if out_heads:
         out = torch.empty((r // rows_per_batch, out_heads, rows_per_batch,
@@ -138,8 +143,10 @@ def gemm(a1, w, bias, *, a2=None, relu=False, res=None, out_dtype=None,
     else:
         out = torch.empty((r, c), dtype=out_dtype, device=a1.device)
     if (a1.dtype not in DTYPE_CODES or out_dtype not in DTYPE_CODES
-            or w.dtype != torch.float32 or bias.dtype != torch.float32
-            or w.shape[0] != k1 + k2 or bias.shape != (c,)
+            or w.dtype != torch.float32 or w_k != k1 + k2
+            or (bias is None) != bool(w_trans)
+            or (bias is not None and (bias.dtype != torch.float32
+                                      or bias.shape != (c,)))
             or (a2 is not None and (a2.dtype != torch.float32
                                     or a2.numel() != r * k2))
             or (res is not None and (res.dtype != out_dtype
@@ -154,14 +161,47 @@ def gemm(a1, w, bias, *, a2=None, relu=False, res=None, out_dtype=None,
         stream = torch.cuda.current_stream(a1.device).cuda_stream
         library().call("mdgat_gemm", a1.data_ptr(), DTYPE_CODES[a1.dtype],
                        a1_heads, ptr(a2), k1, k2, w.data_ptr(),
-                       bias.data_ptr(), ptr(res), out.data_ptr(),
+                       ptr(bias), ptr(res), out.data_ptr(),
                        DTYPE_CODES[out_dtype], out_heads, rows_per_batch, r,
-                       c, int(relu), stream)
+                       c, int(relu), int(w_trans), stream)
     gemm.launches += 1
     return out
 
 
 gemm.launches = 0
+
+TN_ROWS_PER_SPLIT = 512
+
+
+def gemm_tn(a, b):
+    """``(a^T @ b, column sums of b)`` for ``a [R, K1]`` and ``b [R, C]``
+    (float32, CUDA): a weight gradient and its bias gradient. The rows are
+    split over blocks of ``TN_ROWS_PER_SPLIT``; a second kernel adds the
+    blocks' partial results in a fixed order (``csrc/gemm.cu``)."""
+    if a.device.type != "cuda":
+        raise ValueError("the GEMM kernel takes CUDA tensors")
+    r, k1 = a.shape
+    c = b.shape[1]
+    if (a.dtype != torch.float32 or b.dtype != torch.float32
+            or b.shape[0] != r or b.device != a.device
+            or not (a.is_contiguous() and b.is_contiguous())):
+        raise ValueError("transposed GEMM kernel: operands must be "
+                         "contiguous float32 [R, K1] and [R, C] on one device")
+    splits = -(-r // TN_ROWS_PER_SPLIT)
+    partial = torch.empty((splits, k1 + 1, c), dtype=torch.float32,
+                          device=a.device)
+    dw = torch.empty((k1, c), dtype=torch.float32, device=a.device)
+    db = torch.empty((c,), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        library().call("mdgat_gemm_tn", a.data_ptr(), b.data_ptr(),
+                       partial.data_ptr(), dw.data_ptr(), db.data_ptr(), r,
+                       k1, c, TN_ROWS_PER_SPLIT, splits, stream)
+    gemm_tn.launches += 1
+    return dw, db
+
+
+gemm_tn.launches = 0
 
 
 def fused_layer(x, src, kv_mask: Optional[torch.Tensor],

@@ -4,8 +4,9 @@ Port of ``mdgat_tpu/ops/losses.py`` (reference ``models/mdgat.py:486-594``):
 the gap loss (the paper's), the hard-negative triplet loss and SuperGlue's
 NLL. Each returns a per-example ``[B]`` vector and never mutates the
 ground truth (``-1`` = unmatched, remapped to the dustbin internally).
-This slice runs them in the eval forward when ground truth is given; their
-kernels and gradients come with the training slice.
+All three are differentiable in the OT scores by autograd (held against
+``jax.grad`` of the JAX functions in the tests); the JAX package's gap-loss
+kernel is not ported and this is the only loss path.
 """
 
 from __future__ import annotations

@@ -9,20 +9,24 @@ shapes (weight ``[Cout, Cin, 1]``) and computes ``x @ w[:, :, 0].T + b`` on
 equal the upstream ones (conv at ``3i``, BN at ``3i + 1``), so reference
 ``.pth`` checkpoints load with ``strict=True``.
 
-BatchNorm here is eval mode only: the running-stats affine with eps 1e-5,
-the JAX package's ``mlp_apply(train=False)``. Train-mode BN belongs to the
-training slice.
+BatchNorm follows ``torch.nn.BatchNorm1d`` as the JAX package's
+``_batchnorm`` / ``mlp_apply`` do: eps 1e-5; in eval mode the running-stats
+affine; in training mode batch statistics over the (batch, points) axes
+with the biased variance, and running stats updated with momentum 0.1 and
+the unbiased variance. With a validity mask the statistics run over valid
+points only, so fixed-shape padding does not move them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 class Conv1x1(nn.Module):
@@ -62,10 +66,18 @@ def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
     t.copy_((u * 2.0 - 1.0) * bound)
 
 
-class BatchNormEval(nn.Module):
-    """``BatchNorm1d`` over the channel (last) axis of ``[B, N, C]`` with
-    its running-stats affine: ``(x - mean) * rsqrt(var + eps) * w + b``.
-    Parameter and buffer names are ``BatchNorm1d``'s."""
+class BatchNorm(nn.Module):
+    """``BatchNorm1d`` over the channel (last) axis of ``[B, N, C]``;
+    parameter and buffer names are ``BatchNorm1d``'s.
+
+    Eval mode: ``(x - mean) * rsqrt(var + eps) * w + b`` on the running
+    stats. Training mode (``mlp.py:135-166`` and ``:204-230`` of the JAX
+    package): the same affine on the batch mean and the biased two-pass
+    variance ``mean((x - mean)^2)``, taken over the points ``valid_mask``
+    ``[B, N]`` marks (all of them when it is None; the count is floored at
+    1); the running stats move by ``BN_MOMENTUM`` towards the batch mean
+    and the unbiased variance ``var * n / max(n - 1, 1)``, in place.
+    Padded rows still get (meaningless) outputs, masked downstream."""
 
     def __init__(self, c: int, *, dtype: torch.dtype, device=None):
         super().__init__()
@@ -78,11 +90,37 @@ class BatchNormEval(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.int64, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = x.dtype
-        inv = torch.rsqrt(self.running_var.to(dt) + BN_EPS)
-        return ((x - self.running_mean.to(dt)) * inv * self.weight.to(dt)
-                + self.bias.to(dt))
+        if self.training:
+            mean, var = self._batch_stats(x, valid_mask)
+        else:
+            mean, var = self.running_mean.to(dt), self.running_var.to(dt)
+        inv = torch.rsqrt(var + BN_EPS)
+        return (x - mean) * inv * self.weight.to(dt) + self.bias.to(dt)
+
+    def _batch_stats(self, x, valid_mask):
+        axes = tuple(range(x.dim() - 1))
+        if valid_mask is None:
+            n = x.numel() // x.shape[-1]
+            mean = x.mean(dim=axes)
+            var = ((x - mean) ** 2).mean(dim=axes)
+            unbias = n / max(n - 1, 1)
+        else:
+            m = valid_mask[..., None].to(x.dtype)
+            cnt = m.sum().clamp_min(1.0)
+            mean = (x * m).sum(dim=axes) / cnt
+            var = ((x - mean) ** 2 * m).sum(dim=axes) / cnt
+            unbias = cnt / (cnt - 1.0).clamp_min(1.0)
+        with torch.no_grad():
+            rdt = self.running_mean.dtype
+            self.running_mean.mul_(1 - BN_MOMENTUM).add_(
+                BN_MOMENTUM * mean.detach().to(rdt))
+            self.running_var.mul_(1 - BN_MOMENTUM).add_(
+                BN_MOMENTUM * (var.detach() * unbias).to(rdt))
+            self.num_batches_tracked += 1
+        return mean, var
 
     def fold_scale(self, dtype: torch.dtype) -> torch.Tensor:
         """``weight / sqrt(var + eps)``: ``bn(h) == (h - mean) * f + bias``."""
@@ -100,8 +138,7 @@ def mlp(channels: Sequence[int], *, dtype: torch.dtype,
         layers.append(Conv1x1(channels[i - 1], channels[i], dtype=dtype,
                               device=device))
         if i < n - 1:
-            layers.append(BatchNormEval(channels[i], dtype=dtype,
-                                        device=device))
+            layers.append(BatchNorm(channels[i], dtype=dtype, device=device))
             layers.append(nn.ReLU())
     return nn.Sequential(*layers)
 
@@ -116,11 +153,13 @@ def reset_mlp(seq: nn.Sequential, generator: torch.Generator,
                               zero_bias=zero_last_bias and i == len(convs) - 1)
 
 
-def apply_mlp(seq: nn.Sequential, x) -> torch.Tensor:
+def apply_mlp(seq: nn.Sequential, x,
+              valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run an :func:`mlp` on ``x`` [..., N, C], or on a tuple of channel
     blocks standing for ``cat(x, -1)``: the first conv is split over the
     blocks (``cat(x) @ w == sum_i x_i @ w_i``) so the concatenation is
-    never built, as ``mlp_apply`` does in the JAX package."""
+    never built, as ``mlp_apply`` does in the JAX package. ``valid_mask``
+    [..., N] keeps padded points out of the training-mode BN statistics."""
     layers = list(seq)
     if isinstance(x, (tuple, list)):
         first = layers.pop(0)
@@ -133,5 +172,5 @@ def apply_mlp(seq: nn.Sequential, x) -> torch.Tensor:
             off += c
         x = acc + first.bias.to(acc.dtype)
     for layer in layers:
-        x = layer(x)
+        x = layer(x, valid_mask) if isinstance(layer, BatchNorm) else layer(x)
     return x
