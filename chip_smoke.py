@@ -28,19 +28,28 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    (device time by kernel, the device's busy share);
 6. per-kernel parity of the training kernels at the training shapes (B=64,
    N=M=512, D=128, 4 heads; k=128, k=64 and dense; ragged masks; self and
-   cross) and at odd shapes: the fused-MHA forward (out, thr, lse), its
-   backward (all ten gradients, bit-equal from run to run, selection equal
-   to the forward's on every row) and the Sinkhorn replay backward (dZ,
-   dalpha), each against its plain twin under autograd on the card;
+   cross) and at odd shapes, each against its plain twin under autograd on
+   the card: the fused-MHA forward (out, thr, lse) and backward (all ten
+   gradients, bit-equal from run to run, selection equal to the forward's
+   on every row), the Sinkhorn replay backward (dZ, dalpha), and the
+   whole-layer train kernels (h1, ssum, ssq, thr, lse, y, batch mean and
+   variance; Sg, Sgh, dw2, db2, dscale, dbias; dx, dsrc and the fourteen
+   parameter gradients with ragged key AND row masks and a cotangent that
+   is non-zero on padded rows; bit-equal from run to run; one bfloat16
+   case);
 7. the training path: ``create_train_state`` with seeded weights and three
    steps of ``make_train_step`` on a synthetic batch of 64 pairs at 512
-   keypoints, with the launch counters zeroed just before and read just
-   after (36 fused-MHA forwards, 36 backwards, 1 Sinkhorn forward and 1
-   backward per step); the same steps with ``use_kernels=False`` on the
-   card, and four of the pairs on the CPU: losses and gradient norms agree,
-   the loss is finite and falls; the peak memory of both arms; a
-   torch.profiler window over one kernel-path step; then times per kernel
-   and per step (kernel / plain, in turns).
+   keypoints, three arms, each with the launch counters zeroed just before
+   and read just after. The default route (``train_layer=True``): 36
+   whole-layer forwards and 36 backwards, no fused-MHA launch, 1 Sinkhorn
+   forward and 1 backward per step. The fused-MHA route
+   (``train_layer=False``): 36 fused-MHA forwards, 36 backwards, 1 and 1.
+   The plain path (``use_kernels=False``): no launch. Losses and gradient
+   norms of both kernel routes agree with the plain path, and four of the
+   pairs on the card with the CPU; the loss is finite and falls; the peak
+   memory of each arm; a torch.profiler window over one step of the
+   default route; then times per kernel, per whole layer and per step
+   (the three arms in turns).
 
 The line before the last is a JSON object with one entry per kernel (its
 time beside the plain twin's, the card's bound for the same work and, where
@@ -83,6 +92,27 @@ TOL = {"attention_f32": 1e-4, "attention_bf16": 2e-2, "layer_f32": 1e-3,
        # Sinkhorn backward: dZ relative to max(1, largest entry), dalpha
        # relative; 20 iterations replayed and reversed in f32
        "sinkhorn_bwd": 1e-4,
+       # whole-layer train kernels: thr, lse, batch mean and variance
+       # absolute; y, h1 (f32 sums of 256 products of O(1) terms), ssum /
+       # ssq, the six outputs of bwd1 and the gradients relative to max(1,
+       # largest entry): sums of 32768 rows in f32, per
+       # block of 64 rows and then block after block in the kernels, in
+       # torch's own blocked order in the twin
+       "train_layer_out": 1e-4, "train_layer_grad": 1e-4,
+       # bfloat16: y and h1 are rounded to bf16 once (2^-8 relative, entries
+       # up to ~10), and a stored h1 that rounds the other way on one side
+       # can flip the ReLU mask of an entry near zero, which moves that row
+       # of dx by one product term; relative to the largest entry
+       # (the four exactly-zero bias gradients are not compared in bf16:
+       # one such flip moves an entry of theirs by that row's whole term)
+       "train_layer_out_bf16": 2e-2, "train_layer_grad_bf16": 5e-2,
+       # the gradients of bk, bv, bm and b1 are zero in exact arithmetic (a
+       # constant added to the keys leaves the softmax as it is, one added
+       # to v, the message or h1 is taken out again by the batch mean), so
+       # what either side returns is the f32 rounding of a column sum over
+       # 32768 rows of O(1) terms that cancel: absolute, where the other
+       # parameter gradients have entries of 10 to 1000
+       "train_layer_zero_grad": 5e-3,
        # train steps, kernel path against plain path on the card and
        # against the CPU: relative. The two paths keep different f32 sums
        # through 18 layers forward and backward, near-tie rows may select
@@ -150,14 +180,20 @@ def bound(nbytes: float, flops: float):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def turns_ms(fns, reps: int, warmup: int = 1):
+    """The better of two turns of each function, taken in the order first
+    to last, then last to first."""
+    order = list(fns) + list(reversed(fns))
+    ms = [cuda_ms(fn, reps, warmup) for fn in order]
+    n = len(fns)
+    return [min(ms[i], ms[2 * n - 1 - i]) for i in range(n)]
+
+
 def abba_ms(kernel_fn, plain_fn, reps: int, warmup: int = 1):
     """(kernel ms, plain ms), the better of two turns each, taken in the
     order plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain_fn, reps, warmup)
-    k1 = cuda_ms(kernel_fn, reps, warmup)
-    k2 = cuda_ms(kernel_fn, reps, warmup)
-    p2 = cuda_ms(plain_fn, reps, warmup)
-    return min(k1, k2), min(p1, p2)
+    plain, kernel = turns_ms([plain_fn, kernel_fn], reps, warmup)
+    return kernel, plain
 
 
 def near_tie_rows(s, valid, k: int):
@@ -441,7 +477,8 @@ def serving(rng, dev, report, counters):
           f"wall; launches {launches}")
     for name in ("topk_attention", "eval_layer", "gemm", "sinkhorn"):
         report[name]["launches"] = launches[name]
-    require(launches["fused_mha_fwd"] == 0 and launches["sinkhorn_bwd"] == 0,
+    require(launches["fused_mha_fwd"] == 0 and launches["sinkhorn_bwd"] == 0
+            and launches["train_layer_fwd"] == 0,
             "a training kernel ran on the serving path")
     require(launches["eval_layer"] == 36 * forwards,
             f"layer launches {launches['eval_layer']} != 36 per forward")
@@ -587,8 +624,14 @@ def timings(rng, dev, report, card, matcher, plain, pairs):
                             bound_ms=ms, bound_by=by,
                             library_ms=library.get(key))
     dense_flops = 4.0 * b * h * n * n * dh
+    # the wide Sinkhorn shape runs unmasked: Z in, the plan out; five
+    # operations per entry and half-iteration
+    big_n = float(big.numel())
     report["_bounds_serving"] = dict(
-        attention_dense_unmasked=bound(attn_bytes - b * n, dense_flops))
+        attention_dense_unmasked=bound(attn_bytes - b * n, dense_flops),
+        sinkhorn_8x1024x1024=bound(2 * 4.0 * big_n, 20 * 2 * 5.0 * big_n))
+    for key, (ms, by) in report["_bounds_serving"].items():
+        print(f"  bound {key}: {ms:.4f} ms ({by})")
     report["_library_ms"] = library
     report["_times_ms"] = {k: {"kernel": a, "plain": p}
                            for k, (a, p) in times.items()}
@@ -853,6 +896,141 @@ def check_sinkhorn_bwd(rng, dev, report):
     report["sinkhorn_bwd"]["max_abs_err"] = worst
 
 
+def train_layer_case(rng, dev, b, n, m, d, heads, k, selfattn, seed, dt):
+    """One whole-layer comparison, kernels against twin on the card, with
+    ragged key and row masks: (worst forward error, worst error of bwd1's
+    six outputs, worst of the twelve non-zero gradients, worst of the four
+    that are zero in exact arithmetic, selection gap, rows left out,
+    rows)."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import train_layer as T
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dt)
+
+    layer = _random_layer(seed, dev, d, heads)
+    with torch.no_grad():
+        w = [p.clone() for p in T.train_layer_weights(layer)]
+    x = t(b, n, d)
+    src = x if selfattn else t(b, m, d)
+    m = src.shape[1]
+    kv_mask = ragged_mask(rng, b, m, int(0.78 * m), dev)
+    row_mask = kv_mask if selfattn else ragged_mask(rng, b, n, int(0.78 * n), dev)
+
+    (y, mean, var, h1, thr, lse, ssum,
+     ssq) = T.fused_train_layer_forward(x, src, kv_mask, row_mask, k, heads, *w)
+    with torch.no_grad():
+        ref = T.fused_train_layer_reference(x, src, kv_mask, row_mask, k, heads,
+                                            *w, return_residuals=True)
+        y_r, mean_r, var_r, h1_r, thr_r, lse_r, ssum_r, ssq_r = ref
+        # Rows left out of the row-wise comparisons, and given a zero
+        # cotangent: near ties at the k-th score (the two sides may select
+        # differently), and rows with a BatchNorm output within 1e-5 of zero
+        # (the backward's ReLU mask is `bn > 0` on a value the two sides
+        # round differently; with dh2 = 0 in the row the mask is moot).
+        # Padded rows keep their non-zero cotangent.
+        q = (x.float() @ w[0] + w[1]).reshape(b, n, heads, -1).transpose(1, 2)
+        kk = (src.float() @ w[2] + w[3]).reshape(b, m, heads, -1).transpose(1, 2)
+        s = q @ kk.transpose(-1, -2)
+        out = near_tie_rows(s, kv_mask[:, None, None, :].expand(s.shape),
+                            k or 0).any(1)
+        del q, kk, s
+        if dt == torch.float32:
+            inv = torch.rsqrt(var_r + 1e-5)
+            bn = (h1_r - mean_r) * inv * w[12] + w[13]
+            out |= (bn.abs() < 1e-5).any(-1)
+            del bn
+    keep = ~out
+    g = t(b, n, d) * keep[:, :, None]
+    fwd_err = max(_rel_err(y.float()[keep], y_r.float()[keep]),
+                  _rel_err(h1.float()[keep], h1_r.float()[keep]),
+                  (thr - thr_r).abs()[..., 0].amax(1)[keep].max().item(),
+                  (lse - lse_r).abs()[..., 0].amax(1)[keep].max().item(),
+                  (mean - mean_r).abs().max().item(),
+                  (var - var_r).abs().max().item(),
+                  _rel_err(ssum, ssum_r), _rel_err(ssq, ssq_r))
+
+    # bwd1 alone, both sides on the kernels' h1 and statistics
+    vec4 = torch.stack([mean, torch.rsqrt(var + 1e-5), w[12], w[13]])
+    sums, dw2, db2 = T._tl_bwd1(g, h1.reshape(b * n, 2 * d).contiguous(),
+                                w[10], vec4)
+    sg, sgh, dw2_r, db2_r, dsc, dbi = T.bn_backward_sums_reference(
+        g, h1, w[10], mean, var, w[12], w[13])
+    bwd1_err = max(_rel_err(a, r) for a, r in zip(
+        (sums[0], sums[1], dw2, db2, sums[2], sums[3]),
+        (sg, sgh, dw2_r, db2_r, dsc, dbi)))
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_()]
+        if not selfattn:
+            leaves.append(src.clone().requires_grad_())
+        ws = [p.clone().requires_grad_() for p in w]
+        out_y = fn(leaves[0], leaves[-1], kv_mask, row_mask, k, heads, *ws)[0]
+        return out_y.detach(), torch.autograd.grad(out_y, leaves + ws, g)
+
+    y2, grads = run(T.fused_train_layer)
+    _, grads2 = run(T.fused_train_layer)
+    _, grads_ref = run(T.fused_train_layer_reference)
+    gap = frozen_selection_gap(x, src, kv_mask, k, heads, *w[:8])
+    torch.cuda.synchronize()
+    require(torch.equal(y2, y), "train layer: forward differs under autograd")
+    require(all(torch.equal(a, c) for a, c in zip(grads, grads2)),
+            "train-layer backward differs from run to run")
+    require(all(torch.isfinite(a).all().item() for a in grads),
+            "train-layer backward: non-finite gradient")
+    first_w = 1 if selfattn else 2
+    zero = [first_w + i for i in (3, 5, 7, 9)]            # bk, bv, bm, b1
+    grad_err = max(_rel_err(a.float(), r.float()) for i, (a, r) in
+                   enumerate(zip(grads, grads_ref)) if i not in zero)
+    zero_err = max((grads[i] - grads_ref[i]).abs().max().item() for i in zero)
+    return (fwd_err, bwd1_err, grad_err, zero_err, gap, int(out.sum()),
+            out.numel())
+
+
+def check_train_layer(rng, dev, report):
+    import torch
+    cases = [  # b, n, m, d, heads, k, self-attention
+        (64, 512, 512, 128, 4, 128, True), (64, 512, 512, 128, 4, 64, False),
+        (64, 512, 512, 128, 4, None, True), (64, 512, 512, 128, 4, None, False),
+        (3, 37, 45, 32, 4, 8, False), (2, 70, 300, 64, 2, 16, False),
+        (3, 40, 40, 64, 4, 8, True), (8, 256, 256, 128, 4, 64, False)]
+    worst = [0.0, 0.0, 0.0]
+    for i, (b, n, m, d, heads, k, selfattn) in enumerate(cases):
+        # the last case in bfloat16: x, source, h1, g and y are bf16, every
+        # internal f32 on both sides
+        bf16 = i == len(cases) - 1
+        f, b1, g, z, gap, left, rows = train_layer_case(
+            rng, dev, b, n, m, d, heads, k, selfattn, 40 + i,
+            torch.bfloat16 if bf16 else torch.float32)
+        name = (f"train_layer b{b} n{n} m{m} d{d} h{heads} k{k} "
+                f"{'self' if selfattn else 'cross'}{' bf16' if bf16 else ''}")
+        tol_out = TOL["train_layer_out_bf16" if bf16 else "train_layer_out"]
+        tol_grad = TOL["train_layer_grad_bf16" if bf16 else "train_layer_grad"]
+        print(f"{name}: y/h1/thr/lse/mean/var/ssum/ssq max err {f:.3e} (tol "
+              f"{tol_out:g}), Sg/Sgh/dw2/db2/dscale/dbias max "
+              f"rel err {b1:.3e}, dx, dsrc and ten parameter gradients max "
+              f"rel err {g:.3e} (tol {tol_grad:g}), the four "
+              f"bias gradients that are zero in exact arithmetic max abs err "
+              f"{z:.3e} ("
+              f"{'not compared' if bf16 else TOL['train_layer_zero_grad']}), "
+              f"forward vs "
+              f"rebuilt attention output {gap:.3e} (tol "
+              f"{TOL['mha_selection_gap']:g}); backward bit-equal over two "
+              f"runs; near-tie and near-zero-BN rows left out {left} of {rows}")
+        require(f <= tol_out, f"{name}: forward disagrees")
+        require(b1 <= TOL["train_layer_grad"], f"{name}: bwd1 sums disagree")
+        require(g <= tol_grad and (bf16 or z <= TOL["train_layer_zero_grad"]),
+                f"{name}: backward disagrees")
+        require(gap <= TOL["mha_selection_gap"],
+                f"{name}: the backward's selection differs from the forward's")
+        if i < 4:
+            worst = [max(a, c) for a, c in zip(worst, (f, b1, g))]
+    report["train_layer_fwd1"]["max_abs_err"] = worst[0]
+    report["train_layer_fwd2"]["max_abs_err"] = worst[0]
+    report["train_layer_bwd1"]["max_abs_err"] = worst[1]
+    report["train_layer_bwd2"]["max_abs_err"] = worst[2]
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the training path
 # ---------------------------------------------------------------------------
@@ -891,68 +1069,91 @@ def training(dev, report, counters):
     print(f"train config: L={cfg.L} D={cfg.descriptor_dim} heads={cfg.num_heads} "
           f"k={cfg.k} sinkhorn_iterations={cfg.sinkhorn_iterations} "
           f"loss={cfg.loss_method} lr={cfg.learning_rate} batch={cfg.batch_size} "
-          f"max_keypoints={cfg.max_keypoints} compute={cfg.compute_dtype}")
+          f"max_keypoints={cfg.max_keypoints} compute={cfg.compute_dtype} "
+          f"train_layer={cfg.train_layer}")
     host, batch = train_batch(1, cfg.batch_size, cfg.max_keypoints, dev)
     n_gt = int((batch["gt_matches0"] >= 0).sum())
     require(batch["keypoints0"].shape == (64, 512, 3) and n_gt > 64 * 200,
             "training batch shape or ground truth")
 
-    state = create_train_state(cfg, device=dev, seed=0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.reset()
-    t0 = time.perf_counter()
-    kern = run_steps(state, batch, TRAIN_STEPS)
-    wall = time.perf_counter() - t0
-    launches = {name: c.read() for name, c in counters.items()}
-    peak_kernel = torch.cuda.max_memory_allocated()
-    print(f"training: {TRAIN_STEPS} steps of 64 pairs x 512 keypoints in "
-          f"{wall:.3f} s host wall ({n_gt} ground-truth matches0); launches "
-          f"{launches}")
-    per_step = {"fused_mha_fwd": 36, "fused_mha_bwd": 36, "sinkhorn": 1,
-                "sinkhorn_bwd": 1}
-    for name, want in per_step.items():
-        require(launches[name] == want * TRAIN_STEPS,
-                f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, "
-                f"not {want} per step")
-    require(launches["eval_layer"] == 0, "the eval layer ran in a train step")
-    for name in ("fused_mha_fwd", "fused_mha_bwd", "sinkhorn_bwd", "gemm_tn"):
+    def arm(label, arm_cfg, per_step):
+        """TRAIN_STEPS steps from seeded weights with the counters zeroed
+        just before and read just after; every counter in ``per_step`` must
+        read exactly that many launches per step."""
+        state = create_train_state(arm_cfg, device=dev, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        metrics = run_steps(state, batch, TRAIN_STEPS)
+        wall = time.perf_counter() - t0
+        launches = {name: c.read() for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"training, {label}: {TRAIN_STEPS} steps of 64 pairs x 512 "
+              f"keypoints in {wall:.3f} s host wall ({n_gt} ground-truth "
+              f"matches0), peak memory {peak / 2**30:.3f} GiB; launches "
+              f"{launches}")
+        for name, want in per_step.items():
+            require(launches[name] == want * TRAIN_STEPS,
+                    f"{label}: {name} {launches[name]} launches in "
+                    f"{TRAIN_STEPS} steps, not {want} per step")
+        for p in state.model.parameters():
+            require(torch.isfinite(p).all().item(),
+                    f"{label}: non-finite parameter")
+        return state, metrics, launches, peak, wall
+
+    tl_names = ("train_layer_fwd1", "train_layer_fwd2", "train_layer_bwd1",
+                "train_layer_bwd1_dw2", "train_layer_bwd2")
+    # the default route: the whole-layer train kernels
+    state, kern, launches, peak_tl, wall = arm(
+        "whole-layer train kernels", cfg,
+        {"train_layer_fwd": 36, "train_layer_bwd": 36, "fused_mha_fwd": 0,
+         "fused_mha_bwd": 0, "sinkhorn": 1, "sinkhorn_bwd": 1, "eval_layer": 0,
+         **{name: 36 for name in tl_names}})
+    for name in tl_names[:3] + tl_names[4:] + ("sinkhorn_bwd",):
         report[name]["launches"] = launches[name]
     report["sinkhorn"]["train_launches"] = launches["sinkhorn"]
-    print(f"per step: fused_mha forward {launches['fused_mha_fwd'] // TRAIN_STEPS}"
-          f" / backward {launches['fused_mha_bwd'] // TRAIN_STEPS} / sinkhorn "
-          f"forward {launches['sinkhorn'] // TRAIN_STEPS} / backward "
-          f"{launches['sinkhorn_bwd'] // TRAIN_STEPS}; inside them "
+    print(f"per step: train-layer forward "
+          f"{launches['train_layer_fwd'] // TRAIN_STEPS} / backward "
+          f"{launches['train_layer_bwd'] // TRAIN_STEPS} / fused_mha forward "
+          f"{launches['fused_mha_fwd']} / backward {launches['fused_mha_bwd']}"
+          f" / sinkhorn forward {launches['sinkhorn'] // TRAIN_STEPS} / "
+          f"backward {launches['sinkhorn_bwd'] // TRAIN_STEPS}; inside them "
           f"{launches['gemm'] // TRAIN_STEPS} GEMM, "
           f"{launches['gemm_tn'] // TRAIN_STEPS} transposed GEMM and "
           f"{launches['topk_attention'] // TRAIN_STEPS} attention launches")
 
-    plain_cfg = cfg.replace(use_kernels=False)
-    plain_state = create_train_state(plain_cfg, device=dev, seed=0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    plain = run_steps(plain_state, batch, TRAIN_STEPS)
-    peak_plain = torch.cuda.max_memory_allocated()
+    # train_layer=False: fused-MHA kernel pair, plain MLP and BatchNorm
+    mha_state, mha_m, mha_launches, peak_mha, _ = arm(
+        "fused-MHA route (train_layer=False)", cfg.replace(train_layer=False),
+        {"fused_mha_fwd": 36, "fused_mha_bwd": 36, "sinkhorn": 1,
+         "sinkhorn_bwd": 1, "eval_layer": 0, "train_layer_fwd": 0,
+         "train_layer_bwd": 0})
+    for name in ("fused_mha_fwd", "fused_mha_bwd", "gemm_tn"):
+        report[name]["launches"] = mha_launches[name]
+
+    plain_state, plain, _, peak_plain, _ = arm(
+        "plain path (use_kernels=False)", cfg.replace(use_kernels=False),
+        {name: 0 for name in counters})
 
     def rel(a, b):
         return abs(a - b) / max(abs(b), 1e-12)
 
-    for i, ((lk, gk), (lp, gp)) in enumerate(zip(kern, plain)):
-        print(f"  step {i + 1}: loss {lk:.6f} (plain {lp:.6f}), grad_norm "
-              f"{gk:.6f} (plain {gp:.6f})")
-        require(np.isfinite([lk, gk]).all(), "non-finite loss or grad_norm")
-        require(rel(lk, lp) <= TOL["train_loss_rel"],
-                f"step {i + 1}: loss disagrees with the plain path")
-        require(rel(gk, gp) <= TOL["train_grad_norm_rel"],
-                f"step {i + 1}: grad_norm disagrees with the plain path")
-    require(kern[-1][0] < kern[0][0], "the loss did not fall")
-    for p in state.model.parameters():
-        require(torch.isfinite(p).all().item(), "non-finite parameter")
-    print(f"peak memory over the steps: kernel path {peak_kernel / 2**30:.3f} "
-          f"GiB, plain path {peak_plain / 2**30:.3f} GiB")
+    for label, got in (("train-layer", kern), ("fused-MHA", mha_m)):
+        for i, ((lk, gk), (lp, gp)) in enumerate(zip(got, plain)):
+            print(f"  {label} step {i + 1}: loss {lk:.6f} (plain {lp:.6f}), "
+                  f"grad_norm {gk:.6f} (plain {gp:.6f})")
+            require(np.isfinite([lk, gk]).all(), "non-finite loss or grad_norm")
+            require(rel(lk, lp) <= TOL["train_loss_rel"],
+                    f"{label} step {i + 1}: loss disagrees with the plain path")
+            require(rel(gk, gp) <= TOL["train_grad_norm_rel"],
+                    f"{label} step {i + 1}: grad_norm disagrees with the "
+                    f"plain path")
+        require(got[-1][0] < got[0][0], f"{label}: the loss did not fall")
 
-    # four of the pairs: the card's kernel path against the CPU
+    # four of the pairs: the card's train-layer kernels against the CPU,
+    # where the same route takes the kernels' plain twin
     small = {k: v[:4] for k, v in host.items()}
     on_card = run_steps(create_train_state(cfg, device=dev, seed=0),
                         model_inputs(prepare_batch(small, 0.5, False, dev)), 2)
@@ -965,15 +1166,18 @@ def training(dev, report, counters):
                 and rel(gk, gc) <= TOL["train_grad_norm_rel"],
                 f"4 pairs, step {i + 1}: the card disagrees with the CPU")
     report["_training"] = dict(
-        steps=TRAIN_STEPS, wall_s=wall, launches=launches, kernel=kern,
-        plain=plain, card_4_pairs=on_card, cpu_4_pairs=on_cpu,
-        peak_bytes_kernel=peak_kernel, peak_bytes_plain=peak_plain)
-    return state, plain_state, batch
+        steps=TRAIN_STEPS, wall_s=wall, launches=launches,
+        launches_fused_mha_route=mha_launches, train_layer=kern,
+        fused_mha=mha_m, plain=plain, card_4_pairs=on_card,
+        cpu_4_pairs=on_cpu, peak_bytes_train_layer=peak_tl,
+        peak_bytes_fused_mha=peak_mha, peak_bytes_plain=peak_plain)
+    return state, mha_state, plain_state, batch
 
 
 def profile_train(state, batch, card, report):
-    """torch.profiler over one kernel-path training step: device time by
-    kernel and the device's busy share of the step."""
+    """torch.profiler over one training step on the whole-layer train
+    kernels: device time by kernel and the device's busy share of the
+    step."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     from mdgat_tpu_torch.train import make_train_step
@@ -992,7 +1196,7 @@ def profile_train(state, batch, card, report):
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=30)
     with open(os.path.join(OUT_DIR, "profile.txt"), "a") as f:
-        f.write(f"\none training step, kernel path\n{table}\n")
+        f.write(f"\none training step, whole-layer train kernels\n{table}\n")
     print(f"profile on {card}: 1 training step, window {window_ms:.3f} ms "
           f"host, device kernel time {device_ms:.3f} ms, busy share "
           f"{device_ms / window_ms:.3f}")
@@ -1006,9 +1210,121 @@ def profile_train(state, batch, card, report):
                       ms=e.self_device_time_total / 1e3) for e in top])
 
 
-def train_timings(rng, dev, report, card, state, plain_state, batch):
+def train_layer_timings(rng, dev, report, x, g, mask, k, h):
+    """Times of the four whole-layer train kernels (each the launches that
+    stand for one TPU kernel) and of the whole layer forward and backward
+    at the training shapes, self-attention with the key mask as the row
+    mask, against plain PyTorch on the same operands; and their bounds."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import mha as M
+    from mdgat_tpu_torch.ops.cuda import train_layer as T
+
+    b, n, d = x.shape
+    r = b * n
+    layer = _random_layer(9, dev, d, h)
+    with torch.no_grad():
+        w = [p.clone() for p in T.train_layer_weights(layer)]
+    attn, (w1, b1, w2, b2, scale, bias) = w[:8], w[8:]
+    rowm = mask[:, :, None].float()
+    with torch.no_grad():
+        h1, thr, lse, sums = T._tl_fwd1(x, x, mask, mask, k, h, *attn, w1, b1)
+        y, mean, var, cnt = T._tl_forward(x, x, mask, mask, k, h, *w)[:4]
+    inv = torch.rsqrt(var + 1e-5)
+    a, c = scale * inv, bias - mean * scale * inv
+    vec4 = torch.stack([mean, inv, scale, bias])
+    bwd_sums = T._tl_bwd1(g, h1, w2, vec4)[0]
+    vec6 = torch.cat([vec4, bwd_sums[:2] / cnt])
+    x2, g2, h1b = x.reshape(r, d), g.reshape(r, d), h1.reshape(b, n, 2 * d)
+
+    def fwd1_plain():
+        msg = M.fused_mha_reference(x, x, mask, k, h, *attn)
+        h1p = x @ w1[:d] + msg @ w1[d:] + b1
+        h1m = h1p * rowm
+        return h1p, h1m.sum((0, 1)), (h1m * h1p).sum((0, 1))
+
+    def fwd2_plain():
+        return x + (torch.relu(h1b * a + c) @ w2 + b2)
+
+    # the attention part of bwd2's plain version: autograd over a retained
+    # graph of the fused-MHA twin, as the fused-MHA backward is timed
+    xr = x.clone().requires_grad_()
+    ar = [p.clone().requires_grad_() for p in attn]
+    msg_graph = M.fused_mha_reference(xr, xr, mask, k, h, *ar)
+    msg_plain = msg_graph.detach().reshape(r, d)
+
+    def bwd2_plain():
+        hhat = (h1 - mean) * inv
+        big_g = (g2 @ w2.t()) * (hhat * scale + bias > 0) * scale
+        dh1 = inv * (big_g - (vec6[4] + hhat * vec6[5]) * rowm.reshape(r, 1))
+        dmsg, dx_mlp = dh1 @ w1[d:].t(), dh1 @ w1[:d].t()
+        dw1 = torch.cat([x2, msg_plain], 1).t() @ dh1
+        grads = torch.autograd.grad(msg_graph, [xr] + ar, dmsg.reshape(b, n, d),
+                                    retain_graph=True)
+        return g2 + dx_mlp + grads[0].reshape(r, d), dw1, dh1.sum(0), grads
+
+    lr = [p.clone().requires_grad_() for p in [x] + w]
+    y_graph = T.fused_train_layer_reference(lr[0], lr[0], mask, mask, k, h,
+                                            *lr[1:])[0]
+    times = {
+        "train_layer_fwd1": abba_ms(
+            lambda: T._tl_fwd1(x, x, mask, mask, k, h, *attn, w1, b1),
+            fwd1_plain, 10),
+        "train_layer_fwd2": abba_ms(
+            lambda: T.bn_relu_conv2(x, h1, a, c, w2, b2), fwd2_plain, 10),
+        "train_layer_bwd1": abba_ms(
+            lambda: T._tl_bwd1(g, h1, w2, vec4),
+            lambda: T.bn_backward_sums_reference(g, h1b, w2, mean, var, scale,
+                                                 bias), 10),
+        "train_layer_bwd2": abba_ms(
+            lambda: T._tl_bwd2(x, x, mask, mask, thr, lse, h1, g, vec6, h,
+                               *attn, w1, w2), bwd2_plain, 5),
+        "train_layer_forward": abba_ms(
+            lambda: T.fused_train_layer_forward(x, x, mask, mask, k, h, *w),
+            lambda: T.fused_train_layer_reference(x, x, mask, mask, k, h, *w),
+            10),
+        "train_layer_backward": abba_ms(
+            lambda: T._tl_backward(x, x, mask, mask, thr, lse, h1, mean, var,
+                                   cnt, g, h, *attn, w1, w2, scale, bias),
+            lambda: torch.autograd.grad(y_graph, lr, g, retain_graph=True), 5),
+    }
+    del y_graph, msg_graph
+
+    # bounds, counting what this run's masks need (see train_timings): the
+    # fused-MHA bounds plus the MLP products, which run over every row
+    keys = mask.sum().item()
+    kept = torch.clamp(mask.sum(1), max=k).sum().item() * h * n
+    dh = d // h
+    proj_q, proj_k = 2.0 * r * d * d, 2.0 * keys * d * d
+    score = 2.0 * h * n * dh * keys
+    act, hid = 4.0 * r * d, 4.0 * r * 2 * d
+    wa, wmlp = 4.0 * 4 * (d * d + d), 4.0 * (4 * d * d + 2 * d * d + 7 * d)
+    res = 2 * 4.0 * b * h * n                                   # thr and lse
+    mlp = 2.0 * r * d * 2 * d             # one [R, D] x [D, 2D] product
+    bounds = {
+        # x, weights and masks in; h1, thr, lse and the sums out
+        "train_layer_fwd1": (act + wa + wmlp + 2 * b * n + hid + res,
+                             2 * proj_q + 2 * proj_k + score
+                             + 2.0 * kept * dh + 2 * mlp),
+        "train_layer_fwd2": (2 * act + hid + wmlp, mlp),
+        # g, h1 in; dh2 and dw2
+        "train_layer_bwd1": (act + hid + wmlp, 2 * mlp),
+        # x, g, h1, thr, lse in; dx, dsrc and the weight gradients out;
+        # dh2 again, dmsg, dx_mlp, dw1x, dw1m, the message again
+        "train_layer_bwd2": (4 * act + hid + res + 2 * b * n + 2 * (wa + wmlp),
+                             5 * proj_q + 6 * proj_k + score
+                             + 5 * 2.0 * kept * dh + 5 * mlp + proj_q),
+    }
+    for name, (nbytes, flops) in bounds.items():
+        ms, by = bound(nbytes, flops)
+        report[name].update(ms=times[name][0], plain_ms=times[name][1],
+                            bound_ms=ms, bound_by=by, library_ms=None)
+    return times
+
+
+def train_timings(rng, dev, report, card, state, mha_state, plain_state, batch):
     """Times of the training kernels at the training shapes and of the
-    whole step, kernel / plain in turns, with each kernel's bound."""
+    whole step (whole-layer train kernels / fused-MHA route / plain, in
+    turns), with each kernel's bound."""
     import torch
     from mdgat_tpu_torch.ops.cuda import mha as M
     from mdgat_tpu_torch.ops.cuda import sinkhorn as S
@@ -1056,13 +1372,20 @@ def train_timings(rng, dev, report, card, state, plain_state, batch):
         lambda: S.log_optimal_transport_kernel(scores, 1.0, 20, mask, mask),
         lambda: S.log_optimal_transport_reference(scores, 1.0, 20, mask, mask), 3)
 
+    times.update(train_layer_timings(rng, dev, report, x, g, mask, k, h))
+
     step = make_train_step()
-    times["train_step_64x512"] = abba_ms(lambda: step(state, batch),
-                                         lambda: step(plain_state, batch), 2)
+    t_tl, t_mha, t_plain = turns_ms(
+        [lambda: step(state, batch), lambda: step(mha_state, batch),
+         lambda: step(plain_state, batch)], 2)
+    times["train_step_64x512"] = (t_tl, t_plain)
+    times["train_step_64x512_fused_mha_route"] = (t_mha, t_plain)
 
     print(f"training times on {card} (CUDA events, ms per call; kernel / plain):")
     for key, (t_k, t_p) in times.items():
         print(f"  {key}: {t_k:.4f} / {t_p:.4f}")
+    print(f"train step, three arms in turns: whole-layer train kernels "
+          f"{t_tl:.4f} ms, fused-MHA route {t_mha:.4f} ms, plain {t_plain:.4f} ms")
     report["_times_ms"].update({key: {"kernel": a, "plain": p}
                                 for key, (a, p) in times.items()})
 
@@ -1134,6 +1457,7 @@ def main() -> int:
           f"chip_smoke_out/ptxas.log")
 
     from mdgat_tpu_torch.ops.cuda import mha as M
+    from mdgat_tpu_torch.ops.cuda import train_layer as T
     counters = {
         "topk_attention": Counter(A.topk_attention),
         "eval_layer": Counter(Lk.fused_layer), "gemm": Counter(Lk.gemm),
@@ -1142,8 +1466,21 @@ def main() -> int:
         "fused_mha_bwd": Counter(M.fused_mha, "backward_launches"),
         "sinkhorn_bwd": Counter(S.log_optimal_transport_kernel,
                                 "backward_launches"),
-        "gemm_tn": Counter(Lk.gemm_tn)}
+        "gemm_tn": Counter(Lk.gemm_tn),
+        "train_layer_fwd": Counter(T.fused_train_layer, "forward_launches"),
+        "train_layer_bwd": Counter(T.fused_train_layer, "backward_launches"),
+        "train_layer_fwd1": Counter(T.h1_stats),
+        "train_layer_fwd2": Counter(T.bn_relu_conv2),
+        "train_layer_bwd1": Counter(T.bn_backward_sums),
+        "train_layer_bwd1_dw2": Counter(T.dw2_db2),
+        "train_layer_bwd2": Counter(T.dh1_kernel)}
+    tl_src = "mdgat_tpu_torch/csrc/train_layer.cu"
+    tl_line = {"fwd1": 1329, "fwd2": 1410, "bwd1": 1425, "bwd2": 1477}
     report = {
+        **{f"train_layer_{name}": dict(
+            route="cuda", source=tl_src,
+            replaces=f"mdgat_tpu/ops/pallas/attention.py:{line}")
+           for name, line in tl_line.items()},
         "fused_mha_fwd": dict(route="cuda",
                               source="mdgat_tpu_torch/csrc/attention.cu",
                               replaces="mdgat_tpu/ops/pallas/attention.py:933"),
@@ -1177,10 +1514,11 @@ def main() -> int:
     check_gemm_modes(rng, dev, report)
     check_fused_mha(rng, dev, report)
     check_sinkhorn_bwd(rng, dev, report)
+    check_train_layer(rng, dev, report)
     torch.cuda.empty_cache()
-    state, plain_state, batch = training(dev, report, counters)
+    state, mha_state, plain_state, batch = training(dev, report, counters)
     profile_train(state, batch, card, report)
-    train_timings(rng, dev, report, card, state, plain_state, batch)
+    train_timings(rng, dev, report, card, state, mha_state, plain_state, batch)
 
     kernels = [dict(name=name, **{k: report[name][k] for k in
                                   ("route", "source", "replaces", "launches",

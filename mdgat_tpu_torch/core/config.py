@@ -10,13 +10,16 @@ on a CUDA device ``use_kernels`` routes the GNN layers and the Sinkhorn
 through the hand-written kernels of ``mdgat_tpu_torch/csrc``.
 
 In eval mode that is the whole-layer kernels and the Sinkhorn forward. In
-training mode it is two kernel pairs: each layer's attention runs the
-fused-MHA forward and backward (projections, selection, softmax, merge and
-all their gradients), and the transport runs the Sinkhorn forward with its
-replay backward. The layer's MLP and train-mode BatchNorm, the encoders,
-the score product and the loss stay plain PyTorch under autograd: the JAX
-package's train step with ``pallas_train_layer=False``. Its whole-layer
-train kernels and its gap-loss kernel are not ported yet.
+training mode, with ``train_layer`` (the default, the counterpart of the JAX
+package's ``pallas_train_layer``), every GNN layer runs the whole-layer
+train kernels (``ops/cuda/train_layer.py``: attention, merge, both MLP
+convs, batch-statistic BatchNorm and the residual, forward and backward),
+and the transport runs the Sinkhorn forward with its replay backward. With
+``train_layer=False`` only each layer's attention runs on kernels (the
+fused-MHA forward / backward pair) and the layer's MLP and BatchNorm are
+plain PyTorch under autograd. The encoders, the score product and the loss
+stay plain PyTorch on either route. The JAX package's gap-loss kernel is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ class Config:
     compute_dtype: str = "float32"  # float32 | bfloat16 | float64
     param_dtype: str = "float32"
     use_kernels: bool = True        # CUDA tensors run the csrc/ kernels
+    train_layer: bool = True        # training: whole-layer kernels (else fused MHA + plain MLP)
     prefetch: int = 2
     seed: int = 0
 

@@ -13,14 +13,23 @@ model (cached here until a parameter or buffer changes); otherwise the
 plain path.
 
 Training mode (``module.train()``): a layer is applied to cloud 0, then to
-cloud 1, so its BatchNorm sees per-cloud batch statistics and its running
-stats move twice per layer (``models/gnn.py:95-96``, ``:133-139`` of the JAX
-package). The layer is ``fused_mha`` (the hand-written forward / backward
-pair of ``ops/cuda/mha.py`` on a CUDA tensor with ``use_kernels``) followed
-by the plain MLP with train-mode BatchNorm and the residual: the JAX
-package's train step with ``pallas_train_layer=False``. Its whole-layer
-train kernels are not ported yet. The layer-pair scan, remat and the
-context-parallel axis have no counterpart: PyTorch runs eagerly.
+cloud 1, both from the descriptors before the layer, so its BatchNorm sees
+per-cloud batch statistics and its running stats move twice per layer
+(``models/gnn.py:95-96``, ``:133-139`` of the JAX package). Three routes, as
+there:
+
+* ``use_kernels`` and ``train_layer`` (the default): the whole layer,
+  residual included, is ``fused_train_layer_apply``
+  (``ops/cuda/train_layer.py``): hand-written kernels forward and backward
+  on a CUDA tensor, their plain twin on a CPU tensor. Its variance is
+  single-pass. No size gate: a shape the kernels cannot take raises.
+* ``use_kernels`` without ``train_layer``: ``fused_mha`` (the kernel pair
+  of ``ops/cuda/mha.py`` on a CUDA tensor) followed by the plain MLP with
+  train-mode BatchNorm and the residual (``pallas_train_layer=False``).
+* otherwise the plain path under autograd.
+
+The layer-pair scan, remat and the context-parallel axis have no
+counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from torch import nn
 from mdgat_tpu_torch.ops.attention import multi_head_attention
 from mdgat_tpu_torch.ops.cuda.layer import (LayerWeights, fused_layer,
                                             prepare_layer_weights)
+from mdgat_tpu_torch.ops.cuda.train_layer import fused_train_layer_apply
 from mdgat_tpu_torch.ops.mlp import Conv1x1, apply_mlp, mlp, reset_mlp
 
 
@@ -102,14 +112,19 @@ class AttentionalGNN(nn.Module):
     def forward(self, desc0, desc1, k_schedule: Sequence[Optional[int]],
                 mask0: Optional[torch.Tensor] = None,
                 mask1: Optional[torch.Tensor] = None,
-                use_kernels: bool = True):
+                use_kernels: bool = True, train_layer: bool = True):
         kernels = use_kernels and desc0.device.type == "cuda"
         for layer, name, k in zip(self.layers, self.names, k_schedule):
             if name == "cross":
                 src0, src1, kvm0, kvm1 = desc1, desc0, mask1, mask0
             else:
                 src0, src1, kvm0, kvm1 = desc0, desc1, mask0, mask1
-            if self.training:
+            if self.training and use_kernels and train_layer:
+                # the residual is inside the fused layer; cloud 0 first
+                desc0, desc1 = (
+                    fused_train_layer_apply(layer, desc0, src0, k, kvm0, mask0),
+                    fused_train_layer_apply(layer, desc1, src1, k, kvm1, mask1))
+            elif self.training:
                 # cloud 0 first: the BN running stats move in that order
                 delta0 = layer(desc0, src0, k, kvm0, mask0, use_kernels)
                 delta1 = layer(desc1, src1, k, kvm1, mask1, use_kernels)

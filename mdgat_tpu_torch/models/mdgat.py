@@ -20,9 +20,11 @@ kernels; everything else is plain PyTorch.
 ``module.train()`` selects the training forward (``apply(train=True)`` of
 the JAX package): BatchNorm on batch statistics over valid points, running
 stats updated cloud 0 then cloud 1; with ``use_kernels`` on a CUDA device
-each layer's attention is the fused-MHA forward / backward kernel pair and
-the transport is the Sinkhorn kernel with its replay backward, so
-``loss.backward()`` runs on hand-written kernels too.
+each GNN layer is the whole-layer train kernels (``config.train_layer``, the
+default; without it only the attention is a kernel pair) and the transport
+is the Sinkhorn kernel with its replay backward, so ``loss.backward()`` runs
+on hand-written kernels too. With ``train_layer`` a CPU model takes the
+whole-layer kernels' plain twin, whose variance is single-pass.
 """
 
 from __future__ import annotations
@@ -95,7 +97,8 @@ class MDGAT(nn.Module):
 
         k_sched = cfg.layer_k_schedule(desc0.shape[1])
         desc0, desc1 = self.gnn(desc0, desc1, k_sched, mask0, mask1,
-                                use_kernels=cfg.use_kernels)
+                                use_kernels=cfg.use_kernels,
+                                train_layer=cfg.train_layer)
         mdesc0, mdesc1 = self.final_proj(desc0), self.final_proj(desc1)
 
         ot_dtype = torch.float32 if dt == torch.bfloat16 else dt

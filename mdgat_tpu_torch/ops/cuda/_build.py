@@ -58,6 +58,17 @@ _SIGNATURES = {
     # Z, log_mu, log_nu, scalars, out, bin_row, bin_col, corner, B, N, M,
     # iters, stream
     "mdgat_sinkhorn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, msg, w1, b1, rowmask, h1, partial, sums, D, R, io_dtype, stream
+    "mdgat_tl_h1": [_P] * 8 + [_I] * 3 + [_P],
+    # x, h1, a, c, w2, b2, y, D, R, io_dtype, stream
+    "mdgat_tl_fwd2": [_P] * 7 + [_I] * 3 + [_P],
+    # g, h1, w2, vec4, partial, sums, D, R, io_dtype, stream
+    "mdgat_tl_bwd_sums": [_P] * 6 + [_I] * 3 + [_P],
+    # h1, vec4, g, partial, out, D, R, rows_per_split, splits, io_dtype,
+    # stream
+    "mdgat_tl_dw2": [_P] * 5 + [_I] * 5 + [_P],
+    # g, h1, w2, vec6, rowmask, dh1, D, R, io_dtype, stream
+    "mdgat_tl_dh1": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 

@@ -79,12 +79,13 @@ def _split_blocked(t: torch.Tensor, h: int) -> torch.Tensor:
 
 def fused_mha_reference(x, source, kv_mask: Optional[torch.Tensor],
                         topk: Optional[int], num_heads: int, wq, bq, wk, bk,
-                        wv, bv, wm, bm, return_residuals: bool = False):
+                        wv, bv, wm, bm, return_residuals: bool = False,
+                        out_dtype: Optional[torch.dtype] = None):
     """Plain PyTorch twin of :func:`fused_mha` on the same blocked weights:
     the same order of operations, differentiable by autograd with the
     selection frozen (see ``ops/attention.py::attention_core``). Returns
-    the output ``[B, N, D]`` in ``x``'s dtype and, with
-    ``return_residuals``, ``thr`` and ``lse`` ``[B, H, N, 1]``."""
+    the output ``[B, N, D]`` in ``out_dtype`` (default ``x``'s dtype) and,
+    with ``return_residuals``, ``thr`` and ``lse`` ``[B, H, N, 1]``."""
     acc = acc_dtype(x.dtype)
     cast = lambda t: t.to(acc)
     xf, sf = cast(x), cast(source)
@@ -94,7 +95,7 @@ def fused_mha_reference(x, source, kv_mask: Optional[torch.Tensor],
     s = torch.matmul(q, k.transpose(-1, -2))          # scale folded into wq
     o, thr, lse = attention_core(s, v, kv_mask, topk, return_lse=True)
     out = (o.permute(0, 2, 1, 3).reshape(x.shape) @ cast(wm)
-           + cast(bm)).to(x.dtype)
+           + cast(bm)).to(out_dtype or x.dtype)
     if return_residuals:
         return out, thr.to(acc), lse.to(acc)
     return out
@@ -120,16 +121,25 @@ def _check_inputs(x, source, kv_mask, num_heads, weights):
                              "[D, D] / [D] on the input's device")
 
 
-def _mha_forward(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv, wm, bm):
-    """The forward launches: (out [B, N, D], thr, lse [B, H, N, 1])."""
-    b, n, d = x.shape
-    m = source.shape[1]
+def _project_attend(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv):
+    """The q, k, v projections and the attention kernel with its ``lse``
+    output: (o [B, H, N, Dh] f32, thr, lse [B, H, N, 1]). Shared with the
+    whole-layer train kernels (``ops/cuda/train_layer.py``), so it counts
+    nothing: each caller counts its own launches."""
+    n, m = x.shape[1], source.shape[1]
     f32 = torch.float32
     q = gemm(x, wq, bq, out_dtype=f32, out_heads=h, rows_per_batch=n)
     k = gemm(source, wk, bk, out_dtype=f32, out_heads=h, rows_per_batch=m)
     v = gemm(source, wv, bv, out_dtype=f32, out_heads=h, rows_per_batch=m)
-    o, thr, lse = attn_kernel.topk_attention(q, k, v, kv_mask, int(topk or 0),
-                                             1.0, return_lse=True)
+    return attn_kernel.topk_attention(q, k, v, kv_mask, int(topk or 0), 1.0,
+                                      return_lse=True)
+
+
+def _mha_forward(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv, wm, bm):
+    """The forward launches: (out [B, N, D], thr, lse [B, H, N, 1])."""
+    b, n, d = x.shape
+    o, thr, lse = _project_attend(x, source, kv_mask, topk, h, wq, bq, wk,
+                                  bk, wv, bv)
     fused_mha.forward_launches += 1
     out = gemm(o, wm, bm, a1_heads=h, rows_per_batch=n, out_dtype=x.dtype)
     return out.reshape(b, n, d), thr, lse
@@ -138,7 +148,8 @@ def _mha_forward(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv, wm, bm):
 def _attention_backward(q, k, v, do, kv_mask, thr, lse):
     """The two launches of ``csrc/mha_bwd.cu`` on head-split q, do
     ``[B, H, N, Dh]`` and k, v ``[B, H, M, Dh]``: (o, dq) ``[B*N, D]`` and
-    (dk, dv) ``[B*M, D]`` with head-blocked columns."""
+    (dk, dv) ``[B*M, D]`` with head-blocked columns. Counts nothing (see
+    :func:`_project_attend`)."""
     b, h, n, dh = q.shape
     m = k.shape[2]
     dev, f32 = q.device, torch.float32
@@ -158,14 +169,17 @@ def _attention_backward(q, k, v, do, kv_mask, thr, lse):
                        thr.data_ptr(), lse.data_ptr(), o_full.data_ptr(),
                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                        delta.data_ptr(), b, h, n, m, dh, stream)
-    fused_mha.backward_launches += 1
     return o_full, dq, dk, dv
 
 
-def _mha_backward(x, source, kv_mask, thr, lse, g, h, wq, bq, wk, bk, wv, bv,
-                  wm):
+def _mha_backward_launches(x, source, kv_mask, thr, lse, g, h, wq, bq, wk, bk,
+                           wv, bv, wm, dx_res=None):
     """The backward launches: (dx, dsrc, dwq, dbq, dwk, dbk, dwv, dbv, dwm,
-    dbm), weights blocked as they came in."""
+    dbm, o), weights blocked as they came in; ``o`` ``[B*N, D]`` is the
+    attention output the rows kernel rebuilt. ``g`` is ``[B, N, D]`` or
+    ``[B*N, D]``. With ``dx_res`` (float32 ``[B*N, D]``) ``dx`` is
+    ``dx_res + dq @ wq^T`` in float32, the sum made in the GEMM's epilogue.
+    Counts nothing (see :func:`_project_attend`)."""
     b, n, d = x.shape
     m = source.shape[1]
     f32 = torch.float32
@@ -176,7 +190,8 @@ def _mha_backward(x, source, kv_mask, thr, lse, g, h, wq, bq, wk, bk, wv, bv,
     do = gemm(g, wm, None, out_dtype=f32, out_heads=h, rows_per_batch=n,
               w_trans=True)                                  # g @ wm^T
     o_full, dq, dk, dv = _attention_backward(q, k, v, do, kv_mask, thr, lse)
-    dx = gemm(dq, wq, None, out_dtype=x.dtype, w_trans=True)
+    dx = gemm(dq, wq, None, w_trans=True, res=dx_res,
+              out_dtype=x.dtype if dx_res is None else dx_res.dtype)
     dsrc = gemm(dk, torch.cat([wk, wv], dim=1), None, a2=dv,
                 out_dtype=source.dtype, w_trans=True)
     x2 = x.reshape(b * n, d).to(f32)
@@ -186,7 +201,17 @@ def _mha_backward(x, source, kv_mask, thr, lse, g, h, wq, bq, wk, bk, wv, bv,
     dwv, dbv = gemm_tn(s2, dv)
     dwm, dbm = gemm_tn(o_full, g.reshape(b * n, d).to(f32))
     return (dx.reshape(b, n, d), dsrc.reshape(b, m, d), dwq, dbq, dwk, dbk,
-            dwv, dbv, dwm, dbm)
+            dwv, dbv, dwm, dbm, o_full)
+
+
+def _mha_backward(x, source, kv_mask, thr, lse, g, h, wq, bq, wk, bk, wv, bv,
+                  wm):
+    """:func:`_mha_backward_launches` for :func:`fused_mha`, counted: its
+    ten gradients."""
+    grads = _mha_backward_launches(x, source, kv_mask, thr, lse, g, h, wq, bq,
+                                   wk, bk, wv, bv, wm)
+    fused_mha.backward_launches += 1
+    return grads[:10]
 
 
 class _FusedMHA(torch.autograd.Function):
@@ -237,7 +262,8 @@ def fused_mha_forward(x, source, kv_mask, topk, num_heads, *weights):
                             topk, num_heads, *weights)
 
 
-# counted where the attention kernel with its lse output (the forward) and
-# the two kernels of csrc/mha_bwd.cu (the backward) are launched
+# counted where fused_mha's own forward and backward string their launches
+# together (the attention kernel with its lse output; the two kernels of
+# csrc/mha_bwd.cu), not where the whole-layer train kernels reuse them
 fused_mha.forward_launches = 0
 fused_mha.backward_launches = 0

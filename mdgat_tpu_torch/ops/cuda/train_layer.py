@@ -1,0 +1,490 @@
+"""Whole attentional-propagation layer under TRAINING semantics on
+hand-written kernels, forward and backward, and its plain twin.
+
+Replaces ``mdgat_tpu/ops/pallas/attention.py::fused_train_layer`` (a custom
+VJP over ``_tl_fwd_calls`` -> ``_tl_fwd1_kernel`` / ``_tl_fwd2_kernel`` and
+``_ftl_bwd`` -> ``_tl_bwd1_kernel`` / ``_tl_bwd2_kernel``) and its entry
+``fused_train_layer_apply``: ``y = x + MLP(cat(x, merge(MHA(x, source))))``
+with batch-statistic BatchNorm inside the MLP, the residual inside the
+layer, and the running statistics moved outside it.
+
+What each TPU kernel becomes (``csrc/train_layer.cu`` has the new device
+code; the attention and the plain products are the kernels the fused-MHA
+pair already runs):
+
+* fwd1, eight launches: q, k, v, attention (with ``thr`` / ``lse``) and the
+  merge, exactly as ``ops/cuda/mha.py`` launches them, then
+  :func:`h1_stats`: ``h1 = cat(x, msg) @ w1 + b1`` with the masked
+  per-channel sum and sum of squares taken from the float32 accumulator in
+  the epilogue (per-block partials, then a fixed-order reduce).
+* the mean / variance / BN-affine step between the two forward kernels is
+  tensor code on ``[2D]`` vectors on the device, as it is XLA code outside
+  the Pallas kernels; the count of valid rows stays a device tensor.
+* fwd2, one launch: :func:`bn_relu_conv2`, ``y = x + relu(h1 * a + c) @ w2
+  + b2`` with the affine and the ReLU applied while the A tile is loaded.
+* bwd1, four launches: :func:`bn_backward_sums` (``Sg``, ``Sgh``,
+  ``dscale``, ``dbias`` over ALL rows, from ``dh2 = g @ w2^T`` formed tile by
+  tile and never stored) and :func:`dw2_db2` (``relu(bn(h1))^T g`` and the
+  column sums of ``g``), each with its fixed-order reduce.
+* bwd2, 23 launches: :func:`dh1_kernel` writes ``dh1`` once; ``dmsg`` and
+  ``g + dx_mlp`` by the transposed-W GEMM; the fifteen launches of the
+  fused-MHA backward with ``g := dmsg`` and ``g + dx_mlp`` added in the last
+  epilogue; the message again by the merge GEMM; ``dw1x`` / ``db1`` and
+  ``dw1m`` by the transposed-A GEMM.
+
+No ``torch.matmul``, cuBLAS, SDPA or autograd-through-the-MLP runs on a CUDA
+tensor in either direction, and no atomics: every cross-row sum is per-block
+partials added in a fixed order, so the gradients carry the same bits on
+every run.
+
+Semantics that differ from the unfused route (``ops/mlp.py::BatchNorm``),
+as they differ in the JAX package: the variance is single-pass,
+``max(ssq / cnt - mean^2, 0)`` in the accumulation dtype, and the running
+variance moves towards that value times ``cnt / max(cnt - 1, 1)``. ``h1``
+is stored in ``x``'s dtype; the sums are taken before that rounding and
+everything downstream reads the stored value. The BN backward's two
+reduction vectors run over every row, padded ones too (every row is
+normalised with the batch statistics); the row mask enters only as the
+factor on the centering correction of ``dh1``.
+
+A CUDA tensor launches the kernels; a CPU tensor takes
+:func:`fused_train_layer_reference` under autograd. Nothing falls back, and
+no size gate steps down to another route: a CUDA call the kernels cannot
+take (more than 1024 keys, a head size the attention kernel lacks) raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from mdgat_tpu_torch.ops.attention import acc_dtype
+from mdgat_tpu_torch.ops.cuda import mha
+from mdgat_tpu_torch.ops.cuda._build import DTYPE_CODES, library
+from mdgat_tpu_torch.ops.cuda.layer import (TN_ROWS_PER_SPLIT, gemm, gemm_tn)
+from mdgat_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
+
+_ROWS_PER_BLOCK = 64      # BM of csrc/train_layer.cu: one partial per block
+
+
+def train_layer_weights(layer):
+    """The fourteen operands of an ``AttentionalPropagation`` in the
+    accumulation dtype: the eight head-blocked attention weights of
+    :func:`~mdgat_tpu_torch.ops.cuda.mha.blocked_weights`, then ``w1
+    [2D, 2D]`` (rows ``[:D]`` multiply x, rows ``[D:]`` the message, which
+    is in natural channel order and needs no permutation), ``b1 [2D]``,
+    ``w2 [2D, D]``, ``b2 [D]`` in ``[in, out]`` layout, and the BatchNorm
+    scale and bias ``[2D]``. Differentiable: autograd carries the kernels'
+    gradients back to the ``Conv1x1`` / ``BatchNorm`` parameters."""
+    conv1, bn, _, conv2 = layer.mlp
+    dt = acc_dtype(conv1.weight.dtype)
+    dense = lambda conv: conv.weight[:, :, 0].t().to(dt).contiguous()
+    return (*mha.blocked_weights(layer.attn, layer.num_heads),
+            dense(conv1), conv1.bias.to(dt), dense(conv2), conv2.bias.to(dt),
+            bn.weight.to(dt), bn.bias.to(dt))
+
+
+def _row_count(x, valid_mask, dtype):
+    """Rows that enter the batch statistics, floored at 1: a 0-dim tensor on
+    ``x``'s device (no host sync)."""
+    if valid_mask is None:
+        return torch.full((), float(x.shape[0] * x.shape[1]), dtype=dtype,
+                          device=x.device)
+    return valid_mask.sum().to(dtype).clamp_min(1.0)
+
+
+def _batch_stats(ssum, ssq, cnt):
+    """Single-pass batch mean and biased variance from the masked sums."""
+    mean = ssum / cnt
+    return mean, ssq / cnt - mean * mean
+
+
+def fused_train_layer_reference(x, source, kv_mask: Optional[torch.Tensor],
+                                valid_mask: Optional[torch.Tensor],
+                                topk: Optional[int], num_heads: int,
+                                wq, bq, wk, bk, wv, bv, wm, bm, w1, b1, w2,
+                                b2, bn_scale, bn_bias,
+                                return_residuals: bool = False):
+    """Plain PyTorch twin of :func:`fused_train_layer` on the same operands:
+    ``(y, batch_mean, batch_var)``, or with ``return_residuals`` ``(y, mean,
+    var, h1, thr, lse, ssum, ssq)``. Differentiable by autograd with the
+    selection frozen; the variance is single-pass and ``h1`` is rounded to
+    ``x``'s dtype where the kernels round it (module docstring). The clamp
+    of the variance at zero passes its gradient straight through, as the
+    kernels' backward formula does."""
+    acc = acc_dtype(x.dtype)
+    cast = lambda t: t.to(acc)
+    d = x.shape[-1]
+    xf = cast(x)
+    msg, thr, lse = mha.fused_mha_reference(
+        x, source, kv_mask, topk, num_heads, wq, bq, wk, bk, wv, bv, wm, bm,
+        return_residuals=True, out_dtype=acc)
+    w1f = cast(w1)
+    h1f = xf @ w1f[:d] + msg @ w1f[d:] + cast(b1)
+    h1m = h1f if valid_mask is None else h1f * valid_mask[..., None].to(acc)
+    ssum, ssq = h1m.sum(dim=(0, 1)), (h1m * h1f).sum(dim=(0, 1))
+    mean, raw = _batch_stats(ssum, ssq, _row_count(x, valid_mask, acc))
+    var = raw + (raw.clamp_min(0.0) - raw).detach()
+    inv = torch.rsqrt(var + BN_EPS)
+    a = cast(bn_scale) * inv
+    c = cast(bn_bias) - mean * a
+    h1 = h1f.to(x.dtype)
+    u = torch.relu(cast(h1) * a + c)
+    y = (xf + (u @ cast(w2) + cast(b2))).to(x.dtype)
+    mean, var = mean.detach(), var.detach()
+    if return_residuals:
+        return (y, mean, var, h1.detach(), thr, lse, ssum.detach(),
+                ssq.detach())
+    return y, mean, var
+
+
+def bn_backward_sums_reference(g, h1, w2, mean, var, bn_scale, bn_bias):
+    """Plain twin of the bwd1 kernels: ``(Sg, Sgh, dw2, db2, dscale,
+    dbias)`` for the cotangent ``g [B, N, D]`` of ``y`` and the stored
+    ``h1 [B, N, 2D]``, every sum over ALL rows (``_tl_bwd1_kernel``)."""
+    acc = acc_dtype(h1.dtype)
+    gf = g.to(h1.dtype).to(acc).reshape(-1, g.shape[-1])
+    hhat = (h1.to(acc).reshape(gf.shape[0], -1) - mean) * torch.rsqrt(var + BN_EPS)
+    bn = hhat * bn_scale + bn_bias
+    dbn = (gf @ w2.to(acc).t()) * (bn > 0)
+    big_g = dbn * bn_scale
+    return (big_g.sum(0), (big_g * hhat).sum(0), torch.relu(bn).t() @ gf,
+            gf.sum(0), (dbn * hhat).sum(0), dbn.sum(0))
+
+
+# ---------------------------------------------------------------------------
+# launch wrappers of csrc/train_layer.cu (CUDA tensors only)
+# ---------------------------------------------------------------------------
+
+def _launch(name, ref, *args):
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        library().call(name, *args, stream)
+
+
+def _rows(t):
+    return t.numel() // t.shape[-1]
+
+
+def _row_mask(valid_mask):
+    """uint8 ``[B*N]`` for the kernels, or None (every row valid)."""
+    return (None if valid_mask is None
+            else valid_mask.to(torch.uint8).contiguous())
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _require_cuda(*tensors):
+    for t in tensors:
+        if t is not None and not (t.device.type == "cuda" and t.is_contiguous()
+                                  and t.device == tensors[0].device):
+            raise ValueError("train-layer kernels take contiguous CUDA "
+                             "tensors on one device")
+
+
+def h1_stats(x, msg, w1, b1, row_mask):
+    """``(h1 [R, 2D] in x's dtype, sums [2, 2D] float32)``: ``cat(x, msg) @
+    w1 + b1`` and the column sums of ``h1 * rowmask`` and ``h1^2 * rowmask``
+    taken before the rounding to ``x``'s dtype. ``x [.., D]``, ``msg [R, D]``
+    float32, ``row_mask`` uint8 ``[R]`` or None."""
+    _require_cuda(x, msg, w1, b1, row_mask)
+    d, r = x.shape[-1], _rows(x)
+    if (x.dtype not in DTYPE_CODES or msg.dtype != torch.float32
+            or msg.numel() != r * d or w1.shape != (2 * d, 2 * d)
+            or b1.shape != (2 * d,)
+            or any(t.dtype != torch.float32 for t in (w1, b1))
+            or (row_mask is not None and row_mask.numel() != r)):
+        raise ValueError("h1_stats kernel: operand dtypes or shapes")
+    f32, dev = torch.float32, x.device
+    h1 = torch.empty((r, 2 * d), dtype=x.dtype, device=dev)
+    partial = torch.empty((-(-r // _ROWS_PER_BLOCK), 2, 2 * d), dtype=f32,
+                          device=dev)
+    sums = torch.empty((2, 2 * d), dtype=f32, device=dev)
+    _launch("mdgat_tl_h1", x, x.data_ptr(), msg.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), _ptr(row_mask), h1.data_ptr(), partial.data_ptr(),
+            sums.data_ptr(), d, r, DTYPE_CODES[x.dtype])
+    h1_stats.launches += 1
+    return h1, sums
+
+
+h1_stats.launches = 0
+
+
+def bn_relu_conv2(x, h1, a, c, w2, b2):
+    """``y = x + relu(h1 * a + c) @ w2 + b2`` in x's dtype and shape."""
+    _require_cuda(x, h1, a, c, w2, b2)
+    d, r = x.shape[-1], _rows(x)
+    if (x.dtype not in DTYPE_CODES or h1.dtype != x.dtype
+            or h1.numel() != r * 2 * d or w2.shape != (2 * d, d)
+            or a.shape != (2 * d,) or c.shape != (2 * d,) or b2.shape != (d,)
+            or any(t.dtype != torch.float32 for t in (a, c, w2, b2))):
+        raise ValueError("bn_relu_conv2 kernel: operand dtypes or shapes")
+    y = torch.empty_like(x)
+    _launch("mdgat_tl_fwd2", x, x.data_ptr(), h1.data_ptr(), a.data_ptr(),
+            c.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(), d, r,
+            DTYPE_CODES[x.dtype])
+    bn_relu_conv2.launches += 1
+    return y
+
+
+bn_relu_conv2.launches = 0
+
+
+def _check_backward_operands(what, g, h1, w2, vec, vec_rows):
+    _require_cuda(g, h1, w2, vec)
+    d, r = g.shape[-1], _rows(g)
+    if (g.dtype not in DTYPE_CODES or h1.dtype != g.dtype
+            or h1.numel() != r * 2 * d or w2.shape != (2 * d, d)
+            or vec.shape != (vec_rows, 2 * d)
+            or any(t.dtype != torch.float32 for t in (w2, vec))):
+        raise ValueError(f"{what} kernel: operand dtypes or shapes")
+    return d, r
+
+
+def bn_backward_sums(g, h1, w2, vec4):
+    """``[4, 2D]`` float32: ``Sg``, ``Sgh``, ``dscale``, ``dbias`` over all
+    rows of ``g [.., D]`` and ``h1 [R, 2D]`` (one dtype); ``vec4 [4, 2D]``
+    holds mean, inv, scale, bias."""
+    d, r = _check_backward_operands("bn_backward_sums", g, h1, w2, vec4, 4)
+    f32, dev = torch.float32, g.device
+    partial = torch.empty((-(-r // _ROWS_PER_BLOCK), 4, 2 * d), dtype=f32,
+                          device=dev)
+    sums = torch.empty((4, 2 * d), dtype=f32, device=dev)
+    _launch("mdgat_tl_bwd_sums", g, g.data_ptr(), h1.data_ptr(),
+            w2.data_ptr(), vec4.data_ptr(), partial.data_ptr(),
+            sums.data_ptr(), d, r, DTYPE_CODES[g.dtype])
+    bn_backward_sums.launches += 1
+    return sums
+
+
+bn_backward_sums.launches = 0
+
+
+def dw2_db2(g, h1, vec4):
+    """``(dw2 [2D, D], db2 [D])`` float32: ``relu(bn(h1))^T g`` and the
+    column sums of ``g``, the rows split over blocks of
+    ``TN_ROWS_PER_SPLIT`` and added in a fixed order."""
+    _require_cuda(g, h1, vec4)
+    d, r = g.shape[-1], _rows(g)
+    if (g.dtype not in DTYPE_CODES or h1.dtype != g.dtype
+            or h1.numel() != r * 2 * d or vec4.shape != (4, 2 * d)
+            or vec4.dtype != torch.float32):
+        raise ValueError("dw2_db2 kernel: operand dtypes or shapes")
+    f32, dev = torch.float32, g.device
+    splits = -(-r // TN_ROWS_PER_SPLIT)
+    partial = torch.empty((splits, 2 * d + 1, d), dtype=f32, device=dev)
+    out = torch.empty((2 * d + 1, d), dtype=f32, device=dev)
+    _launch("mdgat_tl_dw2", g, h1.data_ptr(), vec4.data_ptr(), g.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), d, r, TN_ROWS_PER_SPLIT,
+            splits, DTYPE_CODES[g.dtype])
+    dw2_db2.launches += 1
+    return out[:2 * d], out[2 * d]
+
+
+dw2_db2.launches = 0
+
+
+def dh1_kernel(g, h1, w2, vec6, row_mask):
+    """``dh1 [R, 2D]`` float32 ``= inv * (G - (c1 + hhat * c2) * rowmask)``
+    with ``G = (g @ w2^T) * (bn > 0) * scale``; ``vec6 [6, 2D]`` holds mean,
+    inv, scale, bias, ``Sg / cnt``, ``Sgh / cnt``."""
+    d, r = _check_backward_operands("dh1", g, h1, w2, vec6, 6)
+    _require_cuda(g, row_mask)
+    if row_mask is not None and row_mask.numel() != r:
+        raise ValueError("dh1 kernel: row mask shape")
+    dh1 = torch.empty((r, 2 * d), dtype=torch.float32, device=g.device)
+    _launch("mdgat_tl_dh1", g, g.data_ptr(), h1.data_ptr(), w2.data_ptr(),
+            vec6.data_ptr(), _ptr(row_mask), dh1.data_ptr(), d, r,
+            DTYPE_CODES[g.dtype])
+    dh1_kernel.launches += 1
+    return dh1
+
+
+dh1_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the layer: launch helpers, autograd Function, entries
+# ---------------------------------------------------------------------------
+
+def _tl_fwd1(x, source, kv_mask, valid_mask, topk, h, wq, bq, wk, bk, wv, bv,
+             wm, bm, w1, b1):
+    """The launches that stand for ``_tl_fwd1_kernel``: ``(h1 [B*N, 2D],
+    thr, lse, sums [2, 2D])``, sums = the masked ``ssum`` and ``ssq``."""
+    # the launches of the fused-MHA forward, by the same kernels: thr and
+    # lse carry its bits
+    o, thr, lse = mha._project_attend(x, source, kv_mask, topk, h, wq, bq, wk,
+                                      bk, wv, bv)
+    msg = gemm(o, wm, bm, a1_heads=h, rows_per_batch=x.shape[1],
+               out_dtype=torch.float32)
+    h1, sums = h1_stats(x, msg, w1, b1, _row_mask(valid_mask))
+    return h1, thr, lse, sums
+
+
+def _tl_forward(x, source, kv_mask, valid_mask, topk, h, wq, bq, wk, bk, wv,
+                bv, wm, bm, w1, b1, w2, b2, bn_scale, bn_bias):
+    """The forward launches: ``(y, mean, var, cnt, h1, thr, lse, sums)``."""
+    h1, thr, lse, sums = _tl_fwd1(x, source, kv_mask, valid_mask, topk, h, wq,
+                                  bq, wk, bk, wv, bv, wm, bm, w1, b1)
+    cnt = _row_count(x, valid_mask, torch.float32)
+    mean, var = _batch_stats(sums[0], sums[1], cnt)
+    var = var.clamp_min(0.0)
+    a = bn_scale * torch.rsqrt(var + BN_EPS)
+    y = bn_relu_conv2(x, h1, a, bn_bias - mean * a, w2, b2)
+    fused_train_layer.forward_launches += 1
+    return y, mean, var, cnt, h1, thr, lse, sums
+
+
+def _tl_bwd1(g, h1, w2, vec4):
+    """The launches that stand for ``_tl_bwd1_kernel``: ``(sums [4, 2D] =
+    Sg, Sgh, dscale, dbias; dw2; db2)``, every sum over ALL rows, padded
+    ones included."""
+    return (bn_backward_sums(g, h1, w2, vec4), *dw2_db2(g, h1, vec4))
+
+
+def _tl_bwd2(x, source, kv_mask, valid_mask, thr, lse, h1, g, vec6, h, wq, bq,
+             wk, bk, wv, bv, wm, bm, w1, w2):
+    """The launches that stand for ``_tl_bwd2_kernel``: ``(dx, dsrc, dwq,
+    dbq, dwk, dbk, dwv, dbv, dwm, dbm, dw1, db1)``."""
+    b, n, d = x.shape
+    f32 = torch.float32
+    # the row mask enters here, as the factor on the centering correction
+    dh1 = dh1_kernel(g, h1, w2, vec6, _row_mask(valid_mask))
+    dmsg = gemm(dh1, w1[d:], None, w_trans=True)                # dh1 @ w1m^T
+    g32 = g.reshape(b * n, d).to(f32)
+    dx_res = gemm(dh1, w1[:d], None, w_trans=True, res=g32)     # g + dx_mlp
+    # q and k again by the forward's kernels, so s >= thr keeps the
+    # forward's entries; dx = g + dx_mlp + dx_attn in the last epilogue
+    (dx, dsrc, dwq, dbq, dwk, dbk, dwv, dbv, dwm, dbm,
+     o) = mha._mha_backward_launches(x, source, kv_mask, thr, lse, dmsg, h,
+                                     wq, bq, wk, bk, wv, bv, wm,
+                                     dx_res=dx_res)
+    msg = gemm(o, wm, bm)
+    dw1x, db1 = gemm_tn(x.reshape(b * n, d).to(f32), dh1)
+    dw1m, _ = gemm_tn(msg, dh1)
+    return (dx.to(x.dtype), dsrc, dwq, dbq, dwk, dbk, dwv, dbv, dwm, dbm,
+            torch.cat([dw1x, dw1m]), db1)
+
+
+def _tl_backward(x, source, kv_mask, valid_mask, thr, lse, h1, mean, var, cnt,
+                 g, h, wq, bq, wk, bk, wv, bv, wm, bm, w1, w2, bn_scale,
+                 bn_bias):
+    """The backward launches: ``(dx, dsrc, dwq, dbq, dwk, dbk, dwv, dbv, dwm,
+    dbm, dw1, db1, dw2, db2, dscale, dbias)``; the weight gradients are
+    float32, blocked as the weights came in."""
+    g = g.to(x.dtype).contiguous()
+    vec4 = torch.stack([mean, torch.rsqrt(var + BN_EPS), bn_scale, bn_bias])
+    sums, dw2, db2 = _tl_bwd1(g, h1, w2, vec4)
+    vec6 = torch.cat([vec4, sums[:2] / cnt])
+    grads = _tl_bwd2(x, source, kv_mask, valid_mask, thr, lse, h1, g, vec6, h,
+                     wq, bq, wk, bk, wv, bv, wm, bm, w1, w2)
+    fused_train_layer.backward_launches += 1
+    return grads + (dw2, db2, sums[2], sums[3])
+
+
+class _FusedTrainLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, source, kv_mask, valid_mask, topk, num_heads,
+                *weights):
+        y, mean, var, cnt, h1, thr, lse, _ = _tl_forward(
+            x, source, kv_mask, valid_mask, topk, num_heads, *weights)
+        wq, bq, wk, bk, wv, bv, wm, bm, w1, _, w2, _, scale, bias = weights
+        ctx.save_for_backward(x, source, thr, lse, h1, mean, var, cnt, wq, bq,
+                              wk, bk, wv, bv, wm, bm, w1, w2, scale, bias)
+        ctx.masks, ctx.num_heads = (kv_mask, valid_mask), num_heads
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _g_mean, _g_var):
+        x, source, thr, lse, h1, mean, var, cnt, *weights = ctx.saved_tensors
+        grads = _tl_backward(x, source, *ctx.masks, thr, lse, h1, mean, var,
+                             cnt, g, ctx.num_heads, *weights)
+        return (grads[0], grads[1], None, None, None, None) + grads[2:]
+
+
+def _check_inputs(x, source, kv_mask, valid_mask, num_heads, weights):
+    mha._check_inputs(x, source, kv_mask, num_heads, weights[:8])
+    b, n, d = x.shape
+    if valid_mask is not None and valid_mask.shape != (b, n):
+        raise ValueError("train-layer kernels: valid_mask must be [B, N]")
+    shapes = ((2 * d, 2 * d), (2 * d,), (2 * d, d), (d,), (2 * d,), (2 * d,))
+    for w, shape in zip(weights[8:], shapes):
+        if (w.shape != shape or w.dtype != torch.float32
+                or w.device != x.device):
+            raise ValueError("train-layer kernels: MLP and BatchNorm "
+                             "operands must be float32 [2D, 2D], [2D], "
+                             "[2D, D], [D], [2D], [2D] on the input's device")
+
+
+def fused_train_layer(x, source, kv_mask: Optional[torch.Tensor],
+                      valid_mask: Optional[torch.Tensor],
+                      topk: Optional[int], num_heads: int, *weights):
+    """``(y, batch_mean, batch_var)`` of one training layer: ``x [B, N, D]``
+    attending to ``source [B, M, D]`` under the key mask ``[B, M]``, the
+    batch statistics over the rows ``valid_mask [B, N]`` marks, on the
+    operands of :func:`train_layer_weights`; ``topk`` None or 0 is dense.
+    ``y`` includes the residual and is differentiable in x, source and the
+    fourteen operands; the mean and the biased variance ``[2D]`` feed the
+    running statistics and carry no gradient."""
+    if x.device.type == "cpu":
+        return fused_train_layer_reference(x, source, kv_mask, valid_mask,
+                                           topk, num_heads, *weights)
+    weights = tuple(w.contiguous() for w in weights)
+    _check_inputs(x, source, kv_mask, valid_mask, num_heads, weights)
+    return _FusedTrainLayer.apply(x.contiguous(), source.contiguous(),
+                                  kv_mask, valid_mask, topk, num_heads,
+                                  *weights)
+
+
+def fused_train_layer_forward(x, source, kv_mask, valid_mask, topk, num_heads,
+                              *weights):
+    """``(y, mean, var, h1, thr, lse, ssum, ssq)`` of the forward alone, no
+    autograd (``_tl_fwd_calls`` of the JAX package): the outputs and what
+    the backward is given."""
+    if x.device.type == "cpu":
+        with torch.no_grad():
+            return fused_train_layer_reference(
+                x, source, kv_mask, valid_mask, topk, num_heads, *weights,
+                return_residuals=True)
+    weights = tuple(w.detach().contiguous() for w in weights)
+    _check_inputs(x, source, kv_mask, valid_mask, num_heads, weights)
+    with torch.no_grad():
+        y, mean, var, _, h1, thr, lse, sums = _tl_forward(
+            x.contiguous(), source.contiguous(), kv_mask, valid_mask, topk,
+            num_heads, *weights)
+    return (y, mean, var, h1.reshape(*x.shape[:2], -1), thr, lse, sums[0],
+            sums[1])
+
+
+# whole-layer passes, counted beside the launches of the new kernels (the
+# forward's h1_stats and bn_relu_conv2, the backward's bn_backward_sums,
+# dw2_db2 and dh1_kernel); fused_mha's own counters stay still on this route
+fused_train_layer.forward_launches = 0
+fused_train_layer.backward_launches = 0
+
+
+def fused_train_layer_apply(layer, x, source, topk: Optional[int],
+                            kv_mask: Optional[torch.Tensor] = None,
+                            valid_mask: Optional[torch.Tensor] = None):
+    """Training-mode entry for an ``AttentionalPropagation``: ``y = x +
+    delta`` from :func:`fused_train_layer`, and the layer's BatchNorm
+    running statistics moved in place (momentum ``BN_MOMENTUM``, the
+    single-pass variance unbiased by ``cnt / max(cnt - 1, 1)``,
+    ``num_batches_tracked`` ticked)."""
+    y, mean, var = fused_train_layer(x, source, kv_mask, valid_mask, topk,
+                                     layer.num_heads,
+                                     *train_layer_weights(layer))
+    bn = layer.mlp[1]
+    with torch.no_grad():
+        cnt = _row_count(x, valid_mask, mean.dtype)
+        unbiased = var * (cnt / (cnt - 1.0).clamp_min(1.0))
+        rdt = bn.running_mean.dtype
+        bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.to(rdt))
+        bn.running_var.mul_(1 - BN_MOMENTUM).add_(
+            BN_MOMENTUM * unbiased.to(rdt))
+        bn.num_batches_tracked += 1
+    return y

@@ -15,10 +15,11 @@ the port's state owns the module and the optimizer and a step updates them
 in place. The step runs where the state was created: ``device`` is
 explicit, a CUDA device that is not there raises, and TF32 is switched off
 on the card as ``Matcher`` does. With ``config.use_kernels`` on a CUDA
-device a step launches, per GNN layer and cloud, the fused-MHA forward and
-backward kernels, and the Sinkhorn forward and replay-backward kernels
-once each; the MLPs, BatchNorm, the encoders, the score product and the loss
-are plain PyTorch under autograd.
+device a step launches, per GNN layer and cloud, the whole-layer train
+kernels forward and backward (``config.train_layer``, the default; without
+it the fused-MHA pair, with the layer's MLP and BatchNorm plain), and the
+Sinkhorn forward and replay-backward kernels once each; the encoders, the
+score product and the loss are plain PyTorch under autograd.
 """
 
 from __future__ import annotations

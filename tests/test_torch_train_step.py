@@ -5,10 +5,13 @@ masks on): loss, ``grad_norm``, every gradient, every updated parameter and
 every BatchNorm running statistic, after one step and after three, for each
 of the three losses at batch 4; and save -> resume -> the same next step.
 
-The JAX package runs once with every Pallas kernel off at float64 (tight
-tolerances) and once as the port's training path is laid out: fused-MHA and
-Sinkhorn kernel pairs in interpret mode with exact top-k and
-``pallas_train_layer=False``, at float32.
+The JAX package runs with every Pallas kernel off at float64 (tight
+tolerances), and at float32 as each of the port's two kernel routes is laid
+out, in interpret mode with exact top-k: at its default routing (whole-layer
+train kernels, ``pallas_train_layer=True``) against the port's default
+``train_layer=True``, and with ``pallas_train_layer=False`` (fused-MHA and
+Sinkhorn kernel pairs) against ``train_layer=False``. The port's two routes
+are also held against each other at float64.
 """
 
 import numpy as np
@@ -92,7 +95,25 @@ def _batch(dtype):
     return batch
 
 
-def _run_both(loss_method, dtype, steps, over=None, **jax_flags):
+def _run_port(pcfg, params, bn_state, batch, steps):
+    pstate = create_train_state(
+        pcfg, device="cpu", learning_rate=LR,
+        state_dict=state_dict_from_numpy(params, bn_state, pcfg))
+    pstep = make_train_step()
+    got = dict(metrics=[])
+    for i in range(steps):
+        pstate, m = pstep(pstate, batch)
+        got["metrics"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            got["grads"] = {k: p.grad.clone()
+                            for k, p in pstate.model.named_parameters()}
+    got["state"] = pstate.model.state_dict()
+    assert pstate.step == steps
+    return got
+
+
+def _run_both(loss_method, dtype, steps, over=None, port_flags=None,
+              **jax_flags):
     """(per-step metrics, gradients of step 1, final parameters and BN
     stats) of both packages, the JAX side named like the port's."""
     tiny = {**TINY, **(over or {})}
@@ -102,7 +123,8 @@ def _run_both(loss_method, dtype, steps, over=None, **jax_flags):
                               param_dtype=dtype, compute_dtype=dtype,
                               **jax_flags)
     pcfg = port_train_defaults(**tiny, loss_method=loss_method,
-                               param_dtype=dtype, compute_dtype=dtype)
+                               param_dtype=dtype, compute_dtype=dtype,
+                               **(port_flags or {}))
     jmodel = JaxMDGAT(jcfg)
     jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
     # the first link keeps the step's gradients in its state, so one
@@ -126,20 +148,8 @@ def _run_both(loss_method, dtype, steps, over=None, **jax_flags):
         jax.tree.map(np.asarray, jstate.params),
         jax.tree.map(np.asarray, jstate.bn_state), pcfg)
 
-    pstate = create_train_state(
-        pcfg, device="cpu", learning_rate=LR,
-        state_dict=state_dict_from_numpy(params, bn_state, pcfg))
-    pstep = make_train_step()
-    got = dict(metrics=[])
-    for i in range(steps):
-        pstate, m = pstep(pstate, batch)
-        got["metrics"].append({k: float(v) for k, v in m.items()})
-        if i == 0:
-            got["grads"] = {k: p.grad.clone()
-                            for k, p in pstate.model.named_parameters()}
-    got["state"] = pstate.model.state_dict()
-    assert pstate.step == steps and int(jstate.step) == steps
-    return got, want
+    assert int(jstate.step) == steps
+    return _run_port(pcfg, params, bn_state, batch, steps), want
 
 
 def _compare(got, want, *, metric_rtol, grad_atol, param_atol, stat_atol,
@@ -218,11 +228,55 @@ def test_three_train_steps_match_jax_pallas_kernel_pairs_f32(loss_method):
     float64 test holds all of them tight."""
     steps = 3
     got, want = _run_both(loss_method, "float32", steps, over=dict(L=1),
+                          port_flags=dict(train_layer=False),
                           pallas_interpret=True, pallas_exact_topk=True,
                           pallas_train_layer=False)
     _compare(got, want, metric_rtol=5e-5, grad_atol=2e-6, param_atol=1e-5,
              noise_atol=2.1 * LR * steps, mean_atol=0.2 * 2.1 * LR * steps,
              stat_atol=1e-5, var_rtol=1e-5)
+
+
+@pytest.mark.parametrize("loss_method",
+                         ["gap_loss", "triplet_loss", "superglue"])
+def test_three_train_steps_match_jax_default_routing_f32(loss_method):
+    """The JAX package at its default routing (whole-layer train kernels
+    and the Sinkhorn pair, interpret mode, exact top-k) against the port's
+    default ``train_layer=True``, which on the CPU takes the whole-layer
+    kernels' plain twin: single-pass variance on both sides. float32, two
+    layers, gradients of step 1 and the state after three steps, with the
+    tolerances of the test above and for its reasons."""
+    steps = 3
+    got, want = _run_both(loss_method, "float32", steps, over=dict(L=1),
+                          port_flags=dict(train_layer=True),
+                          pallas_interpret=True, pallas_exact_topk=True,
+                          pallas_train_layer=True)
+    _compare(got, want, metric_rtol=5e-5, grad_atol=2e-6, param_atol=1e-5,
+             noise_atol=2.1 * LR * steps, mean_atol=0.2 * 2.1 * LR * steps,
+             stat_atol=1e-5, var_rtol=1e-5)
+
+
+@pytest.mark.parametrize("loss_method",
+                         ["gap_loss", "triplet_loss", "superglue"])
+def test_port_train_routes_agree_f64(loss_method):
+    """The port's whole-layer route (single-pass variance) against its
+    ``train_layer=False`` route (two-pass) over three steps at float64, with
+    the tolerances of the float64 test against the JAX package: the same
+    step, and equal state dicts apart from rounding
+    (``num_batches_tracked`` included)."""
+    params, bn_state = _weights("float64")
+    batch = _batch("float64")
+    runs = []
+    for flag in (True, False):
+        cfg = port_train_defaults(**TINY, loss_method=loss_method,
+                                  param_dtype="float64",
+                                  compute_dtype="float64", train_layer=flag)
+        runs.append(_run_port(cfg, params, bn_state, batch, 3))
+    got, want = runs
+    _compare(got, want, metric_rtol=1e-9, grad_atol=1e-9, param_atol=1e-8,
+             stat_atol=1e-9)
+    for key, value in want["state"].items():
+        if key.endswith("num_batches_tracked"):
+            assert int(got["state"][key]) == int(value) > 0, key
 
 
 def test_save_resume_reproduces_the_next_step(tmp_path):
