@@ -36,7 +36,12 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    variance; Sg, Sgh, dw2, db2, dscale, dbias; dx, dsrc and the fourteen
    parameter gradients with ragged key AND row masks and a cotangent that
    is non-zero on padded rows; bit-equal from run to run; one bfloat16
-   case);
+   case), and the gap-loss margin kernels (64x512x512, 8x1024x1024 and
+   3x200x231, ragged row and column masks and none, dustbin anchors, a
+   cloud without a valid point: S0 / S1 and, at random cotangents, dd /
+   dbin_row / dbin_col against the formula twins, the [B] loss and its
+   gradients against ``ops/losses.gap_loss`` under autograd, bit-equal from
+   run to run; their times and bounds);
 7. the training path: ``create_train_state`` with seeded weights and three
    steps of ``make_train_step`` on a synthetic batch of 64 pairs at 512
    keypoints, three arms, each with the launch counters zeroed just before
@@ -49,7 +54,19 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    pairs on the card with the CPU; the loss is finite and falls; the peak
    memory of each arm; a torch.profiler window over one step of the
    default route; then times per kernel, per whole layer and per step
-   (the three arms in turns).
+   (the arms in turns, a fourth with ``loss_kernel=True``);
+8. the training entry point: a synthetic KITTI-layout dataset is written
+   under ``chip_smoke_out/`` (9 sequences, 512 keypoints a frame, 64 pairs a
+   sequence) and ``train_torch.main`` runs on it at full width (batch 64,
+   512 keypoints, 2 epochs of 3 steps, ``--loss_kernel true``), counters
+   zeroed just before and read just after: per train step 36 whole-layer
+   forwards, 36 backwards, 1 Sinkhorn forward, 1 backward, 1 gap-loss
+   forward, 1 backward; per validation step 36 eval-layer calls, 1
+   Sinkhorn, 1 gap-loss forward. The epoch loss is finite and falls, each
+   epoch's checkpoint reads back (the last one equal to the final
+   parameters), and the same run with ``--loss_kernel false`` launches no
+   gap-loss kernel and logs the same losses within 2e-3; the loop's wall
+   time per step is printed beside the bare step's.
 
 The line before the last is a JSON object with one entry per kernel (its
 time beside the plain twin's, the card's bound for the same work and, where
@@ -119,7 +136,20 @@ TOL = {"attention_f32": 1e-4, "attention_bf16": 2e-2, "layer_f32": 1e-3,
        # differently, and from the second step on the weights differ by
        # Adam's noise steps (at most lr on entries whose gradient is zero
        # in exact arithmetic)
-       "train_loss_rel": 2e-3, "train_grad_norm_rel": 2e-2}
+       "train_loss_rel": 2e-3, "train_grad_norm_rel": 2e-2,
+       # gap-loss margins: S0 / S1 are f32 sums of up to 1025 margins, lane
+       # by lane and tile by tile in the kernel, in torch's blocked order in
+       # the twin; elementwise relative to max(1, |twin|)
+       "gap_margins": 5e-6,
+       # at the same cotangents the kernel and its twin form every indicator
+       # from the same f32 expression and the counts are exact, so dd,
+       # dbin_row and dbin_col differ by rounding of one product and one
+       # sum at most; relative to max(1, largest entry)
+       "gap_cotangent": 1e-6,
+       # the whole loss against ops/losses.gap_loss under autograd: the [B]
+       # loss relative; its gradients absolute (entries are at most ~2 / N
+       # times the anchor's count of active margins)
+       "gap_loss": 2e-6, "gap_loss_grad": 2e-6}
 # published peaks of one H100 SXM (dense, no sparsity): f32 outside the
 # tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -170,6 +200,25 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured into one
+    CUDA graph and replayed, so that no host work separates the launches.
+    For calls so short (about 0.1 ms) that a host loop would leave the card
+    idle between them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # first use off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=replays, warmup=1) / reps
 
 
 def bound(nbytes: float, flops: float):
@@ -1031,6 +1080,149 @@ def check_train_layer(rng, dev, report):
     report["train_layer_bwd2"]["max_abs_err"] = worst[2]
 
 
+def gap_case(rng, dev, b, n, m):
+    """Inputs of the gap-loss kernels on the card: scores, ragged row and
+    column masks with the last pair's cloud 0 empty, ground truth with
+    dustbin anchors (-1) in the mix, -1 on padded anchors, and positives
+    that fall into masked columns and rows left as they come."""
+    import torch
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    rm = ragged_mask(rng, b, n, int(0.78 * n), dev)
+    cm = ragged_mask(rng, b, m, int(0.78 * m), dev)
+    rm[b - 1] = False                                 # a cloud without a point
+    gt0 = torch.from_numpy(rng.integers(-1, m, (b, n)).astype(np.int32)).to(dev)
+    gt1 = torch.from_numpy(rng.integers(-1, n, (b, m)).astype(np.int32)).to(dev)
+    gt0 = torch.where(rm, gt0, -1)
+    gt1 = torch.where(cm, gt1, -1)
+    return t(b, n, m), t(b, m), t(b, n), gt0, gt1, rm, cm, t(b, n), t(b, m)
+
+
+def check_gap_loss(rng, dev, report, card):
+    """Kernels #11 and #12 against their formula twins on the card and
+    against ``ops/losses.gap_loss`` under autograd; two runs bit-equal;
+    times with their bounds at the training shape and the wide shape."""
+    import torch
+    from mdgat_tpu_torch.ops import losses as L
+    from mdgat_tpu_torch.ops.cuda import gap_loss as G
+    from mdgat_tpu_torch.ops.transport import OTScores
+
+    gamma = 0.5
+    worst_f = worst_b = 0.0
+    times = {}
+    for b, n, m in ((64, 512, 512), (8, 1024, 1024), (3, 200, 231)):
+        dense, br, bc, gt0, gt1, rm, cm, ds0, ds1 = gap_case(rng, dev, b, n, m)
+        name = f"gap_loss {b}x{n}x{m}"
+        for masks in ((rm, cm), (None, None)):
+            args = (dense, br, bc, gt0, gt1, *masks, gamma)
+            leaves = [t.clone().requires_grad_() for t in (dense, br, bc)]
+
+            def run():
+                s = G.fused_gap_margins(*leaves, *args[3:])
+                return s, torch.autograd.grad(list(s), leaves, [ds0, ds1])
+
+            (s0, s1), grads = run()
+            (s0b, s1b), grads2 = run()
+            with torch.no_grad():
+                r0, r1 = G.fused_gap_margins_reference(*args)
+                grads_ref = G.fused_gap_margins_backward_reference(*args, ds0, ds1)
+            torch.cuda.synchronize()
+            require(torch.equal(s0, s0b) and torch.equal(s1, s1b)
+                    and all(torch.equal(a, c) for a, c in zip(grads, grads2)),
+                    f"{name}: two runs differ")
+            require(all(torch.isfinite(a).all().item()
+                        for a in (s0, s1, *grads)), f"{name}: non-finite")
+            # elementwise, relative to max(1, |twin|): anchors whose
+            # positive is masked carry sums of the order of M * 1e30
+            f_err = max(((a - r).abs() / r.abs().clamp_min(1.0)).max().item()
+                        for a, r in ((s0, r0), (s1, r1)))
+            b_err = max(_rel_err(a, r) for a, r in zip(grads, grads_ref))
+            tag = "masked" if masks[0] is not None else "unmasked"
+            print(f"{name} {tag}: S0/S1 max rel err {f_err:.3e} (tol "
+                  f"{TOL['gap_margins']:g}), dd/dbin_row/dbin_col at random "
+                  f"cotangents max rel err {b_err:.3e} (tol "
+                  f"{TOL['gap_cotangent']:g}); forward and backward bit-equal "
+                  f"over two runs")
+            require(f_err <= TOL["gap_margins"], f"{name} {tag}: forward disagrees")
+            require(b_err <= TOL["gap_cotangent"], f"{name} {tag}: backward disagrees")
+            if b == 64:
+                worst_f, worst_b = max(worst_f, f_err), max(worst_b, b_err)
+
+        # the whole loss against ops/losses.gap_loss under autograd
+        def loss_and_grads(fn):
+            lv = [t.clone().requires_grad_() for t in (dense, br, bc)]
+            ot = OTScores(*lv, torch.zeros(b, device=dev))
+            loss = fn(ot, gt0.long(), gt1.long(), gamma, rm, cm)
+            return loss.detach(), torch.autograd.grad(loss.sum(), lv)
+
+        loss, lg = loss_and_grads(G.gap_loss_kernel)
+        loss_ref, lg_ref = loss_and_grads(L.gap_loss)
+        torch.cuda.synchronize()
+        l_err = ((loss - loss_ref).abs() / loss_ref.abs().clamp_min(1.0)).max().item()
+        g_err = max((a - r).abs().max().item() for a, r in zip(lg, lg_ref))
+        print(f"{name} against gap_loss under autograd: loss [B] max rel err "
+              f"{l_err:.3e} (tol {TOL['gap_loss']:g}), d dense / d bin_row / "
+              f"d bin_col max abs err {g_err:.3e} (tol {TOL['gap_loss_grad']:g})")
+        require(torch.isfinite(loss).all().item(), f"{name}: non-finite loss")
+        require(l_err <= TOL["gap_loss"] and g_err <= TOL["gap_loss_grad"],
+                f"{name}: disagrees with gap_loss under autograd")
+
+        if b == 3:
+            continue
+        # times: the forward launches and the backward launch, and their
+        # twins, each captured in a CUDA graph (a call lasts about 0.1 ms: in
+        # a host loop, and more so under autograd's own host work, the card
+        # would idle between launches); the plain loss under autograd beside
+        # them, by events
+        args = (dense, br, bc, gt0, gt1, rm, cm, gamma)
+        cnt = G._margins_forward(*args)[2:]
+        lv = [t.clone().requires_grad_() for t in (dense, br, bc)]
+        ot = OTScores(*lv, torch.zeros(b, device=dev))
+        gt0l, gt1l = gt0.long(), gt1.long()
+        plain_loss = L.gap_loss(ot, gt0l, gt1l, gamma, rm, cm).sum()
+        with torch.no_grad():
+            fwd = (graph_ms(lambda: G._margins_forward(*args)),
+                   graph_ms(lambda: G.fused_gap_margins_reference(*args)))
+            bwd = (graph_ms(lambda: G._margins_backward(*args, *cnt, ds0, ds1)),
+                   graph_ms(lambda: G.fused_gap_margins_backward_reference(
+                       *args, ds0, ds1)))
+        auto_f = cuda_ms(lambda: L.gap_loss(ot, gt0l, gt1l, gamma, rm, cm), 10)
+        auto_b = cuda_ms(lambda: torch.autograd.grad(plain_loss, lv,
+                                                     retain_graph=True), 10)
+        del plain_loss
+        slab = 4.0 * b * n * m
+        vec = 4.0 * b * (n + m)                  # one f32 or int32 vector pair
+        vec_in = 2 * vec + b * (n + m)           # bins, ground truth, masks
+        # forward: the block and the vectors in, S0 / S1 out; backward: the
+        # same and ds0 / ds1 in, dd, dbin_row and dbin_col out
+        bounds = (bound(slab + vec_in + vec, 8.0 * b * n * m),
+                  bound(2 * slab + vec_in + 2 * vec, 8.0 * b * n * m))
+        shape = f"{b}x{n}x{m}"
+        times[f"gap_loss_fwd_{shape}"] = fwd
+        times[f"gap_loss_bwd_{shape}"] = bwd
+        print(f"gap-loss times on {card}, {shape} (ms, CUDA graphs): forward "
+              f"kernel {fwd[0]:.4f} / twin {fwd[1]:.4f} / bound {bounds[0][0]:.4f} "
+              f"({bounds[0][1]}); backward kernel {bwd[0]:.4f} / twin "
+              f"{bwd[1]:.4f} / bound {bounds[1][0]:.4f} ({bounds[1][1]}); "
+              f"ops/losses.gap_loss under autograd forward {auto_f:.4f}, "
+              f"backward {auto_b:.4f}")
+        report.setdefault("_gap_loss", {})[shape] = dict(
+            fwd_ms=fwd[0], fwd_twin_ms=fwd[1], fwd_bound_ms=bounds[0][0],
+            bwd_ms=bwd[0], bwd_twin_ms=bwd[1], bwd_bound_ms=bounds[1][0],
+            gap_loss_autograd_fwd_ms=auto_f, gap_loss_autograd_bwd_ms=auto_b)
+        if b == 64:
+            for key, t, (ms, by) in (("gap_loss_fwd", fwd, bounds[0]),
+                                     ("gap_loss_bwd", bwd, bounds[1])):
+                report[key].update(ms=t[0], plain_ms=t[1], bound_ms=ms,
+                                   bound_by=by, library_ms=None)
+    report["gap_loss_fwd"]["max_abs_err"] = worst_f
+    report["gap_loss_bwd"]["max_abs_err"] = worst_b
+    report["_times_ms"].update({k: {"kernel": a, "plain": p}
+                                for k, (a, p) in times.items()})
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the training path
 # ---------------------------------------------------------------------------
@@ -1323,8 +1515,9 @@ def train_layer_timings(rng, dev, report, x, g, mask, k, h):
 
 def train_timings(rng, dev, report, card, state, mha_state, plain_state, batch):
     """Times of the training kernels at the training shapes and of the
-    whole step (whole-layer train kernels / fused-MHA route / plain, in
-    turns), with each kernel's bound."""
+    whole step (whole-layer train kernels / the same with the gap-loss
+    kernels / fused-MHA route / plain, in turns), with each kernel's
+    bound."""
     import torch
     from mdgat_tpu_torch.ops.cuda import mha as M
     from mdgat_tpu_torch.ops.cuda import sinkhorn as S
@@ -1374,18 +1567,24 @@ def train_timings(rng, dev, report, card, state, mha_state, plain_state, batch):
 
     times.update(train_layer_timings(rng, dev, report, x, g, mask, k, h))
 
+    # a fourth arm: the default route with the gap loss on its kernels
+    from mdgat_tpu_torch.train import create_train_state
+    loss_state = create_train_state(
+        state.model.config.replace(loss_kernel=True), device=dev, seed=0)
     step = make_train_step()
-    t_tl, t_mha, t_plain = turns_ms(
-        [lambda: step(state, batch), lambda: step(mha_state, batch),
-         lambda: step(plain_state, batch)], 2)
+    t_tl, t_loss, t_mha, t_plain = turns_ms(
+        [lambda: step(state, batch), lambda: step(loss_state, batch),
+         lambda: step(mha_state, batch), lambda: step(plain_state, batch)], 2)
     times["train_step_64x512"] = (t_tl, t_plain)
+    times["train_step_64x512_loss_kernel"] = (t_loss, t_plain)
     times["train_step_64x512_fused_mha_route"] = (t_mha, t_plain)
 
     print(f"training times on {card} (CUDA events, ms per call; kernel / plain):")
     for key, (t_k, t_p) in times.items():
         print(f"  {key}: {t_k:.4f} / {t_p:.4f}")
-    print(f"train step, three arms in turns: whole-layer train kernels "
-          f"{t_tl:.4f} ms, fused-MHA route {t_mha:.4f} ms, plain {t_plain:.4f} ms")
+    print(f"train step, four arms in turns: whole-layer train kernels "
+          f"{t_tl:.4f} ms, the same with loss_kernel=True {t_loss:.4f} ms, "
+          f"fused-MHA route {t_mha:.4f} ms, plain {t_plain:.4f} ms")
     report["_times_ms"].update({key: {"kernel": a, "plain": p}
                                 for key, (a, p) in times.items()})
 
@@ -1422,6 +1621,127 @@ def train_timings(rng, dev, report, card, state, mha_state, plain_state, batch):
         sinkhorn_fwd_64x512x512=bound(2 * slab, sk_fwd_flops))
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the training entry point over a KITTI-layout dataset
+# ---------------------------------------------------------------------------
+
+CLI_EPOCHS, CLI_STEPS = 2, 3
+
+
+def train_cli(dev, report, counters, card):
+    """``train_torch.main`` on the card at full width, over a synthetic
+    KITTI-layout dataset written here: launch counts per train and
+    validation step with ``--loss_kernel true``, falling epoch loss,
+    checkpoints that read back, and the same run with ``--loss_kernel
+    false``; the loop's wall time per step beside the bare step's."""
+    import contextlib
+    import shutil
+    import torch
+    import train_torch
+    from mdgat_tpu_torch.core.checkpoint import load_train_checkpoint
+    from mdgat_tpu_torch.core.config import train_defaults
+    from mdgat_tpu_torch.data.synthetic import write_synthetic_kitti
+    from mdgat_tpu_torch.train import create_train_state
+
+    root = os.path.join(OUT_DIR, "kitti_synthetic")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    # 64 pairs per sequence: seq 9 fills one validation batch
+    kp_dir = write_synthetic_kitti(root, seqs=(0, 2, 3, 4, 5, 6, 7, 9, 10),
+                                   frames_per_seq=12, pairs_per_seq=64,
+                                   n_points=512, seed=0)
+    print(f"train_cli: synthetic KITTI-layout dataset under "
+          f"chip_smoke_out/kitti_synthetic in {time.perf_counter() - t0:.1f} s")
+
+    def run(loss_kernel: bool):
+        out = os.path.join(OUT_DIR, f"checkpoint_loss_kernel_{loss_kernel}")
+        shutil.rmtree(out, ignore_errors=True)
+        argv = ["--train_path", root, "--keypoints_path", kp_dir,
+                "--txt_path", os.path.join(root, "preprocess-random-full"),
+                "--model_out_path", out, "--device", str(dev),
+                "--batch_size", "64", "--max_keypoints", "512",
+                "--epoch", str(CLI_EPOCHS), "--steps_per_epoch", str(CLI_STEPS),
+                "--seed", "0", "--loss_kernel", str(loss_kernel).lower()]
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        with contextlib.chdir(OUT_DIR):              # ./logs lands here
+            summary = train_torch.main(argv)
+        torch.cuda.synchronize()
+        return summary, {name: c.read() for name, c in counters.items()}
+
+    summary, launches = run(True)
+    n_train = sum(summary["steps"])
+    n_val = CLI_EPOCHS * max(1, CLI_STEPS // 4)
+    print(f"train_cli, --loss_kernel true: {n_train} train steps and {n_val} "
+          f"validation steps of 64 pairs x 512 keypoints; launches {launches}")
+    require(summary["steps"] == [CLI_STEPS] * CLI_EPOCHS, "train_cli: steps")
+    want = {"train_layer_fwd": 36 * n_train, "train_layer_bwd": 36 * n_train,
+            "sinkhorn": n_train + n_val, "sinkhorn_bwd": n_train,
+            "gap_loss_fwd": n_train + n_val, "gap_loss_bwd": n_train,
+            "eval_layer": 36 * n_val, "fused_mha_fwd": 0, "fused_mha_bwd": 0}
+    for name, count in want.items():
+        require(launches[name] == count,
+                f"train_cli: {name} {launches[name]} launches, not {count} "
+                f"(per train step 36 / 36 whole-layer, 1 / 1 Sinkhorn, 1 / 1 "
+                f"gap loss; per validation step 36 eval layers, 1, 1)")
+    report["gap_loss_fwd"]["launches"] = launches["gap_loss_fwd"]
+    report["gap_loss_bwd"]["launches"] = launches["gap_loss_bwd"]
+
+    losses, vals = summary["epoch_loss"], summary["val_loss"]
+    print(f"train_cli: epoch_loss {losses}, val_loss {vals}")
+    require(np.isfinite(losses + vals).all(), "train_cli: non-finite loss")
+    require(losses[1] < losses[0], "train_cli: the epoch loss did not fall")
+    require(len(summary["checkpoints"]) == CLI_EPOCHS
+            and all(os.path.isfile(f) for f in summary["checkpoints"]),
+            "train_cli: a checkpoint is missing")
+    final = summary["state"].model.state_dict()
+    for i, path in enumerate(summary["checkpoints"]):
+        back = create_train_state(train_defaults(), device=dev, seed=1)
+        meta = load_train_checkpoint(path, back)
+        require(meta["epoch"] == i + 1 and meta["lr_schedule"] == 1e-4
+                and abs(meta["loss"] - vals[i]) < 1e-12,
+                f"train_cli: checkpoint fields of epoch {i + 1}")
+        if i == CLI_EPOCHS - 1:
+            for key, v in back.model.state_dict().items():
+                require(torch.equal(v, final[key]),
+                        f"train_cli: {key} differs after save and load")
+            require(back.step == n_train, "train_cli: optimizer steps")
+    print(f"train_cli: {CLI_EPOCHS} checkpoints read back, the last one equal "
+          f"to the final parameters entry by entry "
+          f"({os.path.basename(summary['checkpoints'][-1])})")
+    del final, back
+    summary.pop("state")
+
+    plain, plain_launches = run(False)
+    plain.pop("state")
+    require(plain_launches["gap_loss_fwd"] == 0
+            and plain_launches["gap_loss_bwd"] == 0
+            and plain_launches["train_layer_fwd"] == 36 * n_train
+            and plain_launches["sinkhorn_bwd"] == n_train,
+            "train_cli: launches with --loss_kernel false")
+    for a, b2 in zip(losses + vals, plain["epoch_loss"] + plain["val_loss"]):
+        require(abs(a - b2) <= TOL["train_loss_rel"] * abs(b2),
+                f"train_cli: --loss_kernel true {a} vs false {b2}")
+    print(f"train_cli, --loss_kernel false: epoch_loss {plain['epoch_loss']}, "
+          f"val_loss {plain['val_loss']} (within {TOL['train_loss_rel']:g} "
+          f"relative); no gap-loss launch")
+
+    bare = report["_times_ms"]["train_step_64x512"]["kernel"]
+    for label, sm in (("true", summary), ("false", plain)):
+        per_step = [1e3 * t / n for t, n in zip(sm["train_loop_s"], sm["steps"])]
+        tm = sm["timer"]
+        print(f"train_cli on {card}, --loss_kernel {label}: loop wall per "
+              f"step, synchronised at the epoch end, "
+              f"{' / '.join(f'{x:.2f}' for x in per_step)} ms (epochs 1 / 2) "
+              f"against the bare make_train_step {bare:.2f} ms; host "
+              f"prepare {1e3 * tm['prepare']['mean']:.2f} ms mean, step "
+              f"enqueue {1e3 * tm['train_step']['mean']:.2f} ms mean")
+        sm["loop_ms_per_step"] = per_step
+    report["_train_cli"] = dict(loss_kernel=summary, plain_loss=plain,
+                                launches=launches, bare_step_ms=bare)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1456,6 +1776,7 @@ def main() -> int:
           f"stores (at most {max(spills, default=0)} bytes); full report in "
           f"chip_smoke_out/ptxas.log")
 
+    from mdgat_tpu_torch.ops.cuda import gap_loss as G
     from mdgat_tpu_torch.ops.cuda import mha as M
     from mdgat_tpu_torch.ops.cuda import train_layer as T
     counters = {
@@ -1473,10 +1794,17 @@ def main() -> int:
         "train_layer_fwd2": Counter(T.bn_relu_conv2),
         "train_layer_bwd1": Counter(T.bn_backward_sums),
         "train_layer_bwd1_dw2": Counter(T.dw2_db2),
-        "train_layer_bwd2": Counter(T.dh1_kernel)}
+        "train_layer_bwd2": Counter(T.dh1_kernel),
+        "gap_loss_fwd": Counter(G.fused_gap_margins, "forward_launches"),
+        "gap_loss_bwd": Counter(G.fused_gap_margins, "backward_launches")}
     tl_src = "mdgat_tpu_torch/csrc/train_layer.cu"
     tl_line = {"fwd1": 1329, "fwd2": 1410, "bwd1": 1425, "bwd2": 1477}
+    gap_src = "mdgat_tpu_torch/csrc/gap_loss.cu"
     report = {
+        "gap_loss_fwd": dict(route="cuda", source=gap_src,
+                             replaces="mdgat_tpu/ops/pallas/loss.py:76"),
+        "gap_loss_bwd": dict(route="cuda", source=gap_src,
+                             replaces="mdgat_tpu/ops/pallas/loss.py:107"),
         **{f"train_layer_{name}": dict(
             route="cuda", source=tl_src,
             replaces=f"mdgat_tpu/ops/pallas/attention.py:{line}")
@@ -1515,10 +1843,14 @@ def main() -> int:
     check_fused_mha(rng, dev, report)
     check_sinkhorn_bwd(rng, dev, report)
     check_train_layer(rng, dev, report)
+    check_gap_loss(rng, dev, report, card)
     torch.cuda.empty_cache()
     state, mha_state, plain_state, batch = training(dev, report, counters)
     profile_train(state, batch, card, report)
     train_timings(rng, dev, report, card, state, mha_state, plain_state, batch)
+    del state, mha_state, plain_state, batch
+    torch.cuda.empty_cache()
+    train_cli(dev, report, counters, card)
 
     kernels = [dict(name=name, **{k: report[name][k] for k in
                                   ("route", "source", "replaces", "launches",

@@ -17,9 +17,13 @@ convs, batch-statistic BatchNorm and the residual, forward and backward),
 and the transport runs the Sinkhorn forward with its replay backward. With
 ``train_layer=False`` only each layer's attention runs on kernels (the
 fused-MHA forward / backward pair) and the layer's MLP and BatchNorm are
-plain PyTorch under autograd. The encoders, the score product and the loss
-stay plain PyTorch on either route. The JAX package's gap-loss kernel is not
-ported yet.
+plain PyTorch under autograd. The encoders and the score product stay plain
+PyTorch on either route.
+
+``loss_kernel`` (off by default, the counterpart of the JAX package's
+``pallas_loss``) sends the gap loss through the margin kernels of
+``ops/cuda/gap_loss.py``, forward and backward, in train and eval mode and
+whatever ``use_kernels`` says; on a CPU tensor it takes their plain twins.
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ class Config:
     param_dtype: str = "float32"
     use_kernels: bool = True        # CUDA tensors run the csrc/ kernels
     train_layer: bool = True        # training: whole-layer kernels (else fused MHA + plain MLP)
+    loss_kernel: bool = False       # gap loss through the margin kernels
     prefetch: int = 2
     seed: int = 0
 

@@ -1,11 +1,13 @@
-"""Batches for training: host shaping and device preprocessing.
+"""Batches for training: host loading and shaping, device preprocessing.
 
-Port of the in-memory part of ``mdgat_tpu/data/pipeline.py`` (reference
-``SparseDataset``, ``load_data.py:47-321``), in its two stages:
+Port of ``mdgat_tpu/data/pipeline.py`` (reference ``SparseDataset``,
+``load_data.py:47-321``), in its two stages:
 
-* **host** (:func:`collate_pairs`): fixed-size shaping of in-memory pairs
-  (``make_synthetic_pair``'s dicts), world-frame keypoints in float64, batch
-  stacking into numpy arrays with ``mask0`` / ``mask1``;
+* **host**: :class:`SparseDataset` over a KITTI-layout directory (file IO,
+  score filter, fixed-size shaping, pose chains and world-frame keypoints in
+  float64, batch stacking with ``mask0`` / ``mask1``), and
+  :func:`collate_pairs`, the same shaping for in-memory pairs
+  (``make_synthetic_pair``'s dicts);
 * **device** (:func:`prepare_batch`): descriptor L2 normalisation and
   pose-based ground-truth correspondences as batched tensor code.
 
@@ -13,22 +15,31 @@ Fixed-size policy, as in the JAX package: with ``max_keypoints`` a cloud is
 truncated or duplicate-padded to exactly that many points (the reference's
 train policy, ``load_data.py:191-211``: every slot holds a real keypoint,
 masks all true); without it clouds are zero-padded to the batch's largest
-128-bucket with validity masks. The KITTI readers, the native loader and
-the prefetcher are not ported yet.
+128-bucket with validity masks. Of the JAX package's ``SparseDataset`` the
+multi-host arguments (``rows=``, ``pair_range=``), the native threaded loader,
+the raw clouds of the learned-descriptor modes and the reduced-precision
+descriptor shipping are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import os
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from mdgat_tpu_torch.core.config import Config
+from mdgat_tpu_torch.data import kitti
 from mdgat_tpu_torch.ops.geometry import gt_correspondences
 
 MODEL_KEYS = ("keypoints0", "keypoints1", "scores0", "scores1",
               "descriptors0", "descriptors1", "gt_matches0", "gt_matches1",
               "mask0", "mask1")
+
+
+# what prepare_batch leaves on the host
+HOST_KEYS = ("T_gt", "sequence", "idx0", "idx1")
 
 
 def _round_up(n: int, m: int) -> int:
@@ -68,6 +79,134 @@ def _shape_cloud(kp, score, desc, max_keypoints: Optional[int], pad_to: int):
     out_de = np.zeros((pad_to, desc.shape[1]), desc.dtype)
     out_kp[:n], out_sc[:n], out_de[:n] = kp, score, desc
     return out_kp, out_sc, out_de, n
+
+
+class SparseDataset:
+    """Host-side pair source over KITTI assets (real or synthetic layout):
+    pair lists, calibration and poses per sequence, and with
+    ``memory_is_enough`` every keypoint file of the split read once."""
+
+    def __init__(self, cfg: Config, mode: str):
+        self.cfg = cfg
+        self.mode = mode
+        # keypoint / descriptor arrays leave the host at the compute width;
+        # pose chains and T_gt stay float64
+        self.host_dtype = (np.float64 if cfg.compute_dtype == "float64"
+                           else np.float32)
+        self.pairs, self.seq_list = kitti.make_dataset_kitti_distance(
+            cfg.txt_path, mode)
+        self.calib: Dict[str, np.ndarray] = {}
+        self.poses: Dict[str, np.ndarray] = {}
+        self.kp_cache: Dict[str, List[np.ndarray]] = {}
+        for seq in self.seq_list:
+            s = "%02d" % seq
+            self.calib[s] = kitti.load_calib(os.path.join(
+                cfg.train_path, "calib/sequences", s, "calib.txt"))
+            self.poses[s] = kitti.load_poses(os.path.join(
+                cfg.train_path, "poses", "%02d.txt" % seq))
+            if cfg.memory_is_enough:
+                folder = os.path.join(cfg.keypoints_path, s)
+                names = sorted(os.listdir(folder), key=lambda x: int(x[:-4]))
+                self.kp_cache[s] = [
+                    np.fromfile(os.path.join(folder, n), dtype=np.float32)
+                    for n in names]
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def _frame_path(self, s: str, idx: int) -> str:
+        return os.path.join(self.cfg.keypoints_path, s, "%06d.bin" % idx)
+
+    def _load_frame(self, s: str, idx: int):
+        if s in self.kp_cache:
+            raw = self.kp_cache[s][idx]
+        else:
+            raw = np.fromfile(self._frame_path(s, idx), dtype=np.float32)
+        return kitti.split_keypoint_rows(raw)
+
+    def _shape_keypoints(self, kp, score, desc, pad_to: Optional[int] = None):
+        """Apply the fixed-size policy; returns (kp, score, desc, n_valid)."""
+        cfg = self.cfg
+        if cfg.ensure_kpts_num:
+            valid = score > cfg.score_min          # load_data.py:183
+            return _shape_cloud(kp[valid], score[valid], desc[valid],
+                                cfg.max_keypoints, 0)
+        tgt = pad_to if pad_to is not None else _round_up(max(len(kp), 1), 128)
+        return _shape_cloud(kp, score, desc, None, tgt)
+
+    def get_pair(self, idx: int, pad_to: Optional[int] = None) -> Dict:
+        rec = self.pairs[idx]
+        s = "%02d" % rec["seq"]
+        i0, i1 = rec["anc_idx"], rec["pos_idx"]
+        cloud0 = self._shape_keypoints(*self._load_frame(s, i0), pad_to)
+        cloud1 = self._shape_keypoints(*self._load_frame(s, i1), pad_to)
+        return self._assemble_pair(s, i0, i1, *cloud0, *cloud1)
+
+    def _assemble_pair(self, s, i0, i1, kp0, sc0, de0, n0,
+                       kp1, sc1, de1, n1) -> Dict:
+        pose0 = self.poses[s][i0].astype(np.float64)
+        pose1 = self.poses[s][i1].astype(np.float64)
+        Tcv = self.calib[s].astype(np.float64)
+        # T_gt maps kp1 -> kp0 frame (load_data.py:238)
+        T_gt = np.linalg.inv(Tcv) @ np.linalg.inv(pose0) @ pose1 @ Tcv
+        # world-frame transforms (load_data.py:241-245), in float64 on the
+        # host: pose chains over km-scale coordinates need it
+        M0 = pose0 @ Tcv
+        M1 = pose1 @ Tcv
+        hdt = self.host_dtype
+        return {
+            "kpts0_world": (kp0.astype(np.float64) @ M0[:3, :3].T
+                            + M0[:3, 3]).astype(hdt),
+            "kpts1_world": (kp1.astype(np.float64) @ M1[:3, :3].T
+                            + M1[:3, 3]).astype(hdt),
+            "keypoints0": kp0.astype(hdt), "keypoints1": kp1.astype(hdt),
+            "scores0": sc0.astype(hdt), "scores1": sc1.astype(hdt),
+            "descriptors0": de0.astype(hdt), "descriptors1": de1.astype(hdt),
+            "mask0": np.arange(len(kp0)) < n0,
+            "mask1": np.arange(len(kp1)) < n1,
+            "T_gt": T_gt, "sequence": s, "idx0": i0, "idx1": i1,
+        }
+
+    def _batch_bucket(self, idxs) -> int:
+        """Variable-N bucket of a batch from raw row counts alone (cached
+        array lengths under ``memory_is_enough``, file sizes otherwise), so
+        that each pair is loaded exactly once."""
+        rows = []
+        for i in idxs:
+            r = self.pairs[int(i)]
+            s = "%02d" % r["seq"]
+            for idx in (r["anc_idx"], r["pos_idx"]):
+                if s in self.kp_cache:
+                    rows.append(len(self.kp_cache[s][idx])
+                                // kitti.KEYPOINT_ROW_FLOATS)
+                else:
+                    rows.append(os.path.getsize(self._frame_path(s, idx))
+                                // (kitti.KEYPOINT_ROW_FLOATS * 4))
+        return _round_up(max(max(rows), 1), 128)
+
+    def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
+                drop_last: bool = True) -> Iterator[Dict]:
+        """Stacked numpy batches (the DataLoader equivalent): every array
+        key stacked, ``sequence`` a list, ``idx0`` / ``idx1`` arrays."""
+        order = np.arange(len(self))
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        n_b = (len(order) // batch_size if drop_last
+               else -(-len(order) // batch_size))
+        for b in range(n_b):
+            idxs = order[b * batch_size:(b + 1) * batch_size]
+            tgt = (None if self.cfg.ensure_kpts_num
+                   else self._batch_bucket(idxs))
+            pairs = [self.get_pair(int(i), pad_to=tgt) for i in idxs]
+            out = {}
+            for k in pairs[0]:
+                if k == "sequence":
+                    out[k] = [p[k] for p in pairs]
+                elif k in ("idx0", "idx1"):
+                    out[k] = np.array([p[k] for p in pairs])
+                else:
+                    out[k] = np.stack([p[k] for p in pairs])
+            yield out
 
 
 def collate_pairs(pairs: Sequence[Dict[str, np.ndarray]],
@@ -110,14 +249,16 @@ def prepare_batch(batch: Dict[str, np.ndarray], threshold: float,
                   compute_dtype: torch.dtype = torch.float32,
                   gt_dtype: torch.dtype = torch.float32
                   ) -> Dict[str, torch.Tensor]:
-    """Device preprocessing of a :func:`collate_pairs` batch
-    (``prepare_batch_fn`` of the JAX package): descriptors L2-normalised
+    """Device preprocessing of a :func:`collate_pairs` or
+    :meth:`SparseDataset.batches` batch (``prepare_batch_fn`` of the JAX
+    package): descriptors L2-normalised
     with the norm floored at 1e-30 (``load_data.py:290-292``), ground-truth
     matches from the world-frame keypoints in ``gt_dtype`` (int32, -1 =
-    unmatched), everything as tensors on ``device``."""
+    unmatched), everything as tensors on ``device``. ``T_gt`` and the
+    host-side ``sequence`` / ``idx0`` / ``idx1`` pass through as they are."""
     dev = torch.device(device)
     t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-         for k, v in batch.items() if k != "T_gt"}
+         for k, v in batch.items() if k not in HOST_KEYS}
     out = {}
     for side in ("0", "1"):
         de = t["descriptors" + side]
@@ -132,7 +273,7 @@ def prepare_batch(batch: Dict[str, np.ndarray], threshold: float,
                             t["kpts1_world"].to(gt_dtype), threshold,
                             mutual_check, t["mask0"], t["mask1"])
     out.update(gt_matches0=gt.matches0, gt_matches1=gt.matches1, rep=gt.rep)
-    out["T_gt"] = batch["T_gt"]
+    out.update({k: batch[k] for k in HOST_KEYS if k in batch})
     return out
 
 

@@ -25,6 +25,11 @@ default; without it only the attention is a kernel pair) and the transport
 is the Sinkhorn kernel with its replay backward, so ``loss.backward()`` runs
 on hand-written kernels too. With ``train_layer`` a CPU model takes the
 whole-layer kernels' plain twin, whose variance is single-pass.
+
+``config.loss_kernel`` routes the gap loss through
+``ops/cuda/gap_loss.py::gap_loss_kernel`` (the margin kernels on a CUDA
+tensor, their plain twins on a CPU tensor), in both modes and independently
+of ``use_kernels``, as ``pallas_loss`` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from torch import nn
 from mdgat_tpu_torch.core.config import Config
 from mdgat_tpu_torch.models.encoders import DescriptorEncoder, KeypointEncoder
 from mdgat_tpu_torch.models.gnn import AttentionalGNN
+from mdgat_tpu_torch.ops.cuda.gap_loss import gap_loss_kernel
 from mdgat_tpu_torch.ops.cuda.sinkhorn import log_optimal_transport_kernel
 from mdgat_tpu_torch.ops.losses import gap_loss, superglue_nll_loss, triplet_loss
 from mdgat_tpu_torch.ops.matching import match_decision
@@ -126,8 +132,9 @@ class MDGAT(nn.Module):
                                            cfg.triplet_loss_gamma, mask0,
                                            mask1)
             elif cfg.loss_method == "gap_loss":
-                out["loss"] = gap_loss(ot, gt0, gt1, cfg.triplet_loss_gamma,
-                                       mask0, mask1)
+                loss_fn = gap_loss_kernel if cfg.loss_kernel else gap_loss
+                out["loss"] = loss_fn(ot, gt0, gt1, cfg.triplet_loss_gamma,
+                                      mask0, mask1)
             else:
                 raise ValueError(f"Invalid loss_method: {cfg.loss_method}")
         return out

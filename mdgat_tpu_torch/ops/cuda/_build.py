@@ -69,6 +69,12 @@ _SIGNATURES = {
     "mdgat_tl_dw2": [_P] * 5 + [_I] * 5 + [_P],
     # g, h1, w2, vec6, rowmask, dh1, D, R, io_dtype, stream
     "mdgat_tl_dh1": [_P] * 6 + [_I] * 3 + [_P],
+    # dense, bin_row, bin_col, gt0, gt1, rm, cm, s0, s1, cnt0, cnt1, partial,
+    # B, N, M, gamma, stream
+    "mdgat_gap_fwd": [_P] * 12 + [_I] * 3 + [_F, _P],
+    # dense, bin_row, bin_col, gt0, gt1, rm, cm, cnt0, cnt1, ds0, ds1, dd,
+    # dbin_row, dbin_col, B, N, M, gamma, stream
+    "mdgat_gap_bwd": [_P] * 14 + [_I] * 3 + [_F, _P],
 }
 
 

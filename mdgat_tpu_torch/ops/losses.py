@@ -5,8 +5,9 @@ the gap loss (the paper's), the hard-negative triplet loss and SuperGlue's
 NLL. Each returns a per-example ``[B]`` vector and never mutates the
 ground truth (``-1`` = unmatched, remapped to the dustbin internally).
 All three are differentiable in the OT scores by autograd (held against
-``jax.grad`` of the JAX functions in the tests); the JAX package's gap-loss
-kernel is not ported and this is the only loss path.
+``jax.grad`` of the JAX functions in the tests). The counterpart of the JAX
+package's gap-loss kernel is ``ops/cuda/gap_loss.py::gap_loss_kernel``,
+which ``config.loss_kernel`` selects in place of :func:`gap_loss`.
 """
 
 from __future__ import annotations

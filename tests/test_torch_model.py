@@ -175,6 +175,27 @@ def test_forward_with_ground_truth_matches_jax_f64(weights, loss_method):
                                    atol=1e-9)
 
 
+@pytest.mark.parametrize("use_kernels", [True, False],
+                         ids=["use_kernels", "no_kernels"])
+def test_loss_kernel_in_eval_mode_matches_jax_f64(weights, use_kernels):
+    """``loss_kernel=True`` routes the gap loss through the margin kernels'
+    entry in eval mode too, and whatever ``use_kernels`` says (as
+    ``pallas_loss`` in the JAX package): the same [B] loss as the JAX
+    package's XLA ``gap_loss``."""
+    params, state = weights
+    data, gt0, gt1 = _batch(605)
+    jcfg = jax_test_defaults(**TINY, loss_method="gap_loss")
+    jdata = {k: jnp.asarray(v) for k, v in data.items()}
+    jdata["gt_matches0"], jdata["gt_matches1"] = jnp.asarray(gt0), jnp.asarray(gt1)
+    ref, _ = JaxMDGAT(jcfg).apply(params, state, jdata, train=False)
+    model = _port_model(params, state, loss_method="gap_loss",
+                        loss_kernel=True, use_kernels=use_kernels)
+    assert model.config.loss_kernel and not model.training
+    got = _run_port(model, data, (gt0, gt1))
+    np.testing.assert_allclose(got["loss"], np.asarray(ref["loss"]), rtol=0,
+                               atol=1e-9)
+
+
 def test_use_kernels_on_cpu_runs_the_plain_path(weights):
     params, state = weights
     data, _, _ = _batch(604)

@@ -279,6 +279,46 @@ def test_port_train_routes_agree_f64(loss_method):
             assert int(got["state"][key]) == int(value) > 0, key
 
 
+@pytest.mark.parametrize("flags", [dict(), dict(use_kernels=False),
+                                   dict(train_layer=False)],
+                         ids=["default", "no_kernels", "fused_mha"])
+def test_loss_kernel_on_and_off_agree_f64(flags):
+    """``loss_kernel=True`` (on the CPU: the margin kernels' plain twins,
+    forward and backward formulas) against the plain ``gap_loss`` under
+    autograd over three steps at float64: the same loss, gradients and state,
+    on every route, ``use_kernels=False`` included (the loss route does not
+    depend on it). Step 1's gradients to 1e-12; the state after three steps
+    to the float64 tolerances of the tests above (Adam amplifies rounding
+    where a gradient is zero in exact arithmetic)."""
+    params, bn_state = _weights("float64")
+    batch = _batch("float64")
+    runs = []
+    for flag in (True, False):
+        cfg = port_train_defaults(**TINY, loss_method="gap_loss",
+                                  param_dtype="float64",
+                                  compute_dtype="float64", loss_kernel=flag,
+                                  **flags)
+        runs.append(_run_port(cfg, params, bn_state, batch, 3))
+    got, want = runs
+    _compare(got, want, metric_rtol=1e-10, grad_atol=1e-12, param_atol=1e-8,
+             stat_atol=1e-9)
+
+
+def test_loss_kernel_three_steps_match_jax_default_routing_f32():
+    """The JAX package with ``pallas_loss`` is gated to accelerators, so its
+    CPU train step never reaches the gap-loss kernel; this holds the port's
+    ``loss_kernel=True`` step against the JAX package's default routing at
+    float32 with the tolerances of the default-routing test."""
+    steps = 3
+    got, want = _run_both("gap_loss", "float32", steps, over=dict(L=1),
+                          port_flags=dict(loss_kernel=True),
+                          pallas_interpret=True, pallas_exact_topk=True,
+                          pallas_train_layer=True)
+    _compare(got, want, metric_rtol=5e-5, grad_atol=2e-6, param_atol=1e-5,
+             noise_atol=2.1 * LR * steps, mean_atol=0.2 * 2.1 * LR * steps,
+             stat_atol=1e-5, var_rtol=1e-5)
+
+
 def test_save_resume_reproduces_the_next_step(tmp_path):
     cfg = port_train_defaults(**TINY)
     batch = _batch("float32")
