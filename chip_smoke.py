@@ -10,10 +10,13 @@ Phases, each of which fails the run (exit code != 0) when it fails:
 3. per-kernel parity on the card at the serving shapes, each kernel
    against its plain PyTorch twin on the same inputs: top-k / dense
    attention (B=64, H=4, N=M=256, Dh=32, k=128/64/dense, ragged masks, f32
-   and bf16; and B=8, N=M=1024), the GEMM and the whole eval layer at
-   D=128, the Sinkhorn (64x256x256, the training step's 64x512x512 and
-   8x1024x1024, 20 iterations); and
-   shapes off that path (ragged N and M, head sizes 8-64, odd GEMMs);
+   and bf16; and B=8, N=M=1024; then what its tiling makes risky: key
+   counts 200 / 231 / 513, ragged query counts, head sizes 8-64, k = 1, k
+   above the valid count, exact ties at the k-th value with thr bit-equal
+   to the twin's, an all-masked batch entry, lse on and off), the GEMM and
+   the whole eval layer at D=128, the Sinkhorn (64x256x256, the training
+   step's 64x512x512 and 8x1024x1024, 20 iterations); and shapes off that
+   path (ragged N and M, odd GEMMs);
 4. the serving path: the flagship MDGAT (L=9, D=128, default k-schedule,
    20 Sinkhorn iterations) with seeded weights behind
    ``Matcher(device="cuda")``: three ``match_batch`` calls of 64 ragged
@@ -24,14 +27,22 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    card on >= 99.9% of valid slots, and with the CPU path on a small batch;
 5. times: CUDA-event times of each kernel and of the whole forward, for
    the kernel path and the plain path, beside the card's name and power
-   limit; then a torch.profiler window over three kernel-path forwards
-   (device time by kernel, the device's busy share);
+   limit (calls under 0.1 ms, the GEMM and dense attention beside
+   ``torch.addmm`` and SDPA, are timed inside a CUDA graph, and the graph
+   times say whether a kernel is slower than the library call; the
+   attention kernel and the GEMM are timed so at the train shapes too);
+   then a torch.profiler window over three kernel-path forwards (device time by
+   kernel, the device's busy share);
 6. per-kernel parity of the training kernels at the training shapes (B=64,
    N=M=512, D=128, 4 heads; k=128, k=64 and dense; ragged masks; self and
    cross) and at odd shapes, each against its plain twin under autograd on
    the card: the fused-MHA forward (out, thr, lse) and backward (all ten
    gradients, bit-equal from run to run, selection equal to the forward's
-   on every row), the Sinkhorn replay backward (dZ, dalpha), and the
+   on every row), every GEMM mode at aligned and odd shapes (the forward's q
+   projection bit-equal to the backward's recomputation, through vector
+   and guarded loads alike; the W^T mode
+   timed beside ``torch.matmul(a, w.t())``), the Sinkhorn replay backward
+   (dZ, dalpha), and the
    whole-layer train kernels (h1, ssum, ssq, thr, lse, y, batch mean and
    variance; Sg, Sgh, dw2, db2, dscale, dbias; dx, dsrc and the fourteen
    parameter gradients with ragged key AND row masks and a cotangent that
@@ -300,6 +311,74 @@ def check_attention(rng, dev, report):
         if dt == torch.float32:
             worst = max(worst, err)
     report["topk_attention"]["max_abs_err"] = worst
+
+
+def check_attention_edges(rng, dev):
+    """What the tiled attention kernel makes risky: key counts off the
+    256-key tile and the 32-key chunk, query counts off the row tile, every
+    head size, k = 1, k above the valid count, exact ties at the k-th value
+    (integer-valued q and k with a power-of-two scale make every score exact
+    on both sides: all ties kept, thr equal bit for bit, no row left out),
+    an all-masked batch entry, bf16 I/O, and the lse output on and off."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import attention as A
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # b, h, n, m, dh, k, dtype, kind
+        (3, 2, 37, 200, 32, 64, f32, ""), (2, 2, 70, 231, 32, 128, f32, ""),
+        (2, 1, 100, 513, 32, 64, f32, ""), (2, 1, 33, 513, 32, 0, f32, ""),
+        (3, 2, 37, 45, 8, 8, f32, ""), (3, 2, 37, 45, 16, 5, f32, ""),
+        (2, 2, 37, 300, 64, 16, f32, ""), (2, 1, 20, 1000, 64, 0, f32, ""),
+        (2, 2, 50, 120, 32, 1, f32, "k=1"),
+        (2, 2, 50, 120, 32, 119, f32, "k above the valid count"),
+        (2, 2, 70, 231, 16, 64, f32, "ties"), (2, 2, 33, 513, 64, 128, f32, "ties"),
+        (2, 2, 40, 100, 16, 0, f32, "ties"),
+        (3, 2, 37, 200, 32, 64, f32, "all-masked entry"),
+        (3, 2, 37, 200, 32, 0, f32, "all-masked entry"),
+        (2, 2, 70, 231, 32, 64, bf16, ""), (2, 1, 33, 513, 32, 0, bf16, ""),
+        (2, 2, 37, 45, 8, 8, bf16, "")]
+    for b, h, n, m, dh, k, dt, kind in cases:
+        def t(*shape):
+            x = rng.normal(size=shape)
+            if kind == "ties":
+                x = np.clip(np.round(x), -2, 2)
+            return torch.from_numpy(x.astype(np.float32)).to(dev, dt)
+        q, kk, v = t(b, h, n, dh), t(b, h, m, dh), t(b, h, m, dh)
+        mask = ragged_mask(rng, b, m, m // 2, dev)
+        if kind == "all-masked entry":
+            mask[b - 1] = False
+        scale = dh ** -0.5            # a power of two at dh 16 and 64
+        o, thr, lse = A.topk_attention(q, kk, v, mask, k, scale, return_lse=True)
+        o2, thr2 = A.topk_attention(q, kk, v, mask, k, scale)
+        o_ref, thr_ref, lse_ref = A.topk_attention_reference(
+            q, kk, v, mask, k, scale, return_lse=True)
+        torch.cuda.synchronize()
+        name = (f"attention edge {b}x{h}x{n}x{m} dh{dh} k{k} {str(dt)[6:]}"
+                f"{' ' + kind if kind else ''}")
+        require(torch.equal(o, o2) and torch.equal(thr, thr2),
+                f"{name}: the lse output changes the result")
+        require(torch.isfinite(o.float()).all().item(), f"{name}: non-finite")
+        s = torch.matmul(q.float(), kk.float().transpose(-1, -2)) * scale
+        valid = mask[:, None, None, :].expand(s.shape)
+        if kind == "ties":
+            require(torch.equal(thr, thr_ref),
+                    f"{name}: thr differs from the k-th value")
+            keep = torch.ones(s.shape[:-1], dtype=torch.bool, device=dev)
+        else:   # a row with no more than k valid keys keeps them all: no tie
+            keep = ~(near_tie_rows(s, valid, k) & (valid.sum(-1) > k))
+        if kind == "all-masked entry":
+            require(not o[b - 1].any().item()
+                    and (lse[b - 1] == -1e30).all().item()
+                    and (thr[b - 1] == (1e30 if k else -1e30)).all().item(),
+                    f"{name}: all-masked rows")
+        err = (o.float() - o_ref.float()).abs().amax(-1)[keep].max().item()
+        terr = (thr - thr_ref).abs()[..., 0][keep].max().item()
+        lerr = ((lse - lse_ref).abs() / lse_ref.abs().clamp_min(1.0))[..., 0][keep].max().item()
+        tol = TOL["attention_f32" if dt == f32 else "attention_bf16"]
+        print(f"{name}: max|o-o_ref| {err:.3e} max|thr-thr_ref| {terr:.3e} "
+              f"lse rel {lerr:.3e} tol {tol:g}; rows left out "
+              f"{int((~keep).sum())} of {keep.numel()}; lse on/off bit-equal")
+        require(err <= tol and terr <= TOL["attention_f32"]
+                and lerr <= TOL["attention_f32"], f"{name} disagrees")
 
 
 def _random_layer(seed, dev, d=128, heads=4):
@@ -588,19 +667,27 @@ def timings(rng, dev, report, card, matcher, plain, pairs):
             cuda_ms(lambda: Lk.fused_layer(x, x, mask, kk, w)),
             cuda_ms(lambda: Lk.fused_layer_reference(x, x, mask, kk, w)))
     x2 = x.reshape(b * n, 128)
-    times["gemm_q_proj"] = (
-        cuda_ms(lambda: Lk.gemm(x2, w.wq, w.bq)),
-        cuda_ms(lambda: x2 @ w.wq + w.bq))
+    # Calls under 0.1 ms: event times of a host loop move with the host, so
+    # kernel and library call are also timed inside a CUDA graph, and the
+    # graph times are the ones reported and compared. The library call is
     # the one PyTorch call for the same function, timed here and used
-    # nowhere in the port: addmm (cuBLAS) for the GEMM; SDPA for dense
+    # nowhere in the port: addmm (cuBLAS) for the GEMM, SDPA for dense
     # unmasked attention. Top-k attention, the whole layer and the Sinkhorn
     # have no such call.
-    library = {"gemm_q_proj": cuda_ms(lambda: torch.addmm(w.bq, x2, w.wq))}
-    times["attention_dense_unmasked"] = (
-        cuda_ms(lambda: A.topk_attention(q, k, v, None, 0, dh ** -0.5)),
-        cuda_ms(lambda: A.topk_attention_reference(q, k, v, None, 0, dh ** -0.5)))
-    library["attention_dense_unmasked"] = cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    short = {
+        "gemm_q_proj": (lambda: Lk.gemm(x2, w.wq, w.bq),
+                        lambda: x2 @ w.wq + w.bq,
+                        lambda: torch.addmm(w.bq, x2, w.wq)),
+        "attention_dense_unmasked": (
+            lambda: A.topk_attention(q, k, v, None, 0, dh ** -0.5),
+            lambda: A.topk_attention_reference(q, k, v, None, 0, dh ** -0.5),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))}
+    library, by_events = {}, {}
+    for key, (kern_fn, plain_fn, lib_fn) in short.items():
+        by_events[key] = tuple(cuda_ms(fn) for fn in (kern_fn, plain_fn, lib_fn))
+        with torch.no_grad():
+            times[key] = (graph_ms(kern_fn), graph_ms(plain_fn))
+            library[key] = graph_ms(lib_fn)
     u = torch.relu(torch.from_numpy(rng.normal(size=(b * n, 256)).astype(np.float32)).to(dev))
     times["gemm_mlp2_residual"] = (
         cuda_ms(lambda: Lk.gemm(u, w.w2, w.b2, res=x2)),
@@ -644,8 +731,15 @@ def timings(rng, dev, report, card, matcher, plain, pairs):
 
     print(f"times on {card} (CUDA events, ms per call; kernel / plain):")
     for key, (t_k, t_p) in times.items():
-        lib = f" / library call {library[key]:.4f}" if key in library else ""
-        print(f"  {key}: {t_k:.4f} / {t_p:.4f}{lib}")
+        if key in library:
+            ev = by_events[key]
+            verdict = ("no slower than" if t_k <= library[key] else
+                       f"{t_k / library[key]:.2f}x")
+            print(f"  {key}, in a CUDA graph: {t_k:.4f} / {t_p:.4f} / library "
+                  f"call {library[key]:.4f} (kernel {verdict} the library "
+                  f"call); by events {ev[0]:.4f} / {ev[1]:.4f} / {ev[2]:.4f}")
+        else:
+            print(f"  {key}: {t_k:.4f} / {t_p:.4f}")
 
     # bounds at the timed shapes (b=64, h=4, n=m=256, dh=32, D=128, f32),
     # counting what this run's mask needs: scores against valid keys only,
@@ -682,8 +776,50 @@ def timings(rng, dev, report, card, matcher, plain, pairs):
     for key, (ms, by) in report["_bounds_serving"].items():
         print(f"  bound {key}: {ms:.4f} ms ({by})")
     report["_library_ms"] = library
+    report["_short_calls_by_events_ms"] = {
+        key: dict(kernel=ev[0], plain=ev[1], library=ev[2])
+        for key, ev in by_events.items()}
     report["_times_ms"] = {k: {"kernel": a, "plain": p}
                            for k, (a, p) in times.items()}
+
+
+def graph_times(rng, dev, card):
+    """Graph times at shapes beside the table's: the attention kernel at
+    k = 128 / 64 / dense under the ragged mask and dense unmasked against
+    SDPA, at the serving (N=M=256) and the train shape (512); the GEMM at
+    the train step's row count and in its two-operand ReLU mode, against
+    ``torch.addmm``."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import attention as A
+    from mdgat_tpu_torch.ops.cuda import layer as Lk
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    out = {}
+    print(f"more times on {card} (ms in a CUDA graph):")
+    with torch.no_grad():
+        for n in (256, 512):
+            b, h, dh = 64, 4, 32
+            q, k, v = t(b, h, n, dh), t(b, h, n, dh), t(b, h, n, dh)
+            mask = ragged_mask(rng, b, n, int(0.78 * n), dev)
+            for kk, mk in ((128, mask), (64, mask), (0, mask), (0, None)):
+                key = (f"attention_{b}x{h}x{n}x{n}x{dh}_k{kk}"
+                       f"{'' if mk is not None else '_unmasked'}")
+                out[key] = graph_ms(
+                    lambda: A.topk_attention(q, k, v, mk, kk, dh ** -0.5))
+            out[f"sdpa_{b}x{h}x{n}x{n}x{dh}"] = graph_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+        for r, k1, k2, c in ((32768, 128, 0, 128), (16384, 128, 128, 256)):
+            a1, a2, w, bias = t(r, k1), (t(r, k2) if k2 else None), t(k1 + k2, c), t(c)
+            a = a1 if a2 is None else torch.cat([a1, a2], 1)
+            name = f"{r}x{k1 + k2}x{c}{'_two_operand_relu' if k2 else ''}"
+            out[f"gemm_{name}"] = graph_ms(
+                lambda: Lk.gemm(a1, w, bias, a2=a2, relu=bool(k2)))
+            out[f"addmm_{name}"] = graph_ms(lambda: torch.addmm(bias, a, w))
+    for key, ms in out.items():
+        print(f"  {key}: {ms:.4f}")
+    return out
 
 
 def profile(matcher, pairs, card):
@@ -712,9 +848,13 @@ def profile(matcher, pairs, card):
     print(f"profile on {card}: 3 forwards, window {window_ms:.3f} ms host, "
           f"device kernel time {device_ms:.3f} ms, busy share "
           f"{device_ms / window_ms:.3f}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
               f"{e.key[:90]}")
+    return dict(forwards=3, window_ms=window_ms, device_ms=device_ms,
+                kernels=[dict(name=e.key[:120], count=e.count,
+                              ms=e.self_device_time_total / 1e3) for e in top])
 
 
 # ---------------------------------------------------------------------------
@@ -850,6 +990,101 @@ def check_gemm_modes(rng, dev, report):
     print(f"gemm 111x58x70 two A, W transposed, no bias: max err {err:.3e} "
           f"tol {TOL['gemm_f32']:g}")
     require(err <= TOL["gemm_f32"], "transposed-W gemm disagrees")
+
+    # Every mode at aligned and odd shapes: K or C not a multiple of four
+    # (the guarded element loads), fewer rows than one tile, the head-split
+    # read and write together with bf16.
+    bf16 = torch.bfloat16
+    modes = [  # name, R, K1, K2, C, dtype in, dtype out, kwargs
+        ("K1 45 K2 13 C 70", 111, 45, 13, 70, None, None, dict(relu=True, res=True)),
+        ("K 130 C 66", 17, 130, 0, 66, None, None, dict(res=True)),
+        ("K 128 C 126", 300, 128, 0, 126, None, None, {}),
+        ("R 5", 5, 128, 0, 128, None, None, dict(relu=True)),
+        ("W^T K 45+13 C 70", 111, 45, 13, 70, None, None, dict(w_trans=True)),
+        ("W^T K 96+32 C 136 residual", 140, 96, 32, 136, None, None,
+         dict(w_trans=True, res=True)),
+        ("W^T head-split out", 120, 64, 0, 64, None, None,
+         dict(w_trans=True, out_heads=2, rows_per_batch=40)),
+        ("head-split in and out, bf16", 90, 64, 32, 64, bf16, bf16,
+         dict(a1_heads=4, out_heads=4, rows_per_batch=30, relu=True, res=True)),
+        ("head-split in, Dh 6, bf16 in", 90, 24, 0, 33, bf16, None,
+         dict(a1_heads=4, rows_per_batch=30)),
+        ("aligned 1000x128x128 head-split out", 1000, 128, 0, 128, None, None,
+         dict(out_heads=4, rows_per_batch=250))]
+    for name, r, k1, k2, c, dt_in, dt_out, kw in modes:
+        kw = dict(kw)
+        wt = kw.get("w_trans", False)
+        heads_in, heads_out = kw.get("a1_heads", 0), kw.get("out_heads", 0)
+        rpb = kw.get("rows_per_batch", 0)
+        a1 = t(r, k1).to(dt_in or torch.float32)
+        a2 = t(r, k2) if k2 else None
+        w = t(c, k1 + k2) if wt else t(k1 + k2, c)
+        bias = None if wt else t(c)
+        ref = torch.cat([a1.float()] + ([a2] if k2 else []), 1) @ (w.t() if wt else w)
+        if bias is not None:
+            ref = ref + bias
+        if kw.get("relu"):
+            ref = torch.relu(ref)
+        res = None
+        if kw.pop("res", False):
+            res = t(r, c).to(dt_out or a1.dtype)
+            ref = res.float() + ref
+            kw["res"] = (res.reshape(r // rpb, rpb, heads_out, -1).transpose(1, 2)
+                         .contiguous() if heads_out else res)
+        a1_in = (a1.reshape(r // rpb, rpb, heads_in, -1).transpose(1, 2).contiguous()
+                 if heads_in else a1)
+        y = Lk.gemm(a1_in, w, bias, a2=a2, out_dtype=dt_out, **kw)
+        if heads_out:
+            y = y.transpose(1, 2).reshape(r, c)
+        out_bf16 = (dt_out or a1.dtype) == bf16
+        err = ((y.float() - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
+        tol = TOL["gemm_bf16_rel" if out_bf16 else "gemm_f32"]
+        print(f"gemm mode {name} ({r}x{k1 + k2}x{c}): max rel err {err:.3e} tol "
+              f"{tol:g}")
+        require(err <= tol, f"gemm {name} disagrees")
+
+    # The forward's projection and its recomputation in the backward: the
+    # two calls ops/cuda/mha.py makes, on the same x, wq, bq, must give the
+    # same bits (the backward tests s >= thr on scores formed from them),
+    # on the vector path (aligned) and on the guarded one (a view at an odd
+    # offset): one FMA chain over k per output on both.
+    for bsz, n, d, heads in ((64, 512, 128, 4), (3, 37, 32, 4)):
+        x, wq, bq = t(bsz, n, d), t(d, d), t(d)
+        q_fwd = Lk.gemm(x, wq, bq, out_dtype=torch.float32, out_heads=heads,
+                        rows_per_batch=n)                 # _project_attend
+        q_bwd = Lk.gemm(x, wq, bq, out_dtype=torch.float32, out_heads=heads,
+                        rows_per_batch=n)                 # _mha_backward_launches
+        odd = torch.empty(x.numel() + 1, device=dev)[1:].view_as(x).copy_(x)
+        q_odd = Lk.gemm(odd, wq, bq, out_dtype=torch.float32, out_heads=heads,
+                        rows_per_batch=n)
+        require(torch.equal(q_fwd, q_bwd) and torch.equal(q_fwd, q_odd),
+                "the backward's q differs from the forward's")
+        print(f"gemm q projection {bsz}x{n}x{d}: forward call and backward "
+              f"recomputation bit-equal, vector and guarded loads bit-equal")
+
+    # W^T mode at the train shapes: dq @ wq^T and cat(dk, dv) @ cat(wk, wv)^T
+    for name, k1, k2 in (("gemm_wt", 128, 0), ("gemm_wt_cat", 128, 128)):
+        r, c = 64 * 512, 128
+        a1, a2, w = t(r, k1), (t(r, k2) if k2 else None), t(c, k1 + k2)
+        a = a1 if a2 is None else torch.cat([a1, a2], 1)
+        y = Lk.gemm(a1, w, None, a2=a2, w_trans=True)
+        err = (y - a @ w.t()).abs().max().item()
+        require(err <= TOL["gemm_f32"], f"{name} disagrees")
+        with torch.no_grad():
+            ms = graph_ms(lambda: Lk.gemm(a1, w, None, a2=a2, w_trans=True))
+            lib = graph_ms(lambda: torch.matmul(a, w.t()))
+        bms, by = bound(4.0 * (r * (k1 + k2) + r * c + c * (k1 + k2)),
+                        2.0 * r * (k1 + k2) * c)
+        print(f"{name} {r}x{k1 + k2}x{c} W^T, in a CUDA graph: {ms:.4f} ms / "
+              f"torch.matmul(a, w.t()) {lib:.4f} / bound {bms:.4f} ({by}); "
+              f"max err {err:.3e}")
+        if name == "gemm_wt":
+            # the plain twin of this mode is the same matmul
+            report["gemm_wt"].update(ms=ms, plain_ms=lib, bound_ms=bms,
+                                     bound_by=by, library_ms=lib,
+                                     max_abs_err=err)
+        report.setdefault("_gemm_wt", {})[name] = dict(ms=ms, library_ms=lib,
+                                                       bound_ms=bms)
     a, b2 = t(64 * 512, 128), t(64 * 512, 128)
     ms, plain = abba_ms(lambda: Lk.gemm_tn(a, b2),
                         lambda: (a.t() @ b2, b2.sum(0)), 10)
@@ -1303,7 +1538,7 @@ def training(dev, report, counters):
         {"train_layer_fwd": 36, "train_layer_bwd": 36, "fused_mha_fwd": 0,
          "fused_mha_bwd": 0, "sinkhorn": 1, "sinkhorn_bwd": 1, "eval_layer": 0,
          **{name: 36 for name in tl_names}})
-    for name in tl_names[:3] + tl_names[4:] + ("sinkhorn_bwd",):
+    for name in tl_names[:3] + tl_names[4:] + ("sinkhorn_bwd", "gemm_wt"):
         report[name]["launches"] = launches[name]
     report["sinkhorn"]["train_launches"] = launches["sinkhorn"]
     print(f"per step: train-layer forward "
@@ -1312,7 +1547,8 @@ def training(dev, report, counters):
           f"{launches['fused_mha_fwd']} / backward {launches['fused_mha_bwd']}"
           f" / sinkhorn forward {launches['sinkhorn'] // TRAIN_STEPS} / "
           f"backward {launches['sinkhorn_bwd'] // TRAIN_STEPS}; inside them "
-          f"{launches['gemm'] // TRAIN_STEPS} GEMM, "
+          f"{launches['gemm'] // TRAIN_STEPS} GEMM (of them "
+          f"{launches['gemm_wt'] // TRAIN_STEPS} W^T), "
           f"{launches['gemm_tn'] // TRAIN_STEPS} transposed GEMM and "
           f"{launches['topk_attention'] // TRAIN_STEPS} attention launches")
 
@@ -1585,6 +1821,13 @@ def train_timings(rng, dev, report, card, state, mha_state, plain_state, batch):
     print(f"train step, four arms in turns: whole-layer train kernels "
           f"{t_tl:.4f} ms, the same with loss_kernel=True {t_loss:.4f} ms, "
           f"fused-MHA route {t_mha:.4f} ms, plain {t_plain:.4f} ms")
+    prof = report["_train_profile"]
+    print(f"train step, default route: {t_tl:.4f} ms by events; the profiled "
+          f"step had {prof['device_ms']:.3f} ms of device time in a "
+          f"{prof['window_ms']:.3f} ms window, busy share "
+          f"{prof['device_ms'] / prof['window_ms']:.3f}: "
+          f"{'the device' if prof['device_ms'] / prof['window_ms'] > 0.9 else 'the host'}"
+          f" sets the pace")
     report["_times_ms"].update({key: {"kernel": a, "plain": p}
                                 for key, (a, p) in times.items()})
 
@@ -1782,6 +2025,7 @@ def main() -> int:
     counters = {
         "topk_attention": Counter(A.topk_attention),
         "eval_layer": Counter(Lk.fused_layer), "gemm": Counter(Lk.gemm),
+        "gemm_wt": Counter(Lk.gemm, "wt_launches"),
         "sinkhorn": Counter(S.log_optimal_transport_kernel),
         "fused_mha_fwd": Counter(M.fused_mha, "forward_launches"),
         "fused_mha_bwd": Counter(M.fused_mha, "backward_launches"),
@@ -1817,6 +2061,8 @@ def main() -> int:
                               replaces="mdgat_tpu/ops/pallas/attention.py:995"),
         "gemm_tn": dict(route="cuda", source="mdgat_tpu_torch/csrc/gemm.cu",
                         replaces="mdgat_tpu/ops/pallas/attention.py:995"),
+        "gemm_wt": dict(route="cuda", source="mdgat_tpu_torch/csrc/gemm.cu",
+                        replaces="mdgat_tpu/ops/pallas/attention.py:995"),
         "sinkhorn_bwd": dict(route="cuda",
                              source="mdgat_tpu_torch/csrc/sinkhorn_bwd.cu",
                              replaces="mdgat_tpu/ops/pallas/sinkhorn.py:281"),
@@ -1831,12 +2077,14 @@ def main() -> int:
     }
     rng = np.random.default_rng(0)
     check_attention(rng, dev, report)
+    check_attention_edges(rng, dev)
     check_layer(rng, dev, report)
     check_sinkhorn(rng, dev, report)
     check_ragged(rng, dev)
     matcher, plain, pairs = serving(rng, dev, report, counters)
     timings(rng, dev, report, card, matcher, plain, pairs)
-    profile(matcher, pairs, card)
+    report["_graph_times_ms"] = graph_times(rng, dev, card)
+    report["_serving_profile"] = profile(matcher, pairs, card)
     del matcher, plain
     torch.cuda.empty_cache()
     check_gemm_modes(rng, dev, report)

@@ -3,42 +3,77 @@
 // Replaces the TPU kernel mdgat_tpu/ops/pallas/attention.py::_attn_kernel
 // (reached from pallas_topk_attention) and its selection core
 // _stacked_prob, EXACT arm: the k-th largest valid score of each query row
-// is found by a binary search over order-preserving int32 keys
-// (_monotone_key / _key_to_float), so the threshold equals the k-th value
-// bit for bit and every tie at it is kept. The softmax subtracts the row
-// max taken before the search; masked and dropped entries exponentiate the
-// -1e30 sentinel to 0; the denominator is floored at 1e-30, so an
-// all-masked row gives zeros and no NaN. The fast value-bisection arm of
-// the TPU kernel is not ported.
+// is found exactly over order-preserving int32 keys (_monotone_key /
+// _key_to_float), so the threshold equals the k-th value bit for bit and
+// every tie at it is kept. The softmax subtracts the row max taken before
+// the search; masked and dropped entries weigh exactly 0; the denominator
+// is floored at 1e-30, so an all-masked row gives zeros and no NaN (its
+// thr is +1e30, its lse -1e30). The fast value-bisection arm of the TPU
+// kernel is not ported. With a non-null `lse` the kernel also writes the
+// per-row logsumexp over the kept entries, max + log(max(denom, 1e-30)):
+// the second residual of the fused-MHA forward (_mha_fwd_kernel).
 //
-// Design. One warp per query row; the row's M scores live in registers
-// (C = ceil(M/32) per lane, M <= 1024). A block serves one (batch, head)
-// and 8 warps x RPW rows of it. Phase 1 stages the head's K tile in shared
-// memory (rows padded to Dh+1 floats: lane j reads key j, so the stride
-// keeps the 32 lanes on 32 banks), computes the scores, runs the search
-// with warp ballots + __popc (32 steps at most, stopping once the interval
-// closes), and writes the unnormalised weights e to a per-row shared
-// buffer. Phase 2 stages V in the same buffer (K and V together would not
-// fit at M=1024) and forms e @ V, one output dim per lane, scaled by
-// 1/denom. Internals are f32 for f32 and bf16 inputs.
+// Accumulation order, which the fused-MHA backward relies on: every score
+// is ONE fmaf chain over the head dim, d ascending from 0, started at 0,
+// then times `scale`: the chain of score_dot (common.cuh), with which
+// csrc/mha_bwd.cu re-forms s and tests s >= thr. The register tile below
+// keeps that chain per element, so no kept entry flips in the backward.
 //
-// With a non-null `lse` the kernel also writes the per-row logsumexp over
-// the kept entries, max + log(max(denom, 1e-30)): the second residual of
-// the fused-MHA forward (_mha_fwd_kernel), from which its backward rebuilds
-// the probabilities. An all-masked row gives thr = +1e30 and lse = -1e30.
+// Design. A block of 256 threads serves 8 * TR query rows of one (batch,
+// head) in three phases.
+//  A. Scores, as a small GEMM: Q [rows][Dh] and a tile of 256 keys
+//     [key][Dh] are staged by 16-byte cp.async with a row stride of Dh + 4
+//     floats; a thread owns TR rows x 8 keys in registers and reads both
+//     operands as 16-byte vectors along d (rows i*4 + tm, keys j*8 + tn of
+//     a 4 x 8 warp: disjoint banks), so per four d steps TR + 8 loads feed
+//     32 * TR FMAs. The masked, scaled scores go to a [rows][M + 8] slab in
+//     shared memory. K streams through one tile buffer, so M up to 1024
+//     fits beside the slab at every head size.
+//  B. Selection and softmax, one warp per row, the row's keys in registers
+//     (up to four of the warp's rows advance together, 32 keys a lane at
+//     most, so that one row's dependent steps fill another's latency). The
+//     search keeps an interval [lo, hi] of keys that holds the k-th
+//     largest, with count(key >= lo) and count(key > hi) known. Each step
+//     picks a pivot (the first steps bisect the VALUE interval, which
+//     halves the undecided count on spread-out scores; later ones bisect
+//     the key interval, which bounds the steps), counts key >= pivot per
+//     lane and closes the count with one __reduce_add_sync. Once at most
+//     32 keys are undecided they are compacted, one per lane, and ranked
+//     against each other by shuffles: the k-th is read off directly. Any
+//     pivot sequence ends at the same key, so the result is the 32-step
+//     key bisection's, bit for bit, in about five steps on random scores
+//     (ops/cuda/attention.py::selection_mirror repeats it on the CPU).
+//  C. PV, as a second register-tiled product over the weights left in the
+//     slab (dropped entries are zeros): V streams through the tile buffer
+//     (its first tile in flight during phase B), a thread owns TR rows x 4
+//     dims over a quarter of the keys, so a V read feeds TR rows, and the
+//     quarters are added in a fixed order through shared memory. (PV over
+//     compacted (weight, index) pairs of the kept entries only was built
+//     and measured: each pair costs a 128-byte read of a V row that no
+//     other query row shares, and at k = M / 8 it only drew level with the
+//     dense product, at k = M / 4 and M / 2 it lost; PERF.md has the times.)
+// Nothing is atomic: two runs give the same bits. Internals are f32 for f32
+// and bf16 I/O. The launch below owns the plan: it picks TR and the chunk
+// count from M and sizes the shared memory; the wrapper only refuses the
+// shapes that no instantiation takes.
 //
-// What bounds it on the H100: shared-memory bandwidth. Each score and each
-// PV term is one FMA fed by one shared-memory read (q sits in registers,
-// e is a broadcast), so the kernel runs far below the FMA peak; the search
-// adds C ballots per step. K and V are read once per block from L2. A
-// faster version would use mma tiles for QK^T and PV (later work).
+// What bounds it on the H100: phase A the f32 FMA pipe fed from shared
+// memory (10.7 FMAs a 16-byte load at TR = 4); phase B instruction slots
+// and the integer pipe (about 450 instructions a row at M = 256); phase C
+// the FMA pipe again. Two blocks an SM overlap one block's phase B with the other's
+// products.
+
+#include <limits.h>
 
 #include "common.cuh"
 
 namespace mdgat {
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kThreads = 256, kWarps = 8;
+constexpr int kKT = 256;         // keys of one staged K or V tile
+constexpr int kValueSteps = 12;  // search steps that bisect the value interval
+constexpr int kCandidates = 32;  // undecided keys finished by ranking
 
 __device__ __forceinline__ int monotone_key(float s) {
   int bits = __float_as_int(s);
@@ -56,176 +91,375 @@ __device__ __forceinline__ int ceil_avg(int a, int b) {
   return fa + ((a ^ b) & 1);
 }
 
-template <typename T, int DH, int C>
-__global__ void __launch_bounds__(kWarps * 32)
+// floats of dynamic shared memory: the score slab, the K / V tile (also
+// the dense PV's partial sums), the Q tile
+__host__ __device__ constexpr int slab_stride(int M) { return (M + 31) / 32 * 32 + 8; }
+__host__ __device__ constexpr int tile_floats(int DH, int BR) {
+  return kKT * (DH + 4) > 128 * BR ? kKT * (DH + 4) : 128 * BR;
+}
+
+// rows of a warp that go through phase B together: at most 32 keys a lane
+__host__ __device__ constexpr int rows_in_flight(int TR, int C) {
+  return TR * C <= 32 ? TR : 32 / C;
+}
+
+template <typename T, int DH, int TR, int C>
+__global__ void __launch_bounds__(kThreads, 2)
 topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const uint8_t* __restrict__ mask,
                       T* __restrict__ o, float* __restrict__ thr,
                       float* __restrict__ lse, int H, int N, int M, int topk,
-                      float scale, int rpw) {
-  extern __shared__ float smem[];
-  constexpr int LD = DH + 1;
-  float* kv = smem;              // [M][LD]: K in phase 1, V in phase 2
-  float* ew = smem + M * LD;     // [kWarps * rpw][M] unnormalised weights
-  __shared__ float inv_denom[kWarps * 8];
+                      float scale) {
+  constexpr int BR = 8 * TR, LD = DH + 4, DG = DH / 4;
+  constexpr int RW = rows_in_flight(TR, C);
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float row_inv[BR];
+  __shared__ int cand[kWarps][RW][kCandidates];
+  const int nc = (M + 31) / 32;          // 32-key chunks of a row
+  const int LDS = slab_stride(M);
+  float* S = smem;                       // [BR][LDS] scores, then weights
+  float* KV = S + BR * LDS;              // [kKT][LD] K or V tile; PV partials
+  float* Qs = KV + tile_floats(DH, BR);  // [BR][LD]
 
-  const int bh = blockIdx.y;     // b * H + h
-  const int b = bh / H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rows_per_block = kWarps * rpw;
-  const int row0 = blockIdx.x * rows_per_block;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y, b = bh / H;
+  const int row0 = blockIdx.x * BR;
   const uint8_t* mb = mask + static_cast<size_t>(b) * M;
-
+  const T* qb = q + static_cast<size_t>(bh) * N * DH;
   const T* kb = k + static_cast<size_t>(bh) * M * DH;
-  for (int i = threadIdx.x; i < M * DH; i += blockDim.x)
-    kv[(i / DH) * LD + (i % DH)] = to_f32(kb[i]);
-  __syncthreads();
+  const T* vb = v + static_cast<size_t>(bh) * M * DH;
+  const int tiles = (M + kKT - 1) / kKT;
 
-  for (int t = 0; t < rpw; ++t) {
-    const int slot = warp * rpw + t;
-    const int n = row0 + slot;
-    if (n >= N) break;  // ragged query edge
-    const T* qrow = q + (static_cast<size_t>(bh) * N + n) * DH;
-    float qr[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) qr[d] = to_f32(qrow[d]);
-
-    float s[C];
-    unsigned valid_bits = 0;
-    float minv = -kBigNeg;       // smallest valid score (+1e30 if none)
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = lane + 32 * c;
-      float acc = 0.f;
-      bool ok = false;
-      if (j < M) {
-        acc = score_dot<DH>(qr, kv + j * LD);
-        ok = mb[j] != 0;
-      }
-      s[c] = ok ? acc * scale : kBigNeg;
-      if (ok) {
-        valid_bits |= 1u << c;
-        minv = fminf(minv, s[c]);
-      }
+  auto load_kv = [&](const T* base, int tile) {
+    for (int i = tid; i < kKT * DG; i += kThreads) {
+      const int j = i / DG, d4 = (i % DG) * 4, key = tile * kKT + j;
+      const bool ok = key < M;
+      stage4(KV + j * LD + d4, ok ? base + static_cast<size_t>(key) * DH + d4 : base, ok);
     }
-    float mx = kBigNeg;
-#pragma unroll
-    for (int c = 0; c < C; ++c) mx = fmaxf(mx, s[c]);
-    mx = warp_max(mx);           // pre-search row max (masked entries -1e30)
+    cp_async_commit();
+  };
 
-    unsigned keep_bits = valid_bits;
-    float row_thr = kBigNeg;
-    if (topk > 0) {
-      int key[C];
+  // ---- phase A: scores -------------------------------------------------
+  for (int i = tid; i < BR * DG; i += kThreads) {
+    const int r = i / DG, d4 = (i % DG) * 4, n = row0 + r;
+    const bool ok = n < N;
+    stage4(Qs + r * LD + d4, ok ? qb + static_cast<size_t>(n) * DH + d4 : qb, ok);
+  }
+  {
+    const int tm = lane >> 3, tn = lane & 7, wm = warp >> 2, wn = warp & 3;
+    for (int t = 0; t < tiles; ++t) {
+      if (t > 0) __syncthreads();        // the tile before is read
+      load_kv(kb, t);                    // (its group holds Q too at t = 0)
+      cp_async_wait<0>();
+      __syncthreads();
+      const int key0 = t * kKT + wn * 64;
+      if (key0 >= M) continue;           // warp-uniform: no key of this span
+      float acc[TR][8];
 #pragma unroll
-      for (int c = 0; c < C; ++c) key[c] = monotone_key(s[c]);
-      int lo = monotone_key(warp_min(minv));
-      int hi = monotone_key(mx);
-      // largest key t with count(key >= t) >= topk: that key is the k-th
-      // largest score. Once lo >= hi no later step moves lo.
-      for (int it = 0; it < 32 && lo < hi; ++it) {
-        const int mid = ceil_avg(lo, hi);
-        int cnt = 0;
+      for (int i = 0; i < TR; ++i)
 #pragma unroll
-        for (int c = 0; c < C; ++c) cnt += __popc(__ballot_sync(kFull, key[c] >= mid));
-        if (cnt >= topk) lo = mid; else hi = mid - 1;
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      const float* qp = Qs + (wm * 4 * TR + tm) * LD;
+      const float* kp = KV + (wn * 64 + tn) * LD;
+#pragma unroll
+      for (int d4 = 0; d4 < DH; d4 += 4) {
+        float qa[TR][4], ka[8][4];
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+          *reinterpret_cast<float4*>(qa[i]) =
+              *reinterpret_cast<const float4*>(qp + i * 4 * LD + d4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float4*>(ka[j]) =
+              *reinterpret_cast<const float4*>(kp + j * 8 * LD + d4);
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd)   // d ascending: the chain of score_dot
+#pragma unroll
+          for (int i = 0; i < TR; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[i][j] = fmaf(qa[i][dd], ka[j][dd], acc[i][j]);
       }
-      keep_bits = 0;
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        if (key[c] >= lo) keep_bits |= 1u << c;
-      keep_bits &= valid_bits;   // all-masked rows keep nothing
-      row_thr = key_to_float(lo);
-    }
-
-    float sum = 0.f;
-    float* erow = ew + slot * M;
+      for (int j = 0; j < 8; ++j) {
+        const int col = key0 + j * 8 + tn;
+        if (col >= nc * 32) continue;
+        const bool ok = col < M && mb[col] != 0;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = lane + 32 * c;
-      const float e = expf((keep_bits >> c) & 1u ? s[c] - mx : kBigNeg);
-      sum += e;
-      if (j < M) erow[j] = e;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      inv_denom[slot] = 1.f / fmaxf(sum, 1e-30f);
-      thr[static_cast<size_t>(bh) * N + n] = row_thr;
-      if (lse != nullptr)
-        lse[static_cast<size_t>(bh) * N + n] = mx + logf(fmaxf(sum, 1e-30f));
+        for (int i = 0; i < TR; ++i)
+          S[(wm * 4 * TR + i * 4 + tm) * LDS + col] =
+              ok ? acc[i][j] * scale : kBigNeg;
+      }
     }
   }
   __syncthreads();
+  load_kv(vb, 0);                        // in flight during phase B
 
-  const T* vb = v + static_cast<size_t>(bh) * M * DH;
-  for (int i = threadIdx.x; i < M * DH; i += blockDim.x)
-    kv[(i / DH) * LD + (i % DH)] = to_f32(vb[i]);
-  __syncthreads();
+  // ---- phase B: selection and softmax, one warp per row ------------------
+  unsigned valid_bits = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j = lane + 32 * c;
+    if (j < M && mb[j] != 0) valid_bits |= 1u << c;
+  }
+  const int nvalid = __reduce_add_sync(kFull, __popc(valid_bits));
+  const unsigned lt_mask = (1u << lane) - 1u;
 
-  for (int t = 0; t < rpw; ++t) {
-    const int slot = warp * rpw + t;
-    const int n = row0 + slot;
-    if (n >= N) break;
-    const float* erow = ew + slot * M;
-    T* orow = o + (static_cast<size_t>(bh) * N + n) * DH;
-    const float inv = inv_denom[slot];
-    if constexpr (DH >= 32) {
-      constexpr int P = DH / 32;   // output dims per lane
-      float acc[P];
+  // RW rows of the warp advance together, statement by statement: each
+  // step of a row is a chain of dependent instructions (pivot, count, warp
+  // reduction, decision), and independent rows fill each other's latency.
+  for (int t0 = 0; t0 < TR; t0 += RW) {
+    const int r0 = warp * TR + t0;
+    if (row0 + r0 >= N) break;           // ragged query edge (warp-uniform)
+    int key[RW][C];
+    bool live[RW];
 #pragma unroll
-      for (int p = 0; p < P; ++p) acc[p] = 0.f;
-      for (int j = 0; j < M; ++j) {
-        const float e = erow[j];
-        const float* vr = kv + j * LD;
+    for (int u = 0; u < RW; ++u) {
+      live[u] = row0 + r0 + u < N;       // a dead row is handled as all-masked
 #pragma unroll
-        for (int p = 0; p < P; ++p) acc[p] = fmaf(e, vr[lane + 32 * p], acc[p]);
+      for (int c = 0; c < C; ++c)
+        key[u][c] = monotone_key(
+            live[u] && c < nc ? S[(r0 + u) * LDS + lane + 32 * c] : kBigNeg);
+    }
+    __syncwarp();                        // the rows are in registers
+
+    int lo[RW], hi[RW], nv[RW];
+    unsigned vbits[RW];
+#pragma unroll
+    for (int u = 0; u < RW; ++u) {
+      vbits[u] = live[u] ? valid_bits : 0u;
+      nv[u] = live[u] ? nvalid : 0;
+      int lmax = INT_MIN, lmin = monotone_key(-kBigNeg);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        lmax = max(lmax, key[u][c]);
+        if ((vbits[u] >> c) & 1u) lmin = min(lmin, key[u][c]);
+      }
+      hi[u] = lmax;
+      lo[u] = lmin;
+    }
+#pragma unroll
+    for (int u = 0; u < RW; ++u) {
+      hi[u] = __reduce_max_sync(kFull, hi[u]);  // pre-search row max
+      lo[u] = __reduce_min_sync(kFull, lo[u]);  // smallest valid (+1e30 if none)
+    }
+    float mx[RW];
+#pragma unroll
+    for (int u = 0; u < RW; ++u) mx[u] = key_to_float(hi[u]);
+
+    if (topk > 0) {
+      // The k-th largest key is the largest t with count(key >= t) >= topk.
+      // With topk >= nvalid that is lo as it stands. Otherwise
+      // count(key >= lo) >= topk > count(key > hi) holds throughout.
+      int c_lo[RW], c_hi[RW];
+      bool act[RW], any = false;
+#pragma unroll
+      for (int u = 0; u < RW; ++u) {
+        c_lo[u] = nv[u];
+        c_hi[u] = 0;
+        act[u] = topk < nv[u] && lo[u] < hi[u] && nv[u] > kCandidates;
+        any |= act[u];
+      }
+      for (int it = 0; any; ++it) {
+        int mid[RW], cnt[RW];
+#pragma unroll
+        for (int u = 0; u < RW; ++u) {
+          mid[u] = ceil_avg(lo[u], hi[u]);
+          if (it < kValueSteps) {
+            const int vmid = monotone_key(0.5f * key_to_float(lo[u]) +
+                                          0.5f * key_to_float(hi[u]));
+            if (vmid > lo[u] && vmid <= hi[u]) mid[u] = vmid;
+          }
+          cnt[u] = 0;
+#pragma unroll
+          for (int c = 0; c < C; ++c) cnt[u] += key[u][c] >= mid[u];
+        }
+#pragma unroll
+        for (int u = 0; u < RW; ++u) cnt[u] = __reduce_add_sync(kFull, cnt[u]);
+        any = false;
+#pragma unroll
+        for (int u = 0; u < RW; ++u) {
+          if (!act[u]) continue;
+          if (cnt[u] >= topk) { lo[u] = mid[u]; c_lo[u] = cnt[u]; }
+          else { hi[u] = mid[u] - 1; c_hi[u] = cnt[u]; }
+          act[u] = lo[u] < hi[u] && c_lo[u] - c_hi[u] > kCandidates;
+          any |= act[u];
+        }
+      }
+      // rows still open have at most kCandidates keys in [lo, hi]: one per
+      // lane, ranked against each other
+      bool open[RW];
+      int nu[RW];
+#pragma unroll
+      for (int u = 0; u < RW; ++u) {
+        open[u] = topk < nv[u] && lo[u] < hi[u];
+        nu[u] = 0;
       }
 #pragma unroll
-      for (int p = 0; p < P; ++p) orow[lane + 32 * p] = from_f32<T>(acc[p] * inv);
-    } else {
-      constexpr int G = 32 / DH;   // lane groups, each over every G-th key
-      const int d = lane % DH, g = lane / DH;
-      float acc = 0.f;
-      for (int j = g; j < M; j += G) acc = fmaf(erow[j], kv[j * LD + d], acc);
+      for (int c = 0; c < C; ++c)
 #pragma unroll
-      for (int off = DH; off < 32; off <<= 1) acc += __shfl_xor_sync(kFull, acc, off);
-      if (g == 0) orow[d] = from_f32<T>(acc * inv);
+        for (int u = 0; u < RW; ++u) {
+          const bool in = open[u] && key[u][c] >= lo[u] && key[u][c] <= hi[u];
+          const unsigned bal = __ballot_sync(kFull, in);
+          if (in) cand[warp][u][nu[u] + __popc(bal & lt_mask)] = key[u][c];
+          nu[u] += __popc(bal);
+        }
+      __syncwarp();
+      // the k-th largest is the largest candidate x with count(y >= x) >= rank
+      int x[RW], at_least[RW];
+#pragma unroll
+      for (int u = 0; u < RW; ++u) {
+        x[u] = lane < nu[u] ? cand[warp][u][lane] : INT_MIN;
+        at_least[u] = 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kCandidates; ++j)  // empty lanes hold INT_MIN
+#pragma unroll
+        for (int u = 0; u < RW; ++u)
+          at_least[u] += __shfl_sync(kFull, x[u], j) >= x[u];
+#pragma unroll
+      for (int u = 0; u < RW; ++u) {
+        const int rank = topk - c_hi[u];  // 1 <= rank <= nu on an open row
+        const int kth = __reduce_max_sync(
+            kFull, lane < nu[u] && at_least[u] >= rank ? x[u] : INT_MIN);
+        if (open[u]) lo[u] = kth;
+      }
+      __syncwarp();
     }
+
+    // unnormalised weights, over the row's scores
+    float sum[RW];
+#pragma unroll
+    for (int u = 0; u < RW; ++u) {
+      unsigned keep_bits = vbits[u];
+      if (topk > 0) {
+        keep_bits = 0;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if (key[u][c] >= lo[u]) keep_bits |= 1u << c;
+        keep_bits &= vbits[u];           // all-masked rows keep nothing
+      }
+      sum[u] = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (c >= nc) break;
+        const float e = (keep_bits >> c) & 1u
+                            ? expf(key_to_float(key[u][c]) - mx[u]) : 0.f;
+        sum[u] += e;
+        S[(r0 + u) * LDS + lane + 32 * c] = e;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int u = 0; u < RW; ++u)
+        sum[u] += __shfl_xor_sync(kFull, sum[u], off);
+#pragma unroll
+    for (int u = 0; u < RW; ++u) {
+      if (lane == 0 && live[u]) {
+        const size_t row = static_cast<size_t>(bh) * N + row0 + r0 + u;
+        row_inv[r0 + u] = 1.f / fmaxf(sum[u], 1e-30f);
+        thr[row] = topk > 0 ? key_to_float(lo[u]) : kBigNeg;
+        if (lse != nullptr) lse[row] = mx[u] + logf(fmaxf(sum[u], 1e-30f));
+      }
+    }
+  }
+
+  // ---- phase C: PV as a second register-tiled product ------------------
+  __syncthreads();                       // every row's weights are written
+  constexpr int KS = 32 / DG;            // key groups: 256 / (8 row groups * DG)
+  const int dg = tid % DG, rg = (tid / DG) % 8, ks = tid / (8 * DG);
+  float acc[TR][4];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    if (t > 0) {
+      __syncthreads();
+      load_kv(vb, t);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    const int nkeys = min(kKT, M - t * kKT);
+    for (int j0 = ks * 4; j0 < nkeys; j0 += KS * 4) {
+      float e[TR][4];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+        *reinterpret_cast<float4*>(e[i]) = *reinterpret_cast<const float4*>(
+            S + (i * 8 + rg) * LDS + t * kKT + j0);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(KV + (j0 + jj) * LD + dg * 4);
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          acc[i][0] = fmaf(e[i][jj], vv.x, acc[i][0]);
+          acc[i][1] = fmaf(e[i][jj], vv.y, acc[i][1]);
+          acc[i][2] = fmaf(e[i][jj], vv.z, acc[i][2]);
+          acc[i][3] = fmaf(e[i][jj], vv.w, acc[i][3]);
+        }
+      }
+    }
+  }
+  __syncthreads();                       // the V tile is read: partials over it
+  float* part = KV;                      // [KS][BR][DH]
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+    store4(part + (ks * BR + i * 8 + rg) * DH + dg * 4,
+           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+  __syncthreads();
+  for (int i = tid; i < BR * DG; i += kThreads) {
+    const int r = i / DG, d4 = (i % DG) * 4, n = row0 + r;
+    if (n >= N) continue;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int z = 0; z < KS; ++z) {       // key groups in a fixed order
+      const float4 p = load4(part + (z * BR + r) * DH + d4);
+      s.x += p.x; s.y += p.y; s.z += p.z; s.w += p.w;
+    }
+    const float inv = row_inv[r];
+    store4(o + (static_cast<size_t>(bh) * N + n) * DH + d4,
+           make_float4(s.x * inv, s.y * inv, s.z * inv, s.w * inv));
   }
 }
 
-template <typename T, int DH, int C>
+template <typename T, int DH, int TR, int C>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* mask, void* o, float* thr, float* lse, int B,
                    int H, int N, int M, int topk, float scale,
                    cudaStream_t stream) {
-  const int rpw = M <= 256 ? 4 : 2;  // rows per warp: two blocks an SM above 256
-  const size_t smem = (static_cast<size_t>(M) * (DH + 1) +
-                       static_cast<size_t>(kWarps) * rpw * M) * sizeof(float);
+  constexpr int BR = 8 * TR;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(BR) * slab_stride(M) +
+                                       tile_floats(DH, BR) + BR * (DH + 4));
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = topk_attention_kernel<T, DH, C>;
-  cudaError_t err = allow_smem(kernel, smem);
+  auto kernel = topk_attention_kernel<T, DH, TR, C>;
+  static SmemCap cap;
+  cudaError_t err = allow_smem(kernel, smem, cap);
   if (err != cudaSuccess) return err;
-  const int rows_per_block = kWarps * rpw;
-  dim3 grid((N + rows_per_block - 1) / rows_per_block, B * H);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
+  dim3 grid((N + BR - 1) / BR, B * H);
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(o), thr, lse, H, N, M,
-      topk, scale, rpw);
+      topk, scale);
   return cudaGetLastError();
 }
 
+// C = 8 / 16 / 32 chunks of 32 keys a lane holds (M <= 256 / 512 / 1024), at
+// 32, 32 and 16 query rows a block, so that the score slab leaves room for
+// two blocks an SM at the models' shapes. (64 rows at M <= 256 and 16 rows
+// at M <= 512 were built and timed too: both slower, PERF.md.)
 template <typename T, int DH>
-cudaError_t dispatch_c(const void* q, const void* k, const void* v,
-                       const uint8_t* mask, void* o, float* thr, float* lse,
-                       int B, int H, int N, int M, int topk, float scale,
-                       cudaStream_t stream) {
-  if (M <= 256)
-    return launch<T, DH, 8>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
-  if (M <= 512)
-    return launch<T, DH, 16>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
-  if (M <= 1024)
-    return launch<T, DH, 32>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
+cudaError_t dispatch_rows(const void* q, const void* k, const void* v,
+                          const uint8_t* mask, void* o, float* thr, float* lse,
+                          int B, int H, int N, int M, int topk, float scale,
+                          cudaStream_t stream) {
+#define MDGAT_ATTN(TR, C)                                                     \
+  return launch<T, DH, TR, C>(q, k, v, mask, o, thr, lse, B, H, N, M, topk,   \
+                              scale, stream)
+  if (M <= 256) MDGAT_ATTN(4, 8);
+  if (M <= 512) MDGAT_ATTN(4, 16);
+  if (M <= 1024) MDGAT_ATTN(2, 32);
+#undef MDGAT_ATTN
   return cudaErrorInvalidValue;
 }
 
@@ -234,13 +468,21 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
                         const uint8_t* mask, void* o, float* thr, float* lse,
                         int B, int H, int N, int M, int Dh, int topk, float scale,
                         cudaStream_t stream) {
+  if (!aligned_to(q, 4 * sizeof(T)) || !aligned_to(k, 4 * sizeof(T)) ||
+      !aligned_to(v, 4 * sizeof(T)) || !aligned_to(o, 4 * sizeof(T)))
+    return cudaErrorInvalidValue;
+#define MDGAT_DH(DH)                                                          \
+  case DH:                                                                    \
+    return dispatch_rows<T, DH>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, \
+                                scale, stream);
   switch (Dh) {
-    case 8: return dispatch_c<T, 8>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
-    case 16: return dispatch_c<T, 16>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
-    case 32: return dispatch_c<T, 32>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
-    case 64: return dispatch_c<T, 64>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, scale, stream);
+    MDGAT_DH(8)
+    MDGAT_DH(16)
+    MDGAT_DH(32)
+    MDGAT_DH(64)
     default: return cudaErrorInvalidValue;
   }
+#undef MDGAT_DH
 }
 
 }  // namespace
@@ -259,10 +501,11 @@ extern "C" cudaError_t mdgat_topk_attention(
   auto* t = static_cast<float*>(thr);
   auto* l = static_cast<float*>(lse);
   if (io_dtype == kF32)
-    return dispatch_dh<float>(q, k, v, m, o, t, l, B, H, N, M, Dh, topk, scale, stream);
+    return dispatch_dh<float>(q, k, v, m, o, t, l, B, H, N, M, Dh, topk, scale,
+                              stream);
   if (io_dtype == kBF16)
-    return dispatch_dh<__nv_bfloat16>(q, k, v, m, o, t, l, B,
-                                      H, N, M, Dh, topk, scale, stream);
+    return dispatch_dh<__nv_bfloat16>(q, k, v, m, o, t, l, B, H, N, M, Dh, topk,
+                                      scale, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -1,12 +1,15 @@
-// Shared helpers of the mdgat_tpu_torch kernels: dtype conversion, warp
-// reductions, and the -1e30 sentinel that stands in for -inf everywhere
-// (exp() of it is exactly 0; sums of a few stay finite).
+// Shared helpers of the mdgat_tpu_torch kernels: dtype conversion, 16-byte
+// loads and cp.async staging, warp reductions, and the -1e30 sentinel that
+// stands in for -inf everywhere (exp() of it is exactly 0; sums of a few
+// stay finite).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace mdgat {
 
@@ -61,6 +64,71 @@ __device__ __forceinline__ float score_dot(const A* q, const B* k) {
   return acc;
 }
 
+// Four consecutive elements as f32: one 16-byte (f32) or 8-byte (bf16) access.
+// The address must be aligned to the access.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi),
+                     __high2float(hi));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __halves2bfloat162(__float2bfloat16(v.x), __float2bfloat16(v.y));
+  const __nv_bfloat162 hi = __halves2bfloat162(__float2bfloat16(v.z), __float2bfloat16(v.w));
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// cp.async: a 16-byte copy from global to shared memory that passes through
+// no register and completes in the background. `bytes` < 16 zero-fills the
+// rest of the 16 (0 reads nothing and writes zeros; src must still be a
+// valid address). Copies are grouped by cp_async_commit();
+// cp_async_wait<N>() returns once all but the newest N groups have landed.
+__device__ __forceinline__ void cp_async16(unsigned smem_addr, const void* src,
+                                           int bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr),
+               "l"(src), "r"(bytes) : "memory");
+}
+// the address of a shared-memory location as cp.async takes it
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(float* smem_dst, const void* src,
+                                           int bytes = 16) {
+  cp_async16(smem_address(smem_dst), src, bytes);
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stages four consecutive elements into shared memory as f32: cp.async for
+// f32 sources, a converting load and store for bf16. With !ok the four
+// floats are zeros and src is not read.
+__device__ __forceinline__ void stage4(float* dst, const float* src, bool ok) {
+  cp_async16(dst, src, ok ? 16 : 0);
+}
+__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src,
+                                       bool ok) {
+  store4(dst, ok ? load4(src) : make_float4(0.f, 0.f, 0.f, 0.f));
+}
+
+inline bool aligned_to(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 // Sets the dynamic shared-memory cap of a kernel when it asks for more
 // than the default 48 KB (Hopper allows 227 KB per block).
 template <typename Kernel>
@@ -68,6 +136,27 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// The same for a kernel launched hundreds of times a step: the launch site
+// keeps one SmemCap per kernel instantiation (a function-local static),
+// which remembers the largest cap set on each device, so that a steady
+// launch makes no call into the CUDA runtime for it.
+struct SmemCap {
+  static constexpr int kDevices = 64;
+  std::atomic<size_t> set[kDevices] = {};
+};
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, SmemCap& cap) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= SmemCap::kDevices) return allow_smem(kernel, bytes);
+  if (bytes <= cap.set[device].load(std::memory_order_relaxed)) return cudaSuccess;
+  err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess) cap.set[device].store(bytes, std::memory_order_relaxed);
+  return err;
 }
 
 constexpr size_t kMaxSmem = 227 * 1024;

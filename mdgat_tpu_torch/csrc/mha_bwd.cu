@@ -16,9 +16,8 @@
 // over either axis at will. Here p is rebuilt twice, from thr and lse, by
 // two kernels that need no atomics and give the same bits on every run:
 //
-// * rows kernel: one warp per query row, the block laid out as the forward
-//   kernel (csrc/attention.cu): K staged in shared memory, the row's
-//   scores in registers, p written to a per-row shared buffer; then V
+// * rows kernel: one warp per query row: K staged in shared memory, the
+//   row's scores in registers, p written to a per-row shared buffer; then V
 //   staged over K for o = p v, delta = do . o (equal to rowsum(dp * p),
 //   since p sums to one over the kept entries or is all zero) and
 //   ds = p * (do . v_j - delta), which overwrites p; then K staged again
@@ -31,12 +30,14 @@
 //   through shared memory, and each lane then owns one output dim of
 //   dv_j += p_i do_i and dk_j += ds_i q_i. dk and dv go out as [B, M, D].
 //
-// keep must not flip between the forward and these two kernels: all three
-// form s with score_dot (common.cuh) on q and k from the same GEMM kernel.
+// keep must not flip between the forward and these two kernels: these two
+// form s with score_dot (common.cuh), the forward's register tile keeps
+// score_dot's fmaf chain per element (csrc/attention.cu), and all three read
+// q and k from the same GEMM kernel, whose outputs do not depend on its tile.
 //
-// What bounds it on the H100: shared-memory bandwidth, as in the forward
-// kernel (one shared read or two per FMA); five [N, M, Dh] products run
-// where the forward has two. mma tiles are later work.
+// What bounds it on the H100: shared-memory bandwidth (one shared read or
+// two per FMA); five [N, M, Dh] products run where the forward has two. The
+// forward's register-tiled products are the next step here.
 
 #include "common.cuh"
 

@@ -36,14 +36,16 @@
 //
 // w1 is [2D, 2D] f32, 256 KB at D = 128 and more than one SM's shared
 // memory, so no weight is resident: all products walk K in steps of 16
-// through shared tiles, as csrc/gemm.cu does (64x64 output tile, 256
-// threads, 4x4 per thread, f32 FMA). x, h1, g and y are f32 or bf16 (one
-// type per call); msg, dh1, the vectors and every sum are f32.
+// through shared tiles (64x64 output tile, 256 threads, 4x4 per thread, f32
+// FMA: the tiling that gemm_tn_kernel of csrc/gemm.cu keeps too). x, h1, g
+// and y are f32 or bf16 (one type per call); msg, dh1, the vectors and
+// every sum are f32.
 //
 // What bounds them on the H100: the f32 FMA pipe fed from shared memory,
-// as the GEMM of csrc/gemm.cu; mdgat_tl_bwd_sums and mdgat_tl_dh1 both form
-// g @ w2^T (the TPU kernels do so too). h1 ([B*N, 2D], 33.5 MB in f32 at
-// 64 x 512 x 256) and dh1 round-trip through HBM between launches.
+// eight scalar shared reads per sixteen FMAs; mdgat_tl_bwd_sums and
+// mdgat_tl_dh1 both form g @ w2^T (the TPU kernels do so too). h1 ([B*N,
+// 2D], 33.5 MB in f32 at 64 x 512 x 256) and dh1 round-trip through HBM
+// between launches.
 
 #include "common.cuh"
 

@@ -14,6 +14,12 @@ the fused-MHA backward (``ops/cuda/mha.py``) rebuilds the probabilities. A
 CUDA tensor launches the kernel; a CPU tensor takes
 :func:`topk_attention_reference`. Nothing falls back:
 a CUDA call the kernel cannot take raises.
+
+:func:`check_shape` refuses the shapes the kernel has no instantiation for
+(the launch in ``csrc/attention.cu`` plans the rest: rows a block, shared
+memory), and :func:`selection_mirror` is the kernel's exact k-th-value
+search, step for step, in plain PyTorch on int32 keys: it runs on the CPU,
+where the tests hold it to the twin.
 """
 
 from __future__ import annotations
@@ -22,11 +28,85 @@ from typing import Optional
 
 import torch
 
-from mdgat_tpu_torch.ops.attention import acc_dtype, attention_core
+from mdgat_tpu_torch.ops.attention import BIG_NEG, acc_dtype, attention_core
 from mdgat_tpu_torch.ops.cuda._build import DTYPE_CODES, library
 
-_HEAD_DIMS = (8, 16, 32, 64)
+HEAD_DIMS = (8, 16, 32, 64)
 MAX_KEYS = 1024
+VALUE_STEPS = 12        # kValueSteps of csrc/attention.cu
+CANDIDATES = 32         # kCandidates
+
+
+def check_shape(m: int, dh: int, topk: int):
+    """Raises ``ValueError`` unless the kernel takes ``m`` keys at head size
+    ``dh`` with ``topk`` kept (0 = dense)."""
+    _check(dh in HEAD_DIMS, f"head dim {dh} not in {HEAD_DIMS}")
+    _check(0 < m <= MAX_KEYS, f"{m} keys (1 to {MAX_KEYS})")
+    _check(topk >= 0, "topk < 0")
+
+
+def _monotone_key(s: torch.Tensor) -> torch.Tensor:
+    bits = s.contiguous().view(torch.int32)
+    return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+
+
+def _key_to_float(key: torch.Tensor) -> torch.Tensor:
+    return torch.where(key >= 0, key, key ^ 0x7FFFFFFF).view(torch.float32)
+
+
+def _ceil_avg(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    fa = (a >> 1) + (b >> 1) + (a & b & 1)
+    return fa + ((a ^ b) & 1)
+
+
+def selection_mirror(s: torch.Tensor, valid: torch.Tensor,
+                     topk: int) -> torch.Tensor:
+    """The kernel's search for the per-row k-th largest valid score
+    ``[..., 1]``, step for step on order-preserving int32 keys (phase B of
+    ``csrc/attention.cu``): an interval ``[lo, hi]`` of keys with the counts
+    ``count(key >= lo)`` and ``count(key > hi)``; pivots that bisect the
+    value interval for the first ``VALUE_STEPS`` steps and the key interval
+    after; and, once at most ``CANDIDATES`` keys are undecided, their
+    ranking. ``s`` is float32 ``[..., M]``, ``valid`` its boolean mask.
+    Equal to :func:`~mdgat_tpu_torch.ops.attention.topk_threshold` bit for
+    bit, ties, signed zeros and all-masked rows included."""
+    shape = s.shape[:-1]
+    m = s.shape[-1]
+    valid = valid.expand(s.shape).reshape(-1, m)
+    s = torch.where(valid, s.reshape(-1, m).to(torch.float32),
+                    torch.tensor(BIG_NEG, dtype=torch.float32, device=s.device))
+    key = _monotone_key(s)
+    none = _monotone_key(torch.tensor(-BIG_NEG, dtype=torch.float32,
+                                      device=s.device))
+    hi = key.amax(-1)
+    lo = torch.where(valid, key, none).amin(-1)
+    nvalid = valid.sum(-1).to(torch.int32)
+    search = nvalid > topk
+    c_lo, c_hi = nvalid.clone(), torch.zeros_like(nvalid)
+    step = 0
+    while True:
+        active = search & (lo < hi) & (c_lo - c_hi > CANDIDATES)
+        if not bool(active.any()):
+            break
+        mid = _ceil_avg(lo, hi)
+        if step < VALUE_STEPS:
+            vmid = _monotone_key(0.5 * _key_to_float(lo)
+                                 + 0.5 * _key_to_float(hi))
+            mid = torch.where((vmid > lo) & (vmid <= hi), vmid, mid)
+        cnt = (key >= mid[:, None]).sum(-1).to(torch.int32)
+        up, down = active & (cnt >= topk), active & (cnt < topk)
+        lo, c_lo = torch.where(up, mid, lo), torch.where(up, cnt, c_lo)
+        hi, c_hi = torch.where(down, mid - 1, hi), torch.where(down, cnt, c_hi)
+        step += 1
+    # the undecided keys, ranked: the (topk - c_hi)-th largest of them
+    rank_rows = search & (lo < hi)
+    inside = (key >= lo[:, None]) & (key <= hi[:, None])
+    lowest = torch.iinfo(torch.int32).min
+    ranked = torch.where(inside, key, lowest).sort(-1, descending=True).values
+    rank = (topk - c_hi).clamp(1, m).long()
+    picked = ranked.gather(-1, rank[:, None] - 1)[:, 0]
+    lo = torch.where(rank_rows, picked, lo)
+    return _key_to_float(lo).reshape(*shape, 1)
 
 
 def topk_attention_reference(q, k, v, kv_mask: Optional[torch.Tensor],
@@ -54,9 +134,7 @@ def topk_attention(q, k, v, kv_mask: Optional[torch.Tensor], topk: int,
     _check(q.dtype in DTYPE_CODES, f"dtype {q.dtype} (float32 / bfloat16)")
     _check(k.shape == v.shape == (b, h, m, dh), "k/v shape")
     _check(k.dtype == v.dtype == q.dtype, "q/k/v dtypes differ")
-    _check(dh in _HEAD_DIMS, f"head dim {dh} not in {_HEAD_DIMS}")
-    _check(0 < m <= MAX_KEYS, f"{m} keys (at most {MAX_KEYS})")
-    _check(topk >= 0, "topk < 0")
+    check_shape(m, dh, int(topk))
     if kv_mask is None:
         mask = torch.ones((b, m), dtype=torch.uint8, device=q.device)
     else:

@@ -165,10 +165,12 @@ def gemm(a1, w, bias, *, a2=None, relu=False, res=None, out_dtype=None,
                        DTYPE_CODES[out_dtype], out_heads, rows_per_batch, r,
                        c, int(relu), int(w_trans), stream)
     gemm.launches += 1
+    gemm.wt_launches += bool(w_trans)
     return out
 
 
-gemm.launches = 0
+gemm.launches = 0      # every launch of gemm_kernel
+gemm.wt_launches = 0   # those of its W^T instantiation
 
 TN_ROWS_PER_SPLIT = 512
 
