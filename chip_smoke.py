@@ -41,7 +41,13 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    on every row), every GEMM mode at aligned and odd shapes (the forward's q
    projection bit-equal to the backward's recomputation, through vector
    and guarded loads alike; the W^T mode
-   timed beside ``torch.matmul(a, w.t())``), the Sinkhorn replay backward
+   timed beside ``torch.matmul(a, w.t())``; the A^T split-K product at the
+   train step's two shapes, a ragged row count and odd shapes, bit-equal
+   from run to run, timed in CUDA graphs beside ``torch.matmul(a.t(), b)``
+   under its plan and other row splits), the two attention-backward kernels
+   at 64 x 4 x 512 x 512 x 32 (k = 128, 64, dense: o, dq, dk, dv against
+   the twin, bit-equal from run to run, each kernel's device time a launch
+   from torch.profiler beside its bound), the Sinkhorn replay backward
    (dZ, dalpha), and the
    whole-layer train kernels (h1, ssum, ssq, thr, lse, y, batch mean and
    variance; Sg, Sgh, dw2, db2, dscale, dbias; dx, dsrc and the fourteen
@@ -57,15 +63,20 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    steps of ``make_train_step`` on a synthetic batch of 64 pairs at 512
    keypoints, three arms, each with the launch counters zeroed just before
    and read just after. The default route (``train_layer=True``): 36
-   whole-layer forwards and 36 backwards, no fused-MHA launch, 1 Sinkhorn
-   forward and 1 backward per step. The fused-MHA route
-   (``train_layer=False``): 36 fused-MHA forwards, 36 backwards, 1 and 1.
+   whole-layer forwards and 36 backwards, no fused-MHA launch, 36
+   attention-backward (rows + keys kernel) and 216 A^T GEMM launches, 1
+   Sinkhorn forward and 1 backward per step. The fused-MHA route
+   (``train_layer=False``): 36 fused-MHA forwards, 36 backwards (36
+   attention-backward, 144 A^T GEMM launches), 1 and 1.
    The plain path (``use_kernels=False``): no launch. Losses and gradient
    norms of both kernel routes agree with the plain path, and four of the
    pairs on the card with the CPU; the loss is finite and falls; the peak
    memory of each arm; a torch.profiler window over one step of the
-   default route; then times per kernel, per whole layer and per step
-   (the arms in turns, a fourth with ``loss_kernel=True``);
+   default route (device time, busy share, and the step's device ms and
+   launches of the rows, keys and A^T GEMM kernels); then times per
+   kernel, per whole layer (the whole-layer backward at k = 128 and dense
+   also in a CUDA graph) and per step (the arms in turns, a fourth with
+   ``loss_kernel=True``);
 8. the training entry point: a synthetic KITTI-layout dataset is written
    under ``chip_smoke_out/`` (9 sequences, 512 keypoints a frame, 64 pairs a
    sequence) and ``train_torch.main`` runs on it at full width (batch 64,
@@ -962,7 +973,7 @@ def mha_case(rng, dev, b, n, m, d, heads, k, selfattn, seed):
     return fwd_err, grad_err, gap, int(tie.sum()), tie.numel()
 
 
-def check_gemm_modes(rng, dev, report):
+def check_gemm_modes(rng, dev, report, card):
     """The GEMM modes the fused-MHA backward adds: W read transposed, no
     bias, and the transposed-A split-K product with its column sums."""
     import torch
@@ -972,15 +983,20 @@ def check_gemm_modes(rng, dev, report):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
     worst = 0.0
-    for r, k1, c in ((64 * 512, 128, 128), (1000, 45, 70), (513, 128, 64)):
+    # the train step's two shapes (x^T dq; x^T dh1 with dh1 [R, 2D]), a
+    # ragged row count, and guarded loads (K1, C not multiples of four)
+    for r, k1, c in ((64 * 512, 128, 128), (64 * 512, 128, 256),
+                     (64 * 512 + 1, 128, 128), (1000, 45, 70), (513, 128, 64)):
         a, b2 = t(r, k1), t(r, c)
         dw, db = Lk.gemm_tn(a, b2)
         dw2, db2 = Lk.gemm_tn(a, b2)
         require(torch.equal(dw, dw2) and torch.equal(db, db2),
                 "gemm_tn differs from run to run")
         err = max(_rel_err(dw, a.t() @ b2), _rel_err(db, b2.sum(0)))
-        print(f"gemm_tn {k1}x{r}x{c}: max rel err of a^T b and column sums "
-              f"{err:.3e} (tol {TOL['mha_grad']:g}); bit-equal over two runs")
+        rows, splits = Lk.tn_plan(r, k1, c)
+        print(f"gemm_tn {k1}x{r}x{c} ({splits} splits of {rows} rows): max rel "
+              f"err of a^T b and column sums {err:.3e} (tol "
+              f"{TOL['mha_grad']:g}); bit-equal over two runs")
         require(err <= TOL["mha_grad"], "gemm_tn disagrees")
         worst = max(worst, err)
     report["gemm_tn"]["max_abs_err"] = worst
@@ -1085,16 +1101,35 @@ def check_gemm_modes(rng, dev, report):
                                      max_abs_err=err)
         report.setdefault("_gemm_wt", {})[name] = dict(ms=ms, library_ms=lib,
                                                        bound_ms=bms)
-    a, b2 = t(64 * 512, 128), t(64 * 512, 128)
-    ms, plain = abba_ms(lambda: Lk.gemm_tn(a, b2),
-                        lambda: (a.t() @ b2, b2.sum(0)), 10)
-    lib = cuda_ms(lambda: torch.matmul(a.t(), b2))
-    bms, by = bound(4.0 * (2 * a.numel() + 128 * 128 + 128),
-                    2.0 * a.shape[0] * 128 * 128)
-    print(f"gemm_tn 128x32768x128: {ms:.4f} ms / plain {plain:.4f} / "
-          f"torch.matmul alone {lib:.4f}")
-    report["gemm_tn"].update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                             library_ms=lib)
+    # the A^T GEMM at the train step's two shapes, in CUDA graphs: the
+    # kernel (its plan, then other row splits), its plain twin and
+    # torch.matmul(a.t(), b), the one library call for the product
+    tn = {}
+    for c in (128, 256):
+        r, k1 = 64 * 512, 128
+        a, b2 = t(r, k1), t(r, c)
+        rows, splits = Lk.tn_plan(r, k1, c)
+        with torch.no_grad():
+            ms = graph_ms(lambda: Lk.gemm_tn(a, b2))
+            plain = graph_ms(lambda: Lk.gemm_tn_reference(a, b2))
+            lib = graph_ms(lambda: torch.matmul(a.t(), b2))
+            sweep = {n: graph_ms(lambda: Lk._gemm_tn_launch(a, b2, n, -(-r // n)))
+                     for n in (64, 128, 256, 512, 1024)}
+        bms, by = bound(4.0 * (r * (k1 + c) + k1 * c + c), 2.0 * r * k1 * c)
+        verdict = ("no slower than" if ms <= lib else f"{ms / lib:.2f}x")
+        print(f"gemm_tn {k1}x{r}x{c} on {card}, in a CUDA graph: {ms:.4f} ms "
+              f"({splits} splits of {rows} rows) / plain {plain:.4f} / "
+              f"torch.matmul(a.t(), b) {lib:.4f} (kernel {verdict} the "
+              f"library call) / bound {bms:.4f} ({by}); rows a split: "
+              + ", ".join(f"{n} ({-(-r // n)} splits) {v:.4f}"
+                          for n, v in sweep.items()))
+        tn[f"{k1}x{r}x{c}"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                   bound_ms=bms, plan=[rows, splits],
+                                   rows_per_split_ms=sweep)
+        if c == 128:
+            report["gemm_tn"].update(ms=ms, plain_ms=plain, bound_ms=bms,
+                                     bound_by=by, library_ms=lib)
+    report["_gemm_tn"] = tn
 
 
 def check_fused_mha(rng, dev, report):
@@ -1123,6 +1158,116 @@ def check_fused_mha(rng, dev, report):
             worst_f, worst_g = max(worst_f, f), max(worst_g, g)
     report["fused_mha_fwd"]["max_abs_err"] = worst_f
     report["fused_mha_bwd"]["max_abs_err"] = worst_g
+
+
+def kernel_ms_by_name(fn, names, reps: int = 5):
+    """Device ms a launch of each kernel whose name contains one of
+    ``names``, from torch.profiler over ``reps`` calls of ``fn`` (after one
+    call outside the window): ``{name: (ms a launch, launches)}``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and name in e.key]
+        count = sum(e.count for e in hits)
+        total = sum(e.self_device_time_total for e in hits) / 1e3
+        require(count > 0, f"the profiler saw no {name} launch")
+        out[name] = (total / count, count)
+    return out
+
+
+def attention_backward_bounds(mask, b, h, n, m, dh, k):
+    """(rows kernel, keys kernel) bounds, each (ms, by), at [B, H, N, Dh]
+    queries and [B, H, M, Dh] keys, counting what this mask and k need:
+    scores over the valid keys (to find the kept entries), and o, dp, dq
+    (rows) or dp, dk, dv (keys) over the kept entries only."""
+    import torch
+    keys = mask.sum().item()
+    kept = (torch.clamp(mask.sum(1), max=k).sum().item() if k else keys) * h * n
+    flops = 2.0 * h * n * dh * keys + 3 * 2.0 * kept * dh
+    q_side, k_side = 4.0 * b * h * n * dh, 4.0 * b * h * m * dh
+    rows_in = 2 * q_side + 2 * k_side + 2 * 4.0 * b * h * n + b * m
+    rows_bytes = rows_in + 2 * q_side + 4.0 * b * h * n      # o, dq; delta
+    keys_bytes = rows_in + 4.0 * b * h * n + 2 * k_side      # delta in; dk, dv
+    return bound(rows_bytes, flops), bound(keys_bytes, flops)
+
+
+def check_attention_backward(rng, dev, report, card):
+    """The two attention-backward kernels at the train shape 64 x 4 x 512 x
+    512 x 32 (k = 128, 64, dense; ragged keys): o, dq, dk, dv against the
+    twin (thr and lse each side from its own forward; near-tie rows get a
+    zero cotangent and their o is left out), bit-equal over two runs; each
+    kernel's device ms a launch from torch.profiler beside its bound."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import attention as A
+    from mdgat_tpu_torch.ops.cuda import mha as M
+
+    b, h, n, dh = 64, 4, 512, 32
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    # the score scale folded into q, as the model folds it into wq
+    q, k, v, do = t(b, h, n, dh) * dh ** -0.5, t(b, h, n, dh), t(b, h, n, dh), t(b, h, n, dh)
+    mask = ragged_mask(rng, b, n, 400, dev)
+    names = ("mha_bwd_rows_kernel", "mha_bwd_keys_kernel")
+    out = {}
+    print(f"attention backward {b}x{h}x{n}x{n}x{dh} on {card}:")
+    for kk in (128, 64, 0):
+        with torch.no_grad():
+            _, thr, lse = A.topk_attention(q, k, v, mask, kk, 1.0, return_lse=True)
+            _, thr_r, lse_r = A.topk_attention_reference(q, k, v, mask, kk, 1.0,
+                                                         return_lse=True)
+            s = q @ k.transpose(-1, -2)
+            tie = near_tie_rows(s, mask[:, None, None, :].expand(s.shape), kk)
+            del s
+            dz = do * (~tie)[..., None]
+            got = M._attention_backward(q, k, v, dz, mask, thr, lse)
+            again = M._attention_backward(q, k, v, dz, mask, thr, lse)
+            ref = M.attention_backward_reference(q, k, v, dz, mask, thr_r, lse_r)
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                "the attention backward differs from run to run")
+        keep = (~tie).permute(0, 2, 1).reshape(b * n, h)[..., None]
+        o_err = ((got[0] - ref[0]).reshape(b * n, h, dh).abs() * keep).max().item()
+        errs = [_rel_err(x, y) for x, y in zip(got[1:], ref[1:])]
+        require(all(torch.isfinite(x).all().item() for x in got),
+                "attention backward: non-finite output")
+        require(o_err <= TOL["mha_out"] and max(errs) <= TOL["mha_grad"],
+                f"attention backward k{kk} disagrees with its twin")
+        with torch.no_grad():
+            ms = kernel_ms_by_name(
+                lambda: M._attention_backward(q, k, v, dz, mask, thr, lse), names)
+            plain = cuda_ms(lambda: M.attention_backward_reference(
+                q, k, v, dz, mask, thr_r, lse_r), reps=5, warmup=1)
+        (rb, rby), (kb, kby) = attention_backward_bounds(mask, b, h, n, n, dh, kk)
+        print(f"  k{kk}: rows kernel {ms[names[0]][0]:.4f} ms a launch (bound "
+              f"{rb:.4f}, {rby}), keys kernel {ms[names[1]][0]:.4f} (bound "
+              f"{kb:.4f}, {kby}); twin {plain:.4f}; o max err {o_err:.3e} (tol "
+              f"{TOL['mha_out']:g}, {int(tie.sum())} near-tie rows of "
+              f"{tie.numel()} left out), dq / dk / dv max rel err "
+              + " / ".join(f"{e:.3e}" for e in errs)
+              + f" (tol {TOL['mha_grad']:g}); bit-equal over two runs")
+        out[f"k{kk}"] = dict(rows_ms=ms[names[0]][0], keys_ms=ms[names[1]][0],
+                             rows_bound_ms=rb, keys_bound_ms=kb, plain_ms=plain,
+                             o_err=o_err, grad_errs=errs)
+        if kk == 128:
+            report["mha_bwd_rows"].update(
+                ms=ms[names[0]][0], plain_ms=plain, bound_ms=rb, bound_by=rby,
+                library_ms=None, max_abs_err=max(o_err, errs[0]))
+            report["mha_bwd_keys"].update(
+                ms=ms[names[1]][0], plain_ms=plain, bound_ms=kb, bound_by=kby,
+                library_ms=None, max_abs_err=max(errs[1:]))
+    report["_attention_backward"] = out
 
 
 def sinkhorn_bwd_case(rng, dev, b, n, m, iters=20):
@@ -1537,9 +1682,12 @@ def training(dev, report, counters):
         "whole-layer train kernels", cfg,
         {"train_layer_fwd": 36, "train_layer_bwd": 36, "fused_mha_fwd": 0,
          "fused_mha_bwd": 0, "sinkhorn": 1, "sinkhorn_bwd": 1, "eval_layer": 0,
-         **{name: 36 for name in tl_names}})
-    for name in tl_names[:3] + tl_names[4:] + ("sinkhorn_bwd", "gemm_wt"):
+         "mha_bwd": 36, "gemm_tn": 216, **{name: 36 for name in tl_names}})
+    for name in tl_names[:3] + tl_names[4:] + ("sinkhorn_bwd", "gemm_wt",
+                                               "gemm_tn"):
         report[name]["launches"] = launches[name]
+    for name in ("mha_bwd_rows", "mha_bwd_keys"):
+        report[name]["launches"] = launches["mha_bwd"]
     report["sinkhorn"]["train_launches"] = launches["sinkhorn"]
     print(f"per step: train-layer forward "
           f"{launches['train_layer_fwd'] // TRAIN_STEPS} / backward "
@@ -1549,16 +1697,18 @@ def training(dev, report, counters):
           f"backward {launches['sinkhorn_bwd'] // TRAIN_STEPS}; inside them "
           f"{launches['gemm'] // TRAIN_STEPS} GEMM (of them "
           f"{launches['gemm_wt'] // TRAIN_STEPS} W^T), "
-          f"{launches['gemm_tn'] // TRAIN_STEPS} transposed GEMM and "
-          f"{launches['topk_attention'] // TRAIN_STEPS} attention launches")
+          f"{launches['gemm_tn'] // TRAIN_STEPS} transposed GEMM, "
+          f"{launches['topk_attention'] // TRAIN_STEPS} attention and "
+          f"{launches['mha_bwd'] // TRAIN_STEPS} attention-backward (rows + "
+          f"keys kernel) launches")
 
     # train_layer=False: fused-MHA kernel pair, plain MLP and BatchNorm
     mha_state, mha_m, mha_launches, peak_mha, _ = arm(
         "fused-MHA route (train_layer=False)", cfg.replace(train_layer=False),
         {"fused_mha_fwd": 36, "fused_mha_bwd": 36, "sinkhorn": 1,
          "sinkhorn_bwd": 1, "eval_layer": 0, "train_layer_fwd": 0,
-         "train_layer_bwd": 0})
-    for name in ("fused_mha_fwd", "fused_mha_bwd", "gemm_tn"):
+         "train_layer_bwd": 0, "mha_bwd": 36, "gemm_tn": 144})
+    for name in ("fused_mha_fwd", "fused_mha_bwd"):
         report[name]["launches"] = mha_launches[name]
 
     plain_state, plain, _, peak_plain, _ = arm(
@@ -1632,8 +1782,21 @@ def profile_train(state, batch, card, report):
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
               f"{e.key[:90]}")
+    # the kernels this step's redesigns touch, each summed over its
+    # instantiations: device ms in the step, launches, ms a launch
+    by_kernel = {}
+    for name in ("mha_bwd_rows_kernel", "mha_bwd_keys_kernel",
+                 "gemm_tn_kernel", "tn_reduce_kernel"):
+        hits = [e for e in events if name in e.key]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        count = sum(e.count for e in hits)
+        require(count > 0, f"the profiled step ran no {name}")
+        by_kernel[name] = dict(ms=ms, launches=count, ms_a_launch=ms / count)
+        print(f"  {name}: {ms:.3f} ms in the step, {count} launches, "
+              f"{ms / count:.4f} ms a launch ({100 * ms / device_ms:.1f}% of "
+              f"the step's device time)")
     report["_train_profile"] = dict(
-        window_ms=window_ms, device_ms=device_ms,
+        window_ms=window_ms, device_ms=device_ms, by_kernel=by_kernel,
         kernels=[dict(name=e.key[:120], count=e.count,
                       ms=e.self_device_time_total / 1e3) for e in top])
 
@@ -1716,6 +1879,23 @@ def train_layer_timings(rng, dev, report, x, g, mask, k, h):
             lambda: torch.autograd.grad(y_graph, lr, g, retain_graph=True), 5),
     }
     del y_graph, msg_graph
+
+    # the whole-layer backward alone at k = 128 and dense, by events and in a
+    # CUDA graph (no host work between its 27 launches)
+    for kk in (k, None):
+        with torch.no_grad():
+            (_, mean_k, var_k, cnt_k, h1_k, thr_k,
+             lse_k) = T._tl_forward(x, x, mask, mask, kk, h, *w)[:7]
+
+            def bwd():
+                return T._tl_backward(x, x, mask, mask, thr_k, lse_k, h1_k,
+                                      mean_k, var_k, cnt_k, g, h, *attn, w1,
+                                      w2, scale, bias)
+            ev, gr = cuda_ms(bwd, reps=10), graph_ms(bwd, reps=5, replays=3)
+        print(f"whole-layer backward k{kk or 0}: {ev:.4f} ms by events, "
+              f"{gr:.4f} ms in a CUDA graph")
+        report.setdefault("_train_layer_backward_ms", {})[f"k{kk or 0}"] = dict(
+            events=ev, graph=gr)
 
     # bounds, counting what this run's masks need (see train_timings): the
     # fused-MHA bounds plus the MLP products, which run over every row
@@ -1922,7 +2102,8 @@ def train_cli(dev, report, counters, card):
     want = {"train_layer_fwd": 36 * n_train, "train_layer_bwd": 36 * n_train,
             "sinkhorn": n_train + n_val, "sinkhorn_bwd": n_train,
             "gap_loss_fwd": n_train + n_val, "gap_loss_bwd": n_train,
-            "eval_layer": 36 * n_val, "fused_mha_fwd": 0, "fused_mha_bwd": 0}
+            "eval_layer": 36 * n_val, "fused_mha_fwd": 0, "fused_mha_bwd": 0,
+            "mha_bwd": 36 * n_train, "gemm_tn": 216 * n_train}
     for name, count in want.items():
         require(launches[name] == count,
                 f"train_cli: {name} {launches[name]} launches, not {count} "
@@ -2032,6 +2213,7 @@ def main() -> int:
         "sinkhorn_bwd": Counter(S.log_optimal_transport_kernel,
                                 "backward_launches"),
         "gemm_tn": Counter(Lk.gemm_tn),
+        "mha_bwd": Counter(M._attention_backward),
         "train_layer_fwd": Counter(T.fused_train_layer, "forward_launches"),
         "train_layer_bwd": Counter(T.fused_train_layer, "backward_launches"),
         "train_layer_fwd1": Counter(T.h1_stats),
@@ -2059,6 +2241,12 @@ def main() -> int:
         "fused_mha_bwd": dict(route="cuda",
                               source="mdgat_tpu_torch/csrc/mha_bwd.cu",
                               replaces="mdgat_tpu/ops/pallas/attention.py:995"),
+        "mha_bwd_rows": dict(route="cuda",
+                             source="mdgat_tpu_torch/csrc/mha_bwd.cu",
+                             replaces="mdgat_tpu/ops/pallas/attention.py:995"),
+        "mha_bwd_keys": dict(route="cuda",
+                             source="mdgat_tpu_torch/csrc/mha_bwd.cu",
+                             replaces="mdgat_tpu/ops/pallas/attention.py:995"),
         "gemm_tn": dict(route="cuda", source="mdgat_tpu_torch/csrc/gemm.cu",
                         replaces="mdgat_tpu/ops/pallas/attention.py:995"),
         "gemm_wt": dict(route="cuda", source="mdgat_tpu_torch/csrc/gemm.cu",
@@ -2087,8 +2275,9 @@ def main() -> int:
     report["_serving_profile"] = profile(matcher, pairs, card)
     del matcher, plain
     torch.cuda.empty_cache()
-    check_gemm_modes(rng, dev, report)
+    check_gemm_modes(rng, dev, report, card)
     check_fused_mha(rng, dev, report)
+    check_attention_backward(rng, dev, report, card)
     check_sinkhorn_bwd(rng, dev, report)
     check_train_layer(rng, dev, report)
     check_gap_loss(rng, dev, report, card)

@@ -71,7 +71,6 @@ namespace mdgat {
 namespace {
 
 constexpr int kThreads = 256, kWarps = 8;
-constexpr int kKT = 256;         // keys of one staged K or V tile
 constexpr int kValueSteps = 12;  // search steps that bisect the value interval
 constexpr int kCandidates = 32;  // undecided keys finished by ranking
 
@@ -89,13 +88,6 @@ __device__ __forceinline__ float key_to_float(int key) {
 __device__ __forceinline__ int ceil_avg(int a, int b) {
   int fa = (a >> 1) + (b >> 1) + (a & b & 1);
   return fa + ((a ^ b) & 1);
-}
-
-// floats of dynamic shared memory: the score slab, the K / V tile (also
-// the dense PV's partial sums), the Q tile
-__host__ __device__ constexpr int slab_stride(int M) { return (M + 31) / 32 * 32 + 8; }
-__host__ __device__ constexpr int tile_floats(int DH, int BR) {
-  return kKT * (DH + 4) > 128 * BR ? kKT * (DH + 4) : 128 * BR;
 }
 
 // rows of a warp that go through phase B together: at most 32 keys a lane

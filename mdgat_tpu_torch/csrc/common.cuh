@@ -161,4 +161,17 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, SmemCap& cap) {
 
 constexpr size_t kMaxSmem = 227 * 1024;
 
+// The key-tile layout of the attention forward (csrc/attention.cu) and of
+// the backward's rows kernel (csrc/mha_bwd.cu): K or V streams through one
+// tile of kKT keys at a row stride of Dh + 4 floats, beside a [rows][M + pad]
+// slab of scores or weights whose stride of 8 mod 32 floats puts the four
+// rows of a warp's 4 x 8 register tile on disjoint banks.
+constexpr int kKT = 256;
+__host__ __device__ constexpr int slab_stride(int M) { return (M + 31) / 32 * 32 + 8; }
+// floats of the tile buffer, which also holds the [32 / (Dh / 4)][rows][Dh]
+// partial sums of the slab products
+__host__ __device__ constexpr int tile_floats(int DH, int BR) {
+  return kKT * (DH + 4) > 128 * BR ? kKT * (DH + 4) : 128 * BR;
+}
+
 }  // namespace mdgat

@@ -36,6 +36,28 @@
 // partials in a fixed order, so the result does not change from run to run
 // (the TPU kernel accumulates them across its sequential grid instead).
 //
+// Design of gemm_tn_kernel (the A^T products). Each step of the reduction
+// is the outer product of one row of a (along k) and the same row of b
+// (along c), so neither operand needs a transpose: stages of 32 rows of a
+// and b are copied as they lie in HBM by 16-byte cp.async into a four-stage
+// ring, and a thread owns an 8 x 8 register tile of the 128 x 128 output
+// tile of its block, reading per row two 16-byte vectors of a and two of b
+// for 64 FMAs (16 FMAs a load, as gemm_kernel). The column sums leave the
+// product loop: per stage each of the 16 threads that share a thread's
+// columns adds two rows, and the 16 sums close in a fixed order after the
+// loop. One block an SM: the 128 KB ring and up to 255 registers a thread
+// (about 160 used) ran faster than two blocks of 128 registers, and than a
+// 16 x 8 tile on 128 threads (PERF.md). The plan, rows per split and
+// splits, is ops/cuda/layer.py::tn_plan (a block an SM over the output
+// tiles); the entry checks that it covers every row once, leaves no split
+// empty and matches the scratch.
+// What bounds it on the H100: the f32 FMA pipe (128 x 32768 x 128: 1.07
+// GFLOP, 0.016 ms at 67 TFLOP/s, against 0.010 ms for the operands' bytes);
+// the partials (S splits x 129 x C floats) and their second pass are the
+// price of filling 132 SMs with a single output tile. Ragged R, K1 or C not
+// a multiple of four, and unaligned operands take guarded element loads in
+// the same kernel. f32 FMA, no TF32.
+//
 // Design of gemm_kernel (the forward products and the W^T products). Every
 // output element is ONE fmaf chain over k ascending from 0, started at 0,
 // with the bias added after it, on the vector path and the guarded one
@@ -390,100 +412,211 @@ cudaError_t launch(const void* a1, int a1_heads, const float* a2, int K1,
                                      flags, stream);
 }
 
-// gemm_tn_kernel: a 64x64 tile per block of 256 threads, 4x4 per thread, the
-// rows in steps of 16 through shared memory
-constexpr int BM = 64, BN = 64, BK = 16, kThreads = 256;
+// ---- gemm_tn_kernel: dw = a^T b and db = colsum(b), split over rows ----
+//
+// The output [K1, C] is cut into 128 x 128 tiles (blockIdx.y along k,
+// blockIdx.x along c) and the rows into splits (blockIdx.z); a block forms
+// its tile over its split's rows and writes it to partial[z], row K1 of which
+// holds the split's column sums of b. tn_reduce_kernel then adds the splits.
+constexpr int kTnTile = 128;     // output tile edge, along k and along c
+constexpr int kTnRows = 32;      // rows of a and of b in one stage of the ring
+constexpr int kTnStages = 4;
+constexpr int kTnThreads = 256;  // 4 x 2 warps, a 32 x 64 tile each
+constexpr int kTnStage = kTnRows * 2 * kTnTile;   // floats: a tile, b tile
+constexpr size_t kTnSmem = sizeof(float) * kTnStages * kTnStage;
+constexpr int kReduceGroups = 8; // tn_reduce_kernel: chunks of splits
 
-// partial[z][k][c] = sum over the rows r of split z of a[r][k] * b[r][c],
-// k < K1; partial[z][K1][c] = sum over those rows of b[r][c].
-__global__ void __launch_bounds__(kThreads)
+// partial[z][k][c] = sum over the rows r of split z of a[r][k] * b[r][c]
+// (k < K1); partial[z][K1][c] = sum over those rows of b[r][c]. VEC: K1 and C
+// multiples of four and a, b, partial 16-byte aligned. One block an SM (the
+// ring takes 128 KB), with the registers that leaves a thread.
+template <bool VEC>
+__global__ void __launch_bounds__(kTnThreads, 1)
 gemm_tn_kernel(const float* __restrict__ a, const float* __restrict__ b,
                float* __restrict__ partial, int R, int K1, int C,
                int rows_per_split) {
-  __shared__ float As[BK][BM];
-  __shared__ float Bs[BK][BN];
-  const int k0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tm = lane >> 3, tn = lane & 7, wm = warp >> 1, wn = warp & 1;
+  const int k0 = blockIdx.y * kTnTile, c0 = blockIdx.x * kTnTile;
   const int r_begin = blockIdx.z * rows_per_split;
   const int r_end = min(R, r_begin + rows_per_split);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const bool sums = blockIdx.y == 0 && ty == 0;
+  const unsigned smem_u32 = smem_address(smem);
 
-  float acc[4][4];
-  float csum[4] = {0.f, 0.f, 0.f, 0.f};
+  // A stage is [kTnRows][128] of a (its k0.. columns), then [kTnRows][128]
+  // of b (its c0.. columns), both as they lie in HBM: a row of the stage is
+  // one outer product's operands. A warp copies whole rows: 32 lanes x 16
+  // bytes, contiguous in HBM and in shared memory.
+  const int col4 = lane * 4;
+  const bool a_ok = k0 + col4 < K1, b_ok = c0 + col4 < C;
+  auto load_stage = [&](int tile, int stage) {
+    float* As = smem + stage * kTnStage;
+    float* Bs = As + kTnRows * kTnTile;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < kTnRows / 8; ++e) {
+      const int rr = warp + 8 * e, row = r_begin + tile * kTnRows + rr;
+      const bool rok = row < r_end;
+      const float* arow = a + static_cast<size_t>(rok ? row : 0) * K1 + k0 + col4;
+      const float* brow = b + static_cast<size_t>(rok ? row : 0) * C + c0 + col4;
+      const int at = rr * kTnTile + col4;
+      if constexpr (VEC) {
+        cp_async16(smem_u32 + (stage * kTnStage + at) * 4, rok && a_ok ? arow : a,
+                   rok && a_ok ? 16 : 0);
+        cp_async16(smem_u32 + (stage * kTnStage + kTnRows * kTnTile + at) * 4,
+                   rok && b_ok ? brow : b, rok && b_ok ? 16 : 0);
+      } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += BK) {
-#pragma unroll
-    for (int e = 0; e < (BK * BM) / kThreads; ++e) {
-      const int idx = threadIdx.x + e * kThreads;
-      const int rr = idx / BM, kk = idx % BM;
-      const int row = r0 + rr, kc = k0 + kk;
-      As[rr][kk] = (row < r_end && kc < K1)
-                       ? a[static_cast<size_t>(row) * K1 + kc] : 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < (BK * BN) / kThreads; ++e) {
-      const int idx = threadIdx.x + e * kThreads;
-      const int rr = idx / BN, c = idx % BN;
-      const int row = r0 + rr, col = col0 + c;
-      Bs[rr][c] = (row < r_end && col < C)
-                      ? b[static_cast<size_t>(row) * C + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < BK; ++rr) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[rr][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[rr][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      if (sums) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) csum[j] += bv[j];
+        for (int i = 0; i < 4; ++i) {
+          As[at + i] = rok && k0 + col4 + i < K1 ? arow[i] : 0.f;
+          Bs[at + i] = rok && c0 + col4 + i < C ? brow[i] : 0.f;
+        }
       }
     }
-    __syncthreads();
+  };
+
+  // A thread owns k = wm*32 + {tm*4.., 16 + tm*4..} and c = wn*64 +
+  // {tn*4.., 32 + tn*4..}: per row, two 16-byte loads of a (four distinct
+  // addresses in a warp, broadcast) and two of b (eight, one 128-byte run)
+  // feed 64 FMAs.
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float csum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const bool sums = blockIdx.y == 0;   // one k tile of a column forms the sums
+
+  const int tiles = (r_end - r_begin + kTnRows - 1) / kTnRows;
+#pragma unroll
+  for (int s = 0; s < kTnStages - 1; ++s) {
+    if (s < tiles) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kTnStages - 2>();   // stage t has landed
+    __syncthreads();                  // ... for every thread; stage t-1 is read
+    if (t + kTnStages - 1 < tiles)
+      load_stage(t + kTnStages - 1, (t + kTnStages - 1) % kTnStages);
+    cp_async_commit();
+    const float* ap = smem + (t % kTnStages) * kTnStage + wm * 32 + tm * 4;
+    const float* bp = smem + (t % kTnStages) * kTnStage + kTnRows * kTnTile +
+                      wn * 64 + tn * 4;
+#pragma unroll
+    for (int rr = 0; rr < kTnRows; ++rr) {
+      float av[8], bv[8];
+      *reinterpret_cast<float4*>(av) = *reinterpret_cast<const float4*>(ap + rr * kTnTile);
+      *reinterpret_cast<float4*>(av + 4) =
+          *reinterpret_cast<const float4*>(ap + rr * kTnTile + 16);
+      *reinterpret_cast<float4*>(bv) = *reinterpret_cast<const float4*>(bp + rr * kTnTile);
+      *reinterpret_cast<float4*>(bv + 4) =
+          *reinterpret_cast<const float4*>(bp + rr * kTnTile + 32);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    // column sums outside the product: each of the 16 threads that share a
+    // thread's columns (its wm, tm) adds two rows of the stage, rows past
+    // the split being zeros
+    if (sums) {
+#pragma unroll
+      for (int e = 0; e < kTnRows / 16; ++e) {
+        const float* brow = bp + (wm * 4 + tm + 16 * e) * kTnTile;
+        const float4 lo = *reinterpret_cast<const float4*>(brow);
+        const float4 hi = *reinterpret_cast<const float4*>(brow + 32);
+        csum[0] += lo.x; csum[1] += lo.y; csum[2] += lo.z; csum[3] += lo.w;
+        csum[4] += hi.x; csum[5] += hi.y; csum[6] += hi.z; csum[7] += hi.w;
+      }
+    }
   }
 
   float* pz = partial + static_cast<size_t>(blockIdx.z) * (K1 + 1) * C;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kc = k0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int kc = k0 + wm * 32 + (i < 4 ? tm * 4 + i : 16 + tm * 4 + i - 4);
     if (kc >= K1) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx * 4 + j;
-      if (col < C) pz[static_cast<size_t>(kc) * C + col] = acc[i][j];
+    for (int half = 0; half < 2; ++half) {
+      const int col = c0 + wn * 64 + half * 32 + tn * 4;
+      float* dst = pz + static_cast<size_t>(kc) * C + col;
+      if constexpr (VEC) {
+        if (col < C)
+          store4(dst, make_float4(acc[i][half * 4], acc[i][half * 4 + 1],
+                                  acc[i][half * 4 + 2], acc[i][half * 4 + 3]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < C) dst[e] = acc[i][half * 4 + e];
+      }
     }
   }
-  if (sums) {
+  if (!sums) return;                  // block-uniform
+  // the 16 partial sums of a column, in a fixed order: over tm by shuffles,
+  // then over wm through shared memory (the ring is no longer read)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx * 4 + j;
-      if (col < C) pz[static_cast<size_t>(K1) * C + col] = csum[j];
-    }
+  for (int j = 0; j < 8; ++j) {
+    csum[j] += __shfl_xor_sync(kFull, csum[j], 8);
+    csum[j] += __shfl_xor_sync(kFull, csum[j], 16);
+  }
+  __syncthreads();
+  float* red = smem;                  // [4 wm][128 columns]
+  if (tm == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      red[wm * kTnTile + wn * 64 + (j < 4 ? tn * 4 + j : 32 + tn * 4 + j - 4)] = csum[j];
+  }
+  __syncthreads();
+  if (tid < kTnTile) {
+    const int col = c0 + tid;
+    if (col < C)
+      pz[static_cast<size_t>(K1) * C + col] =
+          ((red[tid] + red[kTnTile + tid]) + red[2 * kTnTile + tid]) +
+          red[3 * kTnTile + tid];
   }
 }
 
-// dw[k][c] = sum_z partial[z][k][c] (k < K1), db[c] = sum_z partial[z][K1][c],
-// z ascending: a fixed order.
-__global__ void tn_reduce_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ dw, float* __restrict__ db,
-                                 int K1, int C, int splits) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int total = (K1 + 1) * C;
-  if (idx >= total) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z)
-    s += partial[static_cast<size_t>(z) * total + idx];
-  if (idx < K1 * C) dw[idx] = s; else db[idx - K1 * C] = s;
+// dw[k][c] = sum_z partial[z][k][c] (k < K1), db[c] = sum_z partial[z][K1][c]
+// in a fixed order: the splits in kReduceGroups chunks of consecutive z, each
+// chunk summed z ascending by one warp, then the chunks added in ascending
+// order. A lane owns W consecutive outputs (W = 4: 16-byte loads), a warp
+// reads one contiguous run of every partial it visits.
+template <int W>
+__global__ void __launch_bounds__(kReduceGroups * 32)
+tn_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw,
+                 float* __restrict__ db, int K1, int C, int splits) {
+  __shared__ float red[kReduceGroups][32 * W];
+  const size_t total = static_cast<size_t>(K1 + 1) * C;
+  const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
+  const size_t o = (static_cast<size_t>(blockIdx.x) * 32 + lane) * W;
+  const int per = (splits + kReduceGroups - 1) / kReduceGroups;
+  const int z0 = min(splits, grp * per), z1 = min(splits, z0 + per);
+  float s[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) s[w] = 0.f;
+  if (o < total) {
+#pragma unroll 4
+    for (int z = z0; z < z1; ++z) {
+      const float* p = partial + static_cast<size_t>(z) * total + o;
+      if constexpr (W == 4) {
+        const float4 v = load4(p);
+        s[0] += v.x; s[1] += v.y; s[2] += v.z; s[3] += v.w;
+      } else {
+        s[0] += *p;
+      }
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) red[grp][lane * W + w] = s[w];
+  __syncthreads();
+  if (grp != 0 || o >= total) return;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    float t = red[0][lane * W + w];
+#pragma unroll
+    for (int g = 1; g < kReduceGroups; ++g) t += red[g][lane * W + w];
+    const size_t idx = o + w;        // total is a multiple of W
+    if (idx < static_cast<size_t>(K1) * C) dw[idx] = t; else db[idx - static_cast<size_t>(K1) * C] = t;
+  }
 }
 
 }  // namespace
@@ -534,26 +667,52 @@ extern "C" cudaError_t mdgat_gemm(const void* a1, int a1_dtype, int a1_heads,
 }
 
 // dw [K1, C] = a^T b and db [C] = column sums of b, for a [R, K1] and
-// b [R, C], all f32 and contiguous. partial is scratch of
-// splits * (K1 + 1) * C floats; split z covers rows
-// [z * rows_per_split, (z + 1) * rows_per_split).
+// b [R, C], all f32 and contiguous. partial is scratch of partial_floats =
+// splits * (K1 + 1) * C floats; split z covers rows [z * rows_per_split,
+// min(R, (z + 1) * rows_per_split)). The plan (ops/cuda/layer.py::tn_plan)
+// must cover every row once and leave no split empty.
 extern "C" cudaError_t mdgat_gemm_tn(const void* a, const void* b,
-                                     void* partial, void* dw, void* db, int R,
-                                     int K1, int C, int rows_per_split,
-                                     int splits, cudaStream_t stream) {
+                                     void* partial, long long partial_floats,
+                                     void* dw, void* db, int R, int K1, int C,
+                                     int rows_per_split, int splits,
+                                     cudaStream_t stream) {
   using namespace mdgat;
   if (R <= 0 || K1 <= 0 || C <= 0 || rows_per_split <= 0 || splits <= 0 ||
-      static_cast<long long>(rows_per_split) * splits < R)
+      splits > 65535 ||
+      static_cast<long long>(rows_per_split) * splits < R ||
+      static_cast<long long>(rows_per_split) * (splits - 1) >= R ||
+      partial_floats != static_cast<long long>(splits) * (K1 + 1) * C)
     return cudaErrorInvalidValue;
-  dim3 grid((C + BN - 1) / BN, (K1 + BM - 1) / BM, splits);
-  gemm_tn_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(partial), R, K1, C, rows_per_split);
-  cudaError_t err = cudaGetLastError();
+  const auto* af = static_cast<const float*>(a);
+  const auto* bf = static_cast<const float*>(b);
+  auto* pf = static_cast<float*>(partial);
+  dim3 grid((C + kTnTile - 1) / kTnTile, (K1 + kTnTile - 1) / kTnTile, splits);
+  cudaError_t err;
+  if (K1 % 4 == 0 && C % 4 == 0 && aligned_to(a, 16) && aligned_to(b, 16) &&
+      aligned_to(partial, 16)) {
+    static SmemCap cap;
+    err = allow_smem(gemm_tn_kernel<true>, kTnSmem, cap);
+    if (err != cudaSuccess) return err;
+    gemm_tn_kernel<true><<<grid, kTnThreads, kTnSmem, stream>>>(
+        af, bf, pf, R, K1, C, rows_per_split);
+  } else {
+    static SmemCap cap;
+    err = allow_smem(gemm_tn_kernel<false>, kTnSmem, cap);
+    if (err != cudaSuccess) return err;
+    gemm_tn_kernel<false><<<grid, kTnThreads, kTnSmem, stream>>>(
+        af, bf, pf, R, K1, C, rows_per_split);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int total = (K1 + 1) * C;
-  tn_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dw),
-      static_cast<float*>(db), K1, C, splits);
+  const long long total = static_cast<long long>(K1 + 1) * C;
+  if (total % 4 == 0 && aligned_to(partial, 16)) {
+    const unsigned blocks = static_cast<unsigned>((total / 4 + 31) / 32);
+    tn_reduce_kernel<4><<<blocks, kReduceGroups * 32, 0, stream>>>(
+        pf, static_cast<float*>(dw), static_cast<float*>(db), K1, C, splits);
+  } else {
+    const unsigned blocks = static_cast<unsigned>((total + 31) / 32);
+    tn_reduce_kernel<1><<<blocks, kReduceGroups * 32, 0, stream>>>(
+        pf, static_cast<float*>(dw), static_cast<float*>(db), K1, C, splits);
+  }
   return cudaGetLastError();
 }

@@ -16,13 +16,24 @@
 // over either axis at will. Here p is rebuilt twice, from thr and lse, by
 // two kernels that need no atomics and give the same bits on every run:
 //
-// * rows kernel: one warp per query row: K staged in shared memory, the
-//   row's scores in registers, p written to a per-row shared buffer; then V
-//   staged over K for o = p v, delta = do . o (equal to rowsum(dp * p),
-//   since p sums to one over the kept entries or is all zero) and
-//   ds = p * (do . v_j - delta), which overwrites p; then K staged again
-//   for dq = ds k. o and dq go out as [B, N, D] with head-blocked columns,
-//   ready for the GEMMs.
+// * rows kernel (p, o, delta, ds, dq), the design of the forward's kernel
+//   (csrc/attention.cu, phases A and C): a block of 256 threads serves
+//   8 * TR query rows of one (batch, head); Q and dO are staged by 16-byte
+//   cp.async, and K and V stream through one 256-key tile buffer, four
+//   passes: (1) K: the scores as a register tile (TR rows x 8 keys a
+//   thread, both operands read as 16-byte vectors along d), p = exp(s -
+//   lse) on kept entries into a [rows][M + 8] slab; (2) V: o = P V, a
+//   thread owning TR rows x 4 dims over one of 32 / (Dh / 4) key groups,
+//   the groups added in a fixed order, then delta = do . o per row (equal
+//   to rowsum(dp * p), since p sums to one over the kept entries or is all
+//   zero); (3) V again: dP = dO V^T as a register tile, ds = p * (dp -
+//   delta) in place of p; (4) K again: dq = dS K as in (2). One slab and a
+//   second V pass, not a dP slab beside the p slab: at 32 rows and 512 keys
+//   one slab leaves two blocks an SM (about 110 KB each at Dh 32), two
+//   would leave one. Keys at or past the batch entry's last valid key are
+//   not visited (they keep nothing). o and dq go out as [B, N, D] with
+//   head-blocked columns, ready for the GEMMs; delta [B, H, N] for the keys
+//   kernel.
 // * keys kernel: a block owns 64 keys of one (batch, head), one warp 8 of
 //   them, and walks the query rows in chunks of 128 staged in shared
 //   memory (q, do, thr, lse, delta). For 32 queries at a time a lane
@@ -30,14 +41,19 @@
 //   through shared memory, and each lane then owns one output dim of
 //   dv_j += p_i do_i and dk_j += ds_i q_i. dk and dv go out as [B, M, D].
 //
-// keep must not flip between the forward and these two kernels: these two
-// form s with score_dot (common.cuh), the forward's register tile keeps
-// score_dot's fmaf chain per element (csrc/attention.cu), and all three read
-// q and k from the same GEMM kernel, whose outputs do not depend on its tile.
+// keep must not flip between the forward and these two kernels: the keys
+// kernel forms s with score_dot (common.cuh), the rows kernel's register
+// tile and the forward's keep score_dot's fmaf chain per element (d
+// ascending from 0), and all three read q and k from the same GEMM kernel,
+// whose outputs do not depend on its tile.
 //
-// What bounds it on the H100: shared-memory bandwidth (one shared read or
-// two per FMA); five [N, M, Dh] products run where the forward has two. The
-// forward's register-tiled products are the next step here.
+// What bounds them on the H100: the f32 FMA pipe, fed from shared memory.
+// The rows kernel runs four [N, M, Dh] products a block (scores, o, dP, dq)
+// at 10.7 FMAs a 16-byte shared load in the register tiles and 8 in the
+// slab products (TR = 4); between tiles a block waits for its next tile,
+// which the other block of the SM covers. The keys kernel still takes one
+// shared read or two per FMA (five products with the rows kernel's delta);
+// the register-tiled design is the next step there.
 
 #include "common.cuh"
 
@@ -60,118 +76,272 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__
     dst[(i / DH) * LD + (i % DH)] = i < rows * DH ? src[i] : 0.f;
 }
 
-template <int DH, int C>
-__global__ void __launch_bounds__(kWarps * 32)
+// Copies keys [t * kKT, t * kKT + nk4) of a [M][DH] tensor into the tile
+// buffer [kKT][DH + 4] by 16-byte cp.async, zero-filling keys >= nvalid.
+template <int DH>
+__device__ __forceinline__ void load_key_tile(float* dst, const float* src, int t,
+                                              int nk4, int nvalid) {
+  constexpr int DG = DH / 4, LD = DH + 4;
+  for (int i = threadIdx.x; i < nk4 * DG; i += blockDim.x) {
+    const int j = i / DG, d4 = (i % DG) * 4, key = t * kKT + j;
+    const bool ok = key < nvalid;
+    cp_async16(dst + j * LD + d4,
+               ok ? src + static_cast<size_t>(key) * DH + d4 : src, ok ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+// A block of 256 threads serves BR = 8 * TR query rows of one (batch, head).
+// Keys at or past the batch entry's last valid key are skipped: they keep
+// nothing, so they add exact zeros to every sum.
+template <int DH, int TR>
+__global__ void __launch_bounds__(kWarps * 32, 2)
 mha_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const uint8_t* __restrict__ mask,
                     const float* __restrict__ thr, const float* __restrict__ lse,
                     float* __restrict__ o_full, float* __restrict__ dq_full,
-                    float* __restrict__ delta, int H, int N, int M, int rpw) {
-  extern __shared__ float smem[];
-  constexpr int LD = DH + 1;
-  constexpr int P = (DH + 31) / 32;   // output dims per lane
-  float* kv = smem;                   // [M][LD]: K, then V, then K again
-  float* pw = smem + M * LD;          // [kWarps * rpw][M]: p, then ds
+                    float* __restrict__ delta, int H, int N, int M) {
+  constexpr int BR = 8 * TR, LD = DH + 4, DG = DH / 4;
+  constexpr int KS = 32 / DG;           // key groups of the P V / dS K layout
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float row_thr[BR], row_lse[BR], row_delta[BR];
+  __shared__ int warp_last[kWarps];
+  const int LDS = slab_stride(M);
+  float* S = smem;                      // [BR][LDS]: p, then ds
+  float* KV = S + BR * LDS;             // [kKT][LD] K or V tile; partial sums
+  float* Qs = KV + tile_floats(DH, BR);   // [BR][LD]
+  float* Ds = Qs + BR * LD;             // [BR][LD] dO
 
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int D = H * DH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * kWarps * rpw;
+  const int row0 = blockIdx.x * BR;
   const uint8_t* mb = mask + static_cast<size_t>(b) * M;
   const float* kb = k + static_cast<size_t>(bh) * M * DH;
   const float* vb = v + static_cast<size_t>(bh) * M * DH;
 
-  stage_tile<DH>(kv, kb, M, M);
-  __syncthreads();
-  for (int t = 0; t < rpw; ++t) {
-    const int slot = warp * rpw + t;
-    const int n = row0 + slot;
-    if (n >= N) break;
+  // Q and dO rows (zeros past N), the rows' thr and lse (rows past N keep
+  // nothing), the batch entry's last valid key
+  for (int i = tid; i < BR * DG; i += kWarps * 32) {
+    const int r = i / DG, d4 = (i % DG) * 4, n = row0 + r;
+    const bool ok = n < N;
+    const size_t at = (static_cast<size_t>(bh) * N + (ok ? n : 0)) * DH + d4;
+    cp_async16(Qs + r * LD + d4, q + at, ok ? 16 : 0);
+    cp_async16(Ds + r * LD + d4, dout + at, ok ? 16 : 0);
+  }
+  cp_async_commit();
+  if (tid < BR) {
+    const int n = row0 + tid;
     const size_t row = static_cast<size_t>(bh) * N + n;
-    const float* qrow = q + row * DH;
-    float qr[DH];
+    row_thr[tid] = n < N ? thr[row] : CUDART_INF_F;
+    row_lse[tid] = n < N ? lse[row] : 0.f;
+  }
+  int last = 0;
+  for (int j = tid; j < M; j += kWarps * 32)
+    if (mb[j] != 0) last = j + 1;
+  last = __reduce_max_sync(kFull, last);
+  if (lane == 0) warp_last[warp] = last;
+  __syncthreads();
+  int Me = 0;                           // keys that matter: [0, Me)
 #pragma unroll
-    for (int d = 0; d < DH; ++d) qr[d] = qrow[d];
-    const float row_thr = thr[row], row_lse = lse[row];
-    float* prow = pw + slot * M;
+  for (int w = 0; w < kWarps; ++w) Me = max(Me, warp_last[w]);
+  const int Me4 = (Me + 3) / 4 * 4;     // what the float4 slab reads cover
+  const int tiles = (Me + kKT - 1) / kKT;
+  auto tile_keys = [&](int t) { return min(kKT, Me4 - t * kKT); };
+
+  // ---- phase 1: scores as a register tile; p into the slab --------------
+  // A thread owns rows wm*4*TR + i*4 + tm and keys wn*64 + j*8 + tn of a
+  // 256-key tile (a warp 4 x 8 threads) and reads both operands as 16-byte
+  // vectors along d: each score is ONE fmaf chain over d ascending from 0,
+  // the chain of score_dot and of the forward's register tile, so s >= thr
+  // keeps exactly the forward's entries.
+  const int tm = lane >> 3, tn = lane & 7, wm = warp >> 2, wn = warp & 3;
+  for (int t = 0; t < tiles; ++t) {
+    if (t > 0) __syncthreads();         // the tile before is read
+    load_key_tile<DH>(KV, kb, t, tile_keys(t), Me);
+    cp_async_wait<0>();
+    __syncthreads();
+    const int key0 = t * kKT + wn * 64;
+    if (key0 >= Me) continue;           // warp-uniform
+    float acc[TR][8];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = lane + 32 * c;
-      if (j < M) {
-        const float s = score_dot<DH>(qr, kv + j * LD);
-        const bool keep = mb[j] != 0 && s >= row_thr;
-        prow[j] = expf(keep ? s - row_lse : kBigNeg);
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    const float* qp = Qs + (wm * 4 * TR + tm) * LD;
+    const float* kp = KV + (wn * 64 + tn) * LD;
+#pragma unroll
+    for (int d4 = 0; d4 < DH; d4 += 4) {
+      float qa[TR][4], ka[8][4];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+        *reinterpret_cast<float4*>(qa[i]) =
+            *reinterpret_cast<const float4*>(qp + i * 4 * LD + d4);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float4*>(ka[j]) =
+            *reinterpret_cast<const float4*>(kp + j * 8 * LD + d4);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd)    // d ascending: the chain of score_dot
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(qa[i][dd], ka[j][dd], acc[i][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = key0 + j * 8 + tn;
+      if (col >= Me4) continue;
+      const bool valid = col < Me && mb[col] != 0;
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const int r = wm * 4 * TR + i * 4 + tm;
+        const bool keep = valid && acc[i][j] >= row_thr[r];
+        S[r * LDS + col] = expf(keep ? acc[i][j] - row_lse[r] : kBigNeg);
       }
     }
   }
-  __syncthreads();
 
-  stage_tile<DH>(kv, vb, M, M);
-  __syncthreads();
-  for (int t = 0; t < rpw; ++t) {
-    const int slot = warp * rpw + t;
-    const int n = row0 + slot;
-    if (n >= N) break;
-    const size_t row = static_cast<size_t>(bh) * N + n;
-    const float* dorow = dout + row * DH;
-    float* prow = pw + slot * M;
-    float dor[DH];
+  cp_async_wait<0>();                   // Q and dO, also where no key is valid
+
+  // Products over the slab, the forward's phase C: a thread owns TR rows x 4
+  // dims over one of KS key groups, so one 16-byte read of a K / V row feeds
+  // TR rows; the groups' partial sums are added in a fixed order.
+  const int dg = tid % DG, rg = (tid / DG) % 8, ks = tid / (8 * DG);
+  auto slab_product = [&](const float* base, float (&acc)[TR][4]) {
 #pragma unroll
-    for (int d = 0; d < DH; ++d) dor[d] = dorow[d];
-    // o = p v, one output dim (or P of them) per lane
-    float acc[P];
+    for (int i = 0; i < TR; ++i)
 #pragma unroll
-    for (int p = 0; p < P; ++p) acc[p] = 0.f;
-    for (int j = 0; j < M; ++j) {
-      const float pj = prow[j];
-      const float* vr = kv + j * LD;
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int t = 0; t < tiles; ++t) {
+      __syncthreads();                  // the tile buffer is free
+      load_key_tile<DH>(KV, base, t, tile_keys(t), Me);
+      cp_async_wait<0>();
+      __syncthreads();
+      const int nkeys = tile_keys(t);
+      for (int j0 = ks * 4; j0 < nkeys; j0 += KS * 4) {
+        float e[TR][4];
 #pragma unroll
-      for (int p = 0; p < P; ++p)
-        if (lane + 32 * p < DH) acc[p] = fmaf(pj, vr[lane + 32 * p], acc[p]);
-    }
-    float dl = 0.f;
-    float* orow = o_full + (static_cast<size_t>(b) * N + n) * D + h * DH;
+        for (int i = 0; i < TR; ++i)
+          *reinterpret_cast<float4*>(e[i]) = *reinterpret_cast<const float4*>(
+              S + (i * 8 + rg) * LDS + t * kKT + j0);
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int d = lane + 32 * p;
-      if (d < DH) {
-        orow[d] = acc[p];
-        dl = fmaf(dorow[d], acc[p], dl);
+        for (int jj = 0; jj < 4; ++jj) {
+          const float4 kv =
+              *reinterpret_cast<const float4*>(KV + (j0 + jj) * LD + dg * 4);
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            acc[i][0] = fmaf(e[i][jj], kv.x, acc[i][0]);
+            acc[i][1] = fmaf(e[i][jj], kv.y, acc[i][1]);
+            acc[i][2] = fmaf(e[i][jj], kv.z, acc[i][2]);
+            acc[i][3] = fmaf(e[i][jj], kv.w, acc[i][3]);
+          }
+        }
       }
     }
-    dl = warp_sum(dl);
-    if (lane == 0) delta[row] = dl;
-    __syncwarp();                   // every lane has read p before ds lands
+    __syncthreads();                    // the tile is read: partials over it
+    float* part = KV;                   // [KS][BR][DH]
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = lane + 32 * c;
-      if (j < M) prow[j] = prow[j] * (score_dot<DH>(dor, kv + j * LD) - dl);
+    for (int i = 0; i < TR; ++i)
+      store4(part + (ks * BR + i * 8 + rg) * DH + dg * 4,
+             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    __syncthreads();
+  };
+  // the sum of the key groups' partials at (row r, dims d4..d4+3)
+  auto partial_sum = [&](int r, int d4) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int z = 0; z < KS; ++z) {      // key groups in a fixed order
+      const float4 p = load4(KV + (z * BR + r) * DH + d4);
+      s.x += p.x; s.y += p.y; s.z += p.z; s.w += p.w;
+    }
+    return s;
+  };
+  auto out_at = [&](float* base, int n, int d4) {
+    return base + (static_cast<size_t>(b) * N + n) * D + h * DH + d4;
+  };
+
+  // ---- phase 2: o = P V over the V tiles; delta = do . o per row ---------
+  {
+    float acc[TR][4];
+    slab_product(vb, acc);
+    // BR * DG (row, 4 dims) items; the DG threads of a row are DG
+    // consecutive lanes, so the row's dot product closes by shuffles
+    for (int i0 = 0; i0 < BR * DG; i0 += kWarps * 32) {
+      const int i = i0 + tid, r = i / DG, d4 = (i % DG) * 4, n = row0 + r;
+      float dot = 0.f;
+      if (i < BR * DG) {
+        const float4 o4 = partial_sum(r, d4);
+        const float4 do4 = load4(Ds + r * LD + d4);
+        dot = fmaf(do4.w, o4.w, fmaf(do4.z, o4.z, fmaf(do4.y, o4.y, do4.x * o4.x)));
+        if (n < N) store4(out_at(o_full, n, d4), o4);
+      }
+#pragma unroll
+      for (int off = DG / 2; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(kFull, dot, off);
+      if (i < BR * DG && i % DG == 0) {
+        row_delta[r] = dot;
+        if (n < N) delta[static_cast<size_t>(bh) * N + n] = dot;
+      }
     }
   }
-  __syncthreads();
 
-  stage_tile<DH>(kv, kb, M, M);
-  __syncthreads();
-  for (int t = 0; t < rpw; ++t) {
-    const int slot = warp * rpw + t;
-    const int n = row0 + slot;
-    if (n >= N) break;
-    const float* dsrow = pw + slot * M;
-    float acc[P];
+  // ---- phase 3: dP = dO V^T as a register tile; ds = p (dp - delta) -------
+  for (int t = 0; t < tiles; ++t) {
+    __syncthreads();                    // partials / the tile before are read
+    load_key_tile<DH>(KV, vb, t, tile_keys(t), Me);
+    cp_async_wait<0>();
+    __syncthreads();
+    const int key0 = t * kKT + wn * 64;
+    if (key0 >= Me) continue;           // warp-uniform
+    float acc[TR][8];
 #pragma unroll
-    for (int p = 0; p < P; ++p) acc[p] = 0.f;
-    for (int j = 0; j < M; ++j) {
-      const float dsj = dsrow[j];
-      const float* kr = kv + j * LD;
+    for (int i = 0; i < TR; ++i)
 #pragma unroll
-      for (int p = 0; p < P; ++p)
-        if (lane + 32 * p < DH) acc[p] = fmaf(dsj, kr[lane + 32 * p], acc[p]);
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    const float* dp_ = Ds + (wm * 4 * TR + tm) * LD;
+    const float* vp = KV + (wn * 64 + tn) * LD;
+#pragma unroll
+    for (int d4 = 0; d4 < DH; d4 += 4) {
+      float da[TR][4], va[8][4];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+        *reinterpret_cast<float4*>(da[i]) =
+            *reinterpret_cast<const float4*>(dp_ + i * 4 * LD + d4);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float4*>(va[j]) =
+            *reinterpret_cast<const float4*>(vp + j * 8 * LD + d4);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd)
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(da[i][dd], va[j][dd], acc[i][j]);
     }
-    float* dqrow = dq_full + (static_cast<size_t>(b) * N + n) * D + h * DH;
 #pragma unroll
-    for (int p = 0; p < P; ++p)
-      if (lane + 32 * p < DH) dqrow[lane + 32 * p] = acc[p];
+    for (int j = 0; j < 8; ++j) {
+      const int col = key0 + j * 8 + tn;
+      if (col >= Me4) continue;
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {    // the entry this thread wrote in phase 1
+        const int r = wm * 4 * TR + i * 4 + tm;
+        float* sp = S + r * LDS + col;
+        *sp = *sp * (acc[i][j] - row_delta[r]);
+      }
+    }
+  }
+
+  // ---- phase 4: dq = dS K over the K tiles --------------------------------
+  {
+    float acc[TR][4];
+    slab_product(kb, acc);
+    for (int i = tid; i < BR * DG; i += kWarps * 32) {
+      const int r = i / DG, d4 = (i % DG) * 4, n = row0 + r;
+      if (n < N) store4(out_at(dq_full, n, d4), partial_sum(r, d4));
+    }
   }
 }
 
@@ -278,27 +448,28 @@ mha_bwd_keys_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DH, int C>
+template <int DH, int TR>
 cudaError_t launch_rows(const float* q, const float* k, const float* v,
                         const float* dout, const uint8_t* mask, const float* thr,
                         const float* lse, float* o_full, float* dq_full,
                         float* delta, int B, int H, int N, int M,
                         cudaStream_t stream) {
-  const int rpw = M <= 256 ? 4 : 2;  // as the forward: two blocks an SM above 256
-  const size_t smem = (static_cast<size_t>(M) * (DH + 1) +
-                       static_cast<size_t>(kWarps) * rpw * M) * sizeof(float);
+  constexpr int BR = 8 * TR;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(BR) * slab_stride(M) +
+                                       tile_floats(DH, BR) + 2 * BR * (DH + 4));
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = mha_bwd_rows_kernel<DH, C>;
-  cudaError_t err = allow_smem(kernel, smem);
+  auto kernel = mha_bwd_rows_kernel<DH, TR>;
+  static SmemCap cap;
+  cudaError_t err = allow_smem(kernel, smem, cap);
   if (err != cudaSuccess) return err;
-  const int rows_per_block = kWarps * rpw;
-  dim3 grid((N + rows_per_block - 1) / rows_per_block, B * H);
+  dim3 grid((N + BR - 1) / BR, B * H);
   kernel<<<grid, kWarps * 32, smem, stream>>>(q, k, v, dout, mask, thr, lse,
-                                              o_full, dq_full, delta, H, N, M,
-                                              rpw);
+                                              o_full, dq_full, delta, H, N, M);
   return cudaGetLastError();
 }
 
+// The launch owns the plan: 32 query rows a block up to 512 keys (two blocks
+// an SM at Dh 32), 16 above, so that the slab leaves room for the tile.
 template <int DH>
 cudaError_t launch_both(const float* q, const float* k, const float* v,
                         const float* dout, const uint8_t* mask, const float* thr,
@@ -306,15 +477,12 @@ cudaError_t launch_both(const float* q, const float* k, const float* v,
                         float* dk_full, float* dv_full, float* delta, int B,
                         int H, int N, int M, cudaStream_t stream) {
   cudaError_t err;
-  if (M <= 256)
-    err = launch_rows<DH, 8>(q, k, v, dout, mask, thr, lse, o_full, dq_full,
+  if (M <= 512)
+    err = launch_rows<DH, 4>(q, k, v, dout, mask, thr, lse, o_full, dq_full,
                              delta, B, H, N, M, stream);
-  else if (M <= 512)
-    err = launch_rows<DH, 16>(q, k, v, dout, mask, thr, lse, o_full, dq_full,
-                              delta, B, H, N, M, stream);
   else if (M <= 1024)
-    err = launch_rows<DH, 32>(q, k, v, dout, mask, thr, lse, o_full, dq_full,
-                              delta, B, H, N, M, stream);
+    err = launch_rows<DH, 2>(q, k, v, dout, mask, thr, lse, o_full, dq_full,
+                             delta, B, H, N, M, stream);
   else
     return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
@@ -323,7 +491,8 @@ cudaError_t launch_both(const float* q, const float* k, const float* v,
                            (DH + 1) + 3 * kQueryChunk + 2 * kWarps * 32) *
                       sizeof(float);
   auto kernel = mha_bwd_keys_kernel<DH>;
-  err = allow_smem(kernel, smem);
+  static SmemCap cap;
+  err = allow_smem(kernel, smem, cap);
   if (err != cudaSuccess) return err;
   dim3 grid((M + kKeysPerBlock - 1) / kKeysPerBlock, B * H);
   kernel<<<grid, kWarps * 32, smem, stream>>>(q, k, v, dout, mask, thr, lse,
@@ -345,6 +514,10 @@ extern "C" cudaError_t mdgat_mha_attention_bwd(
     int N, int M, int Dh, cudaStream_t stream) {
   using namespace mdgat;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0) return cudaErrorInvalidValue;
+  // the rows kernel stages q, dout, k, v by 16-byte copies
+  if (!aligned_to(q, 16) || !aligned_to(k, 16) || !aligned_to(v, 16) ||
+      !aligned_to(dout, 16) || !aligned_to(o_full, 16) || !aligned_to(dq_full, 16))
+    return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto g = [](void* p) { return static_cast<float*>(p); };
   const auto* m = static_cast<const uint8_t*>(mask);

@@ -37,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (all return cudaError_t as int)
 _SIGNATURES = {
     # q, k, v, mask, o, thr, lse, B, H, N, M, Dh, topk, scale, io_dtype,
@@ -47,8 +48,9 @@ _SIGNATURES = {
     # out_heads, rows_per_batch, R, C, relu, w_trans, stream
     "mdgat_gemm": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                    _I, _I, _I, _P],
-    # a, b, partial, dw, db, R, K1, C, rows_per_split, splits, stream
-    "mdgat_gemm_tn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, b, partial, partial_floats, dw, db, R, K1, C, rows_per_split,
+    # splits, stream
+    "mdgat_gemm_tn": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, dout, mask, thr, lse, o_full, dq_full, dk_full, dv_full,
     # delta, B, H, N, M, Dh, stream
     "mdgat_mha_attention_bwd": [_P] * 12 + [_I] * 5 + [_P],

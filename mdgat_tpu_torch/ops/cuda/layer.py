@@ -172,16 +172,47 @@ def gemm(a1, w, bias, *, a2=None, relu=False, res=None, out_dtype=None,
 gemm.launches = 0      # every launch of gemm_kernel
 gemm.wt_launches = 0   # those of its W^T instantiation
 
-TN_ROWS_PER_SPLIT = 512
+# the plan of csrc/gemm.cu::gemm_tn_kernel
+NUM_SMS = 132          # streaming multiprocessors of the H100 the plan fills
+TN_TILE = 128          # output tile edge of a block, along k and along c
+TN_STAGE_ROWS = 32     # rows of a and b in one stage of its ring
+
+
+def tn_plan(r: int, k1: int, c: int):
+    """``(rows_per_split, splits)`` of :func:`gemm_tn` for ``a [r, k1]``,
+    ``b [r, c]``: about one block an SM over the output tiles (the kernel
+    runs one a SM), each split a whole number of ring stages, split ``z``
+    covering rows ``[z * rows_per_split, min(r, (z + 1) *
+    rows_per_split))``: every row once, no split empty (the C entry refuses
+    any other plan). The scratch is ``splits * (k1 + 1) * c`` floats."""
+    tiles = -(-k1 // TN_TILE) * -(-c // TN_TILE)
+    want = max(1, NUM_SMS // tiles)
+    rows = -(-r // want)
+    rows = -(-rows // TN_STAGE_ROWS) * TN_STAGE_ROWS
+    return rows, -(-r // rows)
+
+
+def gemm_tn_reference(a, b):
+    """Plain PyTorch twin of :func:`gemm_tn`."""
+    return a.t() @ b, b.sum(0)
 
 
 def gemm_tn(a, b):
     """``(a^T @ b, column sums of b)`` for ``a [R, K1]`` and ``b [R, C]``
-    (float32, CUDA): a weight gradient and its bias gradient. The rows are
-    split over blocks of ``TN_ROWS_PER_SPLIT``; a second kernel adds the
-    blocks' partial results in a fixed order (``csrc/gemm.cu``)."""
+    (float32): a weight gradient and its bias gradient. A CUDA tensor runs
+    ``csrc/gemm.cu::gemm_tn_kernel`` over the row splits of
+    :func:`tn_plan` and a second kernel that adds the splits in a fixed
+    order; a CPU tensor takes :func:`gemm_tn_reference`."""
+    if a.device.type == "cpu":
+        return gemm_tn_reference(a, b)
     if a.device.type != "cuda":
-        raise ValueError("the GEMM kernel takes CUDA tensors")
+        raise ValueError(f"no transposed GEMM kernel for device {a.device}")
+    return _gemm_tn_launch(a, b, *tn_plan(a.shape[0], a.shape[1], b.shape[1]))
+
+
+def _gemm_tn_launch(a, b, rows_per_split: int, splits: int):
+    """The two launches of :func:`gemm_tn` under a given plan (the smoke
+    times other plans through it)."""
     r, k1 = a.shape
     c = b.shape[1]
     if (a.dtype != torch.float32 or b.dtype != torch.float32
@@ -189,7 +220,6 @@ def gemm_tn(a, b):
             or not (a.is_contiguous() and b.is_contiguous())):
         raise ValueError("transposed GEMM kernel: operands must be "
                          "contiguous float32 [R, K1] and [R, C] on one device")
-    splits = -(-r // TN_ROWS_PER_SPLIT)
     partial = torch.empty((splits, k1 + 1, c), dtype=torch.float32,
                           device=a.device)
     dw = torch.empty((k1, c), dtype=torch.float32, device=a.device)
@@ -197,8 +227,8 @@ def gemm_tn(a, b):
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         library().call("mdgat_gemm_tn", a.data_ptr(), b.data_ptr(),
-                       partial.data_ptr(), dw.data_ptr(), db.data_ptr(), r,
-                       k1, c, TN_ROWS_PER_SPLIT, splits, stream)
+                       partial.data_ptr(), partial.numel(), dw.data_ptr(),
+                       db.data_ptr(), r, k1, c, rows_per_split, splits, stream)
     gemm_tn.launches += 1
     return dw, db
 

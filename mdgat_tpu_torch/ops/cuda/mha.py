@@ -145,14 +145,50 @@ def _mha_forward(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv, wm, bm):
     return out.reshape(b, n, d), thr, lse
 
 
+def _blocked_rows(t: torch.Tensor) -> torch.Tensor:
+    """[B, H, N, Dh] -> [B*N, H*Dh] with head-blocked columns."""
+    b, h, n, dh = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b * n, h * dh)
+
+
+def attention_backward_reference(q, k, v, do, kv_mask, thr, lse):
+    """Plain PyTorch twin of :func:`_attention_backward`: with ``s = q
+    k^T``, ``keep = mask & (s >= thr)`` and ``p = exp(s - lse)`` on kept
+    entries (0 elsewhere), ``o = p v``, ``delta = rowsum(do * o)``, ``ds = p
+    (do v^T - delta)``, ``dq = ds k``, ``dk = ds^T q``, ``dv = p^T do``: the
+    gradients of ``attention_core``'s output at the frozen selection.
+    Returns ``(o, dq)`` ``[B*N, D]`` and ``(dk, dv)`` ``[B*M, D]``,
+    head-blocked."""
+    s = q @ k.transpose(-1, -2)
+    keep = s >= thr
+    if kv_mask is not None:
+        keep = keep & kv_mask[:, None, None, :].to(torch.bool)
+    p = torch.where(keep, torch.exp(torch.where(keep, s - lse, 0.0)), 0.0)
+    o = p @ v
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = p * (do @ v.transpose(-1, -2) - delta)
+    grads = (o, ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do)
+    return tuple(_blocked_rows(t) for t in grads)
+
+
 def _attention_backward(q, k, v, do, kv_mask, thr, lse):
-    """The two launches of ``csrc/mha_bwd.cu`` on head-split q, do
-    ``[B, H, N, Dh]`` and k, v ``[B, H, M, Dh]``: (o, dq) ``[B*N, D]`` and
-    (dk, dv) ``[B*M, D]`` with head-blocked columns. Counts nothing (see
-    :func:`_project_attend`)."""
+    """The two launches of ``csrc/mha_bwd.cu`` (rows kernel, then keys
+    kernel) on head-split q, do ``[B, H, N, Dh]``, k, v ``[B, H, M, Dh]``
+    and ``thr``, ``lse`` ``[B, H, N, 1]``: (o, dq) ``[B*N, D]`` and (dk, dv)
+    ``[B*M, D]`` with head-blocked columns, float32. A CPU tensor takes
+    :func:`attention_backward_reference`. Counts its own launches, not
+    those of :func:`fused_mha` (see :func:`_project_attend`)."""
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, do, kv_mask, thr, lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention-backward kernel for device {q.device}")
     b, h, n, dh = q.shape
     m = k.shape[2]
     dev, f32 = q.device, torch.float32
+    for t in (q, k, v, do, thr, lse):
+        if t.dtype != f32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError("attention-backward kernel: contiguous float32 "
+                             "operands on one device")
     if kv_mask is None:
         mask = torch.ones((b, m), dtype=torch.uint8, device=dev)
     else:
@@ -169,7 +205,12 @@ def _attention_backward(q, k, v, do, kv_mask, thr, lse):
                        thr.data_ptr(), lse.data_ptr(), o_full.data_ptr(),
                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                        delta.data_ptr(), b, h, n, m, dh, stream)
+    _attention_backward.launches += 1
     return o_full, dq, dk, dv
+
+
+# one count per call: one launch of the rows kernel and one of the keys kernel
+_attention_backward.launches = 0
 
 
 def _mha_backward_launches(x, source, kv_mask, thr, lse, g, h, wq, bq, wk, bk,

@@ -62,10 +62,11 @@ import torch
 from mdgat_tpu_torch.ops.attention import acc_dtype
 from mdgat_tpu_torch.ops.cuda import mha
 from mdgat_tpu_torch.ops.cuda._build import DTYPE_CODES, library
-from mdgat_tpu_torch.ops.cuda.layer import (TN_ROWS_PER_SPLIT, gemm, gemm_tn)
+from mdgat_tpu_torch.ops.cuda.layer import gemm, gemm_tn
 from mdgat_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 
 _ROWS_PER_BLOCK = 64      # BM of csrc/train_layer.cu: one partial per block
+_DW2_ROWS_PER_SPLIT = 512  # rows of one split of tl_dw2_kernel
 
 
 def train_layer_weights(layer):
@@ -266,7 +267,7 @@ bn_backward_sums.launches = 0
 def dw2_db2(g, h1, vec4):
     """``(dw2 [2D, D], db2 [D])`` float32: ``relu(bn(h1))^T g`` and the
     column sums of ``g``, the rows split over blocks of
-    ``TN_ROWS_PER_SPLIT`` and added in a fixed order."""
+    ``_DW2_ROWS_PER_SPLIT`` and added in a fixed order."""
     _require_cuda(g, h1, vec4)
     d, r = g.shape[-1], _rows(g)
     if (g.dtype not in DTYPE_CODES or h1.dtype != g.dtype
@@ -274,11 +275,11 @@ def dw2_db2(g, h1, vec4):
             or vec4.dtype != torch.float32):
         raise ValueError("dw2_db2 kernel: operand dtypes or shapes")
     f32, dev = torch.float32, g.device
-    splits = -(-r // TN_ROWS_PER_SPLIT)
+    splits = -(-r // _DW2_ROWS_PER_SPLIT)
     partial = torch.empty((splits, 2 * d + 1, d), dtype=f32, device=dev)
     out = torch.empty((2 * d + 1, d), dtype=f32, device=dev)
     _launch("mdgat_tl_dw2", g, h1.data_ptr(), vec4.data_ptr(), g.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), d, r, TN_ROWS_PER_SPLIT,
+            partial.data_ptr(), out.data_ptr(), d, r, _DW2_ROWS_PER_SPLIT,
             splits, DTYPE_CODES[g.dtype])
     dw2_db2.launches += 1
     return out[:2 * d], out[2 * d]

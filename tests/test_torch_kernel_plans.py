@@ -3,8 +3,10 @@ off the card: the exact k-th-value search of ``csrc/attention.cu`` mirrored
 step for step in plain PyTorch on int32 keys
 (``ops/cuda/attention.py::selection_mirror``), held bit-equal to the twin's
 threshold and to the JAX package's exact Pallas kernel (interpret mode, as
-``tests/test_pallas.py`` runs it); and the shapes the wrappers refuse before
-a launch (the launches in ``csrc/`` plan tiles and shared memory).
+``tests/test_pallas.py`` runs it); the shapes the wrappers refuse before a
+launch (the launches in ``csrc/`` plan tiles and shared memory); and the row
+splits of the transposed-A GEMM (``ops/cuda/layer.py::tn_plan``), whose
+wrapper sizes the scratch from them and takes its plain twin on the CPU.
 """
 
 import numpy as np
@@ -121,3 +123,35 @@ def test_gemm_refuses_cpu_tensors():
     a, w, b = torch.ones(4, 8), torch.ones(8, 8), torch.zeros(8)
     with pytest.raises(ValueError, match="GEMM kernel"):
         layer_kernel.gemm(a, w, b)
+
+
+@pytest.mark.parametrize("c", [64, 128, 256])
+@pytest.mark.parametrize("r", [1, 511, 512, 513, 32768, 32769])
+def test_tn_plan_covers_every_row_once(r, c):
+    """Split z covers rows [z * rows, min(r, (z + 1) * rows)): together
+    every row once, none empty, each a whole number of ring stages (the C
+    entry refuses a plan that misses a row or leaves a split empty, and a
+    scratch of other than splits * (K1 + 1) * C floats). At the train step's
+    row count the grid fills the card with at most one block an SM, and the
+    scratch stays under the operands' size."""
+    k1 = 128
+    rows, splits = layer_kernel.tn_plan(r, k1, c)
+    assert rows % layer_kernel.TN_STAGE_ROWS == 0 and 1 <= splits <= 65535
+    spans = [(z * rows, min(r, (z + 1) * rows)) for z in range(splits)]
+    assert all(lo < hi for lo, hi in spans)                  # none empty
+    assert spans[0][0] == 0 and spans[-1][1] == r
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))  # once each
+    scratch = splits * (k1 + 1) * c
+    if r >= 32768:
+        blocks = splits * -(-c // layer_kernel.TN_TILE)
+        assert layer_kernel.NUM_SMS // 2 < blocks <= layer_kernel.NUM_SMS
+        assert scratch <= r * (k1 + c)
+
+
+def test_gemm_tn_takes_its_twin_on_cpu():
+    """On CPU tensors the transposed-A GEMM is ``(a^T b, colsum(b))``."""
+    rng = np.random.default_rng(560)
+    a, b = rng.normal(size=(513, 45)), rng.normal(size=(513, 70))
+    dw, db = layer_kernel.gemm_tn(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(dw.numpy(), a.T @ b, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(db.numpy(), b.sum(0), rtol=0, atol=1e-12)

@@ -4,6 +4,10 @@ kernels are held against on the card, against the JAX package's
 ``fused_mha`` Pallas kernel pair in interpret mode (float32) and against
 autodiff through its XLA path (float64): the output, the residuals ``thr``
 and ``lse``, and all ten gradients (x, source, four weights, four biases).
+Also the twin of the two attention-backward kernels against autograd over
+``attention_core`` at the frozen selection (float64), and the backward's
+launch sequence run on the CPU (its GEMMs in plain PyTorch, the attention
+backward and the transposed-A GEMM on their twins) against the Pallas VJP.
 """
 
 import numpy as np
@@ -16,7 +20,8 @@ from mdgat_tpu.ops.attention import multi_head_attention as jax_mha
 from mdgat_tpu.ops.pallas.attention import _mha_fwd_call, fused_mha as jax_fused_mha
 
 from mdgat_tpu_torch.models.gnn import MultiHeadedAttention
-from mdgat_tpu_torch.ops.attention import multi_head_attention
+from mdgat_tpu_torch.ops.attention import attention_core, multi_head_attention
+from mdgat_tpu_torch.ops.cuda import mha
 from mdgat_tpu_torch.ops.cuda.mha import (blocked_weights, fused_mha,
                                           fused_mha_forward)
 
@@ -215,3 +220,128 @@ def test_selection_is_frozen_between_forward_and_backward():
         p = torch.where(keep, torch.exp(s - lse), 0.0)
     assert (keep.sum(-1) == topk).all()
     np.testing.assert_allclose(p.sum(-1).numpy(), 1.0, rtol=0, atol=1e-5)
+
+
+ATTN_BWD_CASES = [  # topk, kind
+    pytest.param(None, "ragged", id="dense-ragged"),
+    pytest.param(5, "ragged", id="topk-ragged"),
+    pytest.param(5, "ties", id="topk-ties"),
+    pytest.param(20, "ragged", id="topk-above-valid-count"),
+    pytest.param(None, "all-masked", id="dense-all-masked-entry"),
+    pytest.param(5, "all-masked", id="topk-all-masked-entry"),
+]
+
+
+@pytest.mark.parametrize("topk,kind", ATTN_BWD_CASES)
+def test_attention_backward_twin_matches_autograd_f64(topk, kind):
+    """float64, tolerance 1e-12: ``_attention_backward`` on CPU tensors (its
+    twin) gives the attention output and the gradients of ``sum(out * do)``
+    in q, k and v that autograd takes through ``attention_core``, with thr
+    and lse from that forward. "ties": integer q and k, so many scores tie
+    exactly at the k-th value and every tie is kept on both sides."""
+    b, h, n, m, dh = 3, 2, 7, 11, 4
+    rng = np.random.default_rng(1000 + (topk or 0) + len(kind))
+
+    def t(*shape):
+        x = rng.normal(size=shape)
+        return torch.from_numpy(np.clip(np.round(x), -2, 2) if kind == "ties"
+                                else x)
+
+    q, k, v, do = t(b, h, n, dh), t(b, h, m, dh), t(b, h, m, dh), t(b, h, n, dh)
+    mask = torch.from_numpy(np.arange(m)[None, :] < np.array([m, 8, 5])[:, None])
+    if kind == "all-masked":
+        mask[-1] = False
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out, thr, lse = attention_core(leaves[0] @ leaves[1].transpose(-1, -2),
+                                   leaves[2], mask, topk, return_lse=True)
+    want = torch.autograd.grad(out, leaves, do)
+    got = mha._attention_backward(q, k, v, do, mask, thr.detach(), lse.detach())
+    blocked = lambda x: x.permute(0, 2, 1, 3).reshape(-1, h * dh)
+    for name, a, r in zip(("o", "dq", "dk", "dv"), got,
+                          (out.detach(),) + tuple(want)):
+        assert a.shape == blocked(r).shape and a.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), blocked(r).numpy(), rtol=0,
+                                   atol=1e-12, err_msg=name)
+    if kind == "all-masked":
+        assert not got[0].reshape(b, n, -1)[-1].any()
+        assert not got[3].reshape(b, m, -1)[-1].any()
+    if kind == "ties" and topk:
+        s = q @ k.transpose(-1, -2)
+        assert ((s == thr) & mask[:, None, None, :]).sum(-1).max() > 1
+
+
+def _plain_gemm(a1, w, bias, *, a2=None, relu=False, res=None, out_dtype=None,
+                a1_heads=0, out_heads=0, rows_per_batch=0, w_trans=False):
+    """The modes of ``ops/cuda/layer.py::gemm`` in plain PyTorch, so that
+    the backward's launch sequence runs on the CPU."""
+    if a1_heads:
+        bb, hh, nn, dd = a1.shape
+        a = a1.permute(0, 2, 1, 3).reshape(bb * nn, hh * dd)
+    else:
+        a = a1.reshape(-1, a1.shape[-1])
+    if a2 is not None:
+        a = torch.cat([a, a2.reshape(a.shape[0], -1)], 1)
+    y = a.float() @ (w.t() if w_trans else w)
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    if res is not None:
+        y = res.reshape(y.shape) + y
+    if out_heads:
+        y = y.reshape(-1, rows_per_batch, out_heads, y.shape[1] // out_heads)
+        y = y.permute(0, 2, 1, 3)
+    return y.to(out_dtype or a1.dtype).contiguous()
+
+
+@pytest.mark.parametrize("topk,masked,selfattn,b",
+                         [CASES[2], CASES[3], CASES[5]])
+def test_mha_backward_launches_on_cpu_match_pallas_vjp_f32(monkeypatch, topk,
+                                                           masked, selfattn,
+                                                           b):
+    """float32, tolerance 2e-5 (absolute and relative), as the twin's test
+    above: ``_mha_backward_launches`` with its GEMMs in plain PyTorch, the
+    attention backward and the transposed-A GEMMs on their CPU twins,
+    against ``jax.vjp`` of the Pallas ``fused_mha`` in interpret mode; and
+    the attention output it rebuilds from thr and lse, merged, equals the
+    forward's output."""
+    n, m, d, heads = 12, 16, 16, 4
+    params, x, src, g, mask = _case(1100 + (topk or 0) + b, b, n, m, d,
+                                    masked, selfattn, np.float32)
+    attn, convs = _port_attn(params, torch.float32)
+    w = blocked_weights(attn, heads)
+    wd = [p.detach() for p in w]
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    st = xt if selfattn else torch.from_numpy(src)
+    mt = None if mask is None else torch.from_numpy(mask)
+    monkeypatch.setattr(mha, "gemm", _plain_gemm)
+    f32 = torch.float32
+    # the forward on the q, k, v the backward recomputes: the same bits
+    q = _plain_gemm(xt, wd[0], wd[1], out_dtype=f32, out_heads=heads,
+                    rows_per_batch=n)
+    k = _plain_gemm(st, wd[2], wd[3], out_dtype=f32, out_heads=heads,
+                    rows_per_batch=st.shape[1])
+    v = _plain_gemm(st, wd[4], wd[5], out_dtype=f32, out_heads=heads,
+                    rows_per_batch=st.shape[1])
+    o_fwd, thr, lse = attention_core(q @ k.transpose(-1, -2), v, mt, topk,
+                                     return_lse=True)
+    (dx, dsrc, *wgrads, o) = mha._mha_backward_launches(
+        xt, st, mt, thr, lse, gt, heads, *wd[:7])
+    torch.autograd.backward(w, wgrads)          # to the Conv1x1 parameters
+    got = {"x": (dx + dsrc if selfattn else dx).numpy()}
+    if not selfattn:
+        got["src"] = dsrc.numpy()
+    for conv, nm in zip(convs, NAMES):
+        got[nm + ".w"] = conv.weight.grad[:, :, 0].t().numpy()
+        got[nm + ".b"] = conv.bias.grad.numpy()
+    jmask = None if mask is None else jnp.asarray(mask)
+    want = _jax_grads(lambda p, xx, ss: jax_fused_mha(topk, heads, True, p, xx,
+                                                      ss, jmask),
+                      params, x, src, g, selfattn)
+    tol = dict(rtol=2e-5, atol=2e-5)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], err_msg=key, **tol)
+    np.testing.assert_allclose(
+        o.numpy(), o_fwd.permute(0, 2, 1, 3).reshape(b * n, d).numpy(),
+        rtol=0, atol=1e-6)
