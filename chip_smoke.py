@@ -45,10 +45,13 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    train step's two shapes, a ragged row count and odd shapes, bit-equal
    from run to run, timed in CUDA graphs beside ``torch.matmul(a.t(), b)``
    under its plan and other row splits), the two attention-backward kernels
-   at 64 x 4 x 512 x 512 x 32 (k = 128, 64, dense: o, dq, dk, dv against
-   the twin, bit-equal from run to run, each kernel's device time a launch
-   from torch.profiler beside its bound), the Sinkhorn replay backward
-   (dZ, dalpha), and the
+   at 64 x 4 x 512 x 512 x 32 (k = 128, 64, dense) and 8 x 4 x 1024 x 1024
+   x 32 (o, dq, dk, dv against the twin, bit-equal from run to run; each
+   kernel's device time a launch from torch.profiler beside its bound, the
+   keys kernel under both key tilings), the Sinkhorn replay backward (dZ,
+   dalpha; also at 100 iterations, 4x512x512 and 2x1024x1024; its time at
+   64x512x512 and 8x1024x1024 under its plan and each cluster size,
+   bit-equal from run to run), and the
    whole-layer train kernels (h1, ssum, ssq, thr, lse, y, batch mean and
    variance; Sg, Sgh, dw2, db2, dscale, dbias; dx, dsrc and the fourteen
    parameter gradients with ragged key AND row masks and a cotangent that
@@ -1201,28 +1204,35 @@ def attention_backward_bounds(mask, b, h, n, m, dh, k):
     return bound(rows_bytes, flops), bound(keys_bytes, flops)
 
 
+# the previous designs' times, printed beside this run's (this script on one
+# H100 80GB HBM3 at 700 W): the keys kernel, profiler ms a launch at 64 x 4 x
+# 512 x 512 x 32 for k = 128, 64, dense (a warp per 8 keys, one pair a
+# lane); the Sinkhorn replay backward, ms by events at 64 x 512 x 512, 20
+# iterations (one block per pair)
+KEYS_KERNEL_BEFORE_MS = {128: 1.5571, 64: 1.5664, 0: 1.5637}
+SINKHORN_BWD_BEFORE_MS = 12.8760
+
+
 def check_attention_backward(rng, dev, report, card):
     """The two attention-backward kernels at the train shape 64 x 4 x 512 x
-    512 x 32 (k = 128, 64, dense; ragged keys): o, dq, dk, dv against the
-    twin (thr and lse each side from its own forward; near-tie rows get a
-    zero cotangent and their o is left out), bit-equal over two runs; each
-    kernel's device ms a launch from torch.profiler beside its bound."""
+    512 x 32 (k = 128, 64, dense; ragged keys) and at 8 x 4 x 1024 x 1024 x
+    32 (k = 128): o, dq, dk, dv against the twin (thr and lse each side from
+    its own forward; near-tie rows get a zero cotangent and their o is left
+    out), bit-equal over two runs; at the train shape each kernel's device ms
+    a launch from torch.profiler beside its bound, and the keys kernel under
+    both of its key tilings (64 keys x 64 rows, 128 keys x 32 rows)."""
     import torch
     from mdgat_tpu_torch.ops.cuda import attention as A
     from mdgat_tpu_torch.ops.cuda import mha as M
 
-    b, h, n, dh = 64, 4, 512, 32
+    h, dh = 4, 32
+    names = ("mha_bwd_rows_kernel", "mha_bwd_keys_kernel")
+    out = {}
 
     def t(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-    # the score scale folded into q, as the model folds it into wq
-    q, k, v, do = t(b, h, n, dh) * dh ** -0.5, t(b, h, n, dh), t(b, h, n, dh), t(b, h, n, dh)
-    mask = ragged_mask(rng, b, n, 400, dev)
-    names = ("mha_bwd_rows_kernel", "mha_bwd_keys_kernel")
-    out = {}
-    print(f"attention backward {b}x{h}x{n}x{n}x{dh} on {card}:")
-    for kk in (128, 64, 0):
+    def case(b, n, kk, q, k, v, do, mask):
         with torch.no_grad():
             _, thr, lse = A.topk_attention(q, k, v, mask, kk, 1.0, return_lse=True)
             _, thr_r, lse_r = A.topk_attention_reference(q, k, v, mask, kk, 1.0,
@@ -1243,23 +1253,42 @@ def check_attention_backward(rng, dev, report, card):
         require(all(torch.isfinite(x).all().item() for x in got),
                 "attention backward: non-finite output")
         require(o_err <= TOL["mha_out"] and max(errs) <= TOL["mha_grad"],
-                f"attention backward k{kk} disagrees with its twin")
+                f"attention backward {b}x{h}x{n}x{n}x{dh} k{kk} disagrees "
+                f"with its twin")
+        verdict = (f"o max err {o_err:.3e} (tol {TOL['mha_out']:g}, "
+                   f"{int(tie.sum())} near-tie rows of {tie.numel()} left "
+                   f"out), dq / dk / dv max rel err "
+                   + " / ".join(f"{e:.3e}" for e in errs)
+                   + f" (tol {TOL['mha_grad']:g}); bit-equal over two runs")
+        return (dz, thr, lse, thr_r, lse_r), o_err, errs, verdict
+
+    b, n = 64, 512
+    # the score scale folded into q, as the model folds it into wq
+    q, k, v, do = t(b, h, n, dh) * dh ** -0.5, t(b, h, n, dh), t(b, h, n, dh), t(b, h, n, dh)
+    mask = ragged_mask(rng, b, n, 400, dev)
+    print(f"attention backward {b}x{h}x{n}x{n}x{dh} on {card}:")
+    for kk in (128, 64, 0):
+        (dz, thr, lse, thr_r, lse_r), o_err, errs, verdict = case(
+            b, n, kk, q, k, v, do, mask)
         with torch.no_grad():
             ms = kernel_ms_by_name(
                 lambda: M._attention_backward(q, k, v, dz, mask, thr, lse), names)
+            tiles = {kt: kernel_ms_by_name(
+                lambda: M._attention_backward(q, k, v, dz, mask, thr, lse,
+                                              key_tile=kt), names[1:])[names[1]][0]
+                     for kt in (64, 128)}
             plain = cuda_ms(lambda: M.attention_backward_reference(
                 q, k, v, dz, mask, thr_r, lse_r), reps=5, warmup=1)
         (rb, rby), (kb, kby) = attention_backward_bounds(mask, b, h, n, n, dh, kk)
         print(f"  k{kk}: rows kernel {ms[names[0]][0]:.4f} ms a launch (bound "
-              f"{rb:.4f}, {rby}), keys kernel {ms[names[1]][0]:.4f} (bound "
-              f"{kb:.4f}, {kby}); twin {plain:.4f}; o max err {o_err:.3e} (tol "
-              f"{TOL['mha_out']:g}, {int(tie.sum())} near-tie rows of "
-              f"{tie.numel()} left out), dq / dk / dv max rel err "
-              + " / ".join(f"{e:.3e}" for e in errs)
-              + f" (tol {TOL['mha_grad']:g}); bit-equal over two runs")
+              f"{rb:.4f}, {rby}), keys kernel {ms[names[1]][0]:.4f} (before "
+              f"{KEYS_KERNEL_BEFORE_MS[kk]:.4f}; bound {kb:.4f}, {kby}; key "
+              f"tiles: 64 keys x 64 rows {tiles[64]:.4f}, 128 keys x 32 rows "
+              f"{tiles[128]:.4f}); twin {plain:.4f}; " + verdict)
         out[f"k{kk}"] = dict(rows_ms=ms[names[0]][0], keys_ms=ms[names[1]][0],
-                             rows_bound_ms=rb, keys_bound_ms=kb, plain_ms=plain,
-                             o_err=o_err, grad_errs=errs)
+                             keys_ms_by_tile=tiles, rows_bound_ms=rb,
+                             keys_bound_ms=kb, plain_ms=plain, o_err=o_err,
+                             grad_errs=errs)
         if kk == 128:
             report["mha_bwd_rows"].update(
                 ms=ms[names[0]][0], plain_ms=plain, bound_ms=rb, bound_by=rby,
@@ -1267,6 +1296,13 @@ def check_attention_backward(rng, dev, report, card):
             report["mha_bwd_keys"].update(
                 ms=ms[names[1]][0], plain_ms=plain, bound_ms=kb, bound_by=kby,
                 library_ms=None, max_abs_err=max(errs[1:]))
+    del q, k, v, do, dz
+    b, n, kk = 8, 1024, 128
+    q, k, v, do = t(b, h, n, dh) * dh ** -0.5, t(b, h, n, dh), t(b, h, n, dh), t(b, h, n, dh)
+    mask = ragged_mask(rng, b, n, 800, dev)
+    _, o_err, errs, verdict = case(b, n, kk, q, k, v, do, mask)
+    print(f"attention backward {b}x{h}x{n}x{n}x{dh} k{kk}: " + verdict)
+    out[f"{b}x{n}_k{kk}"] = dict(o_err=o_err, grad_errs=errs)
     report["_attention_backward"] = out
 
 
@@ -1311,18 +1347,51 @@ def sinkhorn_bwd_case(rng, dev, b, n, m, iters=20):
     return _rel_err(dz, dz_ref), abs((da - da_ref).item()) / max(1.0, abs(da_ref.item()))
 
 
-def check_sinkhorn_bwd(rng, dev, report):
+def check_sinkhorn_bwd(rng, dev, report, card):
+    """The Sinkhorn replay backward against its twin at the train shape, the
+    stretch shape, odd shapes and 100 iterations (the reference model's
+    default, at M = 512 and 1024); then its time at 64 x 512 x 512 and 8 x
+    1024 x 1024 (20 iterations, one launch by events) under the launch's
+    plan and under each cluster size, bit-equal from run to run."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import sinkhorn as S
     worst = 0.0
-    for i, (b, n, m) in enumerate(((64, 512, 512), (8, 1024, 1024), (3, 37, 45),
-                                   (2, 100, 300), (2, 50, 1000), (2, 300, 200))):
-        ez, ea = sinkhorn_bwd_case(rng, dev, b, n, m)
-        print(f"sinkhorn_bwd {b}x{n}x{m} 20 it: dZ rel err {ez:.3e}, dalpha "
-              f"rel err {ea:.3e} (tol {TOL['sinkhorn_bwd']:g})")
+    for i, (b, n, m, iters) in enumerate((
+            (64, 512, 512, 20), (8, 1024, 1024, 20), (3, 37, 45, 20),
+            (2, 100, 300, 20), (2, 50, 1000, 20), (2, 300, 200, 20),
+            (4, 512, 512, 100), (2, 1024, 1024, 100))):
+        ez, ea = sinkhorn_bwd_case(rng, dev, b, n, m, iters)
+        print(f"sinkhorn_bwd {b}x{n}x{m} {iters} it: dZ rel err {ez:.3e}, "
+              f"dalpha rel err {ea:.3e} (tol {TOL['sinkhorn_bwd']:g})")
         require(max(ez, ea) <= TOL["sinkhorn_bwd"],
-                f"sinkhorn_bwd {b}x{n}x{m} disagrees")
+                f"sinkhorn_bwd {b}x{n}x{m} {iters} it disagrees")
         if i == 0:
             worst = max(ez, ea)
     report["sinkhorn_bwd"]["max_abs_err"] = worst
+
+    sweep = {}
+    for b, n in ((64, 512), (8, 1024)):
+        scores = torch.from_numpy(rng.normal(size=(b, n, n)).astype(np.float32)).to(dev)
+        mask = ragged_mask(rng, b, n, n * 25 // 32, dev)
+        scalars, lmu, lnu = S._prep(scores, torch.tensor(1.0, device=dev), mask, mask)
+        cot = [torch.from_numpy(rng.normal(size=x).astype(np.float32)).to(dev)
+               for x in ((b, n, n), (b, n), (b, n), (b,))]
+        times = {}
+        for g in (0, 2, 4, 8, 16):
+            run = lambda: S._backward(scores, scalars, lmu, lnu, cot, 20, g)
+            first, again = run(), run()
+            torch.cuda.synchronize()
+            require(all(torch.equal(x, y) for x, y in zip(first, again)),
+                    f"sinkhorn_bwd {b}x{n}x{n} with {g or 'planned'} CTAs a "
+                    f"pair differs from run to run")
+            times[g] = cuda_ms(run, reps=5, warmup=1)
+        sweep[f"{b}x{n}x{n}"] = times
+        print(f"sinkhorn_bwd {b}x{n}x{n} 20 it on {card}, one launch by "
+              f"events: {times[0]:.4f} ms under the plan"
+              + (f" (before {SINKHORN_BWD_BEFORE_MS:.4f})" if n == 512 else "")
+              + "; CTAs a pair: "
+              + ", ".join(f"{g} {times[g]:.4f}" for g in (2, 4, 8, 16)))
+    report["_sinkhorn_bwd_sweep"] = sweep
 
 
 def train_layer_case(rng, dev, b, n, m, d, heads, k, selfattn, seed, dt):
@@ -1782,11 +1851,11 @@ def profile_train(state, batch, card, report):
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
               f"{e.key[:90]}")
-    # the kernels this step's redesigns touch, each summed over its
+    # the kernels the last redesigns touched, each summed over its
     # instantiations: device ms in the step, launches, ms a launch
     by_kernel = {}
     for name in ("mha_bwd_rows_kernel", "mha_bwd_keys_kernel",
-                 "gemm_tn_kernel", "tn_reduce_kernel"):
+                 "gemm_tn_kernel", "tn_reduce_kernel", "sinkhorn_bwd_kernel"):
         hits = [e for e in events if name in e.key]
         ms = sum(e.self_device_time_total for e in hits) / 1e3
         count = sum(e.count for e in hits)
@@ -2278,7 +2347,7 @@ def main() -> int:
     check_gemm_modes(rng, dev, report, card)
     check_fused_mha(rng, dev, report)
     check_attention_backward(rng, dev, report, card)
-    check_sinkhorn_bwd(rng, dev, report)
+    check_sinkhorn_bwd(rng, dev, report, card)
     check_train_layer(rng, dev, report)
     check_gap_loss(rng, dev, report, card)
     torch.cuda.empty_cache()

@@ -106,6 +106,13 @@ __device__ __forceinline__ void cp_async16(float* smem_dst, const void* src,
                                            int bytes = 16) {
   cp_async16(smem_address(smem_dst), src, bytes);
 }
+// the same for one float (cached at all levels; `bytes` 0 writes a zero)
+__device__ __forceinline__ void cp_async4(float* smem_dst, const void* src,
+                                          int bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_address(smem_dst)),
+               "l"(src), "r"(bytes) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -34,26 +34,35 @@
 //   not visited (they keep nothing). o and dq go out as [B, N, D] with
 //   head-blocked columns, ready for the GEMMs; delta [B, H, N] for the keys
 //   kernel.
-// * keys kernel: a block owns 64 keys of one (batch, head), one warp 8 of
-//   them, and walks the query rows in chunks of 128 staged in shared
-//   memory (q, do, thr, lse, delta). For 32 queries at a time a lane
-//   rebuilds p and ds of its (query, key) pair, the warp swaps them
-//   through shared memory, and each lane then owns one output dim of
-//   dv_j += p_i do_i and dk_j += ds_i q_i. dk and dv go out as [B, M, D].
+// * keys kernel (dk, dv), the rows kernel's design turned around: a block
+//   of 256 threads owns a tile of KT keys of one (batch, head), whose K and
+//   V rows it stages once by 16-byte cp.async; the query rows stream
+//   through in tiles of RT rows (Q, dO, thr, lse, delta) on a two-stage
+//   cp.async ring, so the next tile's loads overlap this tile's products.
+//   Per row tile: (1) S^T = K Q^T and (2) dP^T = V dO^T as register tiles
+//   (4 keys x TQ rows a thread, both operands 16-byte vectors along d), p
+//   and ds = p (dp - delta) into two [KT][RT + 8] slabs; (3) dv += P dO and
+//   dk += dS Q as one slab product, a thread owning 4 keys x 4 dims of both
+//   over one of RS row groups, its 32 accumulators in registers across all
+//   row tiles. Row tiles are added in ascending order and row groups in a
+//   fixed order at the end. A block whose keys all lie at or past the batch
+//   entry's last valid key writes zeros and returns. dk and dv go out as
+//   [B, M, D] with head-blocked columns.
 //
-// keep must not flip between the forward and these two kernels: the keys
-// kernel forms s with score_dot (common.cuh), the rows kernel's register
-// tile and the forward's keep score_dot's fmaf chain per element (d
-// ascending from 0), and all three read q and k from the same GEMM kernel,
-// whose outputs do not depend on its tile.
+// keep must not flip between the forward and these two kernels: both
+// backward kernels' register tiles and the forward's keep score_dot's fmaf
+// chain per element (common.cuh; d ascending from 0), and all three read q
+// and k from the same GEMM kernel, whose outputs do not depend on its tile.
 //
 // What bounds them on the H100: the f32 FMA pipe, fed from shared memory.
-// The rows kernel runs four [N, M, Dh] products a block (scores, o, dP, dq)
-// at 10.7 FMAs a 16-byte shared load in the register tiles and 8 in the
-// slab products (TR = 4); between tiles a block waits for its next tile,
-// which the other block of the SM covers. The keys kernel still takes one
-// shared read or two per FMA (five products with the rows kernel's delta);
-// the register-tiled design is the next step there.
+// Each kernel runs four [N, M, Dh] products a block: the rows kernel
+// scores, o, dP, dq; the keys kernel scores, dP, dv, dk (8.6 GFMA a launch
+// at 64 x 4 x 512 x 512 x 32, 0.26 ms at the full pipe). The rows kernel
+// feeds 10.7 FMAs a 16-byte shared load in its register tiles and 8 in the
+// slab products (TR = 4); the keys kernel 8 in both (4 x 4 tiles). Between
+// row tiles a block waits at two barriers, which the other block of the SM
+// covers. Both form p densely over the valid keys, so top-k layers cost as
+// much as dense ones.
 
 #include "common.cuh"
 
@@ -61,20 +70,7 @@ namespace mdgat {
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kKeysPerBlock = 64;   // keys kernel: keys per block
-constexpr int kKeysPerWarp = kKeysPerBlock / kWarps;
-constexpr int kQueryChunk = 128;    // keys kernel: query rows staged at once
-
-// Copies `rows` rows of Dh floats into a tile padded to Dh + 1 (lane j
-// reads row j, so the stride keeps 32 lanes on 32 banks) and zero-fills
-// the tile up to `fill` rows.
-template <int DH>
-__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src,
-                                           int rows, int fill) {
-  constexpr int LD = DH + 1;
-  for (int i = threadIdx.x; i < fill * DH; i += blockDim.x)
-    dst[(i / DH) * LD + (i % DH)] = i < rows * DH ? src[i] : 0.f;
-}
+constexpr int kKeyTile = 64;    // keys kernel: keys a block at Dh <= 32
 
 // Copies keys [t * kKT, t * kKT + nk4) of a [M][DH] tensor into the tile
 // buffer [kKT][DH + 4] by 16-byte cp.async, zero-filling keys >= nvalid.
@@ -345,107 +341,294 @@ mha_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
+// The keys kernel's tiling. A block of 256 threads owns KT = WK * 4 * TK keys
+// of one (batch, head) and streams the query rows in tiles of RT = (8 / WK)
+// * 8 * TQ. Per row tile a thread owns TK keys x TQ rows of the score and
+// dP register tiles (a warp 4 x 8 threads, WK warps along the keys), and in
+// the two slab products 4 keys x 4 dims of dK and dV over one of RS row
+// groups of the tile.
+template <int DH, int WK, int TK, int TQ>
+struct KeysTiling {
+  static constexpr int KT = WK * 4 * TK, WQ = kWarps / WK, RT = WQ * 8 * TQ;
+  static constexpr int LD = DH + 4;       // K, V, Q, dO tile row stride
+  static constexpr int LDP = RT + 8;      // slab stride: 8 mod 32 floats
+  static constexpr int DG = DH / 4, KQ = KT / 4;
+  static constexpr int RS = kWarps * 32 / (KQ * DG), RG = RT / RS;
+  static constexpr int kStages = 2;       // row tiles in flight: this + next
+  static constexpr int kStageFloats = 2 * RT * LD + 3 * RT;
+  static constexpr size_t kSmemFloats =
+      2 * KT * LD + kStages * kStageFloats + 2 * KT * LDP;
+  static_assert(kWarps % WK == 0 && RT % 32 == 0, "tile shape");
+  static_assert(KQ * DG * RS == kWarps * 32 && RG % 4 == 0, "slab layout");
+  // the row groups' partial sums of dk and dv reuse the two slabs
+  static_assert(RS == 1 || 2 * KT * LDP >= 2 * RS * KT * DH, "partials");
+};
+
+// dk = dS^T Q and dv = P^T dO for a tile of keys, summed over every query
+// row. p and ds are rebuilt per (key, row) exactly as the rows kernel does:
+// the score as one fmaf chain over d ascending from 0 (score_dot's), keep =
+// mask & (s >= thr), p = exp(s - lse), ds = p (do . v - delta). Row tiles
+// are added in ascending order, rows ascending within a tile, row groups in
+// a fixed order: no atomics, the same bits on every run. A block whose keys
+// all lie at or past its batch entry's last valid key writes zeros.
+template <int DH, int WK, int TK, int TQ>
+__global__ void __launch_bounds__(kWarps * 32, 2)
 mha_bwd_keys_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const uint8_t* __restrict__ mask,
                     const float* __restrict__ thr, const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dk_full,
                     float* __restrict__ dv_full, int H, int N, int M) {
-  constexpr int LD = DH + 1;
-  constexpr int P = (DH + 31) / 32;
-  extern __shared__ float smem[];
-  float* qs = smem;                          // [kQueryChunk][LD]
-  float* dos = qs + kQueryChunk * LD;        // [kQueryChunk][LD]
-  float* ks = dos + kQueryChunk * LD;        // [kKeysPerBlock][LD]
-  float* vs = ks + kKeysPerBlock * LD;       // [kKeysPerBlock][LD]
-  float* thr_s = vs + kKeysPerBlock * LD;    // [kQueryChunk]
-  float* lse_s = thr_s + kQueryChunk;
-  float* del_s = lse_s + kQueryChunk;
-  float* pbuf = del_s + kQueryChunk;         // [kWarps][32]
-  float* dsbuf = pbuf + kWarps * 32;         // [kWarps][32]
+  using T = KeysTiling<DH, WK, TK, TQ>;
+  constexpr int KT = T::KT, RT = T::RT, LD = T::LD, LDP = T::LDP, DG = T::DG;
+  constexpr int KQ = T::KQ, RG = T::RG;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int warp_last[kWarps];
+  float* Ks = smem;                       // [KT][LD]
+  float* Vs = Ks + KT * LD;               // [KT][LD]
+  float* ring = Vs + KT * LD;             // kStages x (Q, dO [RT][LD]; thr, lse, delta [RT])
+  float* Ps = ring + T::kStages * T::kStageFloats;   // [KT][LDP] p
+  float* Ss = Ps + KT * LDP;              // [KT][LDP] ds
 
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int D = H * DH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int key0 = blockIdx.x * kKeysPerBlock;
-  const int nkeys = min(kKeysPerBlock, M - key0);
+  const int key0 = blockIdx.x * KT;
   const uint8_t* mb = mask + static_cast<size_t>(b) * M;
+  auto out_at = [&](float* base, int key, int d4) {
+    return base + (static_cast<size_t>(b) * M + key) * D + h * DH + d4;
+  };
 
-  stage_tile<DH>(ks, k + (static_cast<size_t>(bh) * M + key0) * DH, nkeys, nkeys);
-  stage_tile<DH>(vs, v + (static_cast<size_t>(bh) * M + key0) * DH, nkeys, nkeys);
-
-  float dk[kKeysPerWarp][P], dv[kKeysPerWarp][P];
+  // the batch entry's last valid key: a block wholly past it keeps nothing
+  int last = 0;
+  for (int j = tid; j < M; j += kWarps * 32)
+    if (mb[j] != 0) last = j + 1;
+  last = __reduce_max_sync(kFull, last);
+  if (lane == 0) warp_last[warp] = last;
+  __syncthreads();
+  int Me = 0;
 #pragma unroll
-  for (int t = 0; t < kKeysPerWarp; ++t)
-#pragma unroll
-    for (int p = 0; p < P; ++p) dk[t][p] = dv[t][p] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kQueryChunk) {
-    const int nq = min(kQueryChunk, N - q0);
-    __syncthreads();                // the previous chunk is no longer read
-    stage_tile<DH>(qs, q + (static_cast<size_t>(bh) * N + q0) * DH, nq,
-                   kQueryChunk);
-    stage_tile<DH>(dos, dout + (static_cast<size_t>(bh) * N + q0) * DH, nq,
-                   kQueryChunk);
-    for (int i = threadIdx.x; i < kQueryChunk; i += blockDim.x) {
-      const bool in = i < nq;
-      const size_t row = static_cast<size_t>(bh) * N + q0 + i;
-      thr_s[i] = in ? thr[row] : CUDART_INF_F;   // rows past N keep nothing
-      lse_s[i] = in ? lse[row] : 0.f;
-      del_s[i] = in ? delta[row] : 0.f;
+  for (int w = 0; w < kWarps; ++w) Me = max(Me, warp_last[w]);
+  if (key0 >= Me) {                       // block-uniform
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = tid; i < KT * DG; i += kWarps * 32) {
+      const int key = key0 + i / DG, d4 = (i % DG) * 4;
+      if (key < M) {
+        store4(out_at(dk_full, key, d4), zero);
+        store4(out_at(dv_full, key, d4), zero);
+      }
     }
+    return;
+  }
+
+  // K and V of the block's keys (zeros past M), once
+  for (int i = tid; i < KT * DG; i += kWarps * 32) {
+    const int j = i / DG, d4 = (i % DG) * 4, key = key0 + j;
+    const bool ok = key < M;
+    const size_t at = (static_cast<size_t>(bh) * M + (ok ? key : 0)) * DH + d4;
+    cp_async16(Ks + j * LD + d4, k + at, ok ? 16 : 0);
+    cp_async16(Vs + j * LD + d4, v + at, ok ? 16 : 0);
+  }
+  cp_async_commit();
+
+  // a row tile into its ring stage: Q and dO rows (zeros past N) by 16-byte
+  // copies, thr, lse and delta by 4-byte ones
+  const int tiles = (N + RT - 1) / RT;
+  auto stage = [&](int s) { return ring + s * T::kStageFloats; };
+  auto load_rows = [&](int t) {
+    float* st = stage(t % T::kStages);
+    const int r0 = t * RT;
+    for (int i = tid; i < RT * DG; i += kWarps * 32) {
+      const int r = i / DG, d4 = (i % DG) * 4, n = r0 + r;
+      const bool ok = n < N;
+      const size_t at = (static_cast<size_t>(bh) * N + (ok ? n : 0)) * DH + d4;
+      cp_async16(st + r * LD + d4, q + at, ok ? 16 : 0);
+      cp_async16(st + (RT + r) * LD + d4, dout + at, ok ? 16 : 0);
+    }
+    for (int r = tid; r < RT; r += kWarps * 32) {
+      const int n = r0 + r;
+      const bool ok = n < N;
+      const size_t at = static_cast<size_t>(bh) * N + (ok ? n : 0);
+      float* vec = st + 2 * RT * LD;
+      cp_async4(vec + r, thr + at, ok ? 4 : 0);
+      cp_async4(vec + RT + r, lse + at, ok ? 4 : 0);
+      cp_async4(vec + 2 * RT + r, delta + at, ok ? 4 : 0);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < T::kStages - 1; ++s) {
+    if (s < tiles) load_rows(s);
+    cp_async_commit();
+  }
+
+  // register tiles: keys wk*4*TK + i*4 + tk, rows wq*8*TQ + j*8 + tq
+  const int tk = lane >> 3, tq = lane & 7, wk = warp % WK, wq = warp / WK;
+  bool kvalid[TK];
+#pragma unroll
+  for (int i = 0; i < TK; ++i) {
+    const int key = key0 + wk * 4 * TK + i * 4 + tk;
+    kvalid[i] = key < M && mb[key] != 0;
+  }
+  // slab products: keys kq + i*KQ, dims dq*4..+3, rows of group rs
+  const int dq = tid % DG, kq = (tid / DG) % KQ, rs = tid / (DG * KQ);
+  float dk[4][4], dv[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t + T::kStages - 1 < tiles) load_rows(t + T::kStages - 1);
+    cp_async_commit();
+    cp_async_wait<T::kStages - 1>();      // this tile (and K, V) landed
     __syncthreads();
+    const float* Qs = stage(t % T::kStages);
+    const float* Ds = Qs + RT * LD;
+    const float* thr_s = Ds + RT * LD;
+    const float* lse_s = thr_s + RT;
+    const float* del_s = lse_s + RT;
+    const int rows_left = N - t * RT;
+
+    // S^T = K Q^T, then dP^T = V dO^T, as register tiles; both operands
+    // read as 16-byte vectors along d, each entry ONE fmaf chain over d
+    // ascending from 0 (score_dot's), so s >= thr keeps the forward's set
+    float p[TK][TQ];
+    {
+      float acc[TK][TQ];
 #pragma unroll
-    for (int t = 0; t < kKeysPerWarp; ++t) {
-      const int jl = warp * kKeysPerWarp + t;
-      if (jl >= nkeys || mb[key0 + jl] == 0) continue;   // warp-uniform
-      const float* kr = ks + jl * LD;
-      const float* vr = vs + jl * LD;
-      for (int i0 = 0; i0 < nq; i0 += 32) {
-        const int i = i0 + lane;    // rows in [nq, chunk) hold zeros and
-        const float* qr = qs + i * LD;   // thr = +inf: p = ds = 0
-        const float* dr = dos + i * LD;
-        const float s = score_dot<DH>(qr, kr);
-        const bool keep = s >= thr_s[i];
-        const float p = expf(keep ? s - lse_s[i] : kBigNeg);
-        const float ds = p * (score_dot<DH>(dr, vr) - del_s[i]);
-        pbuf[warp * 32 + lane] = p;
-        dsbuf[warp * 32 + lane] = ds;
-        __syncwarp();
-        for (int ii = 0; ii < 32; ++ii) {
-          const float pi = pbuf[warp * 32 + ii], dsi = dsbuf[warp * 32 + ii];
-          const float* dor = dos + (i0 + ii) * LD;
-          const float* qor = qs + (i0 + ii) * LD;
+      for (int i = 0; i < TK; ++i)
 #pragma unroll
-          for (int pp = 0; pp < P; ++pp) {
-            const int d = lane + 32 * pp;
-            if (d < DH) {
-              dv[t][pp] = fmaf(pi, dor[d], dv[t][pp]);
-              dk[t][pp] = fmaf(dsi, qor[d], dk[t][pp]);
-            }
-          }
+        for (int j = 0; j < TQ; ++j) acc[i][j] = 0.f;
+      const float* kp = Ks + (wk * 4 * TK + tk) * LD;
+      const float* qp = Qs + (wq * 8 * TQ + tq) * LD;
+#pragma unroll
+      for (int d4 = 0; d4 < DH; d4 += 4) {
+        float ka[TK][4], qa[TQ][4];
+#pragma unroll
+        for (int i = 0; i < TK; ++i)
+          *reinterpret_cast<float4*>(ka[i]) = load4(kp + i * 4 * LD + d4);
+#pragma unroll
+        for (int j = 0; j < TQ; ++j)
+          *reinterpret_cast<float4*>(qa[j]) = load4(qp + j * 8 * LD + d4);
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd)
+#pragma unroll
+          for (int i = 0; i < TK; ++i)
+#pragma unroll
+            for (int j = 0; j < TQ; ++j)
+              acc[i][j] = fmaf(qa[j][dd], ka[i][dd], acc[i][j]);
+      }
+#pragma unroll
+      for (int j = 0; j < TQ; ++j) {
+        const int r = wq * 8 * TQ + j * 8 + tq;
+        const bool row_ok = r < rows_left;
+#pragma unroll
+        for (int i = 0; i < TK; ++i) {
+          const bool keep = kvalid[i] && row_ok && acc[i][j] >= thr_s[r];
+          p[i][j] = expf(keep ? acc[i][j] - lse_s[r] : kBigNeg);
         }
-        __syncwarp();
       }
     }
+    {
+      float acc[TK][TQ];
+#pragma unroll
+      for (int i = 0; i < TK; ++i)
+#pragma unroll
+        for (int j = 0; j < TQ; ++j) acc[i][j] = 0.f;
+      const float* vp = Vs + (wk * 4 * TK + tk) * LD;
+      const float* dp_ = Ds + (wq * 8 * TQ + tq) * LD;
+#pragma unroll
+      for (int d4 = 0; d4 < DH; d4 += 4) {
+        float va[TK][4], da[TQ][4];
+#pragma unroll
+        for (int i = 0; i < TK; ++i)
+          *reinterpret_cast<float4*>(va[i]) = load4(vp + i * 4 * LD + d4);
+#pragma unroll
+        for (int j = 0; j < TQ; ++j)
+          *reinterpret_cast<float4*>(da[j]) = load4(dp_ + j * 8 * LD + d4);
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd)
+#pragma unroll
+          for (int i = 0; i < TK; ++i)
+#pragma unroll
+            for (int j = 0; j < TQ; ++j)
+              acc[i][j] = fmaf(da[j][dd], va[i][dd], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < TK; ++i)
+#pragma unroll
+        for (int j = 0; j < TQ; ++j) {
+          const int key = wk * 4 * TK + i * 4 + tk, r = wq * 8 * TQ + j * 8 + tq;
+          Ps[key * LDP + r] = p[i][j];
+          Ss[key * LDP + r] = p[i][j] * (acc[i][j] - del_s[r]);
+        }
+    }
+    __syncthreads();                      // the slabs are written
+
+    // dv += P dO and dk += dS Q over this thread's row group
+    const int rbeg = rs * RG;
+#pragma unroll 2
+    for (int r = rbeg; r < rbeg + RG; r += 4) {
+      float pe[4][4], se[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        *reinterpret_cast<float4*>(pe[i]) = load4(Ps + (kq + i * KQ) * LDP + r);
+        *reinterpret_cast<float4*>(se[i]) = load4(Ss + (kq + i * KQ) * LDP + r);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 do4 = load4(Ds + (r + jj) * LD + dq * 4);
+        const float4 q4 = load4(Qs + (r + jj) * LD + dq * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dv[i][0] = fmaf(pe[i][jj], do4.x, dv[i][0]);
+          dv[i][1] = fmaf(pe[i][jj], do4.y, dv[i][1]);
+          dv[i][2] = fmaf(pe[i][jj], do4.z, dv[i][2]);
+          dv[i][3] = fmaf(pe[i][jj], do4.w, dv[i][3]);
+          dk[i][0] = fmaf(se[i][jj], q4.x, dk[i][0]);
+          dk[i][1] = fmaf(se[i][jj], q4.y, dk[i][1]);
+          dk[i][2] = fmaf(se[i][jj], q4.z, dk[i][2]);
+          dk[i][3] = fmaf(se[i][jj], q4.w, dk[i][3]);
+        }
+      }
+    }
+    __syncthreads();                      // the stage and the slabs are free
   }
 
+  // row groups 1.. hand their partials to group 0 through the slabs, which
+  // adds them in group order
+  if constexpr (T::RS > 1) {
+    float* part = Ps;                     // [RS - 1][KT][DH] dv, then dk
+    constexpr int kPart = (T::RS - 1) * KT * DH;
+    if (rs > 0)
 #pragma unroll
-  for (int t = 0; t < kKeysPerWarp; ++t) {
-    const int jl = warp * kKeysPerWarp + t;
-    if (jl >= nkeys) continue;
-    const size_t base = (static_cast<size_t>(b) * M + key0 + jl) * D + h * DH;
+      for (int i = 0; i < 4; ++i) {
+        const int at = ((rs - 1) * KT + kq + i * KQ) * DH + dq * 4;
+        store4(part + at, make_float4(dv[i][0], dv[i][1], dv[i][2], dv[i][3]));
+        store4(part + kPart + at, make_float4(dk[i][0], dk[i][1], dk[i][2], dk[i][3]));
+      }
+    __syncthreads();
+    if (rs == 0)
+      for (int z = 1; z < T::RS; ++z)
 #pragma unroll
-    for (int pp = 0; pp < P; ++pp) {
-      const int d = lane + 32 * pp;
-      if (d < DH) {
-        dk_full[base + d] = dk[t][pp];
-        dv_full[base + d] = dv[t][pp];
+        for (int i = 0; i < 4; ++i) {
+          const int at = ((z - 1) * KT + kq + i * KQ) * DH + dq * 4;
+          const float4 a = load4(part + at), c = load4(part + kPart + at);
+          dv[i][0] += a.x; dv[i][1] += a.y; dv[i][2] += a.z; dv[i][3] += a.w;
+          dk[i][0] += c.x; dk[i][1] += c.y; dk[i][2] += c.z; dk[i][3] += c.w;
+        }
+  }
+  if (rs == 0)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = key0 + kq + i * KQ;
+      if (key < M) {
+        store4(out_at(dv_full, key, dq * 4),
+               make_float4(dv[i][0], dv[i][1], dv[i][2], dv[i][3]));
+        store4(out_at(dk_full, key, dq * 4),
+               make_float4(dk[i][0], dk[i][1], dk[i][2], dk[i][3]));
       }
     }
-  }
 }
 
 template <int DH, int TR>
@@ -468,14 +651,40 @@ cudaError_t launch_rows(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// The launch owns the plan: 32 query rows a block up to 512 keys (two blocks
-// an SM at Dh 32), 16 above, so that the slab leaves room for the tile.
+template <int DH, int WK, int TK, int TQ>
+cudaError_t launch_keys(const float* q, const float* k, const float* v,
+                        const float* dout, const uint8_t* mask, const float* thr,
+                        const float* lse, const float* delta, float* dk_full,
+                        float* dv_full, int B, int H, int N, int M,
+                        cudaStream_t stream) {
+  using T = KeysTiling<DH, WK, TK, TQ>;
+  const size_t smem = sizeof(float) * T::kSmemFloats;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = mha_bwd_keys_kernel<DH, WK, TK, TQ>;
+  static SmemCap cap;
+  cudaError_t err = allow_smem(kernel, smem, cap);
+  if (err != cudaSuccess) return err;
+  dim3 grid((M + T::KT - 1) / T::KT, B * H);
+  kernel<<<grid, kWarps * 32, smem, stream>>>(q, k, v, dout, mask, thr, lse,
+                                              delta, dk_full, dv_full, H, N, M);
+  return cudaGetLastError();
+}
+
+// The launch owns the plan. Rows kernel: 32 query rows a block up to 512
+// keys (two blocks an SM at Dh 32), 16 above, so that the slab leaves room
+// for the tile. Keys kernel: 64 keys x 64 rows a block at Dh <= 32 (94 KB,
+// two blocks an SM; 4% faster than 128 keys x 32 rows, 97 KB, at 64 x 4 x
+// 512 x 512 x 32, the smoke's sweep), 64 keys x 32 rows at Dh 64.
+// `key_tile` 64 or 128 asks for that tiling instead (the smoke's sweep);
+// Dh 64 takes 64 only.
 template <int DH>
 cudaError_t launch_both(const float* q, const float* k, const float* v,
                         const float* dout, const uint8_t* mask, const float* thr,
                         const float* lse, float* o_full, float* dq_full,
                         float* dk_full, float* dv_full, float* delta, int B,
-                        int H, int N, int M, cudaStream_t stream) {
+                        int H, int N, int M, int key_tile, cudaStream_t stream) {
+  if (key_tile == 0) key_tile = kKeyTile;
+  if (key_tile != 64 && (key_tile != 128 || DH == 64)) return cudaErrorInvalidValue;
   cudaError_t err;
   if (M <= 512)
     err = launch_rows<DH, 4>(q, k, v, dout, mask, thr, lse, o_full, dq_full,
@@ -486,18 +695,15 @@ cudaError_t launch_both(const float* q, const float* k, const float* v,
   else
     return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
-
-  const size_t smem = (static_cast<size_t>(2 * kQueryChunk + 2 * kKeysPerBlock) *
-                           (DH + 1) + 3 * kQueryChunk + 2 * kWarps * 32) *
-                      sizeof(float);
-  auto kernel = mha_bwd_keys_kernel<DH>;
-  static SmemCap cap;
-  err = allow_smem(kernel, smem, cap);
-  if (err != cudaSuccess) return err;
-  dim3 grid((M + kKeysPerBlock - 1) / kKeysPerBlock, B * H);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(q, k, v, dout, mask, thr, lse,
-                                              delta, dk_full, dv_full, H, N, M);
-  return cudaGetLastError();
+  if constexpr (DH == 64)   // 64 keys x 32 rows
+    return launch_keys<DH, 4, 4, 2>(q, k, v, dout, mask, thr, lse, delta,
+                                    dk_full, dv_full, B, H, N, M, stream);
+  else if (key_tile == 128)  // 128 keys x 32 rows
+    return launch_keys<DH, 8, 4, 4>(q, k, v, dout, mask, thr, lse, delta,
+                                    dk_full, dv_full, B, H, N, M, stream);
+  else                       // 64 keys x 64 rows
+    return launch_keys<DH, 4, 4, 4>(q, k, v, dout, mask, thr, lse, delta,
+                                    dk_full, dv_full, B, H, N, M, stream);
 }
 
 }  // namespace
@@ -507,16 +713,20 @@ cudaError_t launch_both(const float* q, const float* k, const float* v,
 // contiguous; mask [B,M] uint8. Outputs, f32: o_full, dq_full [B,N,H*Dh] and
 // dk_full, dv_full [B,M,H*Dh] with head-blocked columns h*Dh + d; delta
 // [B,H,N] is scratch (do . o per row). Two launches: rows, then keys.
+// key_tile: 0 for the launch's plan, or 64 / 128 keys a block.
 extern "C" cudaError_t mdgat_mha_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* mask, const void* thr, const void* lse, void* o_full,
     void* dq_full, void* dk_full, void* dv_full, void* delta, int B, int H,
-    int N, int M, int Dh, cudaStream_t stream) {
+    int N, int M, int Dh, int key_tile, cudaStream_t stream) {
   using namespace mdgat;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0) return cudaErrorInvalidValue;
-  // the rows kernel stages q, dout, k, v by 16-byte copies
+  // both kernels stage q, dout, k, v by 16-byte copies and store by
+  // 16-byte vectors
   if (!aligned_to(q, 16) || !aligned_to(k, 16) || !aligned_to(v, 16) ||
-      !aligned_to(dout, 16) || !aligned_to(o_full, 16) || !aligned_to(dq_full, 16))
+      !aligned_to(dout, 16) || !aligned_to(o_full, 16) ||
+      !aligned_to(dq_full, 16) || !aligned_to(dk_full, 16) ||
+      !aligned_to(dv_full, 16))
     return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto g = [](void* p) { return static_cast<float*>(p); };
@@ -524,7 +734,7 @@ extern "C" cudaError_t mdgat_mha_attention_bwd(
 #define MDGAT_BWD(DH)                                                        \
   return launch_both<DH>(f(q), f(k), f(v), f(dout), m, f(thr), f(lse),       \
                          g(o_full), g(dq_full), g(dk_full), g(dv_full),      \
-                         g(delta), B, H, N, M, stream)
+                         g(delta), B, H, N, M, key_tile, stream)
   switch (Dh) {
     case 8: MDGAT_BWD(8);
     case 16: MDGAT_BWD(16);

@@ -48,7 +48,8 @@ from mdgat_tpu_torch.ops.cuda.sinkhorn import log_optimal_transport_kernel
 from mdgat_tpu_torch.ops.losses import gap_loss, superglue_nll_loss, triplet_loss
 from mdgat_tpu_torch.ops.matching import match_decision
 from mdgat_tpu_torch.ops.mlp import Conv1x1
-from mdgat_tpu_torch.ops.transport import log_optimal_transport
+from mdgat_tpu_torch.ops.transport import (assemble_full_scores,
+                                           log_optimal_transport)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -86,11 +87,14 @@ class MDGAT(nn.Module):
         self.final_proj.reset_parameters(g)
         self.bin_score.fill_(1.0)
 
-    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, data: Dict[str, torch.Tensor],
+                return_full_scores: bool = False) -> Dict[str, torch.Tensor]:
         """``data``: keypoints0/1 [B, N, 3], scores0/1 [B, N],
         descriptors0/1 [B, N, 33], optional mask0/1 [B, N] bool and
         gt_matches0/1 [B, N] int (-1 = unmatched). Returns matches0/1,
-        matching_scores0/1 and, with ground truth, loss [B]."""
+        matching_scores0/1, with ground truth loss [B], and with
+        ``return_full_scores`` the reference's [B, N+1, M+1] transport
+        (``scores``)."""
         cfg = self.config
         dt = torch_dtype(cfg.compute_dtype)
         mask0, mask1 = data.get("mask0"), data.get("mask1")
@@ -137,4 +141,6 @@ class MDGAT(nn.Module):
                                       mask0, mask1)
             else:
                 raise ValueError(f"Invalid loss_method: {cfg.loss_method}")
+        if return_full_scores:
+            out["scores"] = assemble_full_scores(ot)
         return out

@@ -52,11 +52,11 @@ _SIGNATURES = {
     # splits, stream
     "mdgat_gemm_tn": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, dout, mask, thr, lse, o_full, dq_full, dk_full, dv_full,
-    # delta, B, H, N, M, Dh, stream
-    "mdgat_mha_attention_bwd": [_P] * 12 + [_I] * 5 + [_P],
+    # delta, B, H, N, M, Dh, key_tile, stream
+    "mdgat_mha_attention_bwd": [_P] * 12 + [_I] * 6 + [_P],
     # Z, log_mu, log_nu, scalars, d_out, d_bin_row, d_bin_col, d_corner, dZ,
-    # dalpha, B, N, M, iters, stream
-    "mdgat_sinkhorn_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    # dalpha, hist, B, N, M, iters, cluster, stream
+    "mdgat_sinkhorn_bwd": [_P] * 11 + [_I] * 5 + [_P],
     # Z, log_mu, log_nu, scalars, out, bin_row, bin_col, corner, B, N, M,
     # iters, stream
     "mdgat_sinkhorn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

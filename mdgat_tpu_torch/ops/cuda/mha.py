@@ -171,13 +171,15 @@ def attention_backward_reference(q, k, v, do, kv_mask, thr, lse):
     return tuple(_blocked_rows(t) for t in grads)
 
 
-def _attention_backward(q, k, v, do, kv_mask, thr, lse):
+def _attention_backward(q, k, v, do, kv_mask, thr, lse, key_tile: int = 0):
     """The two launches of ``csrc/mha_bwd.cu`` (rows kernel, then keys
     kernel) on head-split q, do ``[B, H, N, Dh]``, k, v ``[B, H, M, Dh]``
     and ``thr``, ``lse`` ``[B, H, N, 1]``: (o, dq) ``[B*N, D]`` and (dk, dv)
     ``[B*M, D]`` with head-blocked columns, float32. A CPU tensor takes
-    :func:`attention_backward_reference`. Counts its own launches, not
-    those of :func:`fused_mha` (see :func:`_project_attend`)."""
+    :func:`attention_backward_reference`. ``key_tile`` 0 takes the keys
+    kernel's plan from the launch in ``csrc/``; 64 or 128 asks for that many
+    keys a block (the smoke's sweep). Counts its own launches, not those of
+    :func:`fused_mha` (see :func:`_project_attend`)."""
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, do, kv_mask, thr, lse)
     if q.device.type != "cuda":
@@ -204,7 +206,8 @@ def _attention_backward(q, k, v, do, kv_mask, thr, lse):
                        v.data_ptr(), do.data_ptr(), mask.data_ptr(),
                        thr.data_ptr(), lse.data_ptr(), o_full.data_ptr(),
                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                       delta.data_ptr(), b, h, n, m, dh, stream)
+                       delta.data_ptr(), b, h, n, m, dh, int(key_tile),
+                       stream)
     _attention_backward.launches += 1
     return o_full, dq, dk, dv
 

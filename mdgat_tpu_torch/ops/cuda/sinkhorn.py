@@ -17,8 +17,9 @@ A CUDA tensor launches the kernels (float32 scores only); a CPU tensor takes
 :func:`log_optimal_transport_reference`, the plain transport of
 ``ops/transport.py``, which autograd differentiates through its unrolled
 loop. Nothing falls back: a CUDA call the kernels cannot take raises (more
-than 1024 columns, or an iteration count whose v history does not fit a
-block's shared memory).
+than 1024 columns). The backward keeps the replay's history (v and each
+row's logsumexp) in a scratch tensor of ``B x ((iters + 1) (M + 2) + iters
+N)`` floats, so it takes every iteration count.
 """
 
 from __future__ import annotations
@@ -89,22 +90,36 @@ class _KernelOT(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_dense, d_bin_row, d_bin_col, d_corner):
         scores, scalars, log_mu, log_nu = ctx.saved_tensors
-        b, n, m = scores.shape
-        dz = torch.empty_like(scores)
-        dalpha = torch.empty((b,), dtype=scores.dtype, device=scores.device)
         cot = [t.to(scores.dtype).contiguous()
                for t in (d_dense, d_bin_row, d_bin_col, d_corner)]
-        with torch.cuda.device(scores.device):
-            stream = torch.cuda.current_stream(scores.device).cuda_stream
-            library().call("mdgat_sinkhorn_bwd", scores.data_ptr(),
-                           log_mu.data_ptr(), log_nu.data_ptr(),
-                           scalars.data_ptr(), *(t.data_ptr() for t in cot),
-                           dz.data_ptr(), dalpha.data_ptr(), b, n, m,
-                           ctx.iters, stream)
-        log_optimal_transport_kernel.backward_launches += 1
+        dz, dalpha = _backward(scores, scalars, log_mu, log_nu, cot, ctx.iters)
         half = 0.5 * BIG_NEG
         valid = (log_mu > half)[:, :, None] & (log_nu > half)[:, None, :]
         return (dz * valid.to(dz.dtype), dalpha.sum(), None, None, None)
+
+
+def _backward(scores, scalars, log_mu, log_nu, cot, iters: int,
+              cluster: int = 0):
+    """One launch of the replay backward: (dZ [B, N, M], dalpha [B]).
+    ``cluster`` 0 takes the launch's plan in ``csrc/`` (CTAs a pair);
+    1-16 asks for that cluster size (the smoke's sweep)."""
+    b, n, m = scores.shape
+    dz = torch.empty_like(scores)
+    dalpha = torch.empty((b,), dtype=scores.dtype, device=scores.device)
+    # the replay's history: v, vbin and the bin row's logsumexp [iters + 1,
+    # M + 2], then each row's logsumexp [iters, N] (csrc/sinkhorn_bwd.cu:
+    # hist_floats)
+    hist = torch.empty((b, (iters + 1) * (m + 2) + iters * n),
+                       dtype=scores.dtype, device=scores.device)
+    with torch.cuda.device(scores.device):
+        stream = torch.cuda.current_stream(scores.device).cuda_stream
+        library().call("mdgat_sinkhorn_bwd", scores.data_ptr(),
+                       log_mu.data_ptr(), log_nu.data_ptr(),
+                       scalars.data_ptr(), *(t.data_ptr() for t in cot),
+                       dz.data_ptr(), dalpha.data_ptr(), hist.data_ptr(), b,
+                       n, m, int(iters), int(cluster), stream)
+    log_optimal_transport_kernel.backward_launches += 1
+    return dz, dalpha
 
 
 def log_optimal_transport_kernel(scores, alpha, iters: int,

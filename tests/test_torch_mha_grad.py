@@ -229,6 +229,11 @@ ATTN_BWD_CASES = [  # topk, kind
     pytest.param(20, "ragged", id="topk-above-valid-count"),
     pytest.param(None, "all-masked", id="dense-all-masked-entry"),
     pytest.param(5, "all-masked", id="topk-all-masked-entry"),
+    # 300 keys span several key tiles of the card's keys kernel (64 or 128
+    # keys a block); one batch entry keeps 40, so its tail blocks are wholly
+    # masked and their dk, dv must come out as exact zeros
+    pytest.param(None, "tail-masked", id="dense-masked-tail-tiles"),
+    pytest.param(5, "tail-masked", id="topk-masked-tail-tiles"),
 ]
 
 
@@ -238,8 +243,11 @@ def test_attention_backward_twin_matches_autograd_f64(topk, kind):
     twin) gives the attention output and the gradients of ``sum(out * do)``
     in q, k and v that autograd takes through ``attention_core``, with thr
     and lse from that forward. "ties": integer q and k, so many scores tie
-    exactly at the k-th value and every tie is kept on both sides."""
-    b, h, n, m, dh = 3, 2, 7, 11, 4
+    exactly at the k-th value and every tie is kept on both sides.
+    "tail-masked": 300 keys, the last batch entry with 40 valid ones."""
+    b, h, n, dh = 3, 2, 7, 4
+    m = 300 if kind == "tail-masked" else 11
+    counts = [m, 150, 40] if kind == "tail-masked" else [m, 8, 5]
     rng = np.random.default_rng(1000 + (topk or 0) + len(kind))
 
     def t(*shape):
@@ -248,7 +256,7 @@ def test_attention_backward_twin_matches_autograd_f64(topk, kind):
                                 else x)
 
     q, k, v, do = t(b, h, n, dh), t(b, h, m, dh), t(b, h, m, dh), t(b, h, n, dh)
-    mask = torch.from_numpy(np.arange(m)[None, :] < np.array([m, 8, 5])[:, None])
+    mask = torch.from_numpy(np.arange(m)[None, :] < np.array(counts)[:, None])
     if kind == "all-masked":
         mask[-1] = False
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -265,6 +273,9 @@ def test_attention_backward_twin_matches_autograd_f64(topk, kind):
     if kind == "all-masked":
         assert not got[0].reshape(b, n, -1)[-1].any()
         assert not got[3].reshape(b, m, -1)[-1].any()
+    if kind == "tail-masked":   # every key past the entry's last valid one
+        for grad in got[2:]:
+            assert not grad.reshape(b, m, -1)[-1, counts[-1]:].any()
     if kind == "ties" and topk:
         s = q @ k.transpose(-1, -2)
         assert ((s == thr) & mask[:, None, None, :]).sum(-1).max() > 1

@@ -196,6 +196,30 @@ def test_loss_kernel_in_eval_mode_matches_jax_f64(weights, use_kernels):
                                atol=1e-9)
 
 
+def test_forward_full_scores_match_jax_f64(weights):
+    """``return_full_scores=True``: the [B, N+1, M+1] transport (dense block,
+    dustbin row and column, corner) equals the JAX package's ``scores`` to
+    1e-9 on every valid entry of ragged clouds, beside the usual outputs."""
+    params, state = weights
+    data, _, _ = _batch(606)
+    ref, _ = JaxMDGAT(jax_test_defaults(**TINY)).apply(
+        params, state, {k: jnp.asarray(v) for k, v in data.items()},
+        train=False, return_full_scores=True)
+    with torch.no_grad():
+        got = _port_model(params, state)(
+            {k: torch.from_numpy(v) for k, v in data.items()},
+            return_full_scores=True)
+    scores, want = got["scores"].numpy(), np.asarray(ref["scores"])
+    b, n, m = data["descriptors0"].shape[0], data["mask0"].shape[1], data["mask1"].shape[1]
+    assert scores.shape == want.shape == (b, n + 1, m + 1)
+    assert scores.dtype == np.float64
+    rows = np.concatenate([data["mask0"], np.ones((b, 1), bool)], axis=1)
+    cols = np.concatenate([data["mask1"], np.ones((b, 1), bool)], axis=1)
+    valid = rows[:, :, None] & cols[:, None, :]
+    np.testing.assert_allclose(scores[valid], want[valid], rtol=0, atol=1e-9)
+    np.testing.assert_array_equal(got["matches0"].numpy(), np.asarray(ref["matches0"]))
+
+
 def test_use_kernels_on_cpu_runs_the_plain_path(weights):
     params, state = weights
     data, _, _ = _batch(604)

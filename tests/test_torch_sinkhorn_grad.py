@@ -68,6 +68,9 @@ CASES = [  # b, n, m, counts0, counts1, iters
     pytest.param(2, 16, 16, None, None, 5, id="square-unmasked"),
     pytest.param(3, 24, 16, (24, 17, 9), (16, 11, 16), 5, id="ragged-masked"),
     pytest.param(2, 9, 20, (9, 4), (13, 20), 3, id="wide-masked"),
+    # the model's own default iteration count, beyond what a history kept in
+    # one block's shared memory allowed the card's replay backward at M = 512
+    pytest.param(2, 12, 20, (12, 7), (20, 13), 100, id="ragged-100-iterations"),
 ]
 
 

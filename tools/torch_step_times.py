@@ -2,7 +2,10 @@
 """Time the port's two main paths on one CUDA card, and nothing else: the
 serving forward (flagship model, 64 pairs of 200-256 keypoints, kernel path
 and plain path) and the default train step (64 pairs x 512 keypoints), each
-by CUDA events and under torch.profiler (device time, busy share).
+by CUDA events and under torch.profiler (device time, busy share); and the
+Sinkhorn backward alone (autograd through ``log_optimal_transport_kernel``,
+20 iterations, ragged masks) at the train step's 64 x 512 x 512 and at 8 x
+1024 x 1024.
 
     python3 tools/torch_step_times.py [label]     # from the root of a checkout
 
@@ -23,7 +26,8 @@ import numpy as np
 
 sys.path.insert(0, os.getcwd())
 
-from chip_smoke import card_line, cuda_ms, make_pairs, train_batch  # noqa: E402
+from chip_smoke import (card_line, cuda_ms, make_pairs, ragged_mask,  # noqa: E402
+                        train_batch)
 
 
 def profiled(fn, reps):
@@ -92,6 +96,22 @@ def main() -> int:
             out["train_step_enqueue_ms"] = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
         del state
+        torch.cuda.empty_cache()
+
+    from mdgat_tpu_torch.ops.cuda.sinkhorn import log_optimal_transport_kernel
+    for b, n in ((64, 512), (8, 1024)):
+        scores = torch.from_numpy(rng.normal(size=(b, n, n)).astype(np.float32)).to(dev)
+        mask = ragged_mask(rng, b, n, int(0.78 * n), dev)
+        sc = scores.requires_grad_()
+        alpha = torch.tensor(1.0, device=dev, requires_grad=True)
+        ot = list(log_optimal_transport_kernel(sc, alpha, 20, mask, mask))
+        cot = [torch.ones_like(t) for t in ot]
+        out[f"sinkhorn_bwd_{b}x{n}x{n}_ms"] = min(
+            cuda_ms(lambda: torch.autograd.grad(ot, [sc, alpha], cot,
+                                                retain_graph=True),
+                    reps=5, warmup=1)
+            for _ in range(2))
+        del scores, sc, ot, cot
         torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
