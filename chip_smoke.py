@@ -14,9 +14,14 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    counts 200 / 231 / 513, ragged query counts, head sizes 8-64, k = 1, k
    above the valid count, exact ties at the k-th value with thr bit-equal
    to the twin's, an all-masked batch entry, lse on and off), the GEMM and
-   the whole eval layer at D=128, the Sinkhorn (64x256x256, the training
-   step's 64x512x512 and 8x1024x1024, 20 iterations); and shapes off that
-   path (ragged N and M, odd GEMMs);
+   the whole eval layer at D=128, the Sinkhorn forward (64x256x256, the
+   training step's 64x512x512, 8x1024x1024, 2x300x200, 20 iterations;
+   4x512x512 and 2x1024x1024 at 100; no iteration) under its plan, each
+   cluster size (2, 4, 8, 16), the other thread count and the other column
+   form, bit-equal from run to run, then timed at the first three shapes
+   under the plan and every cluster size x thread count x column form
+   beside the clusters the card holds at once and the exp unit's floor;
+   and shapes off that path (ragged N and M, odd GEMMs);
 4. the serving path: the flagship MDGAT (L=9, D=128, default k-schedule,
    20 Sinkhorn iterations) with seeded weights behind
    ``Matcher(device="cuda")``: three ``match_batch`` calls of 64 ragged
@@ -56,7 +61,13 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    variance; Sg, Sgh, dw2, db2, dscale, dbias; dx, dsrc and the fourteen
    parameter gradients with ragged key AND row masks and a cotangent that
    is non-zero on padded rows; bit-equal from run to run; one bfloat16
-   case), and the gap-loss margin kernels (64x512x512, 8x1024x1024 and
+   case), the two dh2 launches of the BatchNorm backward (``tl_dh2_kernel``
+   through ``bn_backward_sums`` and ``dh1_kernel``) against their twins at
+   R = 32768 (f32 and bfloat16), an odd row count and D = 32 / 96,
+   bit-equal from run to run, each timed by the profiler beside its bound
+   and ``torch.matmul(g, w2.t())`` in a graph, every ``csrc/train_layer.cu``
+   kernel's ms a launch at the train shape beside its bound and the library
+   call for its product, and the gap-loss margin kernels (64x512x512, 8x1024x1024 and
    3x200x231, ragged row and column masks and none, dustbin anchors, a
    cloud without a valid point: S0 / S1 and, at random cotangents, dd /
    dbin_row / dbin_col against the formula twins, the [B] loss and its
@@ -76,7 +87,8 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    pairs on the card with the CPU; the loss is finite and falls; the peak
    memory of each arm; a torch.profiler window over one step of the
    default route (device time, busy share, and the step's device ms and
-   launches of the rows, keys and A^T GEMM kernels); then times per
+   launches of the rows, keys, A^T GEMM, Sinkhorn and train-layer kernels,
+   the dh2 kernel's two instantiations apart); then times per
    kernel, per whole layer (the whole-layer backward at k = 128 and dense
    also in a CUDA graph) and per step (the arms in turns, a fourth with
    ``loss_kernel=True``);
@@ -104,6 +116,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -513,30 +526,125 @@ def check_ragged(rng, dev):
         require(err <= tol, f"ragged {name} disagrees")
 
 
+def _sinkhorn_errs(ot, ref, rm, cm):
+    """(max abs errors of dense / bin_row / bin_col / corner on the valid
+    block, whether the padding kept the sentinel)."""
+    vb = rm[:, :, None] & cm[:, None, :]
+    errs = [(ot.dense - ref.dense).abs()[vb].max().item(),
+            (ot.bin_row - ref.bin_row).abs()[cm].max().item(),
+            (ot.bin_col - ref.bin_col).abs()[rm].max().item(),
+            (ot.corner - ref.corner).abs().max().item()]
+    return errs, bool((ot.dense[~vb] < -1e29).all())
+
+
+# the forward's cluster sizes the sweeps ask for besides the plan's
+SINKHORN_CLUSTERS = (2, 4, 8, 16)
+SINKHORN_CONFIGS = [("plan", 0)] + [(f"G={c}", c) for c in SINKHORN_CLUSTERS]
+
+
 def check_sinkhorn(rng, dev, report):
+    """The forward against its twin (1e-4 absolute on the valid block, the
+    padding at the sentinel) at the serving shape 64x256x256 (ragged), the
+    train shape 64x512x512, 8x1024x1024, two N != M shapes (the second
+    with 512 < M < 1024, where a CTA has threads past its columns), 100
+    iterations at 4x512x512 and 2x1024x1024 and no iteration, through the
+    entry (``log_optimal_transport_kernel``), and by launch under the plan
+    and under each cluster size, every launch twice, bit-equal. The error
+    reported is the largest over every shape and every launch."""
     import torch
     from mdgat_tpu_torch.ops.cuda import sinkhorn as S
     worst = 0.0
-    for b, n in ((64, 256), (64, 512), (8, 1024)):   # serving, training, wide
-        scores = torch.from_numpy(rng.normal(size=(b, n, n)).astype(np.float32)).to(dev)
-        rm = ragged_mask(rng, b, n, int(0.78 * n), dev)
-        cm = ragged_mask(rng, b, n, int(0.78 * n), dev)
-        ot = S.log_optimal_transport_kernel(scores, 1.0, 20, rm, cm)
-        ref = S.log_optimal_transport_reference(scores, 1.0, 20, rm, cm)
-        torch.cuda.synchronize()
-        vb = rm[:, :, None] & cm[:, None, :]
-        errs = [(ot.dense - ref.dense).abs()[vb].max().item(),
-                (ot.bin_row - ref.bin_row).abs()[cm].max().item(),
-                (ot.bin_col - ref.bin_col).abs()[rm].max().item(),
-                (ot.corner - ref.corner).abs().max().item()]
-        err = max(errs)
-        name = f"sinkhorn {b}x{n}x{n} 20 it"
-        print(f"{name}: max err dense/bin_row/bin_col/corner "
-              f"{' '.join(f'{e:.3e}' for e in errs)} tol {TOL['sinkhorn_f32']:g}")
-        require(bool((ot.dense[~vb] < -1e29).all()), f"{name}: padding leaked")
-        require(err <= TOL["sinkhorn_f32"], f"{name} disagrees")
-        worst = max(worst, err)
+    for b, n, m, iters, lo in ((64, 256, 256, 20, 0.78), (64, 512, 512, 20, 0.78),
+                               (8, 1024, 1024, 20, 0.78), (2, 300, 200, 20, 0.5),
+                               (2, 200, 700, 20, 0.78),
+                               (4, 512, 512, 100, 0.78), (2, 1024, 1024, 100, 0.78),
+                               (3, 200, 231, 0, 0.5)):
+        scores = torch.from_numpy(rng.normal(size=(b, n, m)).astype(np.float32)).to(dev)
+        rm = ragged_mask(rng, b, n, int(lo * n), dev)
+        cm = ragged_mask(rng, b, m, int(lo * m), dev)
+        ref = S.log_optimal_transport_reference(scores, 1.0, iters, rm, cm)
+        name = f"sinkhorn {b}x{n}x{m} {iters} it"
+        ot = S.log_optimal_transport_kernel(scores, 1.0, iters, rm, cm)
+        errs, pad_ok = _sinkhorn_errs(ot, ref, rm, cm)
+        require(pad_ok, f"{name}: padding leaked")
+        require(max(errs) <= TOL["sinkhorn_f32"], f"{name} disagrees")
+        worst = max(worst, max(errs))
+        scalars, lmu, lnu = S._prep(scores, torch.tensor(1.0, device=dev), rm, cm)
+        line = []
+        for label, g in SINKHORN_CONFIGS:
+            run = lambda: S._forward(scores, scalars, lmu, lnu, iters, g)
+            first, again = run(), run()
+            torch.cuda.synchronize()
+            require(all(torch.equal(x, y) for x, y in zip(first, again)),
+                    f"{name} ({label}) differs from run to run")
+            e, pad_ok = _sinkhorn_errs(first, ref, rm, cm)
+            require(pad_ok, f"{name} ({label}): padding leaked")
+            require(max(e) <= TOL["sinkhorn_f32"], f"{name} ({label}) disagrees: "
+                    + " ".join(f"{x:.3e}" for x in e))
+            line.append(f"{label} {max(e):.2e}")
+            worst = max(worst, max(e))
+        print(f"{name}: entry max err dense/bin_row/bin_col/corner "
+              f"{' '.join(f'{e:.3e}' for e in errs)}; by launch "
+              + ", ".join(line) + f" (tol {TOL['sinkhorn_f32']:g}, each "
+              f"bit-equal over two runs)")
     report["sinkhorn"]["max_abs_err"] = worst
+
+
+# the previous design's times (this script on one H100 80GB HBM3 at 700 W,
+# one block a pair, ms by events, 20 iterations, ragged masks)
+SINKHORN_FWD_BEFORE_MS = {"64x256x256": 1.3583, "64x512x512": 5.9724,
+                          "8x1024x1024": 19.7984}
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def sinkhorn_fwd_sweep(rng, dev, report, card):
+    """The forward alone (one launch by events, 20 iterations, ragged masks)
+    at 64x256x256, 64x512x512 and 8x1024x1024: under the plan and under
+    every cluster size, each beside how many such clusters the card holds
+    at once; with the bounds: bytes (Z in,
+    dense out), f32 operations, and the exp unit's floor (an expf an entry
+    in the row pass and one in the column pass, 16 a clock an SM at the
+    card's top SM clock)."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import sinkhorn as S
+    clock = sm_clock_hz()
+    out = {}
+    for b, n in ((64, 256), (64, 512), (8, 1024)):
+        key = f"{b}x{n}x{n}"
+        scores = torch.from_numpy(rng.normal(size=(b, n, n)).astype(np.float32)).to(dev)
+        mask = ragged_mask(rng, b, n, n * 25 // 32, dev)
+        scalars, lmu, lnu = S._prep(scores, torch.tensor(1.0, device=dev), mask, mask)
+        plan = S.sinkhorn_plan(b, n, n)
+        times = {"plan": cuda_ms(lambda: S._forward(scores, scalars, lmu, lnu, 20),
+                                 reps=10, warmup=2)}
+        waves = {}
+        for label, g in SINKHORN_CONFIGS[1:]:
+            times[label] = cuda_ms(lambda: S._forward(scores, scalars, lmu, lnu, 20, g),
+                                   reps=10, warmup=2)
+            waves[label] = S.active_clusters(n, n, g)
+        valid = (mask.sum(1).float() ** 2).sum().item()
+        entries = (mask.sum(1).float() + 1).pow(2).sum().item()   # with the bins
+        nbytes, flops = 2 * 4.0 * b * n * n, 20 * 2 * 5.0 * valid
+        bms, by = bound(nbytes, flops)
+        exp_floor = 20 * 2 * entries / (16 * 132 * clock) * 1e3
+        best = min(times, key=times.get)
+        print(f"sinkhorn forward {key} 20 it on {card}, one launch by events: "
+              f"plan (G={plan[0]}, {'resident' if plan[1] else 'streamed'}) "
+              f"{times['plan']:.4f} ms (before {SINKHORN_FWD_BEFORE_MS[key]:.4f}); "
+              f"bound {bms:.4f} ({by}), exp-unit floor {exp_floor:.4f}; "
+              f"fastest {best} {times[best]:.4f}")
+        print("  " + "; ".join(f"{k} {v:.4f} ({waves[k]} clusters at once)"
+                               for k, v in times.items() if k != "plan"))
+        out[key] = dict(times=times, active_clusters=waves, plan=list(plan),
+                        bound_ms=bms, bound_by=by, exp_floor_ms=exp_floor,
+                        before_ms=SINKHORN_FWD_BEFORE_MS[key])
+    report["_sinkhorn_fwd_sweep"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -1529,6 +1637,155 @@ def check_train_layer(rng, dev, report):
     report["train_layer_bwd2"]["max_abs_err"] = worst[2]
 
 
+# the previous design's ms a launch of tl_dh2_kernel at R = 32768, D = 128,
+# f32 (64x64 tiles of 4x4 a thread; profiled train step, this script on one
+# H100 80GB HBM3 at 700 W): the sums instantiation, the dh1 instantiation
+DH2_BEFORE_MS = {"sums": 5.64 / 36, "dh1": 6.19 / 36}
+
+
+def dh2_operands(rng, dev, b, n, d, dt):
+    """g, h1 in ``dt`` and the f32 vectors of the two dh2 launches at R = b
+    * n rows: h1 is drawn so that no BatchNorm output lies within 1e-3 of
+    zero after the rounding to ``dt`` (there the ReLU mask is a coin toss
+    between the kernel's fmaf and the twin's two roundings)."""
+    import torch
+    from mdgat_tpu_torch.ops.mlp import BN_EPS
+    r, c = b * n, 2 * d
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    mean, var = t(c) * 0.3, t(c).abs() + 0.5
+    scale, bias = t(c).abs() * 0.5 + 0.5, t(c) * 0.2
+    inv = torch.rsqrt(var + BN_EPS)
+    h1 = t(r, c).to(dt)
+    bn = (h1.double() - mean.double()) * inv.double() * scale.double() + bias.double()
+    away = ((0.5 - bias) / scale / inv + mean).expand(r, c).to(dt)
+    h1 = torch.where(bn.abs() < 1e-3, away, h1).contiguous()
+    g = t(r, d).to(dt).contiguous()
+    w2 = t(c, d) * d ** -0.5
+    vec4 = torch.stack([mean, inv, scale, bias])
+    vec6 = torch.cat([vec4, t(2, c) * 0.1])
+    rowmask = ragged_mask(rng, b, n, int(0.78 * n), dev).reshape(-1).to(torch.uint8)
+    return g, h1, w2, vec4, vec6, rowmask
+
+
+def check_dh2(rng, dev, report, card):
+    """The two instantiations of ``tl_dh2_kernel`` (``bn_backward_sums``,
+    ``dh1_kernel``) against their plain twins at the train shape (R =
+    32768, D = 128) in f32, at an odd row count and at D = 32 / 96 (the
+    chunked form), and in bfloat16 at the train shape, each bit-equal over
+    two runs; then each one's device ms a launch from torch.profiler at the
+    train shape beside its bound, its twin and ``torch.matmul(g, w2.t())``
+    in a CUDA graph (the product only: no PyTorch call forms the
+    epilogue)."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import train_layer as T
+    cases = [(64, 512, 128, torch.float32), (3, 333, 128, torch.float32),
+             (2, 100, 32, torch.float32), (2, 70, 96, torch.float32),
+             (64, 512, 128, torch.bfloat16)]
+    worst = {"sums": 0.0, "dh1": 0.0}
+    for b, n, d, dt in cases:
+        g, h1, w2, vec4, vec6, rowmask = dh2_operands(rng, dev, b, n, d, dt)
+        got = [T.bn_backward_sums(g, h1, w2, vec4),
+               T.dh1_kernel(g, h1, w2, vec6, rowmask)]
+        again = [T.bn_backward_sums(g, h1, w2, vec4),
+                 T.dh1_kernel(g, h1, w2, vec6, rowmask)]
+        ref = [T.bn_backward_sums_plain(g, h1, w2, vec4),
+               T.dh1_reference(g, h1, w2, vec6, rowmask)]
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"dh2 kernels {b}x{n} D={d} {dt} differ from run to run")
+        errs = [_rel_err(x, y) for x, y in zip(got, ref)]
+        name = f"tl_dh2_kernel {b}x{n} D={d} {str(dt).split('.')[-1]}"
+        print(f"{name}: sums / dh1 max rel err {errs[0]:.3e} / {errs[1]:.3e} "
+              f"(tol {TOL['train_layer_grad']:g}); bit-equal over two runs")
+        require(max(errs) <= TOL["train_layer_grad"], f"{name} disagrees")
+        if d == 128 and dt == torch.float32 and n == 512:
+            worst = dict(sums=errs[0], dh1=errs[1])
+
+    b, n, d = 64, 512, 128
+    r, c = b * n, 2 * d
+    g, h1, w2, vec4, vec6, rowmask = dh2_operands(rng, dev, b, n, d, torch.float32)
+    ms = {"sums": kernel_ms_by_name(lambda: T.bn_backward_sums(g, h1, w2, vec4),
+                                    ["tl_dh2_kernel", "partial_reduce_kernel"], reps=10),
+          "dh1": kernel_ms_by_name(lambda: T.dh1_kernel(g, h1, w2, vec6, rowmask),
+                                   ["tl_dh2_kernel"], reps=10)}
+    plain = {"sums": cuda_ms(lambda: T.bn_backward_sums_plain(g, h1, w2, vec4)),
+             "dh1": cuda_ms(lambda: T.dh1_reference(g, h1, w2, vec6, rowmask))}
+    with torch.no_grad():
+        library = graph_ms(lambda: torch.matmul(g, w2.t()))
+    flops = 2.0 * r * c * d
+    operands = 4.0 * (r * d + r * c + c * d)
+    bounds = {"sums": bound(operands + 4.0 * 4 * c + 4.0 * 4 * c, flops),
+              "dh1": bound(operands + 4.0 * 6 * c + r + 4.0 * r * c, flops)}
+    for key, entry in (("sums", "tl_dh2_sums"), ("dh1", "tl_dh2_dh1")):
+        k_ms = ms[key]["tl_dh2_kernel"][0]
+        bms, by = bounds[key]
+        extra = (f", its reduce partial_reduce_kernel "
+                 f"{ms[key]['partial_reduce_kernel'][0]:.4f}" if key == "sums" else "")
+        print(f"tl_dh2_kernel {key} on {card}, {b}x{n} D={d} f32: {k_ms:.4f} ms a "
+              f"launch (profiler; before {DH2_BEFORE_MS[key]:.4f}, "
+              f"{DH2_BEFORE_MS[key] / k_ms:.2f}x){extra}; bound {bms:.4f} ({by}); "
+              f"twin {plain[key]:.4f}; torch.matmul(g, w2.t()) in a graph "
+              f"{library:.4f} (the product only)")
+        report[entry].update(ms=k_ms, plain_ms=plain[key], bound_ms=bms,
+                             bound_by=by, library_ms=library,
+                             max_abs_err=worst[key])
+    report["_dh2"] = dict(ms={k: {n2: list(v) for n2, v in m.items()}
+                              for k, m in ms.items()},
+                          plain_ms=plain, library_ms_product_only=library,
+                          before_ms=DH2_BEFORE_MS)
+
+
+def train_layer_kernel_rows(rng, dev, report, card):
+    """Each kernel of ``csrc/train_layer.cu`` alone at the train shape (R =
+    32768, D = 128, f32): device ms a launch from torch.profiler, its bound
+    (operands in once, results out once; f32 FMA), and the one PyTorch call
+    for its product in a CUDA graph (the product only: none forms the
+    epilogues)."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import train_layer as T
+    b, n, d = 64, 512, 128
+    r, c = b * n, 2 * d
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    x, msg, g = t(r, d), t(r, d), t(r, d)
+    w1, b1, w2, b2 = t(c, c) * c ** -0.5, t(c), t(c, d) * c ** -0.5, t(d)
+    rowmask = ragged_mask(rng, b, n, 400, dev).reshape(-1).to(torch.uint8)
+    h1, sums = T.h1_stats(x, msg, w1, b1, rowmask)
+    a, cc = t(c).abs(), t(c)
+    vec4 = torch.stack([sums[0] / r, t(c).abs() + 0.5, a, cc])
+    xm = torch.cat([x, msg], 1)
+    u = torch.relu(h1 * a + cc)
+    rows = {
+        "tl_h1_kernel": (lambda: T.h1_stats(x, msg, w1, b1, rowmask),
+                         lambda: torch.addmm(b1, xm, w1),
+                         4.0 * (2 * r * d + c * c + c + r * c + 2 * c) + r,
+                         2.0 * r * c * c),
+        "tl_fwd2_kernel": (lambda: T.bn_relu_conv2(x, h1, a, cc, w2, b2),
+                           lambda: torch.addmm(b2, u, w2),
+                           4.0 * (2 * r * d + r * c + c * d + 2 * c + d),
+                           2.0 * r * c * d),
+        "tl_dw2_kernel": (lambda: T.dw2_db2(g, h1, vec4),
+                          lambda: torch.matmul(u.t(), g),
+                          4.0 * (r * c + r * d + 4 * c + (c + 1) * d),
+                          2.0 * r * c * d)}
+    out = {}
+    for name, (fn, lib_fn, nbytes, flops) in rows.items():
+        k_ms = kernel_ms_by_name(fn, [name], reps=10)[name][0]
+        with torch.no_grad():
+            lib = graph_ms(lib_fn)
+        bms, by = bound(nbytes, flops)
+        print(f"{name} on {card}, {b}x{n} D={d} f32: {k_ms:.4f} ms a launch "
+              f"(profiler); bound {bms:.4f} ({by}); library call in a graph "
+              f"{lib:.4f} (the product only)")
+        out[name] = dict(ms=k_ms, bound_ms=bms, bound_by=by, library_ms=lib)
+    report["_train_layer_kernels"] = out
+
+
 def gap_case(rng, dev, b, n, m):
     """Inputs of the gap-loss kernels on the card: scores, ragged row and
     column masks with the last pair's cloud 0 empty, ground truth with
@@ -1757,6 +2014,8 @@ def training(dev, report, counters):
         report[name]["launches"] = launches[name]
     for name in ("mha_bwd_rows", "mha_bwd_keys"):
         report[name]["launches"] = launches["mha_bwd"]
+    report["tl_dh2_sums"]["launches"] = launches["train_layer_bwd1"]
+    report["tl_dh2_dh1"]["launches"] = launches["train_layer_bwd2"]
     report["sinkhorn"]["train_launches"] = launches["sinkhorn"]
     print(f"per step: train-layer forward "
           f"{launches['train_layer_fwd'] // TRAIN_STEPS} / backward "
@@ -1855,15 +2114,23 @@ def profile_train(state, batch, card, report):
     # instantiations: device ms in the step, launches, ms a launch
     by_kernel = {}
     for name in ("mha_bwd_rows_kernel", "mha_bwd_keys_kernel",
-                 "gemm_tn_kernel", "tn_reduce_kernel", "sinkhorn_bwd_kernel"):
+                 "gemm_tn_kernel", "tn_reduce_kernel", "sinkhorn_bwd_kernel",
+                 "sinkhorn_kernel", "tl_h1_kernel", "tl_fwd2_kernel",
+                 "tl_dh2_kernel", "tl_dw2_kernel", "partial_reduce_kernel"):
         hits = [e for e in events if name in e.key]
-        ms = sum(e.self_device_time_total for e in hits) / 1e3
-        count = sum(e.count for e in hits)
-        require(count > 0, f"the profiled step ran no {name}")
-        by_kernel[name] = dict(ms=ms, launches=count, ms_a_launch=ms / count)
-        print(f"  {name}: {ms:.3f} ms in the step, {count} launches, "
-              f"{ms / count:.4f} ms a launch ({100 * ms / device_ms:.1f}% of "
-              f"the step's device time)")
+        # tl_dh2_kernel: its two instantiations apart (sums: <T, true>)
+        groups = ([(f"{name} sums", [e for e in hits if "true" in e.key]),
+                   (f"{name} dh1", [e for e in hits if "true" not in e.key])]
+                  if name == "tl_dh2_kernel" else [(name, hits)])
+        require(sum(e.count for e in hits) > 0, f"the profiled step ran no {name}")
+        for label, grp in groups:
+            ms = sum(e.self_device_time_total for e in grp) / 1e3
+            count = sum(e.count for e in grp)
+            by_kernel[label] = dict(ms=ms, launches=count,
+                                    ms_a_launch=ms / max(count, 1))
+            print(f"  {label}: {ms:.3f} ms in the step, {count} launches, "
+                  f"{ms / max(count, 1):.4f} ms a launch ({100 * ms / device_ms:.1f}% "
+                  f"of the step's device time)")
     report["_train_profile"] = dict(
         window_ms=window_ms, device_ms=device_ms, by_kernel=by_kernel,
         kernels=[dict(name=e.key[:120], count=e.count,
@@ -2304,6 +2571,11 @@ def main() -> int:
             route="cuda", source=tl_src,
             replaces=f"mdgat_tpu/ops/pallas/attention.py:{line}")
            for name, line in tl_line.items()},
+        # the dh2 product of _tl_bwd1_kernel and of _tl_bwd2_kernel
+        "tl_dh2_sums": dict(route="cuda", source=tl_src,
+                            replaces="mdgat_tpu/ops/pallas/attention.py:1462"),
+        "tl_dh2_dh1": dict(route="cuda", source=tl_src,
+                           replaces="mdgat_tpu/ops/pallas/attention.py:1535"),
         "fused_mha_fwd": dict(route="cuda",
                               source="mdgat_tpu_torch/csrc/attention.cu",
                               replaces="mdgat_tpu/ops/pallas/attention.py:933"),
@@ -2337,6 +2609,7 @@ def main() -> int:
     check_attention_edges(rng, dev)
     check_layer(rng, dev, report)
     check_sinkhorn(rng, dev, report)
+    sinkhorn_fwd_sweep(rng, dev, report, card)
     check_ragged(rng, dev)
     matcher, plain, pairs = serving(rng, dev, report, counters)
     timings(rng, dev, report, card, matcher, plain, pairs)
@@ -2349,7 +2622,11 @@ def main() -> int:
     check_attention_backward(rng, dev, report, card)
     check_sinkhorn_bwd(rng, dev, report, card)
     check_train_layer(rng, dev, report)
+    check_dh2(rng, dev, report, card)
+    train_layer_kernel_rows(rng, dev, report, card)
     check_gap_loss(rng, dev, report, card)
+    gc.collect()                     # the earlier phases' garbage, before
+                                     # the arms' peak memory is read
     torch.cuda.empty_cache()
     state, mha_state, plain_state, batch = training(dev, report, counters)
     profile_train(state, batch, card, report)

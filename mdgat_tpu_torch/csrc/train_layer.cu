@@ -35,17 +35,19 @@
 // order. No atomics: the results carry the same bits on every run.
 //
 // w1 is [2D, 2D] f32, 256 KB at D = 128 and more than one SM's shared
-// memory, so no weight is resident: all products walk K in steps of 16
-// through shared tiles (64x64 output tile, 256 threads, 4x4 per thread, f32
-// FMA: the tiling that gemm_tn_kernel of csrc/gemm.cu keeps too). x, h1, g
-// and y are f32 or bf16 (one type per call); msg, dh1, the vectors and
-// every sum are f32.
+// memory, so tl_h1_kernel, tl_fwd2_kernel and tl_dw2_kernel keep no weight
+// resident: they walk K in steps of 16 through shared tiles (64x64 output
+// tile, 256 threads, 4x4 per thread, f32 FMA, tile_product). tl_dh2_kernel
+// keeps w2 (128 KB at D = 128) resident for a persistent block an SM and
+// runs 8x8 register tiles (rows_by_wt_product; its design note is below).
+// x, h1, g and y are f32 or bf16 (one type per call); msg, dh1, the vectors
+// and every sum are f32.
 //
-// What bounds them on the H100: the f32 FMA pipe fed from shared memory,
-// eight scalar shared reads per sixteen FMAs; mdgat_tl_bwd_sums and
-// mdgat_tl_dh1 both form g @ w2^T (the TPU kernels do so too). h1 ([B*N,
-// 2D], 33.5 MB in f32 at 64 x 512 x 256) and dh1 round-trip through HBM
-// between launches.
+// What bounds them on the H100: the f32 FMA pipe; for the 4x4 kernels as
+// it is fed from shared memory, eight scalar shared reads per sixteen FMAs.
+// mdgat_tl_bwd_sums and mdgat_tl_dh1 both form g @ w2^T (the TPU kernels do
+// so too). h1 ([B*N, 2D], 33.5 MB in f32 at 64 x 512 x 256) and dh1
+// round-trip through HBM between launches.
 
 #include "common.cuh"
 
@@ -248,35 +250,128 @@ tl_fwd2_kernel(const T* __restrict__ x, const T* __restrict__ h1,
   }
 }
 
-// The dh2 = g @ w2^T tile (g [R, D], w2 [C2, D]) and what the BN backward
-// takes from it. SUMS: partial [gridDim.y][4][C2] gets the block's column
-// sums of G, G * hhat, dbn * hhat and dbn over every row < R, where
-// dbn = dh2 * (bn > 0) and G = dbn * scale. Otherwise out [R, C2] gets
-// dh1 = inv * (G - (c1 + hhat * c2) * rowmask), vec rows 4 = c1, 5 = c2.
+// ---- tl_dh2_kernel: dh2 = g @ w2^T and what the BN backward takes from it ----
+//
+// dh2 [R, 2D] = g [R, D] @ w2^T (w2 [2D, D]), tile by tile, never stored.
+// SUMS: partial [blocks][4][2D] gets the block's column sums of G, G * hhat,
+// dbn * hhat and dbn over every row < R, padded ones included, where dbn =
+// dh2 * (bn > 0) and G = dbn * scale (vec rows 0-3: mean, inv, scale,
+// bias). Otherwise out [R, 2D] gets dh1 = inv * (G - (c1 + hhat * c2) *
+// rowmask), vec rows 4 = c1, 5 = c2.
+//
+// Design. At D = 128 w2 is 128 KB: it stays in shared memory for the whole
+// launch. The grid is persistent, one block an SM (the plan, ops/cuda/
+// train_layer.py::dh2_plan, gives block z the rows [z * rows_per_block,
+// (z + 1) * rows_per_block), a whole number of 64-row tiles); a block walks
+// its row tiles with the g rows of the next tile in flight by 16-byte
+// cp.async (two stages, 33 KB each) and the h1 lines of the current tile
+// prefetched into L2 under the product. A tile is 64 rows x 256 columns, a
+// thread an 8 x 8 register tile (rows_by_wt_product: 16 FMAs a 16-byte
+// shared load, as gemm_kernel's W^T mode). The epilogue rebuilds hhat, the
+// BN output and the ReLU mask from h1 (each element read once, 32-byte runs,
+// a thread's 64 loads issued before any is used) and either adds the four
+// sums in registers over the block's rows (then over the warp's four row
+// lanes by shuffles and the two warp rows through shared memory, a fixed
+// order) or writes dh1. Every dh2 element is one
+// fmaf chain over k ascending from 0 in both instantiations, so the two
+// launches of a layer form the same dh2 bits and the same ReLU mask.
+// The resident form is compiled for D = 128 (its strides and trip counts
+// constants); other widths and unaligned g or w2 run tl_dh2_chunked_kernel:
+// the same tiles and product over K in chunks of 32 staged element by
+// element, column tiles of 256, w2 re-read per tile.
+// What bounds it on the H100: the f32 FMA pipe (R = 32768, D = 128: 2.15
+// GFLOP, 0.032 ms at 67 TFLOP/s, against 0.015 ms for g and h1 in and 0.025
+// with dh1 out).
+constexpr int kDhRows = 64;       // rows of g a tile
+constexpr int kDhCols = 256;      // columns of dh2 a tile: all of 2D at D = 128
+constexpr int kDhThreads = 256;   // 2 x 4 warps of 32 rows x 64 columns
+constexpr int kDhChunk = 32;      // depth of a step of the chunked form
+constexpr int kDhVecs = 6;        // vec rows staged: mean, inv, scale, bias, c1, c2
+
+constexpr int kDhWidth = 128;     // D of the resident form
+// floats of shared memory of the resident form: w2 [256][D + 4], two g
+// tiles [64][D + 4], vec [6][256] (209 KB at D = 128)
+constexpr size_t kDhSmem =
+    sizeof(float) * ((kDhCols + 2 * kDhRows) * (kDhWidth + 4) + kDhVecs * kDhCols);
+// the chunked form: a g chunk [64][36], a w2 chunk [256][36], vec [6][256]
+constexpr size_t kDhChunkSmem =
+    sizeof(float) * ((kDhRows + kDhCols) * (kDhChunk + 4) + kDhVecs * kDhCols);
+
+// acc[i][j] += sum over k < klen of a[r_i][k] * w[c_j][k], k ascending (one
+// fmaf chain per element, continued from call to call), with r_i = wm * 32 +
+// i * 4 + tm and c_j = wn * 64 + j * 8 + tn for lane = tm * 8 + tn and warp
+// = wm * 4 + wn. a [64][lda] and w [256][ldw] lie in shared memory
+// k-contiguous, klen a multiple of four. Per four k a thread reads eight
+// 16-byte vectors of a (four addresses a warp, broadcast) and eight of w
+// (one 128-byte run a warp) for 256 FMAs; strides of 4 mod 32 floats keep
+// both conflict-free.
+__device__ __forceinline__ void rows_by_wt_product(float (&acc)[8][8],
+                                                   const float* __restrict__ a, int lda,
+                                                   const float* __restrict__ w, int ldw,
+                                                   int klen) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* ap = a + ((warp >> 2) * 32 + (lane >> 3)) * lda;
+  const float* wp = w + ((warp & 3) * 64 + (lane & 7)) * ldw;
+#pragma unroll 2
+  for (int k4 = 0; k4 < klen; k4 += 4) {
+    float av[8][4], bv[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<float4*>(av[i]) =
+          *reinterpret_cast<const float4*>(ap + i * 4 * lda + k4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float4*>(bv[j]) =
+          *reinterpret_cast<const float4*>(wp + j * 8 * ldw + k4);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i][kk], bv[j][kk], acc[i][j]);
+  }
+}
+
+// The BN backward's epilogue of one tile (rows row0.., columns col0..;
+// this thread's 8 x 8 of dh2 in acc). V: the vec rows in shared memory at a
+// stride of kDhCols, column 0 standing for col0. SUMS: s[q][j] gets this
+// thread's rows' G, G * hhat, dbn * hhat, dbn of column c_j; else dh1 goes
+// to out.
 template <typename T, bool SUMS>
-__global__ void __launch_bounds__(kThreads)
-tl_dh2_kernel(const T* __restrict__ g, const T* __restrict__ h1,
-              const float* __restrict__ w2, const float* __restrict__ vec,
-              const uint8_t* __restrict__ rowmask, float* __restrict__ out,
-              int D, int R, int C2) {
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  tile_product<true>(acc, PlainLoad<T>{g, D}, w2, D, C2, R, row0, col0);
-  float s[4][4] = {};
+__device__ __forceinline__ void dh2_epilogue(const float (&acc)[8][8], float (&s)[4][8],
+                                             const T* __restrict__ h1, const float* V,
+                                             const uint8_t* __restrict__ rowmask,
+                                             float* __restrict__ out, int row0,
+                                             int r_end, int col0, int C2) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rt = row0 + (warp >> 2) * 32 + (lane >> 3);
+  const int ct = col0 + (warp & 3) * 64 + (lane & 7);
+  // every h1 value of the thread's 8 x 8 first: 64 loads in flight, the
+  // tile's latency paid once
+  float h[8][8];
+  bool valid[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    if (row >= R) continue;
-    const bool valid = rowmask == nullptr || rowmask[row];
+  for (int i = 0; i < 8; ++i) {
+    const int row = rt + i * 4;
+    valid[i] = SUMS || rowmask == nullptr || (row < r_end && rowmask[row]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx * 4 + j;
-      if (col >= C2) continue;
-      const size_t o = static_cast<size_t>(row) * C2 + col;
-      const BnRebuild r(to_f32(h1[o]), vec, C2, col);
+    for (int j = 0; j < 8; ++j) {
+      const int col = ct + j * 8;
+      h[i][j] = (row < r_end && col < C2)
+                    ? to_f32(h1[static_cast<size_t>(row) * C2 + col]) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int cl = ct - col0 + j * 8, col = ct + j * 8;
+    if (col >= C2) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = rt + i * 4;
+      if (row >= r_end) continue;
+      const BnRebuild r(h[i][j], V, kDhCols, cl);
       const float dbn = r.bn > 0.f ? acc[i][j] : 0.f;
-      const float G = dbn * vec[2 * C2 + col];
+      const float G = dbn * V[2 * kDhCols + cl];
       if constexpr (SUMS) {
         s[0][j] += G;
         s[1][j] += G * r.hhat;
@@ -284,12 +379,178 @@ tl_dh2_kernel(const T* __restrict__ g, const T* __restrict__ h1,
         s[3][j] += dbn;
       } else {
         const float corr =
-            valid ? vec[4 * C2 + col] + r.hhat * vec[5 * C2 + col] : 0.f;
-        out[o] = vec[C2 + col] * (G - corr);
+            valid[i] ? V[4 * kDhCols + cl] + r.hhat * V[5 * kDhCols + cl] : 0.f;
+        out[static_cast<size_t>(row) * C2 + col] = V[kDhCols + cl] * (G - corr);
       }
     }
   }
-  if constexpr (SUMS) write_column_partials<4>(s, out, C2, col0);
+}
+
+// vec rows (4 for SUMS, 6 otherwise) of columns col0.. into V [6][256],
+// zeros past C2
+template <bool SUMS>
+__device__ __forceinline__ void stage_vec(float* V, const float* __restrict__ vec,
+                                          int col0, int C2) {
+  for (int e = threadIdx.x; e < kDhVecs * kDhCols; e += kDhThreads) {
+    const int vr = e / kDhCols, col = col0 + e - vr * kDhCols;
+    V[e] = (col < C2 && (!SUMS || vr < 4)) ? vec[vr * C2 + col] : 0.f;
+  }
+}
+
+// partial[blockIdx.x][q][col0 + c] = the block's sums: s over the four row
+// lanes of a warp (shuffles), then warp row 0 + warp row 1 (red [2][4][256],
+// shared memory no longer read). Ends on a block barrier.
+__device__ __forceinline__ void dh2_write_sums(float (&s)[4][8], float* red,
+                                               float* __restrict__ partial,
+                                               int col0, int C2) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[q][j] += __shfl_xor_sync(kFull, s[q][j], 8);
+      s[q][j] += __shfl_xor_sync(kFull, s[q][j], 16);
+    }
+  __syncthreads();
+  if ((lane >> 3) == 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        red[((warp >> 2) * 4 + q) * kDhCols + (warp & 3) * 64 + j * 8 + lane] = s[q][j];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 4 * kDhCols; e += kDhThreads) {
+    const int q = e / kDhCols, c = e - q * kDhCols;
+    if (col0 + c < C2)
+      partial[(static_cast<size_t>(blockIdx.x) * 4 + q) * C2 + col0 + c] =
+          red[e] + red[4 * kDhCols + e];
+  }
+  __syncthreads();
+}
+
+// the h1 lines of rows [row0, row_end) into L2 ahead of the epilogue
+template <typename T>
+__device__ __forceinline__ void prefetch_rows_l2(const T* h1, int row0, int row_end,
+                                                 int C2) {
+  const char* base = reinterpret_cast<const char*>(h1 + static_cast<size_t>(row0) * C2);
+  const size_t bytes = static_cast<size_t>(row_end - row0) * C2 * sizeof(T);
+  for (size_t at = static_cast<size_t>(threadIdx.x) * 128; at < bytes;
+       at += static_cast<size_t>(kDhThreads) * 128)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(base + at));
+}
+
+// The resident form: w2 [2D][D] in shared memory for the launch. D is a
+// compile-time width (the model's 128), so that strides and trip counts
+// are constants (with D read at run time the kernel ran slower, PERF.md).
+template <typename T, bool SUMS, int D>
+__global__ void __launch_bounds__(kDhThreads, 1)
+tl_dh2_kernel(const T* __restrict__ g, const T* __restrict__ h1,
+              const float* __restrict__ w2, const float* __restrict__ vec,
+              const uint8_t* __restrict__ rowmask, float* __restrict__ out,
+              int R, int rows_per_block) {
+  static_assert(D % 4 == 0 && 2 * D <= kDhCols, "the resident form's width");
+  extern __shared__ __align__(16) float smem[];
+  constexpr int C2 = 2 * D, ld = D + 4, kq = D / 4;
+  float* Ws = smem;                          // [256][ld], rows past C2 zero
+  float* Gs = Ws + kDhCols * ld;             // [2][64][ld]
+  float* Vs = Gs + 2 * kDhRows * ld;         // [6][256]
+  const int tid = threadIdx.x;
+  const int r_begin = blockIdx.x * rows_per_block;
+  const int r_end = min(R, r_begin + rows_per_block);
+  const int tiles = (r_end - r_begin + kDhRows - 1) / kDhRows;
+
+  for (int e = tid; e < kDhCols * kq; e += kDhThreads) {
+    const int c = e / kq, q = (e - c * kq) * 4;
+    const bool ok = c < C2;
+    cp_async16(Ws + c * ld + q, ok ? w2 + static_cast<size_t>(c) * D + q : w2, ok ? 16 : 0);
+  }
+  stage_vec<SUMS>(Vs, vec, 0, C2);
+  auto stage = [&](int t, int buf) {         // the g rows of tile t
+    float* dst = Gs + buf * kDhRows * ld;
+    const int row0 = r_begin + t * kDhRows;
+    for (int e = tid; e < kDhRows * kq; e += kDhThreads) {
+      const int rr = e / kq, q = (e - rr * kq) * 4;
+      const bool ok = row0 + rr < r_end;
+      stage4(dst + rr * ld + q, g + static_cast<size_t>(ok ? row0 + rr : 0) * D + q, ok);
+    }
+  };
+  stage(0, 0);
+  cp_async_commit();
+
+  float s[4][8];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[q][j] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();      // tile t (and w2) have landed ...
+    __syncthreads();         // ... for every thread; tile t - 1 is read
+    if (t + 1 < tiles) stage(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    const int row0 = r_begin + t * kDhRows;
+    prefetch_rows_l2(h1, row0, min(r_end, row0 + kDhRows), C2);
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    rows_by_wt_product(acc, Gs + (t & 1) * kDhRows * ld, ld, Ws, ld, D);
+    dh2_epilogue<T, SUMS>(acc, s, h1, Vs, rowmask, out, row0, r_end, 0, C2);
+  }
+  if constexpr (SUMS) dh2_write_sums(s, Gs, out, 0, C2);
+}
+
+// The chunked form, for every other shape: column tiles of 256, K in chunks
+// of 32 staged element by element (zeros past R, 2D and D).
+template <typename T, bool SUMS>
+__global__ void __launch_bounds__(kDhThreads, 1)
+tl_dh2_chunked_kernel(const T* __restrict__ g, const T* __restrict__ h1,
+                      const float* __restrict__ w2, const float* __restrict__ vec,
+                      const uint8_t* __restrict__ rowmask, float* __restrict__ out,
+                      int D, int R, int rows_per_block) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int ld = kDhChunk + 4;
+  float* As = smem;                          // [64][ld]
+  float* Ws = As + kDhRows * ld;             // [256][ld]
+  float* Vs = Ws + kDhCols * ld;             // [6][256]
+  const int C2 = 2 * D, tid = threadIdx.x;
+  const int r_begin = blockIdx.x * rows_per_block;
+  const int r_end = min(R, r_begin + rows_per_block);
+  for (int col0 = 0; col0 < C2; col0 += kDhCols) {
+    __syncthreads();                         // Vs of the last column tile is read
+    stage_vec<SUMS>(Vs, vec, col0, C2);
+    float s[4][8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[q][j] = 0.f;
+    for (int row0 = r_begin; row0 < r_end; row0 += kDhRows) {
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      for (int k0 = 0; k0 < D; k0 += kDhChunk) {
+        __syncthreads();                     // the last chunk is read
+        for (int e = tid; e < kDhRows * kDhChunk; e += kDhThreads) {
+          const int rr = e / kDhChunk, kk = e - rr * kDhChunk;
+          const int row = row0 + rr, k = k0 + kk;
+          As[rr * ld + kk] =
+              (row < r_end && k < D) ? to_f32(g[static_cast<size_t>(row) * D + k]) : 0.f;
+        }
+        for (int e = tid; e < kDhCols * kDhChunk; e += kDhThreads) {
+          const int c = e / kDhChunk, kk = e - c * kDhChunk;
+          const int col = col0 + c, k = k0 + kk;
+          Ws[c * ld + kk] = (col < C2 && k < D) ? w2[static_cast<size_t>(col) * D + k] : 0.f;
+        }
+        __syncthreads();
+        rows_by_wt_product(acc, As, ld, Ws, ld, kDhChunk);
+      }
+      dh2_epilogue<T, SUMS>(acc, s, h1, Vs, rowmask, out, row0, r_end, col0, C2);
+    }
+    if constexpr (SUMS) dh2_write_sums(s, As, out, col0, C2);
+  }
 }
 
 // partial[z][k][c] = sum over the rows r of split z of u[r][k] * g[r][c],
@@ -394,26 +655,48 @@ cudaError_t launch_fwd2(const void* x, const void* h1, const float* a,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd_sums(const void* g, const void* h1, const float* w2,
-                            const float* vec4, float* partial, float* sums,
-                            int D, int R, cudaStream_t stream) {
-  const int C2 = 2 * D;
-  dim3 grid((C2 + BN - 1) / BN, (R + BM - 1) / BM);
-  tl_dh2_kernel<T, true><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(g), static_cast<const T*>(h1), w2, vec4, nullptr, partial, D, R, C2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_partials(partial, sums, static_cast<int>(grid.y), 4 * C2, stream);
+// block z of the dh2 launches takes rows [z * rows_per_block, min(R, (z +
+// 1) * rows_per_block)): every row once, no block empty, whole tiles
+inline bool dh2_plan_ok(int R, int rows_per_block, int blocks) {
+  return rows_per_block > 0 && rows_per_block % kDhRows == 0 && blocks > 0 &&
+         blocks <= 65535 && static_cast<long long>(rows_per_block) * blocks >= R &&
+         static_cast<long long>(rows_per_block) * (blocks - 1) < R;
+}
+
+template <typename T, bool SUMS>
+cudaError_t launch_dh2(const void* g, const void* h1, const float* w2,
+                       const float* vec, const uint8_t* rowmask, float* out,
+                       int D, int R, int rows_per_block, int blocks,
+                       cudaStream_t stream) {
+  const auto* gt = static_cast<const T*>(g);
+  const auto* ht = static_cast<const T*>(h1);
+  cudaError_t err;
+  static_assert(kDhSmem <= kMaxSmem, "the resident form must fit an SM");
+  if (D == kDhWidth && aligned_to(g, 4 * sizeof(T)) && aligned_to(w2, 16)) {
+    static SmemCap cap;
+    err = allow_smem(tl_dh2_kernel<T, SUMS, kDhWidth>, kDhSmem, cap);
+    if (err != cudaSuccess) return err;
+    tl_dh2_kernel<T, SUMS, kDhWidth><<<blocks, kDhThreads, kDhSmem, stream>>>(
+        gt, ht, w2, vec, rowmask, out, R, rows_per_block);
+  } else {
+    static SmemCap cap;
+    err = allow_smem(tl_dh2_chunked_kernel<T, SUMS>, kDhChunkSmem, cap);
+    if (err != cudaSuccess) return err;
+    tl_dh2_chunked_kernel<T, SUMS><<<blocks, kDhThreads, kDhChunkSmem, stream>>>(
+        gt, ht, w2, vec, rowmask, out, D, R, rows_per_block);
+  }
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_dh1(const void* g, const void* h1, const float* w2,
-                       const float* vec6, const uint8_t* rowmask, float* dh1,
-                       int D, int R, cudaStream_t stream) {
-  const int C2 = 2 * D;
-  dim3 grid((C2 + BN - 1) / BN, (R + BM - 1) / BM);
-  tl_dh2_kernel<T, false><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(g), static_cast<const T*>(h1), w2, vec6, rowmask, dh1, D, R, C2);
-  return cudaGetLastError();
+cudaError_t launch_bwd_sums(const void* g, const void* h1, const float* w2,
+                            const float* vec4, float* partial, float* sums,
+                            int D, int R, int rows_per_block, int blocks,
+                            cudaStream_t stream) {
+  cudaError_t err = launch_dh2<T, true>(g, h1, w2, vec4, nullptr, partial, D, R,
+                                        rows_per_block, blocks, stream);
+  if (err != cudaSuccess) return err;
+  return reduce_partials(partial, sums, blocks, 4 * 2 * D, stream);
 }
 
 template <typename T>
@@ -479,23 +762,30 @@ extern "C" cudaError_t mdgat_tl_fwd2(const void* x, const void* h1,
 }
 
 // sums [4][2D] = (Sg, Sgh, dscale, dbias) over all R rows, from g [R, D],
-// h1 [R, 2D], w2 [2D, D] and vec4 [4][2D] (mean, inv, scale, bias).
-// partial is scratch of ceil(R / 64) * 4 * 2D floats.
+// h1 [R, 2D], w2 [2D, D] and vec4 [4][2D] (mean, inv, scale, bias). The row
+// plan (ops/cuda/train_layer.py::dh2_plan) gives block z the rows [z *
+// rows_per_block, min(R, (z + 1) * rows_per_block)); it must cover every
+// row once with no block empty. partial is scratch of partial_floats =
+// blocks * 4 * 2D floats.
 extern "C" cudaError_t mdgat_tl_bwd_sums(const void* g, const void* h1,
                                          const void* w2, const void* vec4,
-                                         void* partial, void* sums, int D,
-                                         int R, int io_dtype,
-                                         cudaStream_t stream) {
+                                         void* partial, long long partial_floats,
+                                         void* sums, int D, int R,
+                                         int rows_per_block, int blocks,
+                                         int io_dtype, cudaStream_t stream) {
   using namespace mdgat;
-  if (D <= 0 || R <= 0) return cudaErrorInvalidValue;
+  if (D <= 0 || R <= 0 || !dh2_plan_ok(R, rows_per_block, blocks) ||
+      partial_floats != static_cast<long long>(blocks) * 4 * 2 * D)
+    return cudaErrorInvalidValue;
   const auto* w = static_cast<const float*>(w2);
   const auto* v = static_cast<const float*>(vec4);
   auto* p = static_cast<float*>(partial);
   auto* s = static_cast<float*>(sums);
   if (io_dtype == kF32)
-    return launch_bwd_sums<float>(g, h1, w, v, p, s, D, R, stream);
+    return launch_bwd_sums<float>(g, h1, w, v, p, s, D, R, rows_per_block, blocks, stream);
   if (io_dtype == kBF16)
-    return launch_bwd_sums<__nv_bfloat16>(g, h1, w, v, p, s, D, R, stream);
+    return launch_bwd_sums<__nv_bfloat16>(g, h1, w, v, p, s, D, R, rows_per_block,
+                                          blocks, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -522,20 +812,24 @@ extern "C" cudaError_t mdgat_tl_dw2(const void* h1, const void* vec4,
 }
 
 // dh1 [R, 2D] f32 from g, h1, w2, vec6 [6][2D] (mean, inv, scale, bias,
-// Sg / cnt, Sgh / cnt) and the row mask.
+// Sg / cnt, Sgh / cnt) and the row mask, under the row plan of
+// mdgat_tl_bwd_sums.
 extern "C" cudaError_t mdgat_tl_dh1(const void* g, const void* h1,
                                     const void* w2, const void* vec6,
                                     const void* rowmask, void* dh1, int D,
-                                    int R, int io_dtype, cudaStream_t stream) {
+                                    int R, int rows_per_block, int blocks,
+                                    int io_dtype, cudaStream_t stream) {
   using namespace mdgat;
-  if (D <= 0 || R <= 0) return cudaErrorInvalidValue;
+  if (D <= 0 || R <= 0 || !dh2_plan_ok(R, rows_per_block, blocks))
+    return cudaErrorInvalidValue;
   const auto* w = static_cast<const float*>(w2);
   const auto* v = static_cast<const float*>(vec6);
   const auto* rm = static_cast<const uint8_t*>(rowmask);
   auto* o = static_cast<float*>(dh1);
   if (io_dtype == kF32)
-    return launch_dh1<float>(g, h1, w, v, rm, o, D, R, stream);
+    return launch_dh2<float, false>(g, h1, w, v, rm, o, D, R, rows_per_block, blocks, stream);
   if (io_dtype == kBF16)
-    return launch_dh1<__nv_bfloat16>(g, h1, w, v, rm, o, D, R, stream);
+    return launch_dh2<__nv_bfloat16, false>(g, h1, w, v, rm, o, D, R, rows_per_block,
+                                            blocks, stream);
   return cudaErrorInvalidValue;
 }

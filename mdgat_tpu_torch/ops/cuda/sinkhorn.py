@@ -13,6 +13,11 @@ tensor code around the kernels (``_prep``), and the kernels mask the raw
 scores from the marginals. See the source notes in ``csrc/``
 for the designs and what bounds them on the H100.
 
+Both kernels run a pair on a thread-block cluster of CTAs, each owning a
+band of rows. The forward's cluster size comes from :func:`sinkhorn_plan`;
+the band stays in shared memory wherever it fits (:func:`fwd_smem_bytes`
+mirrors the kernel's layout).
+
 A CUDA tensor launches the kernels (float32 scores only); a CPU tensor takes
 :func:`log_optimal_transport_reference`, the plain transport of
 ``ops/transport.py``, which autograd differentiates through its unrolled
@@ -24,16 +29,21 @@ N)`` floats, so it takes every iteration count.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from mdgat_tpu_torch.ops.cuda._build import library
+from mdgat_tpu_torch.ops.cuda.layer import NUM_SMS
 from mdgat_tpu_torch.ops.transport import (BIG_NEG, OTScores,
                                            log_optimal_transport,
                                            transport_marginals)
 
 MAX_COLS = 1024
+MAX_CLUSTER = 16          # CTAs a pair; above 8 the size is non-portable
+SMEM_CAP = 227 * 1024     # shared memory a CTA may take on the H100
+FWD_THREADS = 1024        # threads a forward CTA (csrc/sinkhorn.cu kThreads)
 
 
 # the plain PyTorch twin of the kernel
@@ -61,8 +71,53 @@ def _check(scores):
                          f"most {MAX_COLS})")
 
 
-def _forward(scores, scalars, log_mu, log_nu, iters: int) -> OTScores:
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def fwd_smem_bytes(band: int, m: int, resident: bool) -> int:
+    """Shared memory of one forward CTA (``csrc/sinkhorn.cu::
+    fwd_smem_floats``): the bin scalars, ``lnu`` / ``v``, ``lmu`` / ``u``
+    of the band, the row groups' partials, two exchange buffers and, when
+    resident, the band of masked scores."""
+    mp = _pad4(m)
+    floats = (4 + 2 * mp + 2 * _pad4(band) + 2 * FWD_THREADS + 4 * (mp + 4)
+              + (band * m if resident else 0))
+    return 4 * floats
+
+
+def fwd_resident(n: int, m: int, cluster: int) -> bool:
+    """Whether the forward keeps its band of ``ceil(n / cluster)`` rows in
+    shared memory (the launch decides the same way)."""
+    return fwd_smem_bytes(-(-n // cluster), m, True) <= SMEM_CAP
+
+
+def sinkhorn_plan(b: int, n: int, m: int):
+    """``(cluster, resident)`` of the forward for ``b`` pairs of ``n x m``
+    scores: the smallest cluster whose band stays in shared memory
+    (streamed, clusters of 8, where none does: at 8 pairs x 1024 columns 16
+    CTAs a pair leave 7 clusters on the card at once, two waves), doubled
+    up to 8 while the batch still fits in one wave of the card's SMs, and
+    cut while the last CTA would get no row."""
+    fit = [g for g in (1, 2, 4, 8, MAX_CLUSTER) if fwd_resident(n, m, g)]
+    g = fit[0] if fit else 8
+    while g < 8 and b * 2 * g <= NUM_SMS:
+        g *= 2
+    while g > 1 and (g - 1) * -(-n // g) >= n:
+        g //= 2
+    return g, fwd_resident(n, m, g)
+
+
+def _forward(scores, scalars, log_mu, log_nu, iters: int,
+             cluster: int = 0) -> OTScores:
+    """One launch of the forward. ``cluster`` 0 takes
+    :func:`sinkhorn_plan`'s cluster size; 1-16 asks for that many CTAs a
+    pair (the smoke's sweep)."""
     b, n, m = scores.shape
+    cluster = cluster or sinkhorn_plan(b, n, m)[0]
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"Sinkhorn kernel: {cluster} CTAs a pair "
+                         f"(1-{MAX_CLUSTER})")
     dense = torch.empty_like(scores)
     bin_row = torch.empty((b, m), dtype=scores.dtype, device=scores.device)
     bin_col = torch.empty((b, n), dtype=scores.dtype, device=scores.device)
@@ -72,9 +127,20 @@ def _forward(scores, scalars, log_mu, log_nu, iters: int) -> OTScores:
         library().call("mdgat_sinkhorn", scores.data_ptr(), log_mu.data_ptr(),
                        log_nu.data_ptr(), scalars.data_ptr(), dense.data_ptr(),
                        bin_row.data_ptr(), bin_col.data_ptr(),
-                       corner.data_ptr(), b, n, m, int(iters), stream)
+                       corner.data_ptr(), b, n, m, int(iters), int(cluster),
+                       stream)
     log_optimal_transport_kernel.launches += 1
     return OTScores(dense, bin_row, bin_col, corner)
+
+
+def active_clusters(n: int, m: int, cluster: int) -> int:
+    """How many forward clusters of that launch the current card holds at
+    once (``cudaOccupancyMaxActiveClusters``): a batch of ``b`` pairs runs
+    in ``ceil(b / it)`` waves."""
+    count = ctypes.c_int(0)
+    library().call("mdgat_sinkhorn_active_clusters", n, m, int(cluster),
+                   ctypes.addressof(count))
+    return count.value
 
 
 class _KernelOT(torch.autograd.Function):

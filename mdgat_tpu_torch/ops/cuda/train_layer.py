@@ -62,10 +62,11 @@ import torch
 from mdgat_tpu_torch.ops.attention import acc_dtype
 from mdgat_tpu_torch.ops.cuda import mha
 from mdgat_tpu_torch.ops.cuda._build import DTYPE_CODES, library
-from mdgat_tpu_torch.ops.cuda.layer import gemm, gemm_tn
+from mdgat_tpu_torch.ops.cuda.layer import NUM_SMS, gemm, gemm_tn
 from mdgat_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 
 _ROWS_PER_BLOCK = 64      # BM of csrc/train_layer.cu: one partial per block
+DH2_TILE_ROWS = 64        # rows of g in one tile of tl_dh2_kernel
 _DW2_ROWS_PER_SPLIT = 512  # rows of one split of tl_dw2_kernel
 
 
@@ -140,22 +141,77 @@ def fused_train_layer_reference(x, source, kv_mask: Optional[torch.Tensor],
     return y, mean, var
 
 
+def _bn_backward_rows(g, h1, w2, mean, inv, bn_scale, bn_bias):
+    """``(g, hhat, bn, dbn, G)`` row by row in the accumulation dtype:
+    ``hhat = (h1 - mean) * inv``, ``bn = hhat * scale + bias``, ``dbn =
+    (g @ w2^T) * (bn > 0)``, ``G = dbn * scale``."""
+    acc = acc_dtype(h1.dtype)
+    gf = g.to(h1.dtype).to(acc).reshape(-1, g.shape[-1])
+    hhat = (h1.to(acc).reshape(gf.shape[0], -1) - mean) * inv
+    bn = hhat * bn_scale + bn_bias
+    dbn = (gf @ w2.to(acc).t()) * (bn > 0)
+    return gf, hhat, bn, dbn, dbn * bn_scale
+
+
+def bn_backward_sums_plain(g, h1, w2, vec4):
+    """Plain twin of :func:`bn_backward_sums` on its operands: ``[4, 2D]``
+    = ``Sg``, ``Sgh``, ``dscale``, ``dbias`` over all rows."""
+    _, hhat, _, dbn, big_g = _bn_backward_rows(g, h1, w2, *vec4)
+    return torch.stack([big_g.sum(0), (big_g * hhat).sum(0),
+                        (dbn * hhat).sum(0), dbn.sum(0)])
+
+
 def bn_backward_sums_reference(g, h1, w2, mean, var, bn_scale, bn_bias):
     """Plain twin of the bwd1 kernels: ``(Sg, Sgh, dw2, db2, dscale,
     dbias)`` for the cotangent ``g [B, N, D]`` of ``y`` and the stored
-    ``h1 [B, N, 2D]``, every sum over ALL rows (``_tl_bwd1_kernel``)."""
-    acc = acc_dtype(h1.dtype)
-    gf = g.to(h1.dtype).to(acc).reshape(-1, g.shape[-1])
-    hhat = (h1.to(acc).reshape(gf.shape[0], -1) - mean) * torch.rsqrt(var + BN_EPS)
-    bn = hhat * bn_scale + bn_bias
-    dbn = (gf @ w2.to(acc).t()) * (bn > 0)
-    big_g = dbn * bn_scale
-    return (big_g.sum(0), (big_g * hhat).sum(0), torch.relu(bn).t() @ gf,
-            gf.sum(0), (dbn * hhat).sum(0), dbn.sum(0))
+    ``h1 [B, N, 2D]``, every sum over ALL rows (``_tl_bwd1_kernel``): the
+    four sums of :func:`bn_backward_sums_plain`, ``relu(bn)^T g`` and the
+    column sums of ``g``."""
+    inv = torch.rsqrt(var + BN_EPS)
+    sg, sgh, dscale, dbias = bn_backward_sums_plain(
+        g, h1, w2, (mean, inv, bn_scale, bn_bias))
+    gf = g.to(h1.dtype).to(acc_dtype(h1.dtype)).reshape(-1, g.shape[-1])
+    bn = (h1.to(gf.dtype).reshape(gf.shape[0], -1) - mean) * inv
+    bn = bn * bn_scale + bn_bias
+    return sg, sgh, torch.relu(bn).t() @ gf, gf.sum(0), dscale, dbias
+
+
+def dh1_reference(g, h1, w2, vec6, row_mask):
+    """Plain twin of :func:`dh1_kernel`: ``dh1 [R, 2D] = inv * (G - (c1 +
+    hhat * c2) * rowmask)``, ``row_mask`` uint8 ``[R]`` or None."""
+    mean, inv, scale, bias, c1, c2 = vec6
+    _, hhat, _, _, big_g = _bn_backward_rows(g, h1, w2, mean, inv, scale,
+                                             bias)
+    corr = c1 + hhat * c2
+    if row_mask is not None:
+        corr = corr * row_mask.reshape(-1, 1).to(corr.dtype)
+    return inv * (big_g - corr)
+
+
+def dh2_plan(r: int):
+    """``(rows_per_block, blocks)`` of the two dh2 launches
+    (``tl_dh2_kernel``): one block an SM at most, each a whole number of
+    64-row tiles, block ``z`` covering rows ``[z * rows_per_block, min(r,
+    (z + 1) * rows_per_block))``: every row once, no block empty."""
+    tiles = -(-r // DH2_TILE_ROWS)
+    rows = -(-tiles // NUM_SMS) * DH2_TILE_ROWS
+    check_dh2_plan(r, rows, -(-r // rows))
+    return rows, -(-r // rows)
+
+
+def check_dh2_plan(r: int, rows_per_block: int, blocks: int):
+    """Raise unless the row plan covers each of ``r`` rows once, in whole
+    tiles, with no block empty (the C entries' ``dh2_plan_ok``)."""
+    if not (rows_per_block > 0 and rows_per_block % DH2_TILE_ROWS == 0
+            and 0 < blocks <= 65535 and rows_per_block * blocks >= r
+            and rows_per_block * (blocks - 1) < r):
+        raise ValueError(f"dh2 row plan of {blocks} blocks x {rows_per_block} "
+                         f"rows does not cover {r} rows once in whole tiles")
 
 
 # ---------------------------------------------------------------------------
-# launch wrappers of csrc/train_layer.cu (CUDA tensors only)
+# launch wrappers of csrc/train_layer.cu (CUDA tensors; bn_backward_sums and
+# dh1_kernel take their plain twins on CPU tensors)
 # ---------------------------------------------------------------------------
 
 def _launch(name, ref, *args):
@@ -248,15 +304,19 @@ def _check_backward_operands(what, g, h1, w2, vec, vec_rows):
 def bn_backward_sums(g, h1, w2, vec4):
     """``[4, 2D]`` float32: ``Sg``, ``Sgh``, ``dscale``, ``dbias`` over all
     rows of ``g [.., D]`` and ``h1 [R, 2D]`` (one dtype); ``vec4 [4, 2D]``
-    holds mean, inv, scale, bias."""
+    holds mean, inv, scale, bias. The rows are split by :func:`dh2_plan`.
+    A CPU tensor takes :func:`bn_backward_sums_plain`."""
+    if g.device.type == "cpu":
+        return bn_backward_sums_plain(g, h1, w2, vec4)
     d, r = _check_backward_operands("bn_backward_sums", g, h1, w2, vec4, 4)
+    rows, blocks = dh2_plan(r)
     f32, dev = torch.float32, g.device
-    partial = torch.empty((-(-r // _ROWS_PER_BLOCK), 4, 2 * d), dtype=f32,
-                          device=dev)
+    partial = torch.empty((blocks, 4, 2 * d), dtype=f32, device=dev)
     sums = torch.empty((4, 2 * d), dtype=f32, device=dev)
     _launch("mdgat_tl_bwd_sums", g, g.data_ptr(), h1.data_ptr(),
             w2.data_ptr(), vec4.data_ptr(), partial.data_ptr(),
-            sums.data_ptr(), d, r, DTYPE_CODES[g.dtype])
+            partial.numel(), sums.data_ptr(), d, r, rows, blocks,
+            DTYPE_CODES[g.dtype])
     bn_backward_sums.launches += 1
     return sums
 
@@ -291,15 +351,19 @@ dw2_db2.launches = 0
 def dh1_kernel(g, h1, w2, vec6, row_mask):
     """``dh1 [R, 2D]`` float32 ``= inv * (G - (c1 + hhat * c2) * rowmask)``
     with ``G = (g @ w2^T) * (bn > 0) * scale``; ``vec6 [6, 2D]`` holds mean,
-    inv, scale, bias, ``Sg / cnt``, ``Sgh / cnt``."""
+    inv, scale, bias, ``Sg / cnt``, ``Sgh / cnt``; the rows are split by
+    :func:`dh2_plan`. A CPU tensor takes :func:`dh1_reference`."""
+    if g.device.type == "cpu":
+        return dh1_reference(g, h1, w2, vec6, row_mask)
     d, r = _check_backward_operands("dh1", g, h1, w2, vec6, 6)
+    rows, blocks = dh2_plan(r)
     _require_cuda(g, row_mask)
     if row_mask is not None and row_mask.numel() != r:
         raise ValueError("dh1 kernel: row mask shape")
     dh1 = torch.empty((r, 2 * d), dtype=torch.float32, device=g.device)
     _launch("mdgat_tl_dh1", g, g.data_ptr(), h1.data_ptr(), w2.data_ptr(),
-            vec6.data_ptr(), _ptr(row_mask), dh1.data_ptr(), d, r,
-            DTYPE_CODES[g.dtype])
+            vec6.data_ptr(), _ptr(row_mask), dh1.data_ptr(), d, r, rows,
+            blocks, DTYPE_CODES[g.dtype])
     dh1_kernel.launches += 1
     return dh1
 

@@ -4,9 +4,14 @@ step for step in plain PyTorch on int32 keys
 (``ops/cuda/attention.py::selection_mirror``), held bit-equal to the twin's
 threshold and to the JAX package's exact Pallas kernel (interpret mode, as
 ``tests/test_pallas.py`` runs it); the shapes the wrappers refuse before a
-launch (the launches in ``csrc/`` plan tiles and shared memory); and the row
+launch (the launches in ``csrc/`` plan tiles and shared memory); the row
 splits of the transposed-A GEMM (``ops/cuda/layer.py::tn_plan``), whose
-wrapper sizes the scratch from them and takes its plain twin on the CPU.
+wrapper sizes the scratch from them and takes its plain twin on the CPU;
+the Sinkhorn forward's cluster plan (``ops/cuda/sinkhorn.py::
+sinkhorn_plan``: bands of rows a CTA, resident or streamed, shared memory);
+and the row plan of the two dh2 launches (``ops/cuda/train_layer.py::
+dh2_plan``), whose check refuses a plan that misses or repeats a row, with
+the wrappers' plain twins on CPU tensors.
 """
 
 import numpy as np
@@ -17,8 +22,12 @@ import torch
 from mdgat_tpu.ops.pallas import pallas_topk_attention
 
 from mdgat_tpu_torch.ops.attention import BIG_NEG, topk_threshold
+from mdgat_tpu_torch.ops.cuda import _build
 from mdgat_tpu_torch.ops.cuda import attention as kernel
 from mdgat_tpu_torch.ops.cuda import layer as layer_kernel
+from mdgat_tpu_torch.ops.cuda import sinkhorn as sk
+from mdgat_tpu_torch.ops.cuda import train_layer as tl
+from mdgat_tpu_torch.ops.mlp import BN_EPS
 
 
 def _mirror(s, valid, topk):
@@ -155,3 +164,151 @@ def test_gemm_tn_takes_its_twin_on_cpu():
     dw, db = layer_kernel.gemm_tn(torch.from_numpy(a), torch.from_numpy(b))
     np.testing.assert_allclose(dw.numpy(), a.T @ b, rtol=0, atol=1e-12)
     np.testing.assert_allclose(db.numpy(), b.sum(0), rtol=0, atol=1e-12)
+
+
+def _no_library(monkeypatch):
+    def refuse(*_):
+        raise AssertionError("a launch reached the kernel library")
+    for mod in (_build, sk, tl):
+        monkeypatch.setattr(mod, "library", refuse)
+
+
+SIZES = [1, 31, 200, 256, 257, 512, 513, 1024]
+
+
+@pytest.mark.parametrize("m", SIZES)
+@pytest.mark.parametrize("n", SIZES)
+def test_sinkhorn_plan_bands_cover_every_row_once(n, m):
+    """For a pair of n x m scores the plan's cluster splits the rows into
+    bands of ceil(n / G): together every row once, no CTA without a row;
+    the band stays resident wherever some cluster size lets it, and the
+    CTA's shared memory (resident or streamed) is at most 227 KB."""
+    for b in (1, 8, 64):
+        g, resident = sk.sinkhorn_plan(b, n, m)
+        assert 1 <= g <= sk.MAX_CLUSTER
+        band = -(-n // g)
+        spans = [(r * band, min(n, (r + 1) * band)) for r in range(g)]
+        assert all(lo < hi for lo, hi in spans)                   # none empty
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))  # once each
+        assert resident == sk.fwd_resident(n, m, g)
+        assert sk.fwd_smem_bytes(band, m, resident) <= 227 * 1024
+        fits_somewhere = any(sk.fwd_resident(n, m, c)
+                             for c in (1, 2, 4, 8, 16))
+        assert resident == fits_somewhere
+        # a small batch spreads over the card: doubling the cluster would
+        # overfill one wave, pass the portable 8 or leave a CTA without rows
+        g2 = 2 * g
+        assert (g >= 8 or b * g2 > layer_kernel.NUM_SMS
+                or (g2 - 1) * -(-n // g2) >= n)
+
+
+def test_sinkhorn_plan_at_the_main_path_shapes():
+    """Serving (64 x 256 x 256) and the train step (64 x 512 x 512) keep
+    their bands on chip; 8 x 1024 x 1024 streams on clusters of 8."""
+    assert sk.sinkhorn_plan(64, 512, 512) == (8, True)
+    g, resident = sk.sinkhorn_plan(64, 256, 256)
+    assert resident and 64 * g <= layer_kernel.NUM_SMS
+    assert sk.sinkhorn_plan(8, 1024, 1024) == (8, False)
+
+
+@pytest.mark.parametrize("cluster", [17, -1, 32, 1024])
+def test_sinkhorn_launch_refuses_bad_parameters(monkeypatch, cluster):
+    """A cluster size outside 1-16 is refused before the kernel library."""
+    _no_library(monkeypatch)
+    b, n, m = 2, 40, 50
+    z = torch.zeros((b, n, m), device="meta")
+    with pytest.raises(ValueError, match="CTAs a pair"):
+        sk._forward(z, torch.zeros((b, 4), device="meta"),
+                    torch.zeros((b, n), device="meta"),
+                    torch.zeros((b, m), device="meta"), 20, cluster)
+
+
+def test_sinkhorn_entry_takes_its_twin_on_cpu(monkeypatch):
+    """A CPU tensor takes the plain transport and never reaches the kernel
+    library; the launch counts stay where they were."""
+    _no_library(monkeypatch)
+    rng = np.random.default_rng(570)
+    scores = torch.from_numpy(rng.normal(size=(3, 37, 45)).astype(np.float32))
+    rm = torch.from_numpy(np.arange(37)[None] < np.array([[37], [30], [5]]))
+    cm = torch.from_numpy(np.arange(45)[None] < np.array([[45], [1], [40]]))
+    before = (sk.log_optimal_transport_kernel.launches,
+              sk.log_optimal_transport_kernel.backward_launches)
+    for iters in (0, 20):
+        got = sk.log_optimal_transport_kernel(scores, 0.7, iters, rm, cm)
+        want = sk.log_optimal_transport_reference(scores, 0.7, iters, rm, cm)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert before == (sk.log_optimal_transport_kernel.launches,
+                      sk.log_optimal_transport_kernel.backward_launches)
+
+
+@pytest.mark.parametrize("r", [1, 63, 64, 65, 1000, 8191, 32767, 32768,
+                               32769, 70000])
+def test_dh2_plan_covers_every_row_once(r):
+    """Block z covers rows [z * rows, min(r, (z + 1) * rows)): together
+    every row once, none empty, whole 64-row tiles, at most one block an SM;
+    the train step's 32768 rows go to 128 blocks of four tiles."""
+    rows, blocks = tl.dh2_plan(r)
+    tl.check_dh2_plan(r, rows, blocks)
+    assert rows % tl.DH2_TILE_ROWS == 0 and 1 <= blocks <= layer_kernel.NUM_SMS
+    spans = [(z * rows, min(r, (z + 1) * rows)) for z in range(blocks)]
+    assert all(lo < hi for lo, hi in spans)
+    assert spans[0][0] == 0 and spans[-1][1] == r
+    assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))
+    if r == 32768:
+        assert (rows, blocks) == (256, 128)
+
+
+@pytest.mark.parametrize("rows, blocks", [(0, 1), (64, 15), (64, 17),
+                                          (100, 10), (1024, 2), (-64, 1)])
+def test_dh2_plan_refused_before_any_launch(monkeypatch, rows, blocks):
+    """For 1000 rows: a plan that misses rows, leaves a block empty or cuts
+    a tile is refused by the check (the C entries refuse the same plans)
+    while the wrappers' own plan passes it; both wrappers stop at the device
+    check before the kernel library (tensors on the meta device, which no
+    kernel takes)."""
+    _no_library(monkeypatch)
+    r, d = 1000, 32
+    with pytest.raises(ValueError, match="row plan"):
+        tl.check_dh2_plan(r, rows, blocks)
+    tl.check_dh2_plan(r, *tl.dh2_plan(r))
+    meta = lambda *shape: torch.zeros(shape, device="meta")
+    g, h1, w2 = meta(r, d), meta(r, 2 * d), meta(2 * d, d)
+    for call in (lambda: tl.bn_backward_sums(g, h1, w2, meta(4, 2 * d)),
+                 lambda: tl.dh1_kernel(g, h1, w2, meta(6, 2 * d), None)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+def test_dh2_wrappers_take_their_twins_on_cpu(monkeypatch):
+    """On CPU tensors the two dh2 wrappers are their formulas (numpy at
+    float64, 100 rows: not whole tiles): the four sums over every row, and
+    dh1 with the row mask on the centering correction only."""
+    _no_library(monkeypatch)
+    rng = np.random.default_rng(580)
+    r, d = 100, 24
+    g, h1 = rng.normal(size=(r, d)), rng.normal(size=(r, 2 * d))
+    w2 = rng.normal(size=(2 * d, d))
+    mean, var = rng.normal(size=2 * d) * 0.3, rng.uniform(0.5, 1.5, 2 * d)
+    scale, bias = rng.uniform(0.5, 1.5, 2 * d), rng.normal(size=2 * d) * 0.2
+    c1, c2 = rng.normal(size=2 * d), rng.normal(size=2 * d)
+    mask = rng.random(r) < 0.7
+    inv = 1 / np.sqrt(var + BN_EPS)
+    hhat = (h1 - mean) * inv
+    dbn = (g @ w2.T) * (hhat * scale + bias > 0)
+    big_g = dbn * scale
+    t = torch.from_numpy
+    vec4 = t(np.stack([mean, inv, scale, bias]))
+    sums = tl.bn_backward_sums(t(g), t(h1), t(w2), vec4)
+    want = np.stack([big_g.sum(0), (big_g * hhat).sum(0), (dbn * hhat).sum(0),
+                     dbn.sum(0)])
+    np.testing.assert_allclose(sums.numpy(), want, rtol=0, atol=1e-9)
+    vec6 = t(np.stack([mean, inv, scale, bias, c1, c2]))
+    dh1 = tl.dh1_kernel(t(g), t(h1), t(w2), vec6,
+                        t(mask.astype(np.uint8)))
+    want = inv * (big_g - (c1 + hhat * c2) * mask[:, None])
+    np.testing.assert_allclose(dh1.numpy(), want, rtol=0, atol=1e-9)
+    ref = tl.bn_backward_sums_reference(t(g), t(h1), t(w2), t(mean), t(var),
+                                        t(scale), t(bias))
+    for a, b in zip(sums, (ref[0], ref[1], ref[4], ref[5])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-9)

@@ -358,8 +358,9 @@ def test_two_applications_move_the_running_stats_twice():
 
 def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     """On a CPU tensor the entry takes the twin and never builds or loads
-    the kernels; the launch wrappers refuse a CPU tensor, and the launch
-    counts stay where they were."""
+    the kernels; the launch wrappers refuse a CPU tensor, except the two dh2
+    wrappers, which take their plain twins; the launch counts stay where
+    they were."""
     def no_library():
         raise AssertionError("a CPU tensor reached the kernel library")
 
@@ -370,21 +371,26 @@ def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     x, src, g, vm, km = _inputs(31, b, n, m, d, True, False, np.float32)
     layer = _port_layer(params, state, torch.float32)
     before = (T.fused_train_layer.forward_launches,
-              T.fused_train_layer.backward_launches, T.h1_stats.launches)
+              T.fused_train_layer.backward_launches, T.h1_stats.launches,
+              T.bn_backward_sums.launches, T.dh1_kernel.launches)
     got_y, got = _port_run(layer, x, src, g, vm, km, 4, False)
     assert np.isfinite(got_y).all() and len(got) == 16
-    assert before == (T.fused_train_layer.forward_launches,
-                      T.fused_train_layer.backward_launches,
-                      T.h1_stats.launches)
     w = _weights(layer)
     xt = _tt(x)
     h1 = torch.zeros(b * n, 2 * d)
     vec4 = torch.zeros(4, 2 * d)
+    vec6 = torch.zeros(6, 2 * d)
+    assert torch.equal(T.bn_backward_sums(xt, h1, w[10], vec4),
+                       T.bn_backward_sums_plain(xt, h1, w[10], vec4))
+    assert torch.equal(T.dh1_kernel(xt, h1, w[10], vec6, None),
+                       T.dh1_reference(xt, h1, w[10], vec6, None))
+    assert before == (T.fused_train_layer.forward_launches,
+                      T.fused_train_layer.backward_launches,
+                      T.h1_stats.launches, T.bn_backward_sums.launches,
+                      T.dh1_kernel.launches)
     for call in (lambda: T.h1_stats(xt, torch.zeros(b * n, d), w[8], w[9], None),
                  lambda: T.bn_relu_conv2(xt, h1, w[12], w[13], w[10], w[11]),
-                 lambda: T.bn_backward_sums(xt, h1, w[10], vec4),
                  lambda: T.dw2_db2(xt, h1, vec4),
-                 lambda: T.dh1_kernel(xt, h1, w[10], torch.zeros(6, 2 * d), None),
                  lambda: T._tl_forward(xt, xt, None, None, 4, HEADS, *w)):
         with pytest.raises(ValueError, match="CUDA"):
             call()

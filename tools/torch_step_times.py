@@ -2,10 +2,13 @@
 """Time the port's two main paths on one CUDA card, and nothing else: the
 serving forward (flagship model, 64 pairs of 200-256 keypoints, kernel path
 and plain path) and the default train step (64 pairs x 512 keypoints), each
-by CUDA events and under torch.profiler (device time, busy share); and the
-Sinkhorn backward alone (autograd through ``log_optimal_transport_kernel``,
-20 iterations, ragged masks) at the train step's 64 x 512 x 512 and at 8 x
-1024 x 1024.
+by CUDA events and under torch.profiler (device time, busy share), with the
+step's peak memory; the Sinkhorn forward alone (``log_optimal_transport_
+kernel``, 20 iterations, ragged masks) at 64 x 256 x 256, 64 x 512 x 512 and
+8 x 1024 x 1024, and its backward (autograd) at the last two; and the two
+dh2 launches of the train layer's BatchNorm backward (``bn_backward_sums``,
+``dh1_kernel``, f32, R = 32768, D = 128), device ms a launch of
+``tl_dh2_kernel`` from torch.profiler.
 
     python3 tools/torch_step_times.py [label]     # from the root of a checkout
 
@@ -45,6 +48,48 @@ def profiled(fn, reps):
     device = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     return device / reps, window / reps
+
+
+def kernel_ms(fn, name, reps):
+    """Device ms a launch of the kernels whose name holds ``name``, over
+    ``reps`` calls of ``fn`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):               # a window may come back without events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and name in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            return sum(e.self_device_time_total for e in hits) / 1e3 / count
+    return float("nan")
+
+
+def dh2_times(rng, dev):
+    """ms a launch of tl_dh2_kernel in bn_backward_sums and in dh1_kernel."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import train_layer as T
+    r, d = 64 * 512, 128
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    g, h1, w2 = t(r, d), t(r, 2 * d), t(2 * d, d) * d ** -0.5
+    vec4 = torch.stack([t(2 * d) * 0.3, t(2 * d).abs() + 0.5,
+                        t(2 * d).abs() + 0.5, t(2 * d) * 0.2])
+    vec6 = torch.cat([vec4, t(2, 2 * d) * 0.1])
+    rowmask = ragged_mask(rng, 64, 512, 400, dev).reshape(-1).to(torch.uint8)
+    return {"dh2_sums_ms": kernel_ms(lambda: T.bn_backward_sums(g, h1, w2, vec4),
+                                     "tl_dh2_kernel", 10),
+            "dh2_dh1_ms": kernel_ms(lambda: T.dh1_kernel(g, h1, w2, vec6, rowmask),
+                                    "tl_dh2_kernel", 10)}
 
 
 def main() -> int:
@@ -87,6 +132,11 @@ def main() -> int:
             cuda_ms(lambda: step(state, batch), reps=3, warmup=1)
             for _ in range(2))
         if name == "kernel":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step(state, batch)
+            torch.cuda.synchronize()
+            out["train_step_peak_bytes"] = torch.cuda.max_memory_allocated()
             dev_ms, win_ms = profiled(lambda: step(state, batch), 1)
             out.update(train_step_device_ms=dev_ms, train_step_window_ms=win_ms)
             # the host alone: enqueue a step without waiting for the card
@@ -99,9 +149,17 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     from mdgat_tpu_torch.ops.cuda.sinkhorn import log_optimal_transport_kernel
-    for b, n in ((64, 512), (8, 1024)):
+    for b, n in ((64, 256), (64, 512), (8, 1024)):
         scores = torch.from_numpy(rng.normal(size=(b, n, n)).astype(np.float32)).to(dev)
         mask = ragged_mask(rng, b, n, int(0.78 * n), dev)
+        with torch.no_grad():
+            out[f"sinkhorn_fwd_{b}x{n}x{n}_ms"] = min(
+                cuda_ms(lambda: log_optimal_transport_kernel(scores, 1.0, 20,
+                                                             mask, mask),
+                        reps=10, warmup=2)
+                for _ in range(2))
+        if n == 256:
+            continue
         sc = scores.requires_grad_()
         alpha = torch.tensor(1.0, device=dev, requires_grad=True)
         ot = list(log_optimal_transport_kernel(sc, alpha, 20, mask, mask))
@@ -113,6 +171,7 @@ def main() -> int:
             for _ in range(2))
         del scores, sc, ot, cot
         torch.cuda.empty_cache()
+    out.update(dh2_times(rng, dev))
     print(json.dumps(out))
     return 0
 
