@@ -65,10 +65,16 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    through ``bn_backward_sums`` and ``dh1_kernel``) against their twins at
    R = 32768 (f32 and bfloat16), an odd row count and D = 32 / 96,
    bit-equal from run to run, each timed by the profiler beside its bound
-   and ``torch.matmul(g, w2.t())`` in a graph, every ``csrc/train_layer.cu``
-   kernel's ms a launch at the train shape beside its bound and the library
-   call for its product, and the gap-loss margin kernels (64x512x512, 8x1024x1024 and
-   3x200x231, ragged row and column masks and none, dustbin anchors, a
+   and ``torch.matmul(g, w2.t())`` in a graph, the first-conv and dw2
+   kernels (``tl_h1_kernel`` through ``h1_stats``, ``tl_dw2_kernel``
+   through ``dw2_db2``) against their twins at R = 32768 (f32 and bfloat16),
+   an odd row count with and without row mask, D = 32 / 96 and unaligned
+   operands (the general forms), bit-equal from run to run, each timed by
+   the profiler beside its previous design's time, its bound and its
+   library call for the product, every ``csrc/train_layer.cu`` kernel's ms
+   a launch at the train shape, f32 and bfloat16 I/O, beside its bound and
+   the library call for its product, and the gap-loss margin kernels
+   (64x512x512, 8x1024x1024 and 3x200x231, ragged row and column masks and none, dustbin anchors, a
    cloud without a valid point: S0 / S1 and, at random cotangents, dd /
    dbin_row / dbin_col against the formula twins, the [B] loss and its
    gradients against ``ops/losses.gap_loss`` under autograd, bit-equal from
@@ -1738,12 +1744,131 @@ def check_dh2(rng, dev, report, card):
                           before_ms=DH2_BEFORE_MS)
 
 
+# the previous design's ms a launch of tl_h1_kernel and tl_dw2_kernel at R =
+# 32768, D = 128, f32 (64x64 tiles of 4x4 a thread; profiler, this script on
+# one H100 80GB HBM3 at 700 W)
+H1_DW2_BEFORE_MS = {"h1": 0.2045, "dw2": 0.1250}
+
+
+def off_by_one(a):
+    """``a``'s values in a contiguous view that starts one element past an
+    allocation's start: off the 16-byte boundary the kernels' vector loads
+    need."""
+    import torch
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    buf[1:] = a.reshape(-1)
+    return buf[1:].view(a.shape)
+
+
+def h1_operands(rng, dev, b, n, d, dt):
+    """x in ``dt``, the f32 message, w1, b1 and a ragged row mask of
+    ``h1_stats`` at R = b * n rows."""
+    import torch
+    r, c = b * n, 2 * d
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    x, msg = t(r, d).to(dt), t(r, d)
+    w1, b1 = t(c, c) * c ** -0.5, t(c) * 0.1
+    rowmask = ragged_mask(rng, b, n, int(0.78 * n), dev).reshape(-1).to(torch.uint8)
+    return x, msg, w1, b1, rowmask
+
+
+def check_h1_dw2(rng, dev, report, card):
+    """``tl_h1_kernel`` (``h1_stats``: h1 and the masked sums) and
+    ``tl_dw2_kernel`` (``dw2_db2``: dw2 and db2) against their plain twins
+    at the train shape (R = 32768, D = 128) in f32 and bfloat16, at an odd
+    row count with and without a row mask, at D = 32 / 96 and with
+    unaligned operands (the general forms), each bit-equal over two runs;
+    then each one's device ms a launch from torch.profiler at the train
+    shape beside its previous design's, its bound, its twin and the library
+    call for its product alone in a CUDA graph."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import train_layer as T
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # b, n, d, dtype, row mask, unaligned
+        (64, 512, 128, f32, True, False), (3, 333, 128, f32, False, False),
+        (2, 100, 32, f32, True, False), (2, 70, 96, f32, True, False),
+        (3, 333, 128, f32, True, True), (64, 512, 128, bf16, True, False)]
+    worst = {"h1": 0.0, "dw2": 0.0}
+    for b, n, d, dt, masked, unaligned in cases:
+        x, msg, w1, b1, rowmask = h1_operands(rng, dev, b, n, d, dt)
+        rowmask = rowmask if masked else None
+        g, h1, _, vec4, _, _ = dh2_operands(rng, dev, b, n, d, dt)
+        if unaligned:
+            x, msg, g = off_by_one(x), off_by_one(msg), off_by_one(g)
+
+        def run():
+            return [*T.h1_stats(x, msg, w1, b1, rowmask), *T.dw2_db2(g, h1, vec4)]
+        got, again = run(), run()
+        ref = [*T.h1_stats_reference(x, msg, w1, b1, rowmask),
+               *T.dw2_db2_reference(g, h1, vec4)]
+        torch.cuda.synchronize()
+        name = (f"tl_h1 / tl_dw2 {b}x{n} D={d} {str(dt).split('.')[-1]}"
+                f"{'' if masked else ' no row mask'}{' unaligned' if unaligned else ''}")
+        require(all(torch.equal(a, c) for a, c in zip(got, again)),
+                f"{name}: differ from run to run")
+        errs = [_rel_err(a.float(), c.float()) for a, c in zip(got, ref)]
+        # a bf16 h1 is rounded once on each side from f32 sums in other
+        # orders: one element may round the other way (train_layer_out_bf16)
+        h1_tol = TOL["train_layer_out_bf16" if dt == bf16 else "train_layer_grad"]
+        print(f"{name}: h1 / sums / dw2 / db2 max rel err "
+              + " / ".join(f"{e:.3e}" for e in errs)
+              + f" (tol {h1_tol:g} / {TOL['train_layer_grad']:g}); bit-equal over two runs")
+        require(errs[0] <= h1_tol and max(errs[1:]) <= TOL["train_layer_grad"],
+                f"{name} disagrees")
+        if d == 128 and n == 512 and dt == f32:
+            worst = dict(h1=max(errs[:2]), dw2=max(errs[2:]))
+
+    b, n, d = 64, 512, 128
+    r, c = b * n, 2 * d
+    x, msg, w1, b1, rowmask = h1_operands(rng, dev, b, n, d, f32)
+    g, h1, _, vec4, _, _ = dh2_operands(rng, dev, b, n, d, f32)
+    ms = {"h1": kernel_ms_by_name(lambda: T.h1_stats(x, msg, w1, b1, rowmask),
+                                  ["tl_h1_kernel", "partial_reduce_kernel"], reps=10),
+          "dw2": kernel_ms_by_name(lambda: T.dw2_db2(g, h1, vec4),
+                                   ["tl_dw2_kernel", "partial_reduce_kernel"], reps=10)}
+    plain = {"h1": cuda_ms(lambda: T.h1_stats_reference(x, msg, w1, b1, rowmask)),
+             "dw2": cuda_ms(lambda: T.dw2_db2_reference(g, h1, vec4))}
+    xm = torch.cat([x, msg], 1)
+    u = torch.relu((h1 - vec4[0]) * vec4[1] * vec4[2] + vec4[3])
+    with torch.no_grad():
+        library = {"h1": graph_ms(lambda: torch.addmm(b1, xm, w1)),
+                   "dw2": graph_ms(lambda: torch.matmul(u.t(), g))}
+    # operands in once, results out once: x, msg, w1, b1, the mask; h1, the
+    # sums / h1, g, vec4; dw2, db2
+    bounds = {"h1": bound(4.0 * (2 * r * d + c * c + c + r * c + 2 * c) + r,
+                          2.0 * r * c * c),
+              "dw2": bound(4.0 * (r * c + r * d + 4 * c + (c + 1) * d),
+                           2.0 * r * c * d)}
+    products = {"h1": "torch.addmm(b1, cat(x, msg), w1)",
+                "dw2": "torch.matmul(u.t(), g)"}
+    for key in ("h1", "dw2"):
+        k_ms = ms[key][f"tl_{key}_kernel"][0]
+        bms, by = bounds[key]
+        print(f"tl_{key}_kernel on {card}, {b}x{n} D={d} f32: {k_ms:.4f} ms a "
+              f"launch (profiler; before {H1_DW2_BEFORE_MS[key]:.4f}, "
+              f"{H1_DW2_BEFORE_MS[key] / k_ms:.2f}x), its reduce "
+              f"partial_reduce_kernel {ms[key]['partial_reduce_kernel'][0]:.4f}; "
+              f"bound {bms:.4f} ({by}); twin {plain[key]:.4f}; {products[key]} "
+              f"in a graph {library[key]:.4f} (the product only)")
+        report[f"tl_{key}"].update(ms=k_ms, plain_ms=plain[key], bound_ms=bms,
+                                   bound_by=by, library_ms=library[key],
+                                   max_abs_err=worst[key])
+    report["_h1_dw2"] = dict(ms={k: {n2: list(v) for n2, v in m.items()}
+                                 for k, m in ms.items()},
+                             plain_ms=plain, library_ms_product_only=library,
+                             before_ms=H1_DW2_BEFORE_MS)
+
+
 def train_layer_kernel_rows(rng, dev, report, card):
     """Each kernel of ``csrc/train_layer.cu`` alone at the train shape (R =
-    32768, D = 128, f32): device ms a launch from torch.profiler, its bound
-    (operands in once, results out once; f32 FMA), and the one PyTorch call
-    for its product in a CUDA graph (the product only: none forms the
-    epilogues)."""
+    32768, D = 128), with f32 and with bfloat16 I/O (x, h1, g, y; msg, the
+    weights and every internal f32): device ms a launch from torch.profiler,
+    its bound (operands in once, results out once; f32 FMA), and at f32 the
+    one PyTorch call for its product in a CUDA graph (the product only: none
+    forms the epilogues; none computes the bf16-I/O function)."""
     import torch
     from mdgat_tpu_torch.ops.cuda import train_layer as T
     b, n, d = 64, 512, 128
@@ -1752,37 +1877,45 @@ def train_layer_kernel_rows(rng, dev, report, card):
     def t(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-    x, msg, g = t(r, d), t(r, d), t(r, d)
+    x32, msg, g32 = t(r, d), t(r, d), t(r, d)
     w1, b1, w2, b2 = t(c, c) * c ** -0.5, t(c), t(c, d) * c ** -0.5, t(d)
     rowmask = ragged_mask(rng, b, n, 400, dev).reshape(-1).to(torch.uint8)
-    h1, sums = T.h1_stats(x, msg, w1, b1, rowmask)
     a, cc = t(c).abs(), t(c)
-    vec4 = torch.stack([sums[0] / r, t(c).abs() + 0.5, a, cc])
-    xm = torch.cat([x, msg], 1)
-    u = torch.relu(h1 * a + cc)
-    rows = {
-        "tl_h1_kernel": (lambda: T.h1_stats(x, msg, w1, b1, rowmask),
-                         lambda: torch.addmm(b1, xm, w1),
-                         4.0 * (2 * r * d + c * c + c + r * c + 2 * c) + r,
-                         2.0 * r * c * c),
-        "tl_fwd2_kernel": (lambda: T.bn_relu_conv2(x, h1, a, cc, w2, b2),
-                           lambda: torch.addmm(b2, u, w2),
-                           4.0 * (2 * r * d + r * c + c * d + 2 * c + d),
-                           2.0 * r * c * d),
-        "tl_dw2_kernel": (lambda: T.dw2_db2(g, h1, vec4),
-                          lambda: torch.matmul(u.t(), g),
-                          4.0 * (r * c + r * d + 4 * c + (c + 1) * d),
-                          2.0 * r * c * d)}
     out = {}
-    for name, (fn, lib_fn, nbytes, flops) in rows.items():
-        k_ms = kernel_ms_by_name(fn, [name], reps=10)[name][0]
-        with torch.no_grad():
-            lib = graph_ms(lib_fn)
-        bms, by = bound(nbytes, flops)
-        print(f"{name} on {card}, {b}x{n} D={d} f32: {k_ms:.4f} ms a launch "
-              f"(profiler); bound {bms:.4f} ({by}); library call in a graph "
-              f"{lib:.4f} (the product only)")
-        out[name] = dict(ms=k_ms, bound_ms=bms, bound_by=by, library_ms=lib)
+    for dt, e in ((torch.float32, 4.0), (torch.bfloat16, 2.0)):
+        x, g = x32.to(dt), g32.to(dt)
+        h1, sums = T.h1_stats(x, msg, w1, b1, rowmask)
+        vec4 = torch.stack([sums[0] / r, t(c).abs() + 0.5, a, cc])
+        xm = torch.cat([x32, msg], 1)
+        u = torch.relu(h1.float() * a + cc)
+        rows = {
+            "tl_h1_kernel": (lambda: T.h1_stats(x, msg, w1, b1, rowmask),
+                             lambda: torch.addmm(b1, xm, w1),
+                             e * (r * d + r * c) + 4.0 * (r * d + c * c + 3 * c) + r,
+                             2.0 * r * c * c),
+            "tl_fwd2_kernel": (lambda: T.bn_relu_conv2(x, h1, a, cc, w2, b2),
+                               lambda: torch.addmm(b2, u, w2),
+                               e * (2 * r * d + r * c) + 4.0 * (c * d + 2 * c + d),
+                               2.0 * r * c * d),
+            "tl_dw2_kernel": (lambda: T.dw2_db2(g, h1, vec4),
+                              lambda: torch.matmul(u.t(), g32),
+                              e * (r * c + r * d) + 4.0 * (4 * c + (c + 1) * d),
+                              2.0 * r * c * d)}
+        label = str(dt).split(".")[-1]
+        for name, (fn, lib_fn, nbytes, flops) in rows.items():
+            k_ms = kernel_ms_by_name(fn, [name], reps=10)[name][0]
+            lib = None
+            if dt == torch.float32:
+                with torch.no_grad():
+                    lib = graph_ms(lib_fn)
+            bms, by = bound(nbytes, flops)
+            lib_text = (f"library call in a graph {lib:.4f} (the product only)"
+                        if lib is not None else "no library call")
+            print(f"{name} on {card}, {b}x{n} D={d} {label} I/O: {k_ms:.4f} ms "
+                  f"a launch (profiler); bound {bms:.4f} ({by}); {lib_text}")
+            out[f"{name} {label}"] = dict(ms=k_ms, bound_ms=bms, bound_by=by,
+                                          library_ms=lib)
+        del h1, u, xm
     report["_train_layer_kernels"] = out
 
 
@@ -2014,6 +2147,8 @@ def training(dev, report, counters):
         report[name]["launches"] = launches[name]
     for name in ("mha_bwd_rows", "mha_bwd_keys"):
         report[name]["launches"] = launches["mha_bwd"]
+    report["tl_h1"]["launches"] = launches["train_layer_fwd1"]
+    report["tl_dw2"]["launches"] = launches["train_layer_bwd1_dw2"]
     report["tl_dh2_sums"]["launches"] = launches["train_layer_bwd1"]
     report["tl_dh2_dh1"]["launches"] = launches["train_layer_bwd2"]
     report["sinkhorn"]["train_launches"] = launches["sinkhorn"]
@@ -2571,6 +2706,11 @@ def main() -> int:
             route="cuda", source=tl_src,
             replaces=f"mdgat_tpu/ops/pallas/attention.py:{line}")
            for name, line in tl_line.items()},
+        # the first conv of _tl_fwd1_kernel; dw2 and db2 of _tl_bwd1_kernel
+        "tl_h1": dict(route="cuda", source=tl_src,
+                      replaces="mdgat_tpu/ops/pallas/attention.py:1329"),
+        "tl_dw2": dict(route="cuda", source=tl_src,
+                       replaces="mdgat_tpu/ops/pallas/attention.py:1425"),
         # the dh2 product of _tl_bwd1_kernel and of _tl_bwd2_kernel
         "tl_dh2_sums": dict(route="cuda", source=tl_src,
                             replaces="mdgat_tpu/ops/pallas/attention.py:1462"),
@@ -2623,6 +2763,7 @@ def main() -> int:
     check_sinkhorn_bwd(rng, dev, report, card)
     check_train_layer(rng, dev, report)
     check_dh2(rng, dev, report, card)
+    check_h1_dw2(rng, dev, report, card)
     train_layer_kernel_rows(rng, dev, report, card)
     check_gap_loss(rng, dev, report, card)
     gc.collect()                     # the earlier phases' garbage, before

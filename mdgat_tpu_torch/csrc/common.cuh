@@ -69,12 +69,15 @@ __device__ __forceinline__ float score_dot(const A* q, const B* k) {
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+// four bf16 as they lie in memory (8 bytes) -> f32
+__device__ __forceinline__ float4 bf16x4_to_float4(uint2 raw) {
   const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
   return make_float4(__low2float(lo), __high2float(lo), __low2float(hi),
                      __high2float(hi));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  return bf16x4_to_float4(*reinterpret_cast<const uint2*>(p));
 }
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;

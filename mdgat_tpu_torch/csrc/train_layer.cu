@@ -19,8 +19,7 @@
 //   included (every row is normalised with the batch statistics, so every
 //   row's cotangent reaches them; the row mask enters only in the next
 //   kernel). dh2 never reaches memory. mdgat_tl_dw2 is dw2 = u^T g and
-//   db2 = column sums of g, u = relu(bn(h1)) rebuilt while the A tile is
-//   loaded.
+//   db2 = column sums of g, u = relu(bn(h1)) rebuilt on the staged rows.
 // * _tl_bwd2_kernel: mdgat_tl_dh1 forms the same dh2 tile again and writes
 //   dh1 = inv * (dh2 * relu_mask * scale - (Sg/cnt + hhat * Sgh/cnt) * rowmask)
 //   once, in f32; every product that consumes it (dmsg, dx_mlp, dw1x, db1,
@@ -32,24 +31,22 @@
 // order, so every cross-row sum here is per-block partials (one row of
 // `partial` per block of rows, summed inside the block in a fixed thread
 // order) and a second kernel that adds the partials in ascending block
-// order. No atomics: the results carry the same bits on every run.
+// order. No atomics: the results carry the same bits on every run. Each
+// entry takes its row plan (rows a block, blocks) from the wrapper and
+// refuses one that does not cover every row exactly once.
 //
-// w1 is [2D, 2D] f32, 256 KB at D = 128 and more than one SM's shared
-// memory, so tl_h1_kernel, tl_fwd2_kernel and tl_dw2_kernel keep no weight
-// resident: they walk K in steps of 16 through shared tiles (64x64 output
-// tile, 256 threads, 4x4 per thread, f32 FMA, tile_product). tl_dh2_kernel
-// keeps w2 (128 KB at D = 128) resident for a persistent block an SM and
-// runs 8x8 register tiles (rows_by_wt_product; its design note is below).
 // x, h1, g and y are f32 or bf16 (one type per call); msg, dh1, the vectors
-// and every sum are f32.
-//
-// What bounds them on the H100: the f32 FMA pipe; for the 4x4 kernels as
-// it is fed from shared memory, eight scalar shared reads per sixteen FMAs.
-// mdgat_tl_bwd_sums and mdgat_tl_dh1 both form g @ w2^T (the TPU kernels do
-// so too). h1 ([B*N, 2D], 33.5 MB in f32 at 64 x 512 x 256) and dh1
-// round-trip through HBM between launches.
+// and every sum are f32. What bounds every kernel here on the H100 is the
+// f32 FMA pipe, as shared memory feeds it: the redesigned ones (tl_h1,
+// tl_dh2, tl_dw2) give a thread an 8 x 8 register tile read as 16-byte
+// vectors (16 FMAs a shared load) under a cp.async ring, one block an SM;
+// tl_fwd2_kernel and the general forms still run the 64x64 tile of 4x4 a
+// thread (tile_product: 2 FMAs a shared load, synchronous staging). h1
+// ([B*N, 2D], 33.5 MB in f32 at 64 x 512 x 256) and dh1 round-trip through
+// HBM between launches.
 
 #include "common.cuh"
+#include "tn_product.cuh"
 
 namespace mdgat {
 namespace {
@@ -58,10 +55,9 @@ constexpr int BM = 64, BN = 64, BK = 16, kThreads = 256;
 
 // acc += A[row0 .. row0+BM, :K] @ W[:, col0 .. col0+BN]. `a(row, kc)` yields
 // one element of A (its prologue applied) for row < R, kc < K. W is [K, C]
-// row-major, or with WT [C, K] standing for its transpose. Thread
-// (tx, ty) = (threadIdx.x % 16, threadIdx.x / 16) owns rows ty*4..+3 and
-// columns tx*4..+3 of the tile.
-template <bool WT, typename ALoad>
+// row-major. Thread (tx, ty) = (threadIdx.x % 16, threadIdx.x / 16) owns
+// rows ty*4..+3 and columns tx*4..+3 of the tile.
+template <typename ALoad>
 __device__ __forceinline__ void tile_product(float (&acc)[4][4], ALoad a,
                                              const float* __restrict__ w,
                                              int K, int C, int R, int row0,
@@ -82,10 +78,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[4][4], ALoad a,
       const int idx = threadIdx.x + e * kThreads;
       const int kk = idx / BN, c = idx % BN;
       const int kc = k0 + kk, col = col0 + c;
-      if constexpr (WT)
-        Bs[kk][c] = (kc < K && col < C) ? w[static_cast<size_t>(col) * K + kc] : 0.f;
-      else
-        Bs[kk][c] = (kc < K && col < C) ? w[static_cast<size_t>(kc) * C + col] : 0.f;
+      Bs[kk][c] = (kc < K && col < C) ? w[static_cast<size_t>(kc) * C + col] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -105,7 +98,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[4][4], ALoad a,
 }
 
 // Row blockIdx.y of partial [gridDim.y][V][C]: the block's column sums of V
-// quantities. s[v][j] holds thread (tx, ty)'s sum over its four rows of
+// quantities. s[v][j] holds thread (tx, ty)'s sum over its rows of
 // quantity v in column col0 + tx*4 + j; the sixteen ty are added in
 // ascending order.
 template <int V>
@@ -140,15 +133,6 @@ __global__ void partial_reduce_kernel(const float* __restrict__ partial,
 }
 
 template <typename T>
-struct PlainLoad {   // a [R, K]
-  const T* a;
-  int K;
-  __device__ __forceinline__ float operator()(int row, int kc) const {
-    return to_f32(a[static_cast<size_t>(row) * K + kc]);
-  }
-};
-
-template <typename T>
 struct CatLoad {     // cat(x [R, K1], msg [R, K2])
   const T* x;
   const float* msg;
@@ -172,54 +156,274 @@ struct ReluAffineLoad {   // relu(h1 * a + c): the forward's BN + ReLU
 };
 
 // hhat and the BN output of one stored h1 value, as the backward rebuilds
-// them: vec rows 0 = mean, 1 = inv, 2 = scale, 3 = bias, each [C].
+// them (one expression for the dh2 kernel's ReLU mask and dw2's u): from
+// the column's mean, inv, scale and bias, or from vec rows 0-3, each [C].
 struct BnRebuild {
   float hhat, bn;
+  __device__ __forceinline__ BnRebuild(float h, float mean, float inv, float scale,
+                                       float bias) {
+    hhat = (h - mean) * inv;
+    bn = hhat * scale + bias;
+  }
   __device__ __forceinline__ BnRebuild(float h, const float* __restrict__ vec,
-                                       int C, int col) {
-    hhat = (h - vec[col]) * vec[C + col];
-    bn = hhat * vec[2 * C + col] + vec[3 * C + col];
-  }
+                                       int C, int col)
+      : BnRebuild(h, vec[col], vec[C + col], vec[2 * C + col], vec[3 * C + col]) {}
 };
 
-template <typename T>
-struct ReluBnLoad {   // u = relu(bn(h1)) rebuilt from vec4
-  const T* h1;
-  const float* vec;
-  int K;
-  __device__ __forceinline__ float operator()(int row, int kc) const {
-    const BnRebuild r(to_f32(h1[static_cast<size_t>(row) * K + kc]), vec, K, kc);
-    return fmaxf(r.bn, 0.f);
-  }
-};
+// ---- tl_h1_kernel: h1 = cat(x, msg) @ w1 + b1 and its masked column sums ----
+//
+// h1 [R, 2D] is stored as T; partial [blocks][2][2D] gets each row block's
+// column sums of h1 * m and h1^2 * m (m the row mask), taken from the f32
+// value before that rounding.
+//
+// Design. At D = 128, w1 [2D, 2D] is 256 KB, more than an SM holds, so the
+// 2D = 256 columns are split over two blocks (blockIdx.x), and each keeps
+// its half of w1, [2D][128] f32 (128 KB), in shared memory for the launch,
+// as it lies in HBM (row k, columns col0..). The row plan
+// (ops/cuda/train_layer.py::h1_plan) gives row block y (blockIdx.y) the
+// rows [y * rows_per_block, (y + 1) * rows_per_block), a whole number of
+// 128-row tiles, with at most one block an SM. The rows of x and msg come
+// through a four-stage cp.async ring of 32 k (16-byte copies; a bf16 x
+// through registers, converted), one ring over every stage of every tile of
+// the block, so the next tile's first stages are in flight under a tile's
+// epilogue.
+// A thread owns an 8 x 8 register tile (rows wm*32 + i*4 + tm, columns wn*64
+// + tn*4.. and wn*64 + 32 + tn*4..) and per four k reads eight 16-byte
+// vectors of A along k (four rows a warp, on disjoint banks at a row stride
+// of 36 floats) and eight of w1 along the columns (one 128-byte run a warp)
+// for 256 FMAs: gemm_kernel's plain-W mode with w1 resident. Every h1
+// element is one fmaf chain over k ascending from 0, b1 added after it. The
+// epilogue stores h1 (16-byte vectors in f32) and adds the f32 value and its
+// square, times the row mask, in registers over all of the block's rows; at
+// the end the 16 sums of a column close in a fixed order (the four tm by
+// shuffles, then the four warp rows through shared memory).
+// What bounds it on the H100: the f32 FMA pipe (R = 32768, D = 128: 4.29
+// GFLOP, 0.064 ms at 67 TFLOP/s, against 0.020 ms for x, msg in and h1 out).
+// Other widths and unaligned operands run tl_h1_tiled_kernel (64 x 64 tiles
+// of tile_product, w1 read from L2 a tile at a time) under the same plan.
+constexpr int kH1Rows = 128;      // rows of a tile
+constexpr int kH1Cols = 128;      // columns of a block: half of 2D at D = 128
+constexpr int kH1Depth = 32;      // k of one stage of the ring
+constexpr int kH1Stages = 4;
+constexpr int kH1Threads = 256;   // 4 x 2 warps of 32 rows x 64 columns
+constexpr int kH1Width = 128;     // D of the resident form
+constexpr int kH1Ld = kH1Depth + 4;   // row stride of a stage, floats
+// floats of shared memory: w1's half [2D][128], the ring [4][128][36] (200 KB)
+constexpr size_t kH1Smem =
+    sizeof(float) * (2 * kH1Width * kH1Cols + kH1Stages * kH1Rows * kH1Ld);
 
-// h1 = cat(x, msg) @ w1 + b1, stored as T; partial [gridDim.y][2][C] gets
-// the block's masked column sums of the f32 h1 and of its square.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int D>
+__global__ void __launch_bounds__(kH1Threads, 1)
 tl_h1_kernel(const T* __restrict__ x, const float* __restrict__ msg,
              const float* __restrict__ w1, const float* __restrict__ b1,
              const uint8_t* __restrict__ rowmask, T* __restrict__ h1,
-             float* __restrict__ partial, int D, int R, int C) {
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+             float* __restrict__ partial, int R, int rows_per_block) {
+  constexpr int K = 2 * D, C = 2 * D;
+  constexpr int kSteps = K / kH1Depth;          // stages a tile
+  constexpr int kQ = kH1Depth / 4;              // 16-byte chunks of a stage row
+  constexpr int kWQ = kH1Cols / 4;              // 16-byte chunks of a w1 row
+  static_assert(D % kH1Depth == 0 && C == 2 * kH1Cols, "the resident form's width");
+  extern __shared__ __align__(16) float smem[];
+  float* Ws = smem;                             // [K][128]
+  float* ring = Ws + K * kH1Cols;               // [kH1Stages][128][kH1Ld]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tm = lane >> 3, tn = lane & 7, wm = warp >> 1, wn = warp & 1;
+  const int col0 = blockIdx.x * kH1Cols;
+  const int r_begin = blockIdx.y * rows_per_block;
+  const int r_end = min(R, r_begin + rows_per_block);
+  const int total = (r_end - r_begin + kH1Rows - 1) / kH1Rows * kSteps;
+
+  // w1's half lands with the first stage's group
+  for (int e = tid; e < K * kWQ; e += kH1Threads) {
+    const int k = e / kWQ, c = (e - k * kWQ) * 4;
+    cp_async16(Ws + k * kH1Cols + c, w1 + static_cast<size_t>(k) * C + col0 + c);
+  }
+  // stage s: tile s / kSteps, k of (s % kSteps) * 32 ..; a thread copies
+  // the chunk kq of rows tid / kQ + 32 e. A bf16 x stage goes through
+  // registers: loaded before the product of the stage three behind it and
+  // converted into the ring after that product, so that its latency hides
+  // under the product (cp.async cannot convert).
+  constexpr bool kStaged = sizeof(T) != sizeof(float);
+  constexpr int kPer = kH1Rows * kQ / kH1Threads;   // chunks a thread copies
+  const int kq = (tid % kQ) * 4;
+  auto x_stage = [&](int s) { return (s % kSteps) * kH1Depth < D; };
+  uint2 x_raw[kPer];
+  auto fetch_x = [&](int s) {
+    const int row0 = r_begin + (s / kSteps) * kH1Rows;
+    const int kc = (s % kSteps) * kH1Depth + kq;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int row = row0 + tid / kQ + e * (kH1Threads / kQ);
+      x_raw[e] = row < r_end
+                     ? *reinterpret_cast<const uint2*>(x + static_cast<size_t>(row) * D + kc)
+                     : make_uint2(0, 0);
+    }
+  };
+  auto put_x = [&](int s) {
+    float* dst = ring + (s % kH1Stages) * kH1Rows * kH1Ld + kq;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e)
+      store4(dst + (tid / kQ + e * (kH1Threads / kQ)) * kH1Ld, bf16x4_to_float4(x_raw[e]));
+  };
+  auto load_stage = [&](int s) {
+    if (kStaged && x_stage(s)) {
+      fetch_x(s);
+      put_x(s);
+      return;
+    }
+    float* dst = ring + (s % kH1Stages) * kH1Rows * kH1Ld + kq;
+    const int row0 = r_begin + (s / kSteps) * kH1Rows;
+    const int kc = (s % kSteps) * kH1Depth + kq;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int rr = tid / kQ + e * (kH1Threads / kQ);
+      const bool ok = row0 + rr < r_end;
+      const size_t at = static_cast<size_t>(ok ? row0 + rr : r_begin) * D;
+      if (kc < D)           // the same for every chunk of the stage
+        stage4(dst + rr * kH1Ld, x + at + kc, ok);
+      else
+        cp_async16(dst + rr * kH1Ld, msg + at + (kc - D), ok ? 16 : 0);
+    }
+  };
+
+  float bias[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) bias[j] = b1[col0 + wn * 64 + (j >> 2) * 32 + tn * 4 + (j & 3)];
+  float acc[8][8], s[2][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[0][j] = s[1][j] = 0.f;
+
+#pragma unroll
+  for (int p = 0; p < kH1Stages - 1; ++p) {
+    if (p < total) load_stage(p);
+    cp_async_commit();
+  }
+  for (int st = 0; st < total; ++st) {
+    cp_async_wait<kH1Stages - 2>();   // stage st (and w1) have landed ...
+    __syncthreads();                  // ... for every thread; stage st-1 is read
+    const int next = st + kH1Stages - 1;
+    const bool staged = kStaged && next < total && x_stage(next);
+    if (staged)
+      fetch_x(next);
+    else if (next < total)
+      load_stage(next);
+    cp_async_commit();
+    const int kt = st % kSteps;
+    const float* As = ring + (st % kH1Stages) * kH1Rows * kH1Ld + (wm * 32 + tm) * kH1Ld;
+    const float* Bs = Ws + kt * kH1Depth * kH1Cols + wn * 64 + tn * 4;
+#pragma unroll
+    for (int k4 = 0; k4 < kH1Depth; k4 += 4) {
+      float a[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float4*>(a[i]) =
+            *reinterpret_cast<const float4*>(As + i * 4 * kH1Ld + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float b[8];
+        const float* brow = Bs + (k4 + kk) * kH1Cols;
+        *reinterpret_cast<float4*>(b) = *reinterpret_cast<const float4*>(brow);
+        *reinterpret_cast<float4*>(b + 4) = *reinterpret_cast<const float4*>(brow + 32);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+      }
+    }
+    if (staged) put_x(next);          // the slot of stage st - 1, read
+    if (kt != kSteps - 1) continue;
+    // the tile's epilogue: h1 out, the sums in registers, acc cleared
+    const int rt = r_begin + (st / kSteps) * kH1Rows + wm * 32 + tm;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = rt + i * 4;
+      if (row < r_end) {
+        const float m = (rowmask == nullptr || rowmask[row]) ? 1.f : 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = half * 4 + e;
+            v[e] = acc[i][j] + bias[j];
+            const float hm = v[e] * m;
+            s[0][j] += hm;
+            s[1][j] += hm * v[e];
+          }
+          store4(h1 + static_cast<size_t>(row) * C + col0 + wn * 64 + half * 32 + tn * 4,
+                 make_float4(v[0], v[1], v[2], v[3]));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
+  }
+
+  // the 16 sums of a column in a fixed order: over tm by shuffles, then the
+  // four warp rows through shared memory (every copy has landed; the ring
+  // is no longer read once all threads pass the barrier)
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[q][j] += __shfl_xor_sync(kFull, s[q][j], 8);
+      s[q][j] += __shfl_xor_sync(kFull, s[q][j], 16);
+    }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = ring;                  // [4 wm][2][128]
+  if (tm == 0) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        red[(wm * 2 + q) * kH1Cols + wn * 64 + (j >> 2) * 32 + tn * 4 + (j & 3)] = s[q][j];
+  }
+  __syncthreads();
+  for (int e = tid; e < 2 * kH1Cols; e += kH1Threads) {
+    const int q = e / kH1Cols, c = e - q * kH1Cols;
+    const float* r = red + q * kH1Cols + c;
+    partial[(static_cast<size_t>(blockIdx.y) * 2 + q) * C + col0 + c] =
+        ((r[0] + r[2 * kH1Cols]) + r[4 * kH1Cols]) + r[6 * kH1Cols];
+  }
+}
+
+// The general form: 64 x 64 tiles of tile_product (4 x 4 a thread, w1 read
+// a tile at a time), row block blockIdx.y of the same plan walking its
+// 64-row tiles, the sums in registers over them.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tl_h1_tiled_kernel(const T* __restrict__ x, const float* __restrict__ msg,
+                   const float* __restrict__ w1, const float* __restrict__ b1,
+                   const uint8_t* __restrict__ rowmask, T* __restrict__ h1,
+                   float* __restrict__ partial, int D, int R, int rows_per_block) {
+  const int C = 2 * D, col0 = blockIdx.x * BN;
+  const int r_begin = blockIdx.y * rows_per_block;
+  const int r_end = min(R, r_begin + rows_per_block);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  tile_product<false>(acc, CatLoad<T>{x, msg, D, D}, w1, 2 * D, C, R, row0, col0);
   float s[2][4] = {};
+  for (int row0 = r_begin; row0 < r_end; row0 += BM) {
+    float acc[4][4] = {};
+    tile_product(acc, CatLoad<T>{x, msg, D, D}, w1, 2 * D, C, r_end, row0, col0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    if (row >= R) continue;
-    const float m = (rowmask == nullptr || rowmask[row]) ? 1.f : 0.f;
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + ty * 4 + i;
+      if (row >= r_end) continue;
+      const float m = (rowmask == nullptr || rowmask[row]) ? 1.f : 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx * 4 + j;
-      if (col >= C) continue;
-      const float val = acc[i][j] + b1[col];
-      h1[static_cast<size_t>(row) * C + col] = from_f32<T>(val);
-      const float hm = val * m;
-      s[0][j] += hm;
-      s[1][j] += hm * val;
+      for (int j = 0; j < 4; ++j) {
+        const int col = col0 + tx * 4 + j;
+        if (col >= C) continue;
+        const float val = acc[i][j] + b1[col];
+        h1[static_cast<size_t>(row) * C + col] = from_f32<T>(val);
+        const float hm = val * m;
+        s[0][j] += hm;
+        s[1][j] += hm * val;
+      }
     }
   }
   write_column_partials<2>(s, partial, C, col0);
@@ -235,7 +439,7 @@ tl_fwd2_kernel(const T* __restrict__ x, const T* __restrict__ h1,
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float acc[4][4] = {};
-  tile_product<false>(acc, ReluAffineLoad<T>{h1, a, c, K}, w2, K, C, R, row0, col0);
+  tile_product(acc, ReluAffineLoad<T>{h1, a, c, K}, w2, K, C, R, row0, col0);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty * 4 + i;
@@ -553,78 +757,51 @@ tl_dh2_chunked_kernel(const T* __restrict__ g, const T* __restrict__ h1,
   }
 }
 
-// partial[z][k][c] = sum over the rows r of split z of u[r][k] * g[r][c],
-// k < K1, with u = relu(bn(h1)); partial[z][K1][c] = sum of g[r][c].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// ---- tl_dw2_kernel: dw2 = relu(bn(h1))^T g and db2 = column sums of g ----
+//
+// partial[z][k][c] = sum over the rows r of split z of u[r][k] * g[r][c]
+// (k < 2D), u = relu(bn(h1)) rebuilt from vec rows 0-3 (mean, inv, scale,
+// bias); partial[z][2D][c] = sum over those rows of g[r][c]. Every row,
+// padded ones included.
+//
+// Design: gemm_tn_kernel's split product (tn_product.cuh: 128 x 128 output
+// tiles, two at D = 128; rows split by ops/cuda/train_layer.py::dw2_plan,
+// about one block an SM; a four-stage cp.async ring of 32-row stages of h1
+// and g as they lie in HBM; 8 x 8 register tiles) with u formed once per
+// staged value of h1 by BnReluColumns (BnRebuild's expression, the one the
+// dh2 kernel's ReLU mask comes from): not three operations on every register
+// read. partial_reduce_kernel then adds the splits in ascending order.
+// What bounds it on the H100: the f32 FMA pipe (R = 32768, D = 128: 2.15
+// GFLOP, 0.032 ms at 67 TFLOP/s, against 0.015 ms for h1 and g in).
+
+// u = relu(bn(h)) of the four h1 columns col .. col + 3 a lane stages, their
+// mean, inv, scale and bias in registers (zeros past C, where no u is read)
+struct BnReluColumns {
+  static constexpr bool kIdentity = false;
+  float mean[4], inv[4], scale[4], bias[4];
+  __device__ __forceinline__ BnReluColumns(const float* __restrict__ vec, int C, int col) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool ok = col + i < C;
+      mean[i] = ok ? vec[col + i] : 0.f;
+      inv[i] = ok ? vec[C + col + i] : 0.f;
+      scale[i] = ok ? vec[2 * C + col + i] : 0.f;
+      bias[i] = ok ? vec[3 * C + col + i] : 0.f;
+    }
+  }
+  __device__ __forceinline__ float operator()(float h, int i) const {
+    return fmaxf(BnRebuild(h, mean[i], inv[i], scale[i], bias[i]).bn, 0.f);
+  }
+};
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kTnThreads, 1)
 tl_dw2_kernel(const T* __restrict__ h1, const float* __restrict__ vec,
               const T* __restrict__ g, float* __restrict__ partial, int R,
               int K1, int C, int rows_per_split) {
-  __shared__ float As[BK][BM];
-  __shared__ float Bs[BK][BN];
-  const ReluBnLoad<T> u{h1, vec, K1};
-  const int k0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const bool sums = blockIdx.y == 0 && ty == 0;
-
-  float acc[4][4] = {};
-  float csum[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int r0 = r_begin; r0 < r_end; r0 += BK) {
-#pragma unroll
-    for (int e = 0; e < (BK * BM) / kThreads; ++e) {
-      const int idx = threadIdx.x + e * kThreads;
-      const int rr = idx / BM, kk = idx % BM;
-      const int row = r0 + rr, kc = k0 + kk;
-      As[rr][kk] = (row < r_end && kc < K1) ? u(row, kc) : 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < (BK * BN) / kThreads; ++e) {
-      const int idx = threadIdx.x + e * kThreads;
-      const int rr = idx / BN, c = idx % BN;
-      const int row = r0 + rr, col = col0 + c;
-      Bs[rr][c] = (row < r_end && col < C)
-                      ? to_f32(g[static_cast<size_t>(row) * C + col]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < BK; ++rr) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[rr][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[rr][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      if (sums) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) csum[j] += bv[j];
-      }
-    }
-    __syncthreads();
-  }
-
-  float* pz = partial + static_cast<size_t>(blockIdx.z) * (K1 + 1) * C;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kc = k0 + ty * 4 + i;
-    if (kc >= K1) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx * 4 + j;
-      if (col < C) pz[static_cast<size_t>(kc) * C + col] = acc[i][j];
-    }
-  }
-  if (sums) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx * 4 + j;
-      if (col < C) pz[static_cast<size_t>(K1) * C + col] = csum[j];
-    }
-  }
+  extern __shared__ __align__(16) float smem[];
+  tn_split_product<T, VEC>(h1, g, partial, R, K1, C, rows_per_split,
+                           BnReluColumns(vec, K1, tn_lane_column()), smem);
 }
 
 inline cudaError_t reduce_partials(const float* partial, float* out, int P,
@@ -633,17 +810,38 @@ inline cudaError_t reduce_partials(const float* partial, float* out, int P,
   return cudaGetLastError();
 }
 
+// row block z of a launch takes rows [z * rows_per_block, min(R, (z + 1) *
+// rows_per_block)): every row once, no block empty, whole tiles of `tile`
+inline bool row_plan_ok(int R, int rows_per_block, int blocks, int tile) {
+  return rows_per_block > 0 && rows_per_block % tile == 0 && blocks > 0 &&
+         blocks <= 65535 && static_cast<long long>(rows_per_block) * blocks >= R &&
+         static_cast<long long>(rows_per_block) * (blocks - 1) < R;
+}
+
 template <typename T>
 cudaError_t launch_h1(const void* x, const float* msg, const float* w1,
                       const float* b1, const uint8_t* rowmask, void* h1,
                       float* partial, float* sums, int D, int R,
-                      cudaStream_t stream) {
+                      int rows_per_block, int blocks, cudaStream_t stream) {
   const int C = 2 * D;
-  dim3 grid((C + BN - 1) / BN, (R + BM - 1) / BM);
-  tl_h1_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), msg, w1, b1, rowmask, static_cast<T*>(h1), partial, D, R, C);
-  cudaError_t err = cudaGetLastError();
+  const auto* xt = static_cast<const T*>(x);
+  auto* ht = static_cast<T*>(h1);
+  cudaError_t err;
+  static_assert(kH1Smem <= kMaxSmem, "the resident form must fit an SM");
+  if (D == kH1Width && aligned_to(x, 4 * sizeof(T)) && aligned_to(msg, 16) &&
+      aligned_to(w1, 16) && aligned_to(h1, 4 * sizeof(T))) {
+    static SmemCap cap;
+    err = allow_smem(tl_h1_kernel<T, kH1Width>, kH1Smem, cap);
+    if (err != cudaSuccess) return err;
+    tl_h1_kernel<T, kH1Width><<<dim3(C / kH1Cols, blocks), kH1Threads, kH1Smem, stream>>>(
+        xt, msg, w1, b1, rowmask, ht, partial, R, rows_per_block);
+  } else {
+    tl_h1_tiled_kernel<T><<<dim3((C + BN - 1) / BN, blocks), kThreads, 0, stream>>>(
+        xt, msg, w1, b1, rowmask, ht, partial, D, R, rows_per_block);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce_partials(partial, sums, static_cast<int>(grid.y), 2 * C, stream);
+  return reduce_partials(partial, sums, blocks, 2 * C, stream);
 }
 
 template <typename T>
@@ -653,14 +851,6 @@ cudaError_t launch_fwd2(const void* x, const void* h1, const float* a,
   dim3 grid((C + BN - 1) / BN, (R + BM - 1) / BM);
   tl_fwd2_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const T*>(h1), a, c, w2, b2, static_cast<T*>(y), R, K, C);
   return cudaGetLastError();
-}
-
-// block z of the dh2 launches takes rows [z * rows_per_block, min(R, (z +
-// 1) * rows_per_block)): every row once, no block empty, whole tiles
-inline bool dh2_plan_ok(int R, int rows_per_block, int blocks) {
-  return rows_per_block > 0 && rows_per_block % kDhRows == 0 && blocks > 0 &&
-         blocks <= 65535 && static_cast<long long>(rows_per_block) * blocks >= R &&
-         static_cast<long long>(rows_per_block) * (blocks - 1) < R;
 }
 
 template <typename T, bool SUMS>
@@ -704,9 +894,26 @@ cudaError_t launch_dw2(const void* h1, const float* vec4, const void* g,
                        float* partial, float* out, int R, int D,
                        int rows_per_split, int splits, cudaStream_t stream) {
   const int K1 = 2 * D, C = D;
-  dim3 grid((C + BN - 1) / BN, (K1 + BM - 1) / BM, splits);
-  tl_dw2_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(h1), vec4, static_cast<const T*>(g), partial, R, K1, C, rows_per_split);
-  cudaError_t err = cudaGetLastError();
+  const auto* ht = static_cast<const T*>(h1);
+  const auto* gt = static_cast<const T*>(g);
+  dim3 grid((C + kTnTile - 1) / kTnTile, (K1 + kTnTile - 1) / kTnTile, splits);
+  cudaError_t err;
+  static_assert(kTnSmem <= kMaxSmem, "the ring must fit an SM");
+  if (D % 4 == 0 && aligned_to(h1, 4 * sizeof(T)) && aligned_to(g, 4 * sizeof(T)) &&
+      aligned_to(partial, 16)) {
+    static SmemCap cap;
+    err = allow_smem(tl_dw2_kernel<T, true>, kTnSmem, cap);
+    if (err != cudaSuccess) return err;
+    tl_dw2_kernel<T, true><<<grid, kTnThreads, kTnSmem, stream>>>(
+        ht, vec4, gt, partial, R, K1, C, rows_per_split);
+  } else {
+    static SmemCap cap;
+    err = allow_smem(tl_dw2_kernel<T, false>, kTnSmem, cap);
+    if (err != cudaSuccess) return err;
+    tl_dw2_kernel<T, false><<<grid, kTnThreads, kTnSmem, stream>>>(
+        ht, vec4, gt, partial, R, K1, C, rows_per_split);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_partials(partial, out, splits, (K1 + 1) * C, stream);
 }
@@ -720,15 +927,21 @@ cudaError_t launch_dw2(const void* h1, const float* vec4, const void* g,
 // 2 D.
 
 // h1 [R, 2D] = cat(x [R, D], msg [R, D]) @ w1 [2D, 2D] + b1, and
-// sums [2][2D] = masked column sums of the f32 h1 and of its square.
-// partial is scratch of ceil(R / 64) * 2 * 2D floats.
+// sums [2][2D] = masked column sums of the f32 h1 and of its square. The row
+// plan (ops/cuda/train_layer.py::h1_plan) gives row block z the rows [z *
+// rows_per_block, min(R, (z + 1) * rows_per_block)), whole 128-row tiles; it
+// must cover every row once with no block empty. partial is scratch of
+// partial_floats = blocks * 2 * 2D floats.
 extern "C" cudaError_t mdgat_tl_h1(const void* x, const void* msg,
                                    const void* w1, const void* b1,
                                    const void* rowmask, void* h1,
-                                   void* partial, void* sums, int D, int R,
-                                   int io_dtype, cudaStream_t stream) {
+                                   void* partial, long long partial_floats,
+                                   void* sums, int D, int R, int rows_per_block,
+                                   int blocks, int io_dtype, cudaStream_t stream) {
   using namespace mdgat;
-  if (D <= 0 || R <= 0) return cudaErrorInvalidValue;
+  if (D <= 0 || R <= 0 || !row_plan_ok(R, rows_per_block, blocks, kH1Rows) ||
+      partial_floats != static_cast<long long>(blocks) * 2 * 2 * D)
+    return cudaErrorInvalidValue;
   const auto* m = static_cast<const float*>(msg);
   const auto* w = static_cast<const float*>(w1);
   const auto* b = static_cast<const float*>(b1);
@@ -736,9 +949,11 @@ extern "C" cudaError_t mdgat_tl_h1(const void* x, const void* msg,
   auto* p = static_cast<float*>(partial);
   auto* s = static_cast<float*>(sums);
   if (io_dtype == kF32)
-    return launch_h1<float>(x, m, w, b, rm, h1, p, s, D, R, stream);
+    return launch_h1<float>(x, m, w, b, rm, h1, p, s, D, R, rows_per_block, blocks,
+                            stream);
   if (io_dtype == kBF16)
-    return launch_h1<__nv_bfloat16>(x, m, w, b, rm, h1, p, s, D, R, stream);
+    return launch_h1<__nv_bfloat16>(x, m, w, b, rm, h1, p, s, D, R, rows_per_block,
+                                    blocks, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -774,7 +989,7 @@ extern "C" cudaError_t mdgat_tl_bwd_sums(const void* g, const void* h1,
                                          int rows_per_block, int blocks,
                                          int io_dtype, cudaStream_t stream) {
   using namespace mdgat;
-  if (D <= 0 || R <= 0 || !dh2_plan_ok(R, rows_per_block, blocks) ||
+  if (D <= 0 || R <= 0 || !row_plan_ok(R, rows_per_block, blocks, kDhRows) ||
       partial_floats != static_cast<long long>(blocks) * 4 * 2 * D)
     return cudaErrorInvalidValue;
   const auto* w = static_cast<const float*>(w2);
@@ -790,16 +1005,20 @@ extern "C" cudaError_t mdgat_tl_bwd_sums(const void* g, const void* h1,
 }
 
 // out [2D + 1][D]: rows < 2D are dw2 = relu(bn(h1))^T g, row 2D is db2 =
-// column sums of g. partial is scratch of splits * (2D + 1) * D floats;
-// split z covers rows [z * rows_per_split, (z + 1) * rows_per_split).
+// column sums of g, over all R rows of h1 [R, 2D] and g [R, D], vec4 [4][2D]
+// (mean, inv, scale, bias). The split plan (ops/cuda/train_layer.py::
+// dw2_plan) gives split z the rows [z * rows_per_split, min(R, (z + 1) *
+// rows_per_split)), whole 32-row stages; it must cover every row once with
+// no split empty. partial is scratch of partial_floats = splits * (2D + 1) *
+// D floats.
 extern "C" cudaError_t mdgat_tl_dw2(const void* h1, const void* vec4,
-                                    const void* g, void* partial, void* out,
-                                    int D, int R, int rows_per_split,
-                                    int splits, int io_dtype,
-                                    cudaStream_t stream) {
+                                    const void* g, void* partial,
+                                    long long partial_floats, void* out, int D,
+                                    int R, int rows_per_split, int splits,
+                                    int io_dtype, cudaStream_t stream) {
   using namespace mdgat;
-  if (D <= 0 || R <= 0 || rows_per_split <= 0 || splits <= 0 ||
-      static_cast<long long>(rows_per_split) * splits < R)
+  if (D <= 0 || R <= 0 || !row_plan_ok(R, rows_per_split, splits, kTnRows) ||
+      partial_floats != static_cast<long long>(splits) * (2 * D + 1) * D)
     return cudaErrorInvalidValue;
   const auto* v = static_cast<const float*>(vec4);
   auto* p = static_cast<float*>(partial);
@@ -820,7 +1039,7 @@ extern "C" cudaError_t mdgat_tl_dh1(const void* g, const void* h1,
                                     int R, int rows_per_block, int blocks,
                                     int io_dtype, cudaStream_t stream) {
   using namespace mdgat;
-  if (D <= 0 || R <= 0 || !dh2_plan_ok(R, rows_per_block, blocks))
+  if (D <= 0 || R <= 0 || !row_plan_ok(R, rows_per_block, blocks, kDhRows))
     return cudaErrorInvalidValue;
   const auto* w = static_cast<const float*>(w2);
   const auto* v = static_cast<const float*>(vec6);

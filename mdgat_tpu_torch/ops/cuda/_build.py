@@ -62,16 +62,17 @@ _SIGNATURES = {
     "mdgat_sinkhorn": [_P] * 8 + [_I] * 5 + [_P],
     # N, M, cluster, count
     "mdgat_sinkhorn_active_clusters": [_I] * 3 + [_P],
-    # x, msg, w1, b1, rowmask, h1, partial, sums, D, R, io_dtype, stream
-    "mdgat_tl_h1": [_P] * 8 + [_I] * 3 + [_P],
+    # x, msg, w1, b1, rowmask, h1, partial, partial_floats, sums, D, R,
+    # rows_per_block, blocks, io_dtype, stream
+    "mdgat_tl_h1": [_P] * 7 + [_L, _P] + [_I] * 5 + [_P],
     # x, h1, a, c, w2, b2, y, D, R, io_dtype, stream
     "mdgat_tl_fwd2": [_P] * 7 + [_I] * 3 + [_P],
     # g, h1, w2, vec4, partial, partial_floats, sums, D, R, rows_per_block,
     # blocks, io_dtype, stream
     "mdgat_tl_bwd_sums": [_P] * 5 + [_L, _P] + [_I] * 5 + [_P],
-    # h1, vec4, g, partial, out, D, R, rows_per_split, splits, io_dtype,
-    # stream
-    "mdgat_tl_dw2": [_P] * 5 + [_I] * 5 + [_P],
+    # h1, vec4, g, partial, partial_floats, out, D, R, rows_per_split,
+    # splits, io_dtype, stream
+    "mdgat_tl_dw2": [_P] * 4 + [_L, _P] + [_I] * 5 + [_P],
     # g, h1, w2, vec6, rowmask, dh1, D, R, rows_per_block, blocks, io_dtype,
     # stream
     "mdgat_tl_dh1": [_P] * 6 + [_I] * 5 + [_P],

@@ -16,7 +16,8 @@ pair already runs):
   merge, exactly as ``ops/cuda/mha.py`` launches them, then
   :func:`h1_stats`: ``h1 = cat(x, msg) @ w1 + b1`` with the masked
   per-channel sum and sum of squares taken from the float32 accumulator in
-  the epilogue (per-block partials, then a fixed-order reduce).
+  the epilogue (per-block partials under the row plan :func:`h1_plan`,
+  then a fixed-order reduce).
 * the mean / variance / BN-affine step between the two forward kernels is
   tensor code on ``[2D]`` vectors on the device, as it is XLA code outside
   the Pallas kernels; the count of valid rows stays a device tensor.
@@ -25,7 +26,8 @@ pair already runs):
 * bwd1, four launches: :func:`bn_backward_sums` (``Sg``, ``Sgh``,
   ``dscale``, ``dbias`` over ALL rows, from ``dh2 = g @ w2^T`` formed tile by
   tile and never stored) and :func:`dw2_db2` (``relu(bn(h1))^T g`` and the
-  column sums of ``g``), each with its fixed-order reduce.
+  column sums of ``g``, rows split by :func:`dw2_plan`), each with its
+  fixed-order reduce.
 * bwd2, 23 launches: :func:`dh1_kernel` writes ``dh1`` once; ``dmsg`` and
   ``g + dx_mlp`` by the transposed-W GEMM; the fifteen launches of the
   fused-MHA backward with ``g := dmsg`` and ``g + dx_mlp`` added in the last
@@ -48,7 +50,11 @@ normalised with the batch statistics); the row mask enters only as the
 factor on the centering correction of ``dh1``.
 
 A CUDA tensor launches the kernels; a CPU tensor takes
-:func:`fused_train_layer_reference` under autograd. Nothing falls back, and
+:func:`fused_train_layer_reference` under autograd, built from the
+kernels' own plain twins (:func:`h1_stats_reference`,
+:func:`bn_backward_sums_plain`, :func:`dw2_db2_reference`,
+:func:`dh1_reference`), which each wrapper also takes on CPU tensors.
+Nothing falls back, and
 no size gate steps down to another route: a CUDA call the kernels cannot
 take (more than 1024 keys, a head size the attention kernel lacks) raises.
 """
@@ -62,12 +68,14 @@ import torch
 from mdgat_tpu_torch.ops.attention import acc_dtype
 from mdgat_tpu_torch.ops.cuda import mha
 from mdgat_tpu_torch.ops.cuda._build import DTYPE_CODES, library
-from mdgat_tpu_torch.ops.cuda.layer import NUM_SMS, gemm, gemm_tn
+from mdgat_tpu_torch.ops.cuda.layer import (NUM_SMS, TN_STAGE_ROWS, gemm,
+                                           gemm_tn, tn_plan)
 from mdgat_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 
-_ROWS_PER_BLOCK = 64      # BM of csrc/train_layer.cu: one partial per block
+# row tiles of the csrc/train_layer.cu launches that take a row plan (the
+# dw2 launch's are the A^T product's ring stages, layer.TN_STAGE_ROWS)
+H1_TILE_ROWS = 128        # rows of x and msg in one tile of tl_h1_kernel
 DH2_TILE_ROWS = 64        # rows of g in one tile of tl_dh2_kernel
-_DW2_ROWS_PER_SPLIT = 512  # rows of one split of tl_dw2_kernel
 
 
 def train_layer_weights(layer):
@@ -117,23 +125,18 @@ def fused_train_layer_reference(x, source, kv_mask: Optional[torch.Tensor],
     kernels' backward formula does."""
     acc = acc_dtype(x.dtype)
     cast = lambda t: t.to(acc)
-    d = x.shape[-1]
-    xf = cast(x)
     msg, thr, lse = mha.fused_mha_reference(
         x, source, kv_mask, topk, num_heads, wq, bq, wk, bk, wv, bv, wm, bm,
         return_residuals=True, out_dtype=acc)
-    w1f = cast(w1)
-    h1f = xf @ w1f[:d] + msg @ w1f[d:] + cast(b1)
-    h1m = h1f if valid_mask is None else h1f * valid_mask[..., None].to(acc)
-    ssum, ssq = h1m.sum(dim=(0, 1)), (h1m * h1f).sum(dim=(0, 1))
+    h1, (ssum, ssq) = h1_stats_reference(x, msg, w1, b1, valid_mask)
+    h1 = h1.reshape(*x.shape[:2], -1)
     mean, raw = _batch_stats(ssum, ssq, _row_count(x, valid_mask, acc))
     var = raw + (raw.clamp_min(0.0) - raw).detach()
     inv = torch.rsqrt(var + BN_EPS)
     a = cast(bn_scale) * inv
     c = cast(bn_bias) - mean * a
-    h1 = h1f.to(x.dtype)
     u = torch.relu(cast(h1) * a + c)
-    y = (xf + (u @ cast(w2) + cast(b2))).to(x.dtype)
+    y = (cast(x) + (u @ cast(w2) + cast(b2))).to(x.dtype)
     mean, var = mean.detach(), var.detach()
     if return_residuals:
         return (y, mean, var, h1.detach(), thr, lse, ssum.detach(),
@@ -141,15 +144,35 @@ def fused_train_layer_reference(x, source, kv_mask: Optional[torch.Tensor],
     return y, mean, var
 
 
-def _bn_backward_rows(g, h1, w2, mean, inv, bn_scale, bn_bias):
-    """``(g, hhat, bn, dbn, G)`` row by row in the accumulation dtype:
-    ``hhat = (h1 - mean) * inv``, ``bn = hhat * scale + bias``, ``dbn =
-    (g @ w2^T) * (bn > 0)``, ``G = dbn * scale``."""
+def h1_stats_reference(x, msg, w1, b1, row_mask):
+    """Plain twin of :func:`h1_stats`: ``(h1 [R, 2D] in x's dtype, sums [2,
+    2D])``, the sums (of ``h1 * m`` and ``h1^2 * m``, ``m`` the row mask,
+    bool or uint8 with ``R`` entries, or None) taken in the accumulation
+    dtype before the rounding to ``x``'s dtype. Differentiable."""
+    acc = acc_dtype(x.dtype)
+    d = x.shape[-1]
+    w1f = w1.to(acc)
+    h1f = (x.reshape(-1, d).to(acc) @ w1f[:d]
+           + msg.reshape(-1, d).to(acc) @ w1f[d:] + b1.to(acc))
+    h1m = (h1f if row_mask is None
+           else h1f * row_mask.reshape(-1, 1).to(acc))
+    return h1f.to(x.dtype), torch.stack([h1m.sum(0), (h1m * h1f).sum(0)])
+
+
+def _bn_rebuild(g, h1, mean, inv, bn_scale, bias):
+    """``(g, hhat, bn)`` row by row in the accumulation dtype: ``hhat = (h1
+    - mean) * inv``, ``bn = hhat * scale + bias``."""
     acc = acc_dtype(h1.dtype)
     gf = g.to(h1.dtype).to(acc).reshape(-1, g.shape[-1])
     hhat = (h1.to(acc).reshape(gf.shape[0], -1) - mean) * inv
-    bn = hhat * bn_scale + bn_bias
-    dbn = (gf @ w2.to(acc).t()) * (bn > 0)
+    return gf, hhat, hhat * bn_scale + bias
+
+
+def _bn_backward_rows(g, h1, w2, mean, inv, bn_scale, bn_bias):
+    """``(g, hhat, bn, dbn, G)``: :func:`_bn_rebuild`'s, ``dbn = (g @
+    w2^T) * (bn > 0)`` and ``G = dbn * scale``."""
+    gf, hhat, bn = _bn_rebuild(g, h1, mean, inv, bn_scale, bn_bias)
+    dbn = (gf @ w2.to(gf.dtype).t()) * (bn > 0)
     return gf, hhat, bn, dbn, dbn * bn_scale
 
 
@@ -161,19 +184,23 @@ def bn_backward_sums_plain(g, h1, w2, vec4):
                         (dbn * hhat).sum(0), dbn.sum(0)])
 
 
+def dw2_db2_reference(g, h1, vec4):
+    """Plain twin of :func:`dw2_db2`: ``(relu(bn(h1))^T g, column sums of
+    g)`` over all rows, ``bn`` rebuilt from ``vec4`` (mean, inv, scale,
+    bias)."""
+    gf, _, bn = _bn_rebuild(g, h1, *vec4)
+    return torch.relu(bn).t() @ gf, gf.sum(0)
+
+
 def bn_backward_sums_reference(g, h1, w2, mean, var, bn_scale, bn_bias):
     """Plain twin of the bwd1 kernels: ``(Sg, Sgh, dw2, db2, dscale,
     dbias)`` for the cotangent ``g [B, N, D]`` of ``y`` and the stored
     ``h1 [B, N, 2D]``, every sum over ALL rows (``_tl_bwd1_kernel``): the
-    four sums of :func:`bn_backward_sums_plain`, ``relu(bn)^T g`` and the
-    column sums of ``g``."""
-    inv = torch.rsqrt(var + BN_EPS)
-    sg, sgh, dscale, dbias = bn_backward_sums_plain(
-        g, h1, w2, (mean, inv, bn_scale, bn_bias))
-    gf = g.to(h1.dtype).to(acc_dtype(h1.dtype)).reshape(-1, g.shape[-1])
-    bn = (h1.to(gf.dtype).reshape(gf.shape[0], -1) - mean) * inv
-    bn = bn * bn_scale + bn_bias
-    return sg, sgh, torch.relu(bn).t() @ gf, gf.sum(0), dscale, dbias
+    four sums of :func:`bn_backward_sums_plain` and
+    :func:`dw2_db2_reference`."""
+    vec4 = (mean, torch.rsqrt(var + BN_EPS), bn_scale, bn_bias)
+    sg, sgh, dscale, dbias = bn_backward_sums_plain(g, h1, w2, vec4)
+    return (sg, sgh, *dw2_db2_reference(g, h1, vec4), dscale, dbias)
 
 
 def dh1_reference(g, h1, w2, vec6, row_mask):
@@ -188,30 +215,58 @@ def dh1_reference(g, h1, w2, vec6, row_mask):
     return inv * (big_g - corr)
 
 
+def _row_plan(r: int, tile: int, max_blocks: int):
+    """``(rows, blocks)``: ``r`` rows cut into at most ``max_blocks`` blocks
+    of whole ``tile``-row tiles, block ``z`` covering rows ``[z * rows,
+    min(r, (z + 1) * rows))``: every row once, no block empty."""
+    tiles = -(-r // tile)
+    rows = -(-tiles // max_blocks) * tile
+    return rows, -(-r // rows)
+
+
+def check_row_plan(what: str, r: int, rows: int, blocks: int, tile: int):
+    """Raise unless the plan covers each of ``r`` rows once, in whole
+    ``tile``-row tiles, with no block empty (the C entries' ``row_plan_ok``,
+    which refuse the same plans)."""
+    if not (rows > 0 and rows % tile == 0 and 0 < blocks <= 65535
+            and rows * blocks >= r and rows * (blocks - 1) < r):
+        raise ValueError(f"{what} row plan of {blocks} blocks x {rows} rows "
+                         f"does not cover {r} rows once in whole {tile}-row "
+                         f"tiles")
+
+
+def h1_plan(r: int):
+    """``(rows_per_block, blocks)`` of :func:`h1_stats`: the 2D columns go
+    to two blocks (each keeps its half of ``w1`` resident at D = 128), so
+    at most ``NUM_SMS // 2`` row blocks of whole 128-row tiles, one block an
+    SM."""
+    rows, blocks = _row_plan(r, H1_TILE_ROWS, NUM_SMS // 2)
+    check_row_plan("h1", r, rows, blocks, H1_TILE_ROWS)
+    return rows, blocks
+
+
 def dh2_plan(r: int):
     """``(rows_per_block, blocks)`` of the two dh2 launches
     (``tl_dh2_kernel``): one block an SM at most, each a whole number of
     64-row tiles, block ``z`` covering rows ``[z * rows_per_block, min(r,
     (z + 1) * rows_per_block))``: every row once, no block empty."""
-    tiles = -(-r // DH2_TILE_ROWS)
-    rows = -(-tiles // NUM_SMS) * DH2_TILE_ROWS
-    check_dh2_plan(r, rows, -(-r // rows))
-    return rows, -(-r // rows)
+    rows, blocks = _row_plan(r, DH2_TILE_ROWS, NUM_SMS)
+    check_row_plan("dh2", r, rows, blocks, DH2_TILE_ROWS)
+    return rows, blocks
 
 
-def check_dh2_plan(r: int, rows_per_block: int, blocks: int):
-    """Raise unless the row plan covers each of ``r`` rows once, in whole
-    tiles, with no block empty (the C entries' ``dh2_plan_ok``)."""
-    if not (rows_per_block > 0 and rows_per_block % DH2_TILE_ROWS == 0
-            and 0 < blocks <= 65535 and rows_per_block * blocks >= r
-            and rows_per_block * (blocks - 1) < r):
-        raise ValueError(f"dh2 row plan of {blocks} blocks x {rows_per_block} "
-                         f"rows does not cover {r} rows once in whole tiles")
+def dw2_plan(r: int, d: int):
+    """``(rows_per_split, splits)`` of :func:`dw2_db2`: the A^T product's
+    plan (``layer.tn_plan``) for its ``[2D, D]`` output, about one block an
+    SM over the 128 x 128 output tiles, each split whole ring stages."""
+    rows, splits = tn_plan(r, 2 * d, d)
+    check_row_plan("dw2", r, rows, splits, TN_STAGE_ROWS)
+    return rows, splits
 
 
 # ---------------------------------------------------------------------------
-# launch wrappers of csrc/train_layer.cu (CUDA tensors; bn_backward_sums and
-# dh1_kernel take their plain twins on CPU tensors)
+# launch wrappers of csrc/train_layer.cu (CUDA tensors; all but
+# bn_relu_conv2 take their plain twins on CPU tensors)
 # ---------------------------------------------------------------------------
 
 def _launch(name, ref, *args):
@@ -246,7 +301,10 @@ def h1_stats(x, msg, w1, b1, row_mask):
     """``(h1 [R, 2D] in x's dtype, sums [2, 2D] float32)``: ``cat(x, msg) @
     w1 + b1`` and the column sums of ``h1 * rowmask`` and ``h1^2 * rowmask``
     taken before the rounding to ``x``'s dtype. ``x [.., D]``, ``msg [R, D]``
-    float32, ``row_mask`` uint8 ``[R]`` or None."""
+    float32, ``row_mask`` uint8 ``[R]`` or None. The rows are split by
+    :func:`h1_plan`. A CPU tensor takes :func:`h1_stats_reference`."""
+    if x.device.type == "cpu":
+        return h1_stats_reference(x, msg, w1, b1, row_mask)
     _require_cuda(x, msg, w1, b1, row_mask)
     d, r = x.shape[-1], _rows(x)
     if (x.dtype not in DTYPE_CODES or msg.dtype != torch.float32
@@ -255,14 +313,15 @@ def h1_stats(x, msg, w1, b1, row_mask):
             or any(t.dtype != torch.float32 for t in (w1, b1))
             or (row_mask is not None and row_mask.numel() != r)):
         raise ValueError("h1_stats kernel: operand dtypes or shapes")
+    rows, blocks = h1_plan(r)
     f32, dev = torch.float32, x.device
     h1 = torch.empty((r, 2 * d), dtype=x.dtype, device=dev)
-    partial = torch.empty((-(-r // _ROWS_PER_BLOCK), 2, 2 * d), dtype=f32,
-                          device=dev)
+    partial = torch.empty((blocks, 2, 2 * d), dtype=f32, device=dev)
     sums = torch.empty((2, 2 * d), dtype=f32, device=dev)
     _launch("mdgat_tl_h1", x, x.data_ptr(), msg.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), _ptr(row_mask), h1.data_ptr(), partial.data_ptr(),
-            sums.data_ptr(), d, r, DTYPE_CODES[x.dtype])
+            partial.numel(), sums.data_ptr(), d, r, rows, blocks,
+            DTYPE_CODES[x.dtype])
     h1_stats.launches += 1
     return h1, sums
 
@@ -326,20 +385,24 @@ bn_backward_sums.launches = 0
 
 def dw2_db2(g, h1, vec4):
     """``(dw2 [2D, D], db2 [D])`` float32: ``relu(bn(h1))^T g`` and the
-    column sums of ``g``, the rows split over blocks of
-    ``_DW2_ROWS_PER_SPLIT`` and added in a fixed order."""
+    column sums of ``g`` over all rows of ``g [.., D]`` and ``h1 [R, 2D]``
+    (one dtype), ``bn`` rebuilt from ``vec4 [4, 2D]`` (mean, inv, scale,
+    bias); the rows split by :func:`dw2_plan` and added in a fixed order. A
+    CPU tensor takes :func:`dw2_db2_reference`."""
+    if g.device.type == "cpu":
+        return dw2_db2_reference(g, h1, vec4)
     _require_cuda(g, h1, vec4)
     d, r = g.shape[-1], _rows(g)
     if (g.dtype not in DTYPE_CODES or h1.dtype != g.dtype
             or h1.numel() != r * 2 * d or vec4.shape != (4, 2 * d)
             or vec4.dtype != torch.float32):
         raise ValueError("dw2_db2 kernel: operand dtypes or shapes")
+    rows, splits = dw2_plan(r, d)
     f32, dev = torch.float32, g.device
-    splits = -(-r // _DW2_ROWS_PER_SPLIT)
     partial = torch.empty((splits, 2 * d + 1, d), dtype=f32, device=dev)
     out = torch.empty((2 * d + 1, d), dtype=f32, device=dev)
     _launch("mdgat_tl_dw2", g, h1.data_ptr(), vec4.data_ptr(), g.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), d, r, _DW2_ROWS_PER_SPLIT,
+            partial.data_ptr(), partial.numel(), out.data_ptr(), d, r, rows,
             splits, DTYPE_CODES[g.dtype])
     dw2_db2.launches += 1
     return out[:2 * d], out[2 * d]

@@ -9,9 +9,10 @@ splits of the transposed-A GEMM (``ops/cuda/layer.py::tn_plan``), whose
 wrapper sizes the scratch from them and takes its plain twin on the CPU;
 the Sinkhorn forward's cluster plan (``ops/cuda/sinkhorn.py::
 sinkhorn_plan``: bands of rows a CTA, resident or streamed, shared memory);
-and the row plan of the two dh2 launches (``ops/cuda/train_layer.py::
-dh2_plan``), whose check refuses a plan that misses or repeats a row, with
-the wrappers' plain twins on CPU tensors.
+and the row plans of the train layer's h1, dh2 and dw2 launches
+(``ops/cuda/train_layer.py::h1_plan``, ``dh2_plan``, ``dw2_plan``), whose
+check refuses a plan that misses or repeats a row, with the wrappers' plain
+twins on CPU tensors.
 """
 
 import numpy as np
@@ -249,7 +250,7 @@ def test_dh2_plan_covers_every_row_once(r):
     every row once, none empty, whole 64-row tiles, at most one block an SM;
     the train step's 32768 rows go to 128 blocks of four tiles."""
     rows, blocks = tl.dh2_plan(r)
-    tl.check_dh2_plan(r, rows, blocks)
+    tl.check_row_plan("dh2", r, rows, blocks, tl.DH2_TILE_ROWS)
     assert rows % tl.DH2_TILE_ROWS == 0 and 1 <= blocks <= layer_kernel.NUM_SMS
     spans = [(z * rows, min(r, (z + 1) * rows)) for z in range(blocks)]
     assert all(lo < hi for lo, hi in spans)
@@ -270,8 +271,8 @@ def test_dh2_plan_refused_before_any_launch(monkeypatch, rows, blocks):
     _no_library(monkeypatch)
     r, d = 1000, 32
     with pytest.raises(ValueError, match="row plan"):
-        tl.check_dh2_plan(r, rows, blocks)
-    tl.check_dh2_plan(r, *tl.dh2_plan(r))
+        tl.check_row_plan("dh2", r, rows, blocks, tl.DH2_TILE_ROWS)
+    tl.check_row_plan("dh2", r, *tl.dh2_plan(r), tl.DH2_TILE_ROWS)
     meta = lambda *shape: torch.zeros(shape, device="meta")
     g, h1, w2 = meta(r, d), meta(r, 2 * d), meta(2 * d, d)
     for call in (lambda: tl.bn_backward_sums(g, h1, w2, meta(4, 2 * d)),
@@ -312,3 +313,93 @@ def test_dh2_wrappers_take_their_twins_on_cpu(monkeypatch):
                                         t(scale), t(bias))
     for a, b in zip(sums, (ref[0], ref[1], ref[4], ref[5])):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-9)
+
+
+PLAN_ROWS = [1, 63, 64, 65, 1000, 32767, 32768, 32769, 70000]
+
+
+@pytest.mark.parametrize("kind", ["h1", "dw2"])
+@pytest.mark.parametrize("r", PLAN_ROWS)
+def test_h1_and_dw2_plans_cover_every_row_once(kind, r):
+    """Block z covers rows [z * rows, min(r, (z + 1) * rows)): together
+    every row once, none empty, whole tiles (128-row tiles of h1, 32-row
+    ring stages of dw2), at most one block an SM over the grid (two column
+    halves of h1, the two 128 x 128 output tiles of dw2 at D = 128); the
+    train step's 32768 rows go to 64 row blocks of 512 in both."""
+    if kind == "h1":
+        rows, blocks = tl.h1_plan(r)
+        tile, per_block = tl.H1_TILE_ROWS, 2
+    else:
+        rows, blocks = tl.dw2_plan(r, 128)
+        tile, per_block = layer_kernel.TN_STAGE_ROWS, 2
+    tl.check_row_plan(kind, r, rows, blocks, tile)
+    assert rows % tile == 0 and 1 <= blocks * per_block <= layer_kernel.NUM_SMS
+    spans = [(z * rows, min(r, (z + 1) * rows)) for z in range(blocks)]
+    assert all(lo < hi for lo, hi in spans)
+    assert spans[0][0] == 0 and spans[-1][1] == r
+    assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))
+    if r == 32768:
+        assert (rows, blocks) == (512, 64)
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+def test_dw2_plan_fills_the_card_at_every_width(d):
+    """The dw2 splits times the output's 128 x 128 tiles stay within one
+    block an SM at every width the route takes, and fill most of the SMs."""
+    rows, splits = tl.dw2_plan(32768, d)
+    tiles = -(-2 * d // 128) * -(-d // 128)
+    assert rows % layer_kernel.TN_STAGE_ROWS == 0
+    assert layer_kernel.NUM_SMS // 2 < splits * tiles <= layer_kernel.NUM_SMS
+
+
+@pytest.mark.parametrize("rows, blocks, tile", [
+    (0, 1, 128), (128, 7, 128), (128, 9, 128), (100, 10, 128), (1024, 2, 128),
+    (-128, 1, 128), (32, 31, 32), (32, 33, 32), (48, 21, 32), (992, 1, 32)])
+def test_h1_and_dw2_plans_refused_before_any_launch(monkeypatch, rows, blocks,
+                                                    tile):
+    """For 1000 rows: a plan that misses rows, leaves a block empty or cuts
+    a tile (128 rows for h1, 32 for dw2) is refused by the check (the C
+    entries refuse the same plans) while the wrappers' own plans pass it;
+    both wrappers stop at the device check before the kernel library
+    (tensors on the meta device, which no kernel takes)."""
+    _no_library(monkeypatch)
+    r, d = 1000, 32
+    with pytest.raises(ValueError, match="row plan"):
+        tl.check_row_plan("plan", r, rows, blocks, tile)
+    tl.check_row_plan("h1", r, *tl.h1_plan(r), tl.H1_TILE_ROWS)
+    tl.check_row_plan("dw2", r, *tl.dw2_plan(r, d), layer_kernel.TN_STAGE_ROWS)
+    meta = lambda *shape: torch.zeros(shape, device="meta")
+    for call in (lambda: tl.h1_stats(meta(r, d), meta(r, d), meta(2 * d, 2 * d),
+                                     meta(2 * d), None),
+                 lambda: tl.dw2_db2(meta(r, d), meta(r, 2 * d), meta(4, 2 * d))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+def test_h1_and_dw2_wrappers_take_their_twins_on_cpu(monkeypatch):
+    """On CPU tensors the h1 and dw2 wrappers are their formulas (numpy at
+    float64, 100 rows: not whole tiles): h1 = x @ w1x + msg @ w1m + b1 with
+    the sums of h1 * m and h1^2 * m over the masked rows, and relu(bn(h1))^T
+    g with the column sums of g over every row."""
+    _no_library(monkeypatch)
+    rng = np.random.default_rng(590)
+    r, d = 100, 24
+    x, msg, g = (rng.normal(size=(r, d)) for _ in range(3))
+    w1, b1 = rng.normal(size=(2 * d, 2 * d)), rng.normal(size=2 * d)
+    h1 = rng.normal(size=(r, 2 * d))
+    mean, var = rng.normal(size=2 * d) * 0.3, rng.uniform(0.5, 1.5, 2 * d)
+    scale, bias = rng.uniform(0.5, 1.5, 2 * d), rng.normal(size=2 * d) * 0.2
+    mask = rng.random(r) < 0.7
+    t = torch.from_numpy
+    got_h1, sums = tl.h1_stats(t(x), t(msg), t(w1), t(b1), t(mask.astype(np.uint8)))
+    want = np.concatenate([x, msg], 1) @ w1 + b1
+    np.testing.assert_allclose(got_h1.numpy(), want, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(sums.numpy(), np.stack(
+        [want[mask].sum(0), (want[mask] ** 2).sum(0)]), rtol=0, atol=1e-9)
+    _, all_rows = tl.h1_stats(t(x), t(msg), t(w1), t(b1), None)
+    np.testing.assert_allclose(all_rows[0].numpy(), want.sum(0), rtol=0, atol=1e-9)
+    inv = 1 / np.sqrt(var + BN_EPS)
+    u = np.maximum((h1 - mean) * inv * scale + bias, 0)
+    dw2, db2 = tl.dw2_db2(t(g), t(h1), t(np.stack([mean, inv, scale, bias])))
+    np.testing.assert_allclose(dw2.numpy(), u.T @ g, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(db2.numpy(), g.sum(0), rtol=0, atol=1e-9)

@@ -19,11 +19,13 @@ import torch
 from mdgat_tpu.models.gnn import (attentional_propagation_apply,
                                   attentional_propagation_init)
 from mdgat_tpu.ops.pallas.attention import (_tl_fwd_calls,
+                                            fused_train_layer as jax_layer,
                                             fused_train_layer_apply as jax_apply)
 
 from mdgat_tpu_torch.core.checkpoint import propagation_state_dict
 from mdgat_tpu_torch.models.gnn import AttentionalPropagation
 from mdgat_tpu_torch.ops.cuda import _build
+from mdgat_tpu_torch.ops.cuda import mha
 from mdgat_tpu_torch.ops.cuda import train_layer as T
 from mdgat_tpu_torch.ops.mlp import BN_EPS
 
@@ -240,6 +242,45 @@ def test_forward_residuals_match_pallas_and_numpy():
     np.testing.assert_allclose(var.numpy(), rows.var(0), rtol=1e-4, atol=1e-6)
 
 
+def test_h1_and_dw2_twins_match_pallas_fwd1_and_bwd1():
+    """The twins of ``tl_h1_kernel`` and ``tl_dw2_kernel`` alone, float32,
+    ragged row and key masks: ``h1_stats_reference`` on the twin's message
+    against ``_tl_fwd_calls``' h1 and batch mean / variance (interpret mode,
+    2e-5), and ``dw2_db2_reference`` on that forward's h1 and statistics
+    against dw2 / db2 of the Pallas backward (``_tl_bwd1_kernel`` through
+    the custom VJP, interpret mode; rtol 3e-4 / atol 3e-5, the gradients'
+    tolerance: sums of 96 rows in other orders)."""
+    d, b, n, m, topk = 32, 4, 24, 20, 6
+    params, state = _trees(9, d, np.float32)
+    x, src, g, vm, km = _inputs(41, b, n, m, d, True, False, np.float32)
+    jp = jax.tree.map(jnp.asarray, params)
+    args = (jnp.asarray(x), jnp.asarray(src), _jj(km), _jj(vm))
+    _, mean_j, var_j, _, _, _, h1_j = _tl_fwd_calls(jp, *args, topk, HEADS,
+                                                    True, True)
+    w = _weights(_port_layer(params, state, torch.float32))
+    msg = mha.fused_mha_reference(_tt(x), _tt(src), _tt(km), topk, HEADS,
+                                  *w[:8])
+    h1, sums = T.h1_stats_reference(_tt(x), msg, w[8], w[9], _tt(vm))
+    tol = dict(rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(h1.numpy().reshape(b, n, 2 * d),
+                               np.asarray(h1_j), **tol)
+    mean = sums[0] / vm.sum()
+    np.testing.assert_allclose(mean.numpy(), np.asarray(mean_j), **tol)
+    np.testing.assert_allclose((sums[1] / vm.sum() - mean * mean).numpy(),
+                               np.asarray(var_j), **tol)
+
+    _, vjp = jax.vjp(
+        lambda p: jax_layer(topk, HEADS, True, True, None, p, *args)[0], jp)
+    (dlp,) = vjp(jnp.asarray(g))
+    vec4 = torch.stack([_tt(np.array(mean_j)),
+                        torch.rsqrt(_tt(np.array(var_j)) + BN_EPS), w[12], w[13]])
+    dw2, db2 = T.dw2_db2_reference(_tt(g), _tt(np.array(h1_j)), vec4)
+    np.testing.assert_allclose(dw2.numpy(), np.asarray(dlp["mlp"][1]["lin"]["w"]),
+                               **GRAD_TOL)
+    np.testing.assert_allclose(db2.numpy(), np.asarray(dlp["mlp"][1]["lin"]["b"]),
+                               **GRAD_TOL)
+
+
 def test_bn_backward_sums_run_over_padded_rows_too():
     """``Sg``, ``Sgh``, ``dw2``, ``db2``, ``dscale``, ``dbias`` against numpy
     sums over ALL rows, with a cotangent that is non-zero on padded rows:
@@ -358,9 +399,9 @@ def test_two_applications_move_the_running_stats_twice():
 
 def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     """On a CPU tensor the entry takes the twin and never builds or loads
-    the kernels; the launch wrappers refuse a CPU tensor, except the two dh2
-    wrappers, which take their plain twins; the launch counts stay where
-    they were."""
+    the kernels; the launch wrappers refuse a CPU tensor, except the h1, dh2
+    and dw2 wrappers, which take their plain twins; the launch counts stay
+    where they were."""
     def no_library():
         raise AssertionError("a CPU tensor reached the kernel library")
 
@@ -370,9 +411,11 @@ def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     params, state = _trees(13, d, np.float32)
     x, src, g, vm, km = _inputs(31, b, n, m, d, True, False, np.float32)
     layer = _port_layer(params, state, torch.float32)
-    before = (T.fused_train_layer.forward_launches,
-              T.fused_train_layer.backward_launches, T.h1_stats.launches,
-              T.bn_backward_sums.launches, T.dh1_kernel.launches)
+    counters = lambda: (T.fused_train_layer.forward_launches,
+                        T.fused_train_layer.backward_launches,
+                        T.h1_stats.launches, T.bn_backward_sums.launches,
+                        T.dw2_db2.launches, T.dh1_kernel.launches)
+    before = counters()
     got_y, got = _port_run(layer, x, src, g, vm, km, 4, False)
     assert np.isfinite(got_y).all() and len(got) == 16
     w = _weights(layer)
@@ -380,17 +423,19 @@ def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     h1 = torch.zeros(b * n, 2 * d)
     vec4 = torch.zeros(4, 2 * d)
     vec6 = torch.zeros(6, 2 * d)
+    msg = torch.zeros(b * n, d)
+    rowmask = torch.from_numpy(vm.reshape(-1).astype(np.uint8))
+    assert all(torch.equal(a, c) for a, c in zip(
+        T.h1_stats(xt, msg, w[8], w[9], rowmask),
+        T.h1_stats_reference(xt, msg, w[8], w[9], rowmask)))
     assert torch.equal(T.bn_backward_sums(xt, h1, w[10], vec4),
                        T.bn_backward_sums_plain(xt, h1, w[10], vec4))
+    assert all(torch.equal(a, c) for a, c in zip(
+        T.dw2_db2(xt, h1, vec4), T.dw2_db2_reference(xt, h1, vec4)))
     assert torch.equal(T.dh1_kernel(xt, h1, w[10], vec6, None),
                        T.dh1_reference(xt, h1, w[10], vec6, None))
-    assert before == (T.fused_train_layer.forward_launches,
-                      T.fused_train_layer.backward_launches,
-                      T.h1_stats.launches, T.bn_backward_sums.launches,
-                      T.dh1_kernel.launches)
-    for call in (lambda: T.h1_stats(xt, torch.zeros(b * n, d), w[8], w[9], None),
-                 lambda: T.bn_relu_conv2(xt, h1, w[12], w[13], w[10], w[11]),
-                 lambda: T.dw2_db2(xt, h1, vec4),
+    assert before == counters()
+    for call in (lambda: T.bn_relu_conv2(xt, h1, w[12], w[13], w[10], w[11]),
                  lambda: T._tl_forward(xt, xt, None, None, 4, HEADS, *w)):
         with pytest.raises(ValueError, match="CUDA"):
             call()

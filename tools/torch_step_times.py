@@ -5,10 +5,11 @@ and plain path) and the default train step (64 pairs x 512 keypoints), each
 by CUDA events and under torch.profiler (device time, busy share), with the
 step's peak memory; the Sinkhorn forward alone (``log_optimal_transport_
 kernel``, 20 iterations, ragged masks) at 64 x 256 x 256, 64 x 512 x 512 and
-8 x 1024 x 1024, and its backward (autograd) at the last two; and the two
-dh2 launches of the train layer's BatchNorm backward (``bn_backward_sums``,
-``dh1_kernel``, f32, R = 32768, D = 128), device ms a launch of
-``tl_dh2_kernel`` from torch.profiler.
+8 x 1024 x 1024, and its backward (autograd) at the last two; and, at the
+train layer's shape (f32, R = 32768, D = 128), device ms a launch from
+torch.profiler of ``tl_h1_kernel`` (``h1_stats``), of ``tl_dh2_kernel`` in
+the BatchNorm backward's two launches (``bn_backward_sums``,
+``dh1_kernel``) and of ``tl_dw2_kernel`` (``dw2_db2``).
 
     python3 tools/torch_step_times.py [label]     # from the root of a checkout
 
@@ -72,8 +73,9 @@ def kernel_ms(fn, name, reps):
     return float("nan")
 
 
-def dh2_times(rng, dev):
-    """ms a launch of tl_dh2_kernel in bn_backward_sums and in dh1_kernel."""
+def train_layer_kernel_times(rng, dev):
+    """ms a launch of tl_h1_kernel, of tl_dh2_kernel in bn_backward_sums
+    and in dh1_kernel, and of tl_dw2_kernel."""
     import torch
     from mdgat_tpu_torch.ops.cuda import train_layer as T
     r, d = 64 * 512, 128
@@ -81,15 +83,19 @@ def dh2_times(rng, dev):
     def t(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
+    x, msg, w1, b1 = t(r, d), t(r, d), t(2 * d, 2 * d) * (2 * d) ** -0.5, t(2 * d)
     g, h1, w2 = t(r, d), t(r, 2 * d), t(2 * d, d) * d ** -0.5
     vec4 = torch.stack([t(2 * d) * 0.3, t(2 * d).abs() + 0.5,
                         t(2 * d).abs() + 0.5, t(2 * d) * 0.2])
     vec6 = torch.cat([vec4, t(2, 2 * d) * 0.1])
     rowmask = ragged_mask(rng, 64, 512, 400, dev).reshape(-1).to(torch.uint8)
-    return {"dh2_sums_ms": kernel_ms(lambda: T.bn_backward_sums(g, h1, w2, vec4),
+    return {"h1_ms": kernel_ms(lambda: T.h1_stats(x, msg, w1, b1, rowmask),
+                               "tl_h1_kernel", 10),
+            "dh2_sums_ms": kernel_ms(lambda: T.bn_backward_sums(g, h1, w2, vec4),
                                      "tl_dh2_kernel", 10),
             "dh2_dh1_ms": kernel_ms(lambda: T.dh1_kernel(g, h1, w2, vec6, rowmask),
-                                    "tl_dh2_kernel", 10)}
+                                    "tl_dh2_kernel", 10),
+            "dw2_ms": kernel_ms(lambda: T.dw2_db2(g, h1, vec4), "tl_dw2_kernel", 10)}
 
 
 def main() -> int:
@@ -171,7 +177,7 @@ def main() -> int:
             for _ in range(2))
         del scores, sc, ot, cot
         torch.cuda.empty_cache()
-    out.update(dh2_times(rng, dev))
+    out.update(train_layer_kernel_times(rng, dev))
     print(json.dumps(out))
     return 0
 
