@@ -71,14 +71,22 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    an odd row count with and without row mask, D = 32 / 96 and unaligned
    operands (the general forms), bit-equal from run to run, each timed by
    the profiler beside its previous design's time, its bound and its
-   library call for the product, every ``csrc/train_layer.cu`` kernel's ms
-   a launch at the train shape, f32 and bfloat16 I/O, beside its bound and
-   the library call for its product, and the gap-loss margin kernels
-   (64x512x512, 8x1024x1024 and 3x200x231, ragged row and column masks and none, dustbin anchors, a
-   cloud without a valid point: S0 / S1 and, at random cotangents, dd /
-   dbin_row / dbin_col against the formula twins, the [B] loss and its
-   gradients against ``ops/losses.gap_loss`` under autograd, bit-equal from
-   run to run; their times and bounds);
+   library call for the product, the second conv (``tl_fwd2_kernel``
+   through ``bn_relu_conv2``) against ``bn_relu_conv2_reference`` at R =
+   32768 (f32 and bfloat16), an odd row count, D = 32 / 96 and unaligned
+   operands (the general form), bit-equal from run to run, every
+   ``csrc/train_layer.cu`` kernel's ms a launch at the train shape, f32 and
+   bfloat16 I/O, beside its bound and the library call for its product
+   (``tl_fwd2_kernel`` also beside its previous design's time), and the
+   gap-loss margin kernels (64x512x512, 8x1024x1024, 3x200x231, 2x1024x1024
+   and pairs of one row or one column, ragged row and column masks and
+   none, dustbin anchors, a cloud without a valid point: S0 / S1, the
+   forward's counts exactly and, at random cotangents, dd / dbin_row /
+   dbin_col against the formula twins, the [B] loss and its gradients
+   against ``ops/losses.gap_loss`` under autograd, bit-equal from run to
+   run; the forward one kernel a call; their times and bounds, the forward
+   beside its previous design's time and under each cluster size beside
+   the clusters the card holds at once);
 7. the training path: ``create_train_state`` with seeded weights and three
    steps of ``make_train_step`` on a synthetic batch of 64 pairs at 512
    keypoints, three arms, each with the launch counters zeroed just before
@@ -1862,13 +1870,76 @@ def check_h1_dw2(rng, dev, report, card):
                              before_ms=H1_DW2_BEFORE_MS)
 
 
+def fwd2_operands(rng, dev, b, n, d, dt):
+    """x, h1 in ``dt`` and the f32 a, c, w2, b2 of ``bn_relu_conv2`` at R =
+    b * n rows: h1 and the affine from ``dh2_operands`` (no BatchNorm output
+    within 1e-3 of zero, where the ReLU is a coin toss between the kernel's
+    fmaf and the twin's two roundings)."""
+    import torch
+    r, c = b * n, 2 * d
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    _, h1, _, vec4, _, _ = dh2_operands(rng, dev, b, n, d, dt)
+    a = vec4[2] * vec4[1]
+    return (t(b, n, d).to(dt), h1, a, vec4[3] - vec4[0] * a, t(c, d) * c ** -0.5,
+            t(d) * 0.1)
+
+
+def check_fwd2(rng, dev, report):
+    """``tl_fwd2_kernel`` (``bn_relu_conv2``) against its plain twin
+    ``bn_relu_conv2_reference`` at the train shape (R = 32768, D = 128) in
+    f32 and bfloat16, at an odd row count, at D = 32 / 96 and with unaligned
+    operands (the general form ``tl_fwd2_tiled_kernel``), each bit-equal
+    over two runs. Its times are ``train_layer_kernel_rows``'."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import train_layer as T
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # b, n, d, dtype, unaligned
+        (64, 512, 128, f32, False), (3, 333, 128, f32, False),
+        (2, 100, 32, f32, False), (2, 70, 96, f32, False),
+        (3, 333, 128, f32, True), (64, 512, 128, bf16, False),
+        (3, 333, 128, bf16, False)]
+    worst = 0.0
+    for b, n, d, dt, unaligned in cases:
+        x, h1, a, c, w2, b2 = fwd2_operands(rng, dev, b, n, d, dt)
+        if unaligned:
+            x, h1 = off_by_one(x), off_by_one(h1)
+        y, again = (T.bn_relu_conv2(x, h1, a, c, w2, b2) for _ in range(2))
+        ref = T.bn_relu_conv2_reference(x, h1, a, c, w2, b2)
+        torch.cuda.synchronize()
+        name = (f"tl_fwd2 {b}x{n} D={d} {str(dt).split('.')[-1]}"
+                f"{' unaligned' if unaligned else ''}")
+        require(torch.equal(y, again), f"{name}: differs from run to run")
+        require(y.shape == x.shape and y.dtype == dt, f"{name}: shape or dtype")
+        err = _rel_err(y.float(), ref.float())
+        # bf16: y is rounded to bf16 once on each side from f32 sums in
+        # other orders (train_layer_out_bf16)
+        tol = TOL["train_layer_out_bf16" if dt == bf16 else "train_layer_out"]
+        print(f"{name}: y max rel err {err:.3e} (tol {tol:g}); bit-equal over "
+              f"two runs")
+        require(err <= tol, f"{name} disagrees")
+        if (b, n, d, dt) == (64, 512, 128, f32):
+            worst = err
+    report["tl_fwd2"]["max_abs_err"] = worst
+
+
+# the previous design's ms a launch of tl_fwd2_kernel at R = 32768, D = 128
+# (64x64 tiles of 4x4 a thread; profiler, this script on one H100 80GB HBM3
+# at 700 W), f32 and bfloat16 I/O
+FWD2_BEFORE_MS = {"float32": 0.1025, "bfloat16": 0.0918}
+
+
 def train_layer_kernel_rows(rng, dev, report, card):
     """Each kernel of ``csrc/train_layer.cu`` alone at the train shape (R =
     32768, D = 128), with f32 and with bfloat16 I/O (x, h1, g, y; msg, the
     weights and every internal f32): device ms a launch from torch.profiler,
     its bound (operands in once, results out once; f32 FMA), and at f32 the
     one PyTorch call for its product in a CUDA graph (the product only: none
-    forms the epilogues; none computes the bf16-I/O function)."""
+    forms the epilogues; none computes the bf16-I/O function);
+    ``tl_fwd2_kernel`` beside its previous design's time and, in f32, its
+    twin's."""
     import torch
     from mdgat_tpu_torch.ops.cuda import train_layer as T
     b, n, d = 64, 512, 128
@@ -1911,10 +1982,20 @@ def train_layer_kernel_rows(rng, dev, report, card):
             bms, by = bound(nbytes, flops)
             lib_text = (f"library call in a graph {lib:.4f} (the product only)"
                         if lib is not None else "no library call")
+            before = ""
+            if name == "tl_fwd2_kernel":
+                was = FWD2_BEFORE_MS[label]
+                before = f" (before {was:.4f}, {was / k_ms:.2f}x)"
             print(f"{name} on {card}, {b}x{n} D={d} {label} I/O: {k_ms:.4f} ms "
-                  f"a launch (profiler); bound {bms:.4f} ({by}); {lib_text}")
+                  f"a launch (profiler){before}; bound {bms:.4f} ({by}); {lib_text}")
             out[f"{name} {label}"] = dict(ms=k_ms, bound_ms=bms, bound_by=by,
                                           library_ms=lib)
+            if name == "tl_fwd2_kernel" and dt == torch.float32:
+                plain = cuda_ms(lambda: T.bn_relu_conv2_reference(x, h1, a, cc,
+                                                                  w2, b2))
+                print(f"tl_fwd2_kernel twin bn_relu_conv2_reference: {plain:.4f} ms")
+                report["tl_fwd2"].update(ms=k_ms, plain_ms=plain, bound_ms=bms,
+                                         bound_by=by, library_ms=lib)
         del h1, u, xm
     report["_train_layer_kernels"] = out
 
@@ -1939,10 +2020,42 @@ def gap_case(rng, dev, b, n, m):
     return t(b, n, m), t(b, m), t(b, n), gt0, gt1, rm, cm, t(b, n), t(b, m)
 
 
+# the previous design's times of the gap-loss forward (gap_fwd_kernel and
+# gap_fwd_reduce_kernel: two launches and a partials scratch), in a CUDA
+# graph, this script on one H100 80GB HBM3 at 700 W
+GAP_FWD_BEFORE_MS = {"64x512x512": 0.1141, "8x1024x1024": 0.0614}
+GAP_CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def device_launches(fn, reps: int):
+    """{kernel name: launches} on the device over ``reps`` calls of ``fn``
+    under torch.profiler (after one call outside the window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):               # a window may come back without events
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        if seen:
+            break
+    return seen
+
+
 def check_gap_loss(rng, dev, report, card):
-    """Kernels #11 and #12 against their formula twins on the card and
-    against ``ops/losses.gap_loss`` under autograd; two runs bit-equal;
-    times with their bounds at the training shape and the wide shape."""
+    """Kernels #11 and #12 against their formula twins on the card (S0 / S1,
+    the forward's counts exactly, dd / dbin_row / dbin_col) and against
+    ``ops/losses.gap_loss`` under autograd, at the training shape, the wide
+    shapes (8 and 2 pairs of 1024 x 1024), an odd one and pairs of one row
+    or one column, where the forward's cluster plan changes; two runs
+    bit-equal; the forward one launch a call; times with their bounds at
+    the training shape and 8 x 1024 x 1024, the forward under its plan and
+    each cluster size beside the clusters the card holds at once."""
     import torch
     from mdgat_tpu_torch.ops import losses as L
     from mdgat_tpu_torch.ops.cuda import gap_loss as G
@@ -1951,7 +2064,8 @@ def check_gap_loss(rng, dev, report, card):
     gamma = 0.5
     worst_f = worst_b = 0.0
     times = {}
-    for b, n, m in ((64, 512, 512), (8, 1024, 1024), (3, 200, 231)):
+    for b, n, m in ((64, 512, 512), (8, 1024, 1024), (3, 200, 231),
+                    (2, 1024, 1024), (4, 1, 1), (3, 1, 300), (3, 300, 1)):
         dense, br, bc, gt0, gt1, rm, cm, ds0, ds1 = gap_case(rng, dev, b, n, m)
         name = f"gap_loss {b}x{n}x{m}"
         for masks in ((rm, cm), (None, None)):
@@ -1964,8 +2078,10 @@ def check_gap_loss(rng, dev, report, card):
 
             (s0, s1), grads = run()
             (s0b, s1b), grads2 = run()
+            counts = G._margins_forward(*args)[2:]
             with torch.no_grad():
                 r0, r1 = G.fused_gap_margins_reference(*args)
+                counts_ref = G.fused_gap_counts_reference(*args)
                 grads_ref = G.fused_gap_margins_backward_reference(*args, ds0, ds1)
             torch.cuda.synchronize()
             require(torch.equal(s0, s0b) and torch.equal(s1, s1b)
@@ -1978,13 +2094,16 @@ def check_gap_loss(rng, dev, report, card):
             f_err = max(((a - r).abs() / r.abs().clamp_min(1.0)).max().item()
                         for a, r in ((s0, r0), (s1, r1)))
             b_err = max(_rel_err(a, r) for a, r in zip(grads, grads_ref))
+            counts_equal = all(torch.equal(a, c) for a, c in zip(counts, counts_ref))
             tag = "masked" if masks[0] is not None else "unmasked"
-            print(f"{name} {tag}: S0/S1 max rel err {f_err:.3e} (tol "
-                  f"{TOL['gap_margins']:g}), dd/dbin_row/dbin_col at random "
-                  f"cotangents max rel err {b_err:.3e} (tol "
+            print(f"{name} {tag} (forward plan {G.gap_plan(b, n, m)}): S0/S1 max "
+                  f"rel err {f_err:.3e} (tol {TOL['gap_margins']:g}), counts "
+                  f"equal to the twin's {counts_equal}, dd/dbin_row/dbin_col at "
+                  f"random cotangents max rel err {b_err:.3e} (tol "
                   f"{TOL['gap_cotangent']:g}); forward and backward bit-equal "
                   f"over two runs")
             require(f_err <= TOL["gap_margins"], f"{name} {tag}: forward disagrees")
+            require(counts_equal, f"{name} {tag}: the forward's counts disagree")
             require(b_err <= TOL["gap_cotangent"], f"{name} {tag}: backward disagrees")
             if b == 64:
                 worst_f, worst_b = max(worst_f, f_err), max(worst_b, b_err)
@@ -2008,14 +2127,22 @@ def check_gap_loss(rng, dev, report, card):
         require(l_err <= TOL["gap_loss"] and g_err <= TOL["gap_loss_grad"],
                 f"{name}: disagrees with gap_loss under autograd")
 
-        if b == 3:
+        if (b, n) not in ((64, 512), (8, 1024)):
             continue
-        # times: the forward launches and the backward launch, and their
+        args = (dense, br, bc, gt0, gt1, rm, cm, gamma)
+        # the forward is one launch a call: the one kernel the device runs
+        # is gap_fwd_kernel, at most once a call (the profiler may miss an
+        # event at the start of its window)
+        seen = device_launches(lambda: G._margins_forward(*args), reps=5)
+        require(0 < sum(seen.values()) <= 5
+                and all("gap_fwd_kernel" in k for k in seen),
+                f"{name}: the forward's device launches over five calls: {seen}")
+        print(f"{name}: the forward's device kernels over five calls {seen}")
+        # times: the forward launch and the backward launch, and their
         # twins, each captured in a CUDA graph (a call lasts about 0.1 ms: in
         # a host loop, and more so under autograd's own host work, the card
         # would idle between launches); the plain loss under autograd beside
         # them, by events
-        args = (dense, br, bc, gt0, gt1, rm, cm, gamma)
         cnt = G._margins_forward(*args)[2:]
         lv = [t.clone().requires_grad_() for t in (dense, br, bc)]
         ot = OTScores(*lv, torch.zeros(b, device=dev))
@@ -2027,6 +2154,8 @@ def check_gap_loss(rng, dev, report, card):
             bwd = (graph_ms(lambda: G._margins_backward(*args, *cnt, ds0, ds1)),
                    graph_ms(lambda: G.fused_gap_margins_backward_reference(
                        *args, ds0, ds1)))
+            sweep = {g: (graph_ms(lambda: G._margins_forward(*args, cluster=g)),
+                         G.active_clusters(m, g)) for g in GAP_CLUSTERS}
         auto_f = cuda_ms(lambda: L.gap_loss(ot, gt0l, gt1l, gamma, rm, cm), 10)
         auto_b = cuda_ms(lambda: torch.autograd.grad(plain_loss, lv,
                                                      retain_graph=True), 10)
@@ -2039,16 +2168,23 @@ def check_gap_loss(rng, dev, report, card):
         bounds = (bound(slab + vec_in + vec, 8.0 * b * n * m),
                   bound(2 * slab + vec_in + 2 * vec, 8.0 * b * n * m))
         shape = f"{b}x{n}x{m}"
+        was = GAP_FWD_BEFORE_MS[shape]
         times[f"gap_loss_fwd_{shape}"] = fwd
         times[f"gap_loss_bwd_{shape}"] = bwd
         print(f"gap-loss times on {card}, {shape} (ms, CUDA graphs): forward "
-              f"kernel {fwd[0]:.4f} / twin {fwd[1]:.4f} / bound {bounds[0][0]:.4f} "
-              f"({bounds[0][1]}); backward kernel {bwd[0]:.4f} / twin "
-              f"{bwd[1]:.4f} / bound {bounds[1][0]:.4f} ({bounds[1][1]}); "
-              f"ops/losses.gap_loss under autograd forward {auto_f:.4f}, "
-              f"backward {auto_b:.4f}")
+              f"kernel {fwd[0]:.4f} (plan {G.gap_plan(b, n, m)}; before "
+              f"{was:.4f}, {was / fwd[0]:.2f}x) / twin {fwd[1]:.4f} / bound "
+              f"{bounds[0][0]:.4f} ({bounds[0][1]}); backward kernel "
+              f"{bwd[0]:.4f} / twin {bwd[1]:.4f} / bound {bounds[1][0]:.4f} "
+              f"({bounds[1][1]}); ops/losses.gap_loss under autograd forward "
+              f"{auto_f:.4f}, backward {auto_b:.4f}")
+        print(f"gap-loss forward sweep on {card}, {shape}: "
+              + ", ".join(f"G={g} {ms:.4f} ms ({act} clusters at once)"
+                          for g, (ms, act) in sweep.items()))
         report.setdefault("_gap_loss", {})[shape] = dict(
             fwd_ms=fwd[0], fwd_twin_ms=fwd[1], fwd_bound_ms=bounds[0][0],
+            fwd_before_ms=was, fwd_plan=list(G.gap_plan(b, n, m)),
+            fwd_sweep={str(g): list(v) for g, v in sweep.items()},
             bwd_ms=bwd[0], bwd_twin_ms=bwd[1], bwd_bound_ms=bounds[1][0],
             gap_loss_autograd_fwd_ms=auto_f, gap_loss_autograd_bwd_ms=auto_b)
         if b == 64:
@@ -2148,6 +2284,7 @@ def training(dev, report, counters):
     for name in ("mha_bwd_rows", "mha_bwd_keys"):
         report[name]["launches"] = launches["mha_bwd"]
     report["tl_h1"]["launches"] = launches["train_layer_fwd1"]
+    report["tl_fwd2"]["launches"] = launches["train_layer_fwd2"]
     report["tl_dw2"]["launches"] = launches["train_layer_bwd1_dw2"]
     report["tl_dh2_sums"]["launches"] = launches["train_layer_bwd1"]
     report["tl_dh2_dh1"]["launches"] = launches["train_layer_bwd2"]
@@ -2711,6 +2848,9 @@ def main() -> int:
                       replaces="mdgat_tpu/ops/pallas/attention.py:1329"),
         "tl_dw2": dict(route="cuda", source=tl_src,
                        replaces="mdgat_tpu/ops/pallas/attention.py:1425"),
+        # the BN affine + ReLU + second conv + residual of _tl_fwd2_kernel
+        "tl_fwd2": dict(route="cuda", source=tl_src,
+                        replaces="mdgat_tpu/ops/pallas/attention.py:1410"),
         # the dh2 product of _tl_bwd1_kernel and of _tl_bwd2_kernel
         "tl_dh2_sums": dict(route="cuda", source=tl_src,
                             replaces="mdgat_tpu/ops/pallas/attention.py:1462"),
@@ -2764,6 +2904,7 @@ def main() -> int:
     check_train_layer(rng, dev, report)
     check_dh2(rng, dev, report, card)
     check_h1_dw2(rng, dev, report, card)
+    check_fwd2(rng, dev, report)
     train_layer_kernel_rows(rng, dev, report, card)
     check_gap_loss(rng, dev, report, card)
     gc.collect()                     # the earlier phases' garbage, before

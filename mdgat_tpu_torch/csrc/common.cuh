@@ -82,13 +82,24 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+__device__ __forceinline__ uint2 float4_to_bf16x4(float4 v) {
   const __nv_bfloat162 lo = __halves2bfloat162(__float2bfloat16(v.x), __float2bfloat16(v.y));
   const __nv_bfloat162 hi = __halves2bfloat162(__float2bfloat16(v.z), __float2bfloat16(v.w));
   uint2 raw;
   raw.x = *reinterpret_cast<const unsigned*>(&lo);
   raw.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
+  return raw;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = float4_to_bf16x4(v);
+}
+// The same to global memory, always as one vector store: through a pointer
+// held in a struct, a plain store4 compiles to four scalar stores
+__device__ __forceinline__ void store4_global(float* p, float4 v) {
+  __stwb(reinterpret_cast<float4*>(p), v);
+}
+__device__ __forceinline__ void store4_global(__nv_bfloat16* p, float4 v) {
+  __stwb(reinterpret_cast<uint2*>(p), float4_to_bf16x4(v));
 }
 
 // cp.async: a 16-byte copy from global to shared memory that passes through

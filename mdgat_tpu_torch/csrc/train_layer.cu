@@ -12,7 +12,7 @@
 //   accumulator before h1 is rounded to its storage type, the per-channel
 //   sum and sum of squares over the rows the row mask marks.
 // * _tl_fwd2_kernel: mdgat_tl_fwd2, y = x + relu(h1 * a + c) @ w2 + b2, the
-//   BatchNorm affine and the ReLU applied while the A tile is loaded.
+//   BatchNorm affine and the ReLU applied once to each staged value of h1.
 // * _tl_bwd1_kernel: mdgat_tl_bwd_sums forms dh2 = g @ w2^T tile by tile,
 //   rebuilds hhat, the BN output and the ReLU mask from h1 in registers and
 //   emits the column sums Sg, Sgh, dscale, dbias over ALL rows, padded ones
@@ -37,13 +37,16 @@
 //
 // x, h1, g and y are f32 or bf16 (one type per call); msg, dh1, the vectors
 // and every sum are f32. What bounds every kernel here on the H100 is the
-// f32 FMA pipe, as shared memory feeds it: the redesigned ones (tl_h1,
-// tl_dh2, tl_dw2) give a thread an 8 x 8 register tile read as 16-byte
-// vectors (16 FMAs a shared load) under a cp.async ring, one block an SM;
-// tl_fwd2_kernel and the general forms still run the 64x64 tile of 4x4 a
-// thread (tile_product: 2 FMAs a shared load, synchronous staging). h1
-// ([B*N, 2D], 33.5 MB in f32 at 64 x 512 x 256) and dh1 round-trip through
-// HBM between launches.
+// f32 FMA pipe, as shared memory feeds it: each gives a thread an 8 x 8
+// register tile read as 16-byte vectors (16 FMAs a shared load) under a
+// cp.async ring, one block an SM (tl_h1 and tl_fwd2 share that product,
+// resident_product, with W resident; tl_dw2 shares gemm_tn_kernel's); only
+// the general forms for other widths and unaligned operands still run the
+// 64x64 tile of 4x4 a thread (tile_product: 2 FMAs a shared load,
+// synchronous staging). h1 ([B*N, 2D], 33.5 MB in f32 at 64 x 512 x 256)
+// and dh1 round-trip through HBM between launches.
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "tn_product.cuh"
@@ -170,162 +173,176 @@ struct BnRebuild {
       : BnRebuild(h, vec[col], vec[C + col], vec[2 * C + col], vec[3 * C + col]) {}
 };
 
-// ---- tl_h1_kernel: h1 = cat(x, msg) @ w1 + b1 and its masked column sums ----
+// ---- the resident product of tl_h1_kernel and tl_fwd2_kernel ----
 //
-// h1 [R, 2D] is stored as T; partial [blocks][2][2D] gets each row block's
-// column sums of h1 * m and h1^2 * m (m the row mask), taken from the f32
-// value before that rounding.
-//
-// Design. At D = 128, w1 [2D, 2D] is 256 KB, more than an SM holds, so the
-// 2D = 256 columns are split over two blocks (blockIdx.x), and each keeps
-// its half of w1, [2D][128] f32 (128 KB), in shared memory for the launch,
-// as it lies in HBM (row k, columns col0..). The row plan
-// (ops/cuda/train_layer.py::h1_plan) gives row block y (blockIdx.y) the
-// rows [y * rows_per_block, (y + 1) * rows_per_block), a whole number of
-// 128-row tiles, with at most one block an SM. The rows of x and msg come
-// through a four-stage cp.async ring of 32 k (16-byte copies; a bf16 x
-// through registers, converted), one ring over every stage of every tile of
-// the block, so the next tile's first stages are in flight under a tile's
-// epilogue.
+// A persistent block multiplies the 128-row tiles of its rows of A [R, 2D]
+// by 128 columns of W (row k at w + k * ldw + col0), which it keeps in
+// shared memory for the launch, [2D][128] f32 (128 KB at D = 128), as they
+// lie in HBM. The row plan (ops/cuda/train_layer.py::h1_plan, fwd2_plan)
+// gives row block y (blockIdx.y) the rows [y * rows_per_block, (y + 1) *
+// rows_per_block), a whole number of 128-row tiles, at most one block an
+// SM. The rows of A come through a four-stage cp.async ring of 32 k
+// (16-byte copies; a bf16 operand, or one with a prologue, through
+// registers: loaded before the product of the stage three behind it and
+// converted into the ring after that product, so that its latency hides
+// under the product, since cp.async cannot convert), one ring over every
+// stage of every tile of the block, so the next tile's first stages are in
+// flight under a tile's epilogue.
 // A thread owns an 8 x 8 register tile (rows wm*32 + i*4 + tm, columns wn*64
 // + tn*4.. and wn*64 + 32 + tn*4..) and per four k reads eight 16-byte
 // vectors of A along k (four rows a warp, on disjoint banks at a row stride
-// of 36 floats) and eight of w1 along the columns (one 128-byte run a warp)
-// for 256 FMAs: gemm_kernel's plain-W mode with w1 resident. Every h1
-// element is one fmaf chain over k ascending from 0, b1 added after it. The
-// epilogue stores h1 (16-byte vectors in f32) and adds the f32 value and its
-// square, times the row mask, in registers over all of the block's rows; at
-// the end the 16 sums of a column close in a fixed order (the four tm by
-// shuffles, then the four warp rows through shared memory).
-// What bounds it on the H100: the f32 FMA pipe (R = 32768, D = 128: 4.29
-// GFLOP, 0.064 ms at 67 TFLOP/s, against 0.020 ms for x, msg in and h1 out).
-// Other widths and unaligned operands run tl_h1_tiled_kernel (64 x 64 tiles
-// of tile_product, w1 read from L2 a tile at a time) under the same plan.
-constexpr int kH1Rows = 128;      // rows of a tile
-constexpr int kH1Cols = 128;      // columns of a block: half of 2D at D = 128
-constexpr int kH1Depth = 32;      // k of one stage of the ring
-constexpr int kH1Stages = 4;
-constexpr int kH1Threads = 256;   // 4 x 2 warps of 32 rows x 64 columns
-constexpr int kH1Width = 128;     // D of the resident form
-constexpr int kH1Ld = kH1Depth + 4;   // row stride of a stage, floats
-// floats of shared memory: w1's half [2D][128], the ring [4][128][36] (200 KB)
-constexpr size_t kH1Smem =
-    sizeof(float) * (2 * kH1Width * kH1Cols + kH1Stages * kH1Rows * kH1Ld);
+// of 36 floats) and eight of W along the columns (one 128-byte run a warp)
+// for 256 FMAs: gemm_kernel's plain-W mode with W resident. Every output is
+// one fmaf chain over k ascending from 0.
+//
+// The tile policy (H1Tile, Fwd2Tile) says where A comes from (k below
+// kSplit from the io-typed operand ta, row stride kTa; the rest from the f32
+// operand fa, row stride kFa), the prologue applied once to each staged
+// value of A (a tile with a prologue stages every value through registers,
+// an f32 one too, and applies it on the way into the ring), what a tile
+// fetches before its last stage, the tile's epilogue, and what closes the
+// launch.
+constexpr int kResRows = 128;      // rows of a tile
+constexpr int kResCols = 128;      // columns of W a block keeps
+constexpr int kResDepth = 32;      // k of one stage of the ring
+constexpr int kResStages = 4;
+constexpr int kResThreads = 256;   // 4 x 2 warps of 32 rows x 64 columns
+constexpr int kResWidth = 128;     // D of the resident form
+constexpr int kResLd = kResDepth + 4;   // row stride of a stage, floats
+// floats of shared memory: W's columns [2D][128], the ring [4][128][36]
+// (200 KB); fwd2 adds a and c [2][2D]
+constexpr size_t kResSmem =
+    sizeof(float) * (2 * kResWidth * kResCols + kResStages * kResRows * kResLd);
+constexpr size_t kFwd2Smem = kResSmem + sizeof(float) * 2 * 2 * kResWidth;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kH1Threads, 1)
-tl_h1_kernel(const T* __restrict__ x, const float* __restrict__ msg,
-             const float* __restrict__ w1, const float* __restrict__ b1,
-             const uint8_t* __restrict__ rowmask, T* __restrict__ h1,
-             float* __restrict__ partial, int R, int rows_per_block) {
-  constexpr int K = 2 * D, C = 2 * D;
-  constexpr int kSteps = K / kH1Depth;          // stages a tile
-  constexpr int kQ = kH1Depth / 4;              // 16-byte chunks of a stage row
-  constexpr int kWQ = kH1Cols / 4;              // 16-byte chunks of a w1 row
-  static_assert(D % kH1Depth == 0 && C == 2 * kH1Cols, "the resident form's width");
-  extern __shared__ __align__(16) float smem[];
-  float* Ws = smem;                             // [K][128]
-  float* ring = Ws + K * kH1Cols;               // [kH1Stages][128][kH1Ld]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tm = lane >> 3, tn = lane & 7, wm = warp >> 1, wn = warp & 1;
-  const int col0 = blockIdx.x * kH1Cols;
-  const int r_begin = blockIdx.y * rows_per_block;
-  const int r_end = min(R, r_begin + rows_per_block);
-  const int total = (r_end - r_begin + kH1Rows - 1) / kH1Rows * kSteps;
-
-  // w1's half lands with the first stage's group
-  for (int e = tid; e < K * kWQ; e += kH1Threads) {
-    const int k = e / kWQ, c = (e - k * kWQ) * 4;
-    cp_async16(Ws + k * kH1Cols + c, w1 + static_cast<size_t>(k) * C + col0 + c);
+// a thread's place in the 8 x 8 tiling of a 128 x 128 tile
+struct ResLane {
+  int tm, tn, wm, wn;
+  __device__ __forceinline__ ResLane() {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    tm = lane >> 3, tn = lane & 7, wm = warp >> 1, wn = warp & 1;
   }
+  __device__ __forceinline__ int row(int i) const { return wm * 32 + i * 4 + tm; }
+  __device__ __forceinline__ int col(int j) const {   // j < 8
+    return wn * 64 + (j >> 2) * 32 + tn * 4 + (j & 3);
+  }
+  // the first of the four columns j = half * 4 ..
+  __device__ __forceinline__ int col4(int half) const { return wn * 64 + half * 32 + tn * 4; }
+};
+
+__device__ __forceinline__ float4 as_float4(float4 v) { return v; }
+__device__ __forceinline__ float4 as_float4(uint2 raw) { return bf16x4_to_float4(raw); }
+
+template <typename T, int D, class Tile>
+__device__ __forceinline__ void resident_product(Tile& tile, const float* __restrict__ w,
+                                                 int ldw, int col0, int r_begin,
+                                                 int r_end, float* smem) {
+  constexpr int K = 2 * D;
+  constexpr int kSteps = K / kResDepth;               // stages a tile
+  constexpr int kQ = kResDepth / 4;                   // 16-byte chunks of a stage row
+  constexpr int kWQ = kResCols / 4;                   // 16-byte chunks of a W row
+  constexpr int kPer = kResRows * kQ / kResThreads;   // chunks a thread copies
+  constexpr bool kStaged = sizeof(T) != sizeof(float) || Tile::kPrologue;
+  using Raw = std::conditional_t<sizeof(T) == sizeof(float), float4, uint2>;
+  static_assert(D % kResDepth == 0 && Tile::kSplit % kResDepth == 0 &&
+                Tile::kSplit <= K, "the resident form's width");
+  float* Ws = smem;                                   // [K][128]
+  float* ring = Ws + K * kResCols;                    // [kResStages][128][kResLd]
+  const int tid = threadIdx.x;
+  const ResLane t;
+  const int total = (r_end - r_begin + kResRows - 1) / kResRows * kSteps;
+
+  // W's columns land with the first stage's group
+  for (int e = tid; e < K * kWQ; e += kResThreads) {
+    const int k = e / kWQ, c = (e - k * kWQ) * 4;
+    cp_async16(Ws + k * kResCols + c, w + static_cast<size_t>(k) * ldw + col0 + c);
+  }
+  tile.setup(ring + kResStages * kResRows * kResLd, t);
+  __syncthreads();                                    // what setup staged
+
   // stage s: tile s / kSteps, k of (s % kSteps) * 32 ..; a thread copies
-  // the chunk kq of rows tid / kQ + 32 e. A bf16 x stage goes through
-  // registers: loaded before the product of the stage three behind it and
-  // converted into the ring after that product, so that its latency hides
-  // under the product (cp.async cannot convert).
-  constexpr bool kStaged = sizeof(T) != sizeof(float);
-  constexpr int kPer = kH1Rows * kQ / kH1Threads;   // chunks a thread copies
+  // the chunk kq of the rows row_of(e)
   const int kq = (tid % kQ) * 4;
-  auto x_stage = [&](int s) { return (s % kSteps) * kH1Depth < D; };
-  uint2 x_raw[kPer];
-  auto fetch_x = [&](int s) {
-    const int row0 = r_begin + (s / kSteps) * kH1Rows;
-    const int kc = (s % kSteps) * kH1Depth + kq;
+  auto slot = [&](int s) { return ring + (s % kResStages) * kResRows * kResLd + kq; };
+  auto row_of = [&](int e) { return tid / kQ + e * (kResThreads / kQ); };
+  auto kc_of = [&](int s) { return (s % kSteps) * kResDepth + kq; };
+  auto first_row = [&](int s) { return r_begin + (s / kSteps) * kResRows; };
+  auto from_t = [&](int s) { return (s % kSteps) * kResDepth < Tile::kSplit; };
+  Raw raw[kPer];
+  auto fetch = [&](int s) {          // a stage into registers
+    const int row0 = first_row(s), kc = kc_of(s);
 #pragma unroll
     for (int e = 0; e < kPer; ++e) {
-      const int row = row0 + tid / kQ + e * (kH1Threads / kQ);
-      x_raw[e] = row < r_end
-                     ? *reinterpret_cast<const uint2*>(x + static_cast<size_t>(row) * D + kc)
-                     : make_uint2(0, 0);
+      const int row = row0 + row_of(e);
+      raw[e] = row < r_end ? *reinterpret_cast<const Raw*>(
+                                 tile.ta + static_cast<size_t>(row) * Tile::kTa + kc)
+                           : Raw{};
     }
   };
-  auto put_x = [&](int s) {
-    float* dst = ring + (s % kH1Stages) * kH1Rows * kH1Ld + kq;
+  auto put = [&](int s) {            // ... and from them into the ring
+    float* dst = slot(s);
+    const int kc = kc_of(s);
 #pragma unroll
     for (int e = 0; e < kPer; ++e)
-      store4(dst + (tid / kQ + e * (kH1Threads / kQ)) * kH1Ld, bf16x4_to_float4(x_raw[e]));
+      store4(dst + row_of(e) * kResLd, tile.prologue(as_float4(raw[e]), kc));
   };
   auto load_stage = [&](int s) {
-    if (kStaged && x_stage(s)) {
-      fetch_x(s);
-      put_x(s);
+    if (kStaged && from_t(s)) {
+      fetch(s);
+      put(s);
       return;
     }
-    float* dst = ring + (s % kH1Stages) * kH1Rows * kH1Ld + kq;
-    const int row0 = r_begin + (s / kSteps) * kH1Rows;
-    const int kc = (s % kSteps) * kH1Depth + kq;
+    float* dst = slot(s);
+    const int row0 = first_row(s), kc = kc_of(s);
 #pragma unroll
     for (int e = 0; e < kPer; ++e) {
-      const int rr = tid / kQ + e * (kH1Threads / kQ);
+      const int rr = row_of(e);
       const bool ok = row0 + rr < r_end;
-      const size_t at = static_cast<size_t>(ok ? row0 + rr : r_begin) * D;
-      if (kc < D)           // the same for every chunk of the stage
-        stage4(dst + rr * kH1Ld, x + at + kc, ok);
+      const size_t at = ok ? row0 + rr : r_begin;
+      if (kc < Tile::kSplit)         // the same for every chunk of the stage
+        stage4(dst + rr * kResLd, tile.ta + at * Tile::kTa + kc, ok);
       else
-        cp_async16(dst + rr * kH1Ld, msg + at + (kc - D), ok ? 16 : 0);
+        cp_async16(dst + rr * kResLd, tile.fa + at * Tile::kFa + (kc - Tile::kSplit),
+                   ok ? 16 : 0);
     }
   };
 
-  float bias[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) bias[j] = b1[col0 + wn * 64 + (j >> 2) * 32 + tn * 4 + (j & 3)];
-  float acc[8][8], s[2][8];
+  float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s[0][j] = s[1][j] = 0.f;
 
 #pragma unroll
-  for (int p = 0; p < kH1Stages - 1; ++p) {
+  for (int p = 0; p < kResStages - 1; ++p) {
     if (p < total) load_stage(p);
     cp_async_commit();
   }
   for (int st = 0; st < total; ++st) {
-    cp_async_wait<kH1Stages - 2>();   // stage st (and w1) have landed ...
-    __syncthreads();                  // ... for every thread; stage st-1 is read
-    const int next = st + kH1Stages - 1;
-    const bool staged = kStaged && next < total && x_stage(next);
+    cp_async_wait<kResStages - 2>();   // stage st (and W) have landed ...
+    __syncthreads();                   // ... for every thread; stage st-1 is read
+    const int next = st + kResStages - 1;
+    const bool staged = kStaged && next < total && from_t(next);
     if (staged)
-      fetch_x(next);
+      fetch(next);
     else if (next < total)
       load_stage(next);
     cp_async_commit();
     const int kt = st % kSteps;
-    const float* As = ring + (st % kH1Stages) * kH1Rows * kH1Ld + (wm * 32 + tm) * kH1Ld;
-    const float* Bs = Ws + kt * kH1Depth * kH1Cols + wn * 64 + tn * 4;
+    if (kt == kSteps - 1) tile.before_last(first_row(st), r_end, t);
+    const float* As = ring + (st % kResStages) * kResRows * kResLd + t.row(0) * kResLd;
+    const float* Bs = Ws + kt * kResDepth * kResCols + t.col4(0);
 #pragma unroll
-    for (int k4 = 0; k4 < kH1Depth; k4 += 4) {
+    for (int k4 = 0; k4 < kResDepth; k4 += 4) {
       float a[8][4];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         *reinterpret_cast<float4*>(a[i]) =
-            *reinterpret_cast<const float4*>(As + i * 4 * kH1Ld + k4);
+            *reinterpret_cast<const float4*>(As + i * 4 * kResLd + k4);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         float b[8];
-        const float* brow = Bs + (k4 + kk) * kH1Cols;
+        const float* brow = Bs + (k4 + kk) * kResCols;
         *reinterpret_cast<float4*>(b) = *reinterpret_cast<const float4*>(brow);
         *reinterpret_cast<float4*>(b + 4) = *reinterpret_cast<const float4*>(brow + 32);
 #pragma unroll
@@ -334,62 +351,134 @@ tl_h1_kernel(const T* __restrict__ x, const float* __restrict__ msg,
           for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
       }
     }
-    if (staged) put_x(next);          // the slot of stage st - 1, read
+    if (staged) put(next);             // the slot of stage st - 1, read
     if (kt != kSteps - 1) continue;
-    // the tile's epilogue: h1 out, the sums in registers, acc cleared
-    const int rt = r_begin + (st / kSteps) * kH1Rows + wm * 32 + tm;
+    tile.epilogue(acc, first_row(st), r_end, t);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = rt + i * 4;
-      if (row < r_end) {
-        const float m = (rowmask == nullptr || rowmask[row]) ? 1.f : 0.f;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float v[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int j = half * 4 + e;
-            v[e] = acc[i][j] + bias[j];
-            const float hm = v[e] * m;
-            s[0][j] += hm;
-            s[1][j] += hm * v[e];
-          }
-          store4(h1 + static_cast<size_t>(row) * C + col0 + wn * 64 + half * 32 + tn * 4,
-                 make_float4(v[0], v[1], v[2], v[3]));
-        }
-      }
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  tile.finish(ring, t);
+}
+
+// ---- tl_h1_kernel: h1 = cat(x, msg) @ w1 + b1 and its masked column sums ----
+//
+// h1 [R, 2D] is stored as T; partial [blocks][2][2D] gets each row block's
+// column sums of h1 * m and h1^2 * m (m the row mask), taken from the f32
+// value before that rounding.
+//
+// Design: the resident product over A = cat(x, msg). At D = 128, w1 [2D,
+// 2D] is 256 KB, more than an SM holds, so the 2D = 256 columns are split
+// over two blocks (blockIdx.x), each keeping its half. b1 is added after
+// the chain. The epilogue stores h1 (16-byte vectors in f32) and adds the
+// f32 value and its square, times the row mask, in registers over all of
+// the block's rows; at the end the 16 sums of a column close in a fixed
+// order (the four tm by shuffles, then the four warp rows through shared
+// memory).
+// What bounds it on the H100: the f32 FMA pipe (R = 32768, D = 128: 4.29
+// GFLOP, 0.064 ms at 67 TFLOP/s, against 0.020 ms for x, msg in and h1 out).
+// Other widths and unaligned operands run tl_h1_tiled_kernel (64 x 64 tiles
+// of tile_product, w1 read from L2 a tile at a time) under the same plan.
+template <typename T, int D>
+struct H1Tile {
+  static constexpr int kSplit = D, kTa = D, kFa = D;   // x, then msg
+  static constexpr bool kPrologue = false;
+  const T* ta;
+  const float* fa;
+  const float* b1;
+  const uint8_t* rowmask;
+  T* h1;
+  float* partial;
+  int col0;
+  float bias[8], s[2][8];
+  __device__ __forceinline__ H1Tile(const T* x, const float* msg, const float* b1_,
+                                    const uint8_t* rowmask_, T* h1_, float* partial_,
+                                    int col0_)
+      : ta(x), fa(msg), b1(b1_), rowmask(rowmask_), h1(h1_), partial(partial_),
+        col0(col0_) {}
+  __device__ __forceinline__ void setup(float*, const ResLane& t) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      bias[j] = b1[col0 + t.col(j)];
+      s[0][j] = s[1][j] = 0.f;
     }
   }
-
+  __device__ __forceinline__ float4 prologue(float4 v, int) const { return v; }
+  __device__ __forceinline__ void before_last(int, int, const ResLane&) {}
+  // h1 out, the sums in registers
+  __device__ __forceinline__ void epilogue(const float (&acc)[8][8], int row0, int r_end,
+                                           const ResLane& t) {
+    constexpr int C = 2 * D;
+    float m[8];                        // the row mask, every load before a store
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + t.row(i);
+      m[i] = row < r_end && (rowmask == nullptr || rowmask[row]) ? 1.f : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + t.row(i);
+      if (row >= r_end) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = half * 4 + e;
+          v[e] = acc[i][j] + bias[j];
+          const float hm = v[e] * m[i];
+          s[0][j] += hm;
+          s[1][j] += hm * v[e];
+        }
+        store4_global(h1 + static_cast<size_t>(row) * C + col0 + t.col4(half),
+                      make_float4(v[0], v[1], v[2], v[3]));
+      }
+    }
+  }
   // the 16 sums of a column in a fixed order: over tm by shuffles, then the
   // four warp rows through shared memory (every copy has landed; the ring
   // is no longer read once all threads pass the barrier)
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[q][j] += __shfl_xor_sync(kFull, s[q][j], 8);
-      s[q][j] += __shfl_xor_sync(kFull, s[q][j], 16);
-    }
-  cp_async_wait<0>();
-  __syncthreads();
-  float* red = ring;                  // [4 wm][2][128]
-  if (tm == 0) {
+  __device__ __forceinline__ void finish(float* ring, const ResLane& t) {
+    constexpr int C = 2 * D;
 #pragma unroll
     for (int q = 0; q < 2; ++q)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        red[(wm * 2 + q) * kH1Cols + wn * 64 + (j >> 2) * 32 + tn * 4 + (j & 3)] = s[q][j];
+      for (int j = 0; j < 8; ++j) {
+        s[q][j] += __shfl_xor_sync(kFull, s[q][j], 8);
+        s[q][j] += __shfl_xor_sync(kFull, s[q][j], 16);
+      }
+    cp_async_wait<0>();
+    __syncthreads();
+    float* red = ring;                  // [4 wm][2][128]
+    if (t.tm == 0) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) red[(t.wm * 2 + q) * kResCols + t.col(j)] = s[q][j];
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < 2 * kResCols; e += kResThreads) {
+      const int q = e / kResCols, c = e - q * kResCols;
+      const float* r = red + q * kResCols + c;
+      partial[(static_cast<size_t>(blockIdx.y) * 2 + q) * C + col0 + c] =
+          ((r[0] + r[2 * kResCols]) + r[4 * kResCols]) + r[6 * kResCols];
+    }
   }
-  __syncthreads();
-  for (int e = tid; e < 2 * kH1Cols; e += kH1Threads) {
-    const int q = e / kH1Cols, c = e - q * kH1Cols;
-    const float* r = red + q * kH1Cols + c;
-    partial[(static_cast<size_t>(blockIdx.y) * 2 + q) * C + col0 + c] =
-        ((r[0] + r[2 * kH1Cols]) + r[4 * kH1Cols]) + r[6 * kH1Cols];
-  }
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kResThreads, 1)
+tl_h1_kernel(const T* __restrict__ x, const float* __restrict__ msg,
+             const float* __restrict__ w1, const float* __restrict__ b1,
+             const uint8_t* __restrict__ rowmask, T* __restrict__ h1,
+             float* __restrict__ partial, int R, int rows_per_block) {
+  static_assert(2 * D == 2 * kResCols, "two column halves of 128");
+  extern __shared__ __align__(16) float smem[];
+  const int r_begin = blockIdx.y * rows_per_block;
+  H1Tile<T, D> tile(x, msg, b1, rowmask, h1, partial, blockIdx.x * kResCols);
+  resident_product<T, D>(tile, w1, 2 * D, tile.col0, r_begin,
+                         min(R, r_begin + rows_per_block), smem);
 }
 
 // The general form: 64 x 64 tiles of tile_product (4 x 4 a thread, w1 read
@@ -429,27 +518,131 @@ tl_h1_tiled_kernel(const T* __restrict__ x, const float* __restrict__ msg,
   write_column_partials<2>(s, partial, C, col0);
 }
 
-// y = x + relu(h1 * a + c) @ w2 + b2; h1 [R, K], w2 [K, C], x and y [R, C].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// ---- tl_fwd2_kernel: y = x + relu(h1 * a + c) @ w2 + b2 ----
+//
+// h1 [R, 2D], w2 [2D, D], x and y [R, D]; a and c [2D] are the BatchNorm
+// affine of the batch statistics.
+//
+// Design: the resident product over A = u = relu(h1 * a + c), w2 [2D][D]
+// all resident (128 KB at D = 128: one column block), the same plan shape
+// as h1 (fwd2_plan: whole 128-row tiles, one block an SM). a and c go into
+// shared memory once a launch; u is formed once per staged value of h1 by
+// ReluAffineLoad's expression, fmaxf(h * a + c, 0). A tile's 16 vectors of
+// x are loaded into registers before its last stage's product, under it;
+// the epilogue writes y = x + (acc + b2) as 16-byte vectors (8 bytes in
+// bf16).
+// What bounds it on the H100: the f32 FMA pipe (R = 32768, D = 128: 2.15
+// GFLOP, 0.032 ms at 67 TFLOP/s, against 0.020 ms for h1 and x in and y
+// out). Other widths and unaligned operands run tl_fwd2_tiled_kernel (64 x
+// 64 tiles of tile_product with the affine and the ReLU on the A load, w2
+// read a tile at a time) under the same plan.
+template <typename T, int D>
+struct Fwd2Tile {
+  static constexpr int kSplit = 2 * D, kTa = 2 * D, kFa = 0;   // all of A from h1
+  static constexpr bool kPrologue = true;
+  // four values of x as they lie in memory
+  using Raw = std::conditional_t<sizeof(T) == sizeof(float), float4, uint2>;
+  const T* ta;
+  const float* fa = nullptr;
+  const T* x;
+  const float* a;
+  const float* c;
+  const float* b2;
+  T* y;
+  const float* av = nullptr;         // a and c in shared memory
+  const float* cv = nullptr;
+  float bias[8];
+  Raw xr[8][2];
+  __device__ __forceinline__ Fwd2Tile(const T* h1, const T* x_, const float* a_,
+                                      const float* c_, const float* b2_, T* y_)
+      : ta(h1), x(x_), a(a_), c(c_), b2(b2_), y(y_) {}
+  __device__ __forceinline__ void setup(float* extra, const ResLane& t) {
+    for (int e = threadIdx.x; e < 2 * D; e += kResThreads) {
+      extra[e] = a[e];
+      extra[2 * D + e] = c[e];
+    }
+    av = extra;
+    cv = extra + 2 * D;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bias[j] = b2[t.col(j)];
+  }
+  __device__ __forceinline__ float4 prologue(float4 h, int kc) const {
+    const float4 s = load4(av + kc), o = load4(cv + kc);
+    return make_float4(fmaxf(h.x * s.x + o.x, 0.f), fmaxf(h.y * s.y + o.y, 0.f),
+                       fmaxf(h.z * s.z + o.z, 0.f), fmaxf(h.w * s.w + o.w, 0.f));
+  }
+  // the tile's x, under its last stage's product
+  __device__ __forceinline__ void before_last(int row0, int r_end, const ResLane& t) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + t.row(i);
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        xr[i][half] = row < r_end ? *reinterpret_cast<const Raw*>(
+                                        x + static_cast<size_t>(row) * D + t.col4(half))
+                                  : Raw{};
+    }
+  }
+  __device__ __forceinline__ void epilogue(const float (&acc)[8][8], int row0, int r_end,
+                                           const ResLane& t) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + t.row(i);
+      if (row >= r_end) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float4 xv = as_float4(xr[i][half]);
+        const float* b = bias + half * 4;
+        const float* s = acc[i] + half * 4;
+        store4_global(y + static_cast<size_t>(row) * D + t.col4(half),
+                      make_float4(xv.x + (s[0] + b[0]), xv.y + (s[1] + b[1]),
+                                  xv.z + (s[2] + b[2]), xv.w + (s[3] + b[3])));
+      }
+    }
+  }
+  __device__ __forceinline__ void finish(float*, const ResLane&) {}
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kResThreads, 1)
 tl_fwd2_kernel(const T* __restrict__ x, const T* __restrict__ h1,
                const float* __restrict__ a, const float* __restrict__ c,
                const float* __restrict__ w2, const float* __restrict__ b2,
-               T* __restrict__ y, int R, int K, int C) {
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+               T* __restrict__ y, int R, int rows_per_block) {
+  static_assert(D == kResCols, "w2's columns in one block");
+  extern __shared__ __align__(16) float smem[];
+  const int r_begin = blockIdx.y * rows_per_block;
+  Fwd2Tile<T, D> tile(h1, x, a, c, b2, y);
+  resident_product<T, D>(tile, w2, D, 0, r_begin, min(R, r_begin + rows_per_block), smem);
+}
+
+// The general form: 64 x 64 tiles of tile_product with the affine and the
+// ReLU applied as the A tile is loaded, row block blockIdx.y of the same
+// plan walking its 64-row tiles.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tl_fwd2_tiled_kernel(const T* __restrict__ x, const T* __restrict__ h1,
+                     const float* __restrict__ a, const float* __restrict__ c,
+                     const float* __restrict__ w2, const float* __restrict__ b2,
+                     T* __restrict__ y, int R, int K, int C, int rows_per_block) {
+  const int col0 = blockIdx.x * BN;
+  const int r_begin = blockIdx.y * rows_per_block;
+  const int r_end = min(R, r_begin + rows_per_block);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  tile_product(acc, ReluAffineLoad<T>{h1, a, c, K}, w2, K, C, R, row0, col0);
+  for (int row0 = r_begin; row0 < r_end; row0 += BM) {
+    float acc[4][4] = {};
+    tile_product(acc, ReluAffineLoad<T>{h1, a, c, K}, w2, K, C, r_end, row0, col0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    if (row >= R) continue;
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + ty * 4 + i;
+      if (row >= r_end) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx * 4 + j;
-      if (col >= C) continue;
-      const size_t o = static_cast<size_t>(row) * C + col;
-      y[o] = from_f32<T>(to_f32(x[o]) + (acc[i][j] + b2[col]));
+      for (int j = 0; j < 4; ++j) {
+        const int col = col0 + tx * 4 + j;
+        if (col >= C) continue;
+        const size_t o = static_cast<size_t>(row) * C + col;
+        y[o] = from_f32<T>(to_f32(x[o]) + (acc[i][j] + b2[col]));
+      }
     }
   }
 }
@@ -827,13 +1020,13 @@ cudaError_t launch_h1(const void* x, const float* msg, const float* w1,
   const auto* xt = static_cast<const T*>(x);
   auto* ht = static_cast<T*>(h1);
   cudaError_t err;
-  static_assert(kH1Smem <= kMaxSmem, "the resident form must fit an SM");
-  if (D == kH1Width && aligned_to(x, 4 * sizeof(T)) && aligned_to(msg, 16) &&
+  static_assert(kResSmem <= kMaxSmem, "the resident form must fit an SM");
+  if (D == kResWidth && aligned_to(x, 4 * sizeof(T)) && aligned_to(msg, 16) &&
       aligned_to(w1, 16) && aligned_to(h1, 4 * sizeof(T))) {
     static SmemCap cap;
-    err = allow_smem(tl_h1_kernel<T, kH1Width>, kH1Smem, cap);
+    err = allow_smem(tl_h1_kernel<T, kResWidth>, kResSmem, cap);
     if (err != cudaSuccess) return err;
-    tl_h1_kernel<T, kH1Width><<<dim3(C / kH1Cols, blocks), kH1Threads, kH1Smem, stream>>>(
+    tl_h1_kernel<T, kResWidth><<<dim3(C / kResCols, blocks), kResThreads, kResSmem, stream>>>(
         xt, msg, w1, b1, rowmask, ht, partial, R, rows_per_block);
   } else {
     tl_h1_tiled_kernel<T><<<dim3((C + BN - 1) / BN, blocks), kThreads, 0, stream>>>(
@@ -847,9 +1040,23 @@ cudaError_t launch_h1(const void* x, const float* msg, const float* w1,
 template <typename T>
 cudaError_t launch_fwd2(const void* x, const void* h1, const float* a,
                         const float* c, const float* w2, const float* b2,
-                        void* y, int R, int K, int C, cudaStream_t stream) {
-  dim3 grid((C + BN - 1) / BN, (R + BM - 1) / BM);
-  tl_fwd2_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const T*>(h1), a, c, w2, b2, static_cast<T*>(y), R, K, C);
+                        void* y, int D, int R, int rows_per_block, int blocks,
+                        cudaStream_t stream) {
+  const auto* xt = static_cast<const T*>(x);
+  const auto* ht = static_cast<const T*>(h1);
+  auto* yt = static_cast<T*>(y);
+  static_assert(kFwd2Smem <= kMaxSmem, "the resident form must fit an SM");
+  if (D == kResWidth && aligned_to(x, 4 * sizeof(T)) && aligned_to(h1, 4 * sizeof(T)) &&
+      aligned_to(w2, 16) && aligned_to(y, 4 * sizeof(T))) {
+    static SmemCap cap;
+    cudaError_t err = allow_smem(tl_fwd2_kernel<T, kResWidth>, kFwd2Smem, cap);
+    if (err != cudaSuccess) return err;
+    tl_fwd2_kernel<T, kResWidth><<<dim3(1, blocks), kResThreads, kFwd2Smem, stream>>>(
+        xt, ht, a, c, w2, b2, yt, R, rows_per_block);
+  } else {
+    tl_fwd2_tiled_kernel<T><<<dim3((D + BN - 1) / BN, blocks), kThreads, 0, stream>>>(
+        xt, ht, a, c, w2, b2, yt, R, 2 * D, D, rows_per_block);
+  }
   return cudaGetLastError();
 }
 
@@ -939,7 +1146,7 @@ extern "C" cudaError_t mdgat_tl_h1(const void* x, const void* msg,
                                    void* sums, int D, int R, int rows_per_block,
                                    int blocks, int io_dtype, cudaStream_t stream) {
   using namespace mdgat;
-  if (D <= 0 || R <= 0 || !row_plan_ok(R, rows_per_block, blocks, kH1Rows) ||
+  if (D <= 0 || R <= 0 || !row_plan_ok(R, rows_per_block, blocks, kResRows) ||
       partial_floats != static_cast<long long>(blocks) * 2 * 2 * D)
     return cudaErrorInvalidValue;
   const auto* m = static_cast<const float*>(msg);
@@ -957,22 +1164,28 @@ extern "C" cudaError_t mdgat_tl_h1(const void* x, const void* msg,
   return cudaErrorInvalidValue;
 }
 
-// y [R, D] = x + relu(h1 [R, 2D] * a + c) @ w2 [2D, D] + b2.
+// y [R, D] = x + relu(h1 [R, 2D] * a + c) @ w2 [2D, D] + b2. The row plan
+// (ops/cuda/train_layer.py::fwd2_plan) gives row block z the rows [z *
+// rows_per_block, min(R, (z + 1) * rows_per_block)), whole 128-row tiles; it
+// must cover every row once with no block empty.
 extern "C" cudaError_t mdgat_tl_fwd2(const void* x, const void* h1,
                                      const void* a, const void* c,
                                      const void* w2, const void* b2, void* y,
-                                     int D, int R, int io_dtype,
-                                     cudaStream_t stream) {
+                                     int D, int R, int rows_per_block, int blocks,
+                                     int io_dtype, cudaStream_t stream) {
   using namespace mdgat;
-  if (D <= 0 || R <= 0) return cudaErrorInvalidValue;
+  if (D <= 0 || R <= 0 || !row_plan_ok(R, rows_per_block, blocks, kResRows))
+    return cudaErrorInvalidValue;
   const auto* af = static_cast<const float*>(a);
   const auto* cf = static_cast<const float*>(c);
   const auto* w = static_cast<const float*>(w2);
   const auto* b = static_cast<const float*>(b2);
   if (io_dtype == kF32)
-    return launch_fwd2<float>(x, h1, af, cf, w, b, y, R, 2 * D, D, stream);
+    return launch_fwd2<float>(x, h1, af, cf, w, b, y, D, R, rows_per_block, blocks,
+                              stream);
   if (io_dtype == kBF16)
-    return launch_fwd2<__nv_bfloat16>(x, h1, af, cf, w, b, y, R, 2 * D, D, stream);
+    return launch_fwd2<__nv_bfloat16>(x, h1, af, cf, w, b, y, D, R, rows_per_block,
+                                      blocks, stream);
   return cudaErrorInvalidValue;
 }
 

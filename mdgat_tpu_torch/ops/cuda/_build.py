@@ -65,8 +65,8 @@ _SIGNATURES = {
     # x, msg, w1, b1, rowmask, h1, partial, partial_floats, sums, D, R,
     # rows_per_block, blocks, io_dtype, stream
     "mdgat_tl_h1": [_P] * 7 + [_L, _P] + [_I] * 5 + [_P],
-    # x, h1, a, c, w2, b2, y, D, R, io_dtype, stream
-    "mdgat_tl_fwd2": [_P] * 7 + [_I] * 3 + [_P],
+    # x, h1, a, c, w2, b2, y, D, R, rows_per_block, blocks, io_dtype, stream
+    "mdgat_tl_fwd2": [_P] * 7 + [_I] * 5 + [_P],
     # g, h1, w2, vec4, partial, partial_floats, sums, D, R, rows_per_block,
     # blocks, io_dtype, stream
     "mdgat_tl_bwd_sums": [_P] * 5 + [_L, _P] + [_I] * 5 + [_P],
@@ -76,9 +76,11 @@ _SIGNATURES = {
     # g, h1, w2, vec6, rowmask, dh1, D, R, rows_per_block, blocks, io_dtype,
     # stream
     "mdgat_tl_dh1": [_P] * 6 + [_I] * 5 + [_P],
-    # dense, bin_row, bin_col, gt0, gt1, rm, cm, s0, s1, cnt0, cnt1, partial,
-    # B, N, M, gamma, stream
-    "mdgat_gap_fwd": [_P] * 12 + [_I] * 3 + [_F, _P],
+    # dense, bin_row, bin_col, gt0, gt1, rm, cm, s0, s1, cnt0, cnt1, B, N, M,
+    # cluster, band, gamma, stream
+    "mdgat_gap_fwd": [_P] * 11 + [_I] * 5 + [_F, _P],
+    # M, cluster, count
+    "mdgat_gap_active_clusters": [_I] * 2 + [_P],
     # dense, bin_row, bin_col, gt0, gt1, rm, cm, cnt0, cnt1, ds0, ds1, dd,
     # dbin_row, dbin_col, B, N, M, gamma, stream
     "mdgat_gap_bwd": [_P] * 14 + [_I] * 3 + [_F, _P],

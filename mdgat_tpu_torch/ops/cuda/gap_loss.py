@@ -14,28 +14,33 @@ for the design and what bounds it on the H100.
 
 The forward also produces each anchor's count of active margins, which the
 autograd function keeps: with them the backward reads the block once and
-writes ``dd`` once.
+writes ``dd`` once. It is one launch, a pair on a cluster of CTAs by
+:func:`gap_plan`.
 
 A CUDA tensor launches the kernels (float32, contiguous, at most 1024
-columns; anything else raises, nothing falls back). A CPU tensor takes the
-plain twins :func:`fused_gap_margins_reference` and
-:func:`fused_gap_margins_backward_reference`, the formulas of the TPU
+columns and 16384 rows; anything else raises, nothing falls back). A CPU
+tensor takes the plain twins :func:`fused_gap_margins_reference` and
+:func:`fused_gap_margins_backward_reference` (with
+:func:`fused_gap_counts_reference` for the counts), the formulas of the TPU
 kernels' bodies written out (not autograd over ``ops/losses.gap_loss``), in
 the tensor's own dtype.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
+from mdgat_tpu_torch.ops.cuda._build import library
+from mdgat_tpu_torch.ops.cuda.layer import NUM_SMS
 from mdgat_tpu_torch.ops.cuda.train_layer import _launch, _ptr
 from mdgat_tpu_torch.ops.losses import _masks, _mean_over
 from mdgat_tpu_torch.ops.transport import BIG_NEG, OTScores
 
 MAX_COLS = 1024
-_TILE_ROWS = 32      # csrc/gap_loss.cu: kGapRows
+MAX_CLUSTER = 16     # CTAs a pair of the forward; above 8 non-portable
 
 
 def _direction0(dense, bin_col, gt0, cm):
@@ -81,16 +86,40 @@ def fused_gap_margins_reference(dense, bin_row, bin_col, gt0, gt1, rm, cm,
     return contrib0.sum(dim=2) + bin_term0, contrib1.sum(dim=1) + bin_term1
 
 
+def _indicators(dense, bin_row, bin_col, gt0, gt1, rm, cm, gamma):
+    """Both directions' active margins: ``(is_pos0, at_bin0, i0 [B, N, M],
+    bi0 [B, N, 1], is_pos1, at_bin1, i1 [B, N, M], bi1 [B, 1, M])``, each
+    from the forward's f32 expression ``(cand - pos + gamma) > 0``."""
+    d0, is_pos0, at_bin0, pos0 = _direction0(dense, bin_col, gt0, cm)
+    i0 = ((d0 - pos0 + gamma) > 0) & ~is_pos0
+    bi0 = ((bin_col[:, :, None] - pos0 + gamma) > 0) & ~at_bin0[:, :, None]
+    d1, is_pos1, at_bin1, pos1 = _direction1(dense, bin_row, gt1, rm)
+    i1 = ((d1 - pos1 + gamma) > 0) & ~is_pos1
+    bi1 = ((bin_row[:, None, :] - pos1 + gamma) > 0) & ~at_bin1[:, None, :]
+    return is_pos0, at_bin0, i0, bi0, is_pos1, at_bin1, i1, bi1
+
+
+def fused_gap_counts_reference(dense, bin_row, bin_col, gt0, gt1, rm, cm,
+                               gamma: float):
+    """Plain twin of the counts the forward kernel keeps for the backward:
+    ``(cnt0 [B, N], cnt1 [B, M])``, each anchor's number of active margins,
+    the dustbin's included, in the scores' dtype."""
+    dt = dense.dtype
+    _, _, i0, bi0, _, _, i1, bi1 = _indicators(dense, bin_row, bin_col, gt0,
+                                               gt1, rm, cm, gamma)
+    return (i0.to(dt).sum(dim=2) + bi0[:, :, 0].to(dt),
+            i1.to(dt).sum(dim=1) + bi1[:, 0, :].to(dt))
+
+
 def fused_gap_margins_backward_reference(dense, bin_row, bin_col, gt0, gt1,
                                          rm, cm, gamma: float, ds0, ds1):
     """Plain twin of the backward kernel: ``(dd [B, N, M], dbin_row [B, M],
     dbin_col [B, N])`` from the cotangents ``ds0 [B, N]``, ``ds1 [B, M]``."""
     dt = dense.dtype
     ds0, ds1 = ds0.to(dt)[:, :, None], ds1.to(dt)[:, None, :]
+    (is_pos0, at_bin0, i0, bi0, is_pos1, at_bin1, i1,
+     bi1) = _indicators(dense, bin_row, bin_col, gt0, gt1, rm, cm, gamma)
 
-    d0, is_pos0, at_bin0, pos0 = _direction0(dense, bin_col, gt0, cm)
-    i0 = ((d0 - pos0 + gamma) > 0) & ~is_pos0
-    bi0 = ((bin_col[:, :, None] - pos0 + gamma) > 0) & ~at_bin0[:, :, None]
     i0f, bi0f = i0.to(dt), bi0.to(dt)
     dpos0 = -ds0 * (i0f.sum(dim=2, keepdim=True) + bi0f)
     dd0 = ds0 * i0f + is_pos0.to(dt) * dpos0
@@ -98,9 +127,6 @@ def fused_gap_margins_backward_reference(dense, bin_row, bin_col, gt0, gt1,
         dd0 = dd0 * cm[:, None, :].to(dt)
     dbin_col = at_bin0[:, :, None].to(dt) * dpos0 + ds0 * bi0f
 
-    d1, is_pos1, at_bin1, pos1 = _direction1(dense, bin_row, gt1, rm)
-    i1 = ((d1 - pos1 + gamma) > 0) & ~is_pos1
-    bi1 = ((bin_row[:, None, :] - pos1 + gamma) > 0) & ~at_bin1[:, None, :]
     i1f, bi1f = i1.to(dt), bi1.to(dt)
     dpos1 = -ds1 * (i1f.sum(dim=1, keepdim=True) + bi1f)
     dd1 = ds1 * i1f + is_pos1.to(dt) * dpos1
@@ -115,9 +141,11 @@ def _check(dense, bin_row, bin_col, gt0, gt1, rm, cm):
     if dense.dtype != torch.float32:
         raise ValueError(f"gap-loss kernels take float32 scores, not "
                          f"{dense.dtype}")
-    if not 0 < m <= MAX_COLS or n <= 0 or not 0 < b <= 65535:
+    if (not 0 < m <= MAX_COLS or not 0 < n <= MAX_CLUSTER * MAX_COLS
+            or not 0 < b <= 65535):
         raise ValueError(f"gap-loss kernels: {b} x {n} x {m} block (columns "
-                         f"at most {MAX_COLS})")
+                         f"at most {MAX_COLS}, rows at most "
+                         f"{MAX_CLUSTER * MAX_COLS})")
     shapes = ((bin_row, (b, m), torch.float32), (bin_col, (b, n), torch.float32),
               (gt0, (b, n), torch.int32), (gt1, (b, m), torch.int32),
               (rm, (b, n), torch.bool), (cm, (b, m), torch.bool))
@@ -132,20 +160,57 @@ def _check(dense, bin_row, bin_col, gt0, gt1, rm, cm):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _margins_forward(dense, bin_row, bin_col, gt0, gt1, rm, cm, gamma):
-    """The forward launches: ``(S0, S1, cnt0, cnt1)``, the counts of active
-    margins per anchor as exact float32 integers for the backward."""
+def gap_plan(b: int, n: int, m: int):
+    """``(cluster, band)`` of the forward for ``b`` pairs of ``n x m``
+    scores: a pair on a cluster of ``cluster`` CTAs, CTA ``r`` taking the
+    rows ``[r * band, min(n, (r + 1) * band))``. The cluster doubles from 1
+    (up to 16) while the batch, doubled, still fits in one wave of one CTA
+    an SM, or while a band would pass 1024 rows (a CTA stages its band's
+    row side), and is cut while the last CTA would get no row."""
+    if not 0 < m <= MAX_COLS or not 0 < n <= MAX_CLUSTER * MAX_COLS or b <= 0:
+        raise ValueError(f"gap-loss kernels: {b} x {n} x {m} block (columns "
+                         f"at most {MAX_COLS}, rows at most "
+                         f"{MAX_CLUSTER * MAX_COLS})")
+    g = 1
+    while g < MAX_CLUSTER and (b * 2 * g <= NUM_SMS or -(-n // g) > MAX_COLS):
+        g *= 2
+    while g > 1 and (g - 1) * -(-n // g) >= n:
+        g //= 2
+    return g, -(-n // g)
+
+
+def active_clusters(m: int, cluster: int) -> int:
+    """How many clusters of ``cluster`` CTAs of the forward's launch for
+    ``m`` columns the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    count = ctypes.c_int(0)
+    library().call("mdgat_gap_active_clusters", m, int(cluster),
+                   ctypes.addressof(count))
+    return count.value
+
+
+def _margins_forward(dense, bin_row, bin_col, gt0, gt1, rm, cm, gamma,
+                     cluster: int = 0):
+    """The forward launch: ``(S0, S1, cnt0, cnt1)``, the counts of active
+    margins per anchor as exact float32 integers for the backward. The
+    pairs run on clusters of CTAs by :func:`gap_plan`; ``cluster`` 1-16
+    asks for that many CTAs a pair instead (the smoke's sweep)."""
     _check(dense, bin_row, bin_col, gt0, gt1, rm, cm)
     b, n, m = dense.shape
+    if not cluster:
+        cluster, band = gap_plan(b, n, m)
+    elif 1 <= cluster <= MAX_CLUSTER:
+        band = -(-n // cluster)
+    else:
+        raise ValueError(f"gap-loss forward: {cluster} CTAs a pair "
+                         f"(1-{MAX_CLUSTER})")
     f32, dev = torch.float32, dense.device
     s0, cnt0 = (torch.empty((b, n), dtype=f32, device=dev) for _ in range(2))
     s1, cnt1 = (torch.empty((b, m), dtype=f32, device=dev) for _ in range(2))
-    partial = torch.empty((b, -(-n // _TILE_ROWS), 2, m), dtype=f32,
-                          device=dev)
     _launch("mdgat_gap_fwd", dense, dense.data_ptr(), bin_row.data_ptr(),
             bin_col.data_ptr(), gt0.data_ptr(), gt1.data_ptr(), _ptr(rm),
             _ptr(cm), s0.data_ptr(), s1.data_ptr(), cnt0.data_ptr(),
-            cnt1.data_ptr(), partial.data_ptr(), b, n, m, gamma)
+            cnt1.data_ptr(), b, n, m, cluster, band, gamma)
     fused_gap_margins.forward_launches += 1
     return s0, s1, cnt0, cnt1
 

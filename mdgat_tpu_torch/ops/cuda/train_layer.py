@@ -22,7 +22,8 @@ pair already runs):
   tensor code on ``[2D]`` vectors on the device, as it is XLA code outside
   the Pallas kernels; the count of valid rows stays a device tensor.
 * fwd2, one launch: :func:`bn_relu_conv2`, ``y = x + relu(h1 * a + c) @ w2
-  + b2`` with the affine and the ReLU applied while the A tile is loaded.
+  + b2`` with the affine and the ReLU applied once to each staged value of
+  ``h1`` (rows split by :func:`fwd2_plan`).
 * bwd1, four launches: :func:`bn_backward_sums` (``Sg``, ``Sgh``,
   ``dscale``, ``dbias`` over ALL rows, from ``dh2 = g @ w2^T`` formed tile by
   tile and never stored) and :func:`dw2_db2` (``relu(bn(h1))^T g`` and the
@@ -52,8 +53,9 @@ factor on the centering correction of ``dh1``.
 A CUDA tensor launches the kernels; a CPU tensor takes
 :func:`fused_train_layer_reference` under autograd, built from the
 kernels' own plain twins (:func:`h1_stats_reference`,
-:func:`bn_backward_sums_plain`, :func:`dw2_db2_reference`,
-:func:`dh1_reference`), which each wrapper also takes on CPU tensors.
+:func:`bn_relu_conv2_reference`, :func:`bn_backward_sums_plain`,
+:func:`dw2_db2_reference`, :func:`dh1_reference`), which each wrapper also
+takes on CPU tensors.
 Nothing falls back, and
 no size gate steps down to another route: a CUDA call the kernels cannot
 take (more than 1024 keys, a head size the attention kernel lacks) raises.
@@ -75,6 +77,7 @@ from mdgat_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 # row tiles of the csrc/train_layer.cu launches that take a row plan (the
 # dw2 launch's are the A^T product's ring stages, layer.TN_STAGE_ROWS)
 H1_TILE_ROWS = 128        # rows of x and msg in one tile of tl_h1_kernel
+FWD2_TILE_ROWS = 128      # rows of h1 in one tile of tl_fwd2_kernel
 DH2_TILE_ROWS = 64        # rows of g in one tile of tl_dh2_kernel
 
 
@@ -134,9 +137,7 @@ def fused_train_layer_reference(x, source, kv_mask: Optional[torch.Tensor],
     var = raw + (raw.clamp_min(0.0) - raw).detach()
     inv = torch.rsqrt(var + BN_EPS)
     a = cast(bn_scale) * inv
-    c = cast(bn_bias) - mean * a
-    u = torch.relu(cast(h1) * a + c)
-    y = (cast(x) + (u @ cast(w2) + cast(b2))).to(x.dtype)
+    y = bn_relu_conv2_reference(x, h1, a, cast(bn_bias) - mean * a, w2, b2)
     mean, var = mean.detach(), var.detach()
     if return_residuals:
         return (y, mean, var, h1.detach(), thr, lse, ssum.detach(),
@@ -157,6 +158,16 @@ def h1_stats_reference(x, msg, w1, b1, row_mask):
     h1m = (h1f if row_mask is None
            else h1f * row_mask.reshape(-1, 1).to(acc))
     return h1f.to(x.dtype), torch.stack([h1m.sum(0), (h1m * h1f).sum(0)])
+
+
+def bn_relu_conv2_reference(x, h1, a, c, w2, b2):
+    """Plain twin of :func:`bn_relu_conv2`: ``y = x + relu(h1 * a + c) @ w2
+    + b2`` in the accumulation dtype, rounded to x's dtype; ``h1`` holds
+    ``2D`` columns for each row of ``x [.., D]``. Differentiable."""
+    acc = acc_dtype(x.dtype)
+    cast = lambda t: t.to(acc)
+    u = torch.relu(cast(h1).reshape(*x.shape[:-1], -1) * cast(a) + cast(c))
+    return (cast(x) + (u @ cast(w2) + cast(b2))).to(x.dtype)
 
 
 def _bn_rebuild(g, h1, mean, inv, bn_scale, bias):
@@ -245,6 +256,15 @@ def h1_plan(r: int):
     return rows, blocks
 
 
+def fwd2_plan(r: int):
+    """``(rows_per_block, blocks)`` of :func:`bn_relu_conv2`: ``w2``'s D =
+    128 columns are one column block, so at most ``NUM_SMS`` row blocks of
+    whole 128-row tiles, one block an SM."""
+    rows, blocks = _row_plan(r, FWD2_TILE_ROWS, NUM_SMS)
+    check_row_plan("fwd2", r, rows, blocks, FWD2_TILE_ROWS)
+    return rows, blocks
+
+
 def dh2_plan(r: int):
     """``(rows_per_block, blocks)`` of the two dh2 launches
     (``tl_dh2_kernel``): one block an SM at most, each a whole number of
@@ -265,8 +285,8 @@ def dw2_plan(r: int, d: int):
 
 
 # ---------------------------------------------------------------------------
-# launch wrappers of csrc/train_layer.cu (CUDA tensors; all but
-# bn_relu_conv2 take their plain twins on CPU tensors)
+# launch wrappers of csrc/train_layer.cu (CUDA tensors; each takes its plain
+# twin on CPU tensors)
 # ---------------------------------------------------------------------------
 
 def _launch(name, ref, *args):
@@ -330,7 +350,12 @@ h1_stats.launches = 0
 
 
 def bn_relu_conv2(x, h1, a, c, w2, b2):
-    """``y = x + relu(h1 * a + c) @ w2 + b2`` in x's dtype and shape."""
+    """``y = x + relu(h1 * a + c) @ w2 + b2`` in x's dtype and shape; ``h1
+    [R, 2D]`` in x's dtype, ``a``, ``c [2D]``, ``w2 [2D, D]``, ``b2 [D]``
+    float32. The rows are split by :func:`fwd2_plan`. A CPU tensor takes
+    :func:`bn_relu_conv2_reference`."""
+    if x.device.type == "cpu":
+        return bn_relu_conv2_reference(x, h1, a, c, w2, b2)
     _require_cuda(x, h1, a, c, w2, b2)
     d, r = x.shape[-1], _rows(x)
     if (x.dtype not in DTYPE_CODES or h1.dtype != x.dtype
@@ -338,10 +363,11 @@ def bn_relu_conv2(x, h1, a, c, w2, b2):
             or a.shape != (2 * d,) or c.shape != (2 * d,) or b2.shape != (d,)
             or any(t.dtype != torch.float32 for t in (a, c, w2, b2))):
         raise ValueError("bn_relu_conv2 kernel: operand dtypes or shapes")
+    rows, blocks = fwd2_plan(r)
     y = torch.empty_like(x)
     _launch("mdgat_tl_fwd2", x, x.data_ptr(), h1.data_ptr(), a.data_ptr(),
             c.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(), d, r,
-            DTYPE_CODES[x.dtype])
+            rows, blocks, DTYPE_CODES[x.dtype])
     bn_relu_conv2.launches += 1
     return y
 

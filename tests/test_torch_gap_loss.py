@@ -166,6 +166,39 @@ def test_backward_twin_matches_autograd_over_gap_loss_f64(name):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_counts_twin_counts_active_margins(name):
+    """``fused_gap_counts_reference``, the twin of the counts the forward
+    kernel keeps for the backward, against a count taken anchor by anchor
+    with numpy at float32: every candidate but the positive whose margin
+    ``(cand - pos) + gamma`` is above zero (masked candidates as the -1e30
+    sentinel), and the dustbin unless it is the positive. Exact."""
+    dense, binr, binc, gt0, gt1, rm, cm, _, _ = _inputs(name, np.float32)
+    b, n, m = dense.shape
+    f, big, gamma = np.float32, np.float32(-1e30), np.float32(GAMMA)
+    rmask = np.ones((b, n), bool) if rm is None else rm
+    cmask = np.ones((b, m), bool) if cm is None else cm
+
+    def count(cands, dustbin, gt):
+        size = len(cands)
+        p = size if gt < 0 else gt
+        pos = dustbin if p == size else (cands[p] if p < size else f(0))
+        active = ((cands - pos).astype(f) + gamma) > 0
+        if p < size:
+            active[p] = False
+        return active.sum() + (p != size and (f(dustbin - pos) + gamma) > 0)
+
+    want0 = [[count(np.where(cmask[i], dense[i, r], big), binc[i, r], gt0[i, r])
+              for r in range(n)] for i in range(b)]
+    want1 = [[count(np.where(rmask[i], dense[i, :, c], big), binr[i, c], gt1[i, c])
+              for c in range(m)] for i in range(b)]
+    got0, got1 = G.fused_gap_counts_reference(
+        *(_t(a) for a in (dense, binr, binc, gt0, gt1, rm, cm)), GAMMA)
+    assert got0.dtype == got1.dtype == torch.float32
+    np.testing.assert_array_equal(got0.numpy(), np.array(want0, np.float32))
+    np.testing.assert_array_equal(got1.numpy(), np.array(want1, np.float32))
+
+
 def test_counters_stand_still_on_the_cpu():
     dense, binr, binc, gt0, gt1, rm, cm, _, _ = _inputs("masked", np.float32)
     before = (G.fused_gap_margins.forward_launches,

@@ -9,10 +9,12 @@ splits of the transposed-A GEMM (``ops/cuda/layer.py::tn_plan``), whose
 wrapper sizes the scratch from them and takes its plain twin on the CPU;
 the Sinkhorn forward's cluster plan (``ops/cuda/sinkhorn.py::
 sinkhorn_plan``: bands of rows a CTA, resident or streamed, shared memory);
-and the row plans of the train layer's h1, dh2 and dw2 launches
-(``ops/cuda/train_layer.py::h1_plan``, ``dh2_plan``, ``dw2_plan``), whose
-check refuses a plan that misses or repeats a row, with the wrappers' plain
-twins on CPU tensors.
+the row plans of the train layer's h1, fwd2, dh2 and dw2 launches
+(``ops/cuda/train_layer.py::h1_plan``, ``fwd2_plan``, ``dh2_plan``,
+``dw2_plan``), whose check refuses a plan that misses or repeats a row,
+with the wrappers' plain twins on CPU tensors; and the gap-loss forward's
+cluster plan (``ops/cuda/gap_loss.py::gap_plan``: cluster size and bands of
+rows a CTA).
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from mdgat_tpu.ops.pallas import pallas_topk_attention
 from mdgat_tpu_torch.ops.attention import BIG_NEG, topk_threshold
 from mdgat_tpu_torch.ops.cuda import _build
 from mdgat_tpu_torch.ops.cuda import attention as kernel
+from mdgat_tpu_torch.ops.cuda import gap_loss as gap
 from mdgat_tpu_torch.ops.cuda import layer as layer_kernel
 from mdgat_tpu_torch.ops.cuda import sinkhorn as sk
 from mdgat_tpu_torch.ops.cuda import train_layer as tl
@@ -170,7 +173,7 @@ def test_gemm_tn_takes_its_twin_on_cpu():
 def _no_library(monkeypatch):
     def refuse(*_):
         raise AssertionError("a launch reached the kernel library")
-    for mod in (_build, sk, tl):
+    for mod in (_build, sk, tl, gap):
         monkeypatch.setattr(mod, "library", refuse)
 
 
@@ -318,20 +321,24 @@ def test_dh2_wrappers_take_their_twins_on_cpu(monkeypatch):
 PLAN_ROWS = [1, 63, 64, 65, 1000, 32767, 32768, 32769, 70000]
 
 
-@pytest.mark.parametrize("kind", ["h1", "dw2"])
+@pytest.mark.parametrize("kind", ["h1", "dw2", "fwd2"])
 @pytest.mark.parametrize("r", PLAN_ROWS)
 def test_h1_and_dw2_plans_cover_every_row_once(kind, r):
     """Block z covers rows [z * rows, min(r, (z + 1) * rows)): together
-    every row once, none empty, whole tiles (128-row tiles of h1, 32-row
-    ring stages of dw2), at most one block an SM over the grid (two column
-    halves of h1, the two 128 x 128 output tiles of dw2 at D = 128); the
-    train step's 32768 rows go to 64 row blocks of 512 in both."""
+    every row once, none empty, whole tiles (128-row tiles of h1 and fwd2,
+    32-row ring stages of dw2), at most one block an SM over the grid (two
+    column halves of h1, the two 128 x 128 output tiles of dw2 at D = 128,
+    one column block of fwd2); the train step's 32768 rows go to 64 row
+    blocks of 512 in h1 and dw2, to 128 blocks of 256 in fwd2."""
     if kind == "h1":
         rows, blocks = tl.h1_plan(r)
-        tile, per_block = tl.H1_TILE_ROWS, 2
-    else:
+        tile, per_block, at_train = tl.H1_TILE_ROWS, 2, (512, 64)
+    elif kind == "dw2":
         rows, blocks = tl.dw2_plan(r, 128)
-        tile, per_block = layer_kernel.TN_STAGE_ROWS, 2
+        tile, per_block, at_train = layer_kernel.TN_STAGE_ROWS, 2, (512, 64)
+    else:
+        rows, blocks = tl.fwd2_plan(r)
+        tile, per_block, at_train = tl.FWD2_TILE_ROWS, 1, (256, 128)
     tl.check_row_plan(kind, r, rows, blocks, tile)
     assert rows % tile == 0 and 1 <= blocks * per_block <= layer_kernel.NUM_SMS
     spans = [(z * rows, min(r, (z + 1) * rows)) for z in range(blocks)]
@@ -339,7 +346,19 @@ def test_h1_and_dw2_plans_cover_every_row_once(kind, r):
     assert spans[0][0] == 0 and spans[-1][1] == r
     assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))
     if r == 32768:
-        assert (rows, blocks) == (512, 64)
+        assert (rows, blocks) == at_train
+
+
+def test_fwd2_plan_covers_every_row_count_up_to_70000():
+    """fwd2_plan for every R in 1 .. 70000: the check passes (every row
+    once, whole 128-row tiles, no block empty) within one block an SM, and
+    the blocks use as few tiles each as the SMs allow."""
+    for r in range(1, 70001):
+        rows, blocks = tl.fwd2_plan(r)
+        tiles = -(-r // tl.FWD2_TILE_ROWS)
+        assert blocks <= layer_kernel.NUM_SMS
+        assert rows == -(-tiles // layer_kernel.NUM_SMS) * tl.FWD2_TILE_ROWS
+        assert rows * blocks >= r > rows * (blocks - 1)
 
 
 @pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
@@ -367,20 +386,24 @@ def test_h1_and_dw2_plans_refused_before_any_launch(monkeypatch, rows, blocks,
     with pytest.raises(ValueError, match="row plan"):
         tl.check_row_plan("plan", r, rows, blocks, tile)
     tl.check_row_plan("h1", r, *tl.h1_plan(r), tl.H1_TILE_ROWS)
+    tl.check_row_plan("fwd2", r, *tl.fwd2_plan(r), tl.FWD2_TILE_ROWS)
     tl.check_row_plan("dw2", r, *tl.dw2_plan(r, d), layer_kernel.TN_STAGE_ROWS)
     meta = lambda *shape: torch.zeros(shape, device="meta")
     for call in (lambda: tl.h1_stats(meta(r, d), meta(r, d), meta(2 * d, 2 * d),
                                      meta(2 * d), None),
+                 lambda: tl.bn_relu_conv2(meta(r, d), meta(r, 2 * d), meta(2 * d),
+                                          meta(2 * d), meta(2 * d, d), meta(d)),
                  lambda: tl.dw2_db2(meta(r, d), meta(r, 2 * d), meta(4, 2 * d))):
         with pytest.raises(ValueError, match="CUDA"):
             call()
 
 
 def test_h1_and_dw2_wrappers_take_their_twins_on_cpu(monkeypatch):
-    """On CPU tensors the h1 and dw2 wrappers are their formulas (numpy at
-    float64, 100 rows: not whole tiles): h1 = x @ w1x + msg @ w1m + b1 with
-    the sums of h1 * m and h1^2 * m over the masked rows, and relu(bn(h1))^T
-    g with the column sums of g over every row."""
+    """On CPU tensors the h1, fwd2 and dw2 wrappers are their formulas
+    (numpy at float64, 100 rows: not whole tiles): h1 = x @ w1x + msg @ w1m
+    + b1 with the sums of h1 * m and h1^2 * m over the masked rows, y = x +
+    relu(h1 * a + c) @ w2 + b2, and relu(bn(h1))^T g with the column sums of
+    g over every row; the launch counts stay where they were."""
     _no_library(monkeypatch)
     rng = np.random.default_rng(590)
     r, d = 100, 24
@@ -403,3 +426,65 @@ def test_h1_and_dw2_wrappers_take_their_twins_on_cpu(monkeypatch):
     dw2, db2 = tl.dw2_db2(t(g), t(h1), t(np.stack([mean, inv, scale, bias])))
     np.testing.assert_allclose(dw2.numpy(), u.T @ g, rtol=0, atol=1e-9)
     np.testing.assert_allclose(db2.numpy(), g.sum(0), rtol=0, atol=1e-9)
+    a, c = scale * inv, bias - mean * scale * inv
+    w2, b2 = rng.normal(size=(2 * d, d)), rng.normal(size=d)
+    launches = (tl.h1_stats.launches, tl.bn_relu_conv2.launches,
+                tl.dw2_db2.launches)
+    y = tl.bn_relu_conv2(t(x.reshape(4, 25, d)), t(h1), t(a), t(c), t(w2), t(b2))
+    assert y.shape == (4, 25, d) and y.dtype == torch.float64
+    np.testing.assert_allclose(
+        y.numpy().reshape(r, d), x + np.maximum(h1 * a + c, 0) @ w2 + b2,
+        rtol=0, atol=1e-9)
+    assert launches == (tl.h1_stats.launches, tl.bn_relu_conv2.launches,
+                        tl.dw2_db2.launches)
+
+
+GAP_ROWS = range(1, 1025)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 64, 5000])
+def test_gap_plan_bands_cover_every_row_once(b):
+    """For every N in 1 .. 1024 (and M over the same range, which leaves
+    the plan as it is): a legal cluster size (a power of two of 1-16; above
+    8 the launch sets the non-portable attribute), bands of at most 1024
+    rows that together cover every row once with no CTA empty, and the card
+    filled where the batch allows (a larger cluster would pass one wave of
+    a CTA an SM, pass 16 or leave a CTA without rows)."""
+    for n in GAP_ROWS:
+        g, band = gap.gap_plan(b, n, 1 + (n * 7) % 1024)
+        assert 1 <= g <= gap.MAX_CLUSTER and g & (g - 1) == 0 and band <= 1024
+        spans = [(r * band, min(n, (r + 1) * band)) for r in range(g)]
+        assert all(lo < hi for lo, hi in spans)                   # none empty
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))  # once each
+        g2 = 2 * g
+        assert (g2 > gap.MAX_CLUSTER or b * g2 > layer_kernel.NUM_SMS
+                or (g2 - 1) * -(-n // g2) >= n)
+    for m in GAP_ROWS:
+        assert gap.gap_plan(b, 512, m) == gap.gap_plan(b, 512, 512)
+
+
+def test_gap_plan_at_the_main_path_shapes_and_refused_shapes(monkeypatch):
+    """The train step's 64 x 512 x 512 runs clusters of 2 CTAs of 256 rows
+    (128 CTAs), 8 x 1024 x 1024 clusters of 16 (128 CTAs); a 1-row pair a
+    cluster of one; 4096 rows in bands of at most 1024 rows. More than 1024
+    columns, no row, or more than 16384 rows is refused by the plan and,
+    on meta-device tensors, by the forward before the kernel library."""
+    _no_library(monkeypatch)
+    monkeypatch.setattr(gap, "_launch", lambda *_: pytest.fail("launched"))
+    assert gap.gap_plan(64, 512, 512) == (2, 256)
+    assert gap.gap_plan(8, 1024, 1024) == (16, 64)
+    assert gap.gap_plan(64, 1, 1) == (1, 1)
+    assert gap.gap_plan(2, 1024, 1024) == (16, 64)
+    assert gap.gap_plan(200, 4096, 10) == (4, 1024)
+    assert gap.gap_plan(1, 16384, 10) == (16, 1024)
+    for b, n, m in ((2, 10, 1025), (2, 0, 10), (0, 10, 10), (1, 16385, 10)):
+        with pytest.raises(ValueError, match="columns at most"):
+            gap.gap_plan(b, n, m)
+    meta = lambda *shape, dt=torch.float32: torch.zeros(shape, device="meta",
+                                                         dtype=dt)
+    b, n, m = 2, 10, 1025
+    with pytest.raises(ValueError, match="columns at most"):
+        gap._margins_forward(meta(b, n, m), meta(b, m), meta(b, n),
+                             meta(b, n, dt=torch.int32),
+                             meta(b, m, dt=torch.int32), None, None, 0.5)

@@ -281,6 +281,33 @@ def test_h1_and_dw2_twins_match_pallas_fwd1_and_bwd1():
                                **GRAD_TOL)
 
 
+def test_fwd2_twin_matches_pallas_fwd2():
+    """The twin of ``tl_fwd2_kernel`` alone, float32, ragged row and key
+    masks: ``bn_relu_conv2_reference`` on ``_tl_fwd_calls``' own h1, with a
+    and c built from its batch mean and variance as ``_tl_fwd_calls``
+    builds them, against its y (the Pallas ``_tl_fwd2_kernel``, interpret
+    mode; 2e-5); ``bn_relu_conv2`` on the same CPU tensors returns the
+    twin's values and launches nothing."""
+    d, b, n, m, topk = 32, 4, 24, 20, 6
+    params, state = _trees(11, d, np.float32)
+    x, src, _, vm, km = _inputs(43, b, n, m, d, True, False, np.float32)
+    jp = jax.tree.map(jnp.asarray, params)
+    y_j, mean_j, var_j, _, _, _, h1_j = _tl_fwd_calls(
+        jp, jnp.asarray(x), jnp.asarray(src), _jj(km), _jj(vm), topk, HEADS,
+        True, True)
+    w = _weights(_port_layer(params, state, torch.float32))
+    inv = torch.rsqrt(_tt(np.array(var_j)) + BN_EPS)
+    a = w[12] * inv
+    c = w[13] - _tt(np.array(mean_j)) * w[12] * inv
+    h1 = _tt(np.array(h1_j)).reshape(b * n, 2 * d)
+    y = T.bn_relu_conv2_reference(_tt(x), h1, a, c, w[10], w[11])
+    assert y.shape == (b, n, d) and y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), rtol=2e-5, atol=2e-5)
+    before = T.bn_relu_conv2.launches
+    assert torch.equal(T.bn_relu_conv2(_tt(x), h1, a, c, w[10], w[11]), y)
+    assert T.bn_relu_conv2.launches == before
+
+
 def test_bn_backward_sums_run_over_padded_rows_too():
     """``Sg``, ``Sgh``, ``dw2``, ``db2``, ``dscale``, ``dbias`` against numpy
     sums over ALL rows, with a cotangent that is non-zero on padded rows:
@@ -399,9 +426,9 @@ def test_two_applications_move_the_running_stats_twice():
 
 def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     """On a CPU tensor the entry takes the twin and never builds or loads
-    the kernels; the launch wrappers refuse a CPU tensor, except the h1, dh2
-    and dw2 wrappers, which take their plain twins; the launch counts stay
-    where they were."""
+    the kernels; the launch wrappers take their plain twins (the h1, fwd2,
+    dh2 and dw2 wrappers) and the forward's launch helper refuses a CPU
+    tensor; the launch counts stay where they were."""
     def no_library():
         raise AssertionError("a CPU tensor reached the kernel library")
 
@@ -413,8 +440,9 @@ def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     layer = _port_layer(params, state, torch.float32)
     counters = lambda: (T.fused_train_layer.forward_launches,
                         T.fused_train_layer.backward_launches,
-                        T.h1_stats.launches, T.bn_backward_sums.launches,
-                        T.dw2_db2.launches, T.dh1_kernel.launches)
+                        T.h1_stats.launches, T.bn_relu_conv2.launches,
+                        T.bn_backward_sums.launches, T.dw2_db2.launches,
+                        T.dh1_kernel.launches)
     before = counters()
     got_y, got = _port_run(layer, x, src, g, vm, km, 4, False)
     assert np.isfinite(got_y).all() and len(got) == 16
@@ -434,8 +462,9 @@ def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
         T.dw2_db2(xt, h1, vec4), T.dw2_db2_reference(xt, h1, vec4)))
     assert torch.equal(T.dh1_kernel(xt, h1, w[10], vec6, None),
                        T.dh1_reference(xt, h1, w[10], vec6, None))
+    assert torch.equal(T.bn_relu_conv2(xt, h1, w[12], w[13], w[10], w[11]),
+                       T.bn_relu_conv2_reference(xt, h1, w[12], w[13], w[10],
+                                                 w[11]))
     assert before == counters()
-    for call in (lambda: T.bn_relu_conv2(xt, h1, w[12], w[13], w[10], w[11]),
-                 lambda: T._tl_forward(xt, xt, None, None, 4, HEADS, *w)):
-        with pytest.raises(ValueError, match="CUDA"):
-            call()
+    with pytest.raises(ValueError, match="CUDA"):
+        T._tl_forward(xt, xt, None, None, 4, HEADS, *w)

@@ -7,9 +7,13 @@ step's peak memory; the Sinkhorn forward alone (``log_optimal_transport_
 kernel``, 20 iterations, ragged masks) at 64 x 256 x 256, 64 x 512 x 512 and
 8 x 1024 x 1024, and its backward (autograd) at the last two; and, at the
 train layer's shape (f32, R = 32768, D = 128), device ms a launch from
-torch.profiler of ``tl_h1_kernel`` (``h1_stats``), of ``tl_dh2_kernel`` in
-the BatchNorm backward's two launches (``bn_backward_sums``,
-``dh1_kernel``) and of ``tl_dw2_kernel`` (``dw2_db2``).
+torch.profiler of ``tl_h1_kernel`` (``h1_stats``), of ``tl_fwd2_kernel``
+(``bn_relu_conv2``, also with bfloat16 I/O), of ``tl_dh2_kernel`` in the
+BatchNorm backward's two launches (``bn_backward_sums``, ``dh1_kernel``)
+and of ``tl_dw2_kernel`` (``dw2_db2``), and the whole-layer training
+forward at k = 128 by events; the gap-loss margin forward in a
+CUDA graph at 64 x 512 x 512 and 8 x 1024 x 1024; and the train step with
+``loss_kernel=True`` (events and device time).
 
     python3 tools/torch_step_times.py [label]     # from the root of a checkout
 
@@ -30,8 +34,8 @@ import numpy as np
 
 sys.path.insert(0, os.getcwd())
 
-from chip_smoke import (card_line, cuda_ms, make_pairs, ragged_mask,  # noqa: E402
-                        train_batch)
+from chip_smoke import (card_line, cuda_ms, gap_case, graph_ms,  # noqa: E402
+                        make_pairs, ragged_mask, train_batch)
 
 
 def profiled(fn, reps):
@@ -74,8 +78,9 @@ def kernel_ms(fn, name, reps):
 
 
 def train_layer_kernel_times(rng, dev):
-    """ms a launch of tl_h1_kernel, of tl_dh2_kernel in bn_backward_sums
-    and in dh1_kernel, and of tl_dw2_kernel."""
+    """ms a launch of tl_h1_kernel, of tl_fwd2_kernel (f32 and bfloat16
+    I/O), of tl_dh2_kernel in bn_backward_sums and in dh1_kernel, and of
+    tl_dw2_kernel."""
     import torch
     from mdgat_tpu_torch.ops.cuda import train_layer as T
     r, d = 64 * 512, 128
@@ -95,7 +100,43 @@ def train_layer_kernel_times(rng, dev):
                                      "tl_dh2_kernel", 10),
             "dh2_dh1_ms": kernel_ms(lambda: T.dh1_kernel(g, h1, w2, vec6, rowmask),
                                     "tl_dh2_kernel", 10),
-            "dw2_ms": kernel_ms(lambda: T.dw2_db2(g, h1, vec4), "tl_dw2_kernel", 10)}
+            "dw2_ms": kernel_ms(lambda: T.dw2_db2(g, h1, vec4), "tl_dw2_kernel", 10),
+            **{f"fwd2_{label}_ms": kernel_ms(
+                lambda: T.bn_relu_conv2(x.to(dt), h1.to(dt), vec4[2], vec4[3],
+                                        w2, b1[:d]), "tl_fwd2_kernel", 10)
+               for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}}
+
+
+def whole_layer_forward_ms(rng, dev):
+    """ms of one whole-layer training forward (``fused_train_layer_forward``)
+    at 64 x 512 keypoints, D = 128, 4 heads, k = 128, self-attention with a
+    ragged key and row mask, by CUDA events."""
+    import torch
+    from chip_smoke import _random_layer
+    from mdgat_tpu_torch.ops.cuda import train_layer as T
+    layer = _random_layer(9, dev, 128, 4)
+    with torch.no_grad():
+        w = [p.clone() for p in T.train_layer_weights(layer)]
+    x = torch.from_numpy(rng.normal(size=(64, 512, 128)).astype(np.float32)).to(dev)
+    mask = ragged_mask(rng, 64, 512, 400, dev)
+    return min(cuda_ms(lambda: T.fused_train_layer_forward(x, x, mask, mask, 128, 4,
+                                                           *w), reps=10)
+               for _ in range(2))
+
+
+def gap_forward_times(rng, dev):
+    """ms of the gap-loss margin forward (``_margins_forward``: every launch
+    of one call) in a CUDA graph at 64 x 512 x 512 and 8 x 1024 x 1024."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import gap_loss as G
+    out = {}
+    for b, n in ((64, 512), (8, 1024)):
+        dense, br, bc, gt0, gt1, rm, cm, _, _ = gap_case(rng, dev, b, n, n)
+        args = (dense, br, bc, gt0, gt1, rm, cm, 0.5)
+        with torch.no_grad():
+            out[f"gap_fwd_{b}x{n}x{n}_ms"] = min(
+                graph_ms(lambda: G._margins_forward(*args)) for _ in range(2))
+    return out
 
 
 def main() -> int:
@@ -131,7 +172,8 @@ def main() -> int:
     cfg = train_defaults()
     _, batch = train_batch(1, cfg.batch_size, cfg.max_keypoints, dev)
     step = make_train_step()
-    for name, arm in (("kernel", cfg), ("plain", cfg.replace(use_kernels=False))):
+    for name, arm in (("kernel", cfg), ("plain", cfg.replace(use_kernels=False)),
+                      ("loss_kernel", cfg.replace(loss_kernel=True))):
         state = create_train_state(arm, device=dev, seed=0)
         step(state, batch)
         out[f"train_step_{name}_ms"] = min(
@@ -151,6 +193,9 @@ def main() -> int:
             step(state, batch)
             out["train_step_enqueue_ms"] = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
+        if name == "loss_kernel":
+            out["train_step_loss_kernel_device_ms"] = profiled(
+                lambda: step(state, batch), 1)[0]
         del state
         torch.cuda.empty_cache()
 
@@ -177,7 +222,9 @@ def main() -> int:
             for _ in range(2))
         del scores, sc, ot, cot
         torch.cuda.empty_cache()
+    out["whole_layer_forward_k128_ms"] = whole_layer_forward_ms(rng, dev)
     out.update(train_layer_kernel_times(rng, dev))
+    out.update(gap_forward_times(rng, dev))
     print(json.dumps(out))
     return 0
 
