@@ -82,9 +82,9 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    and pairs of one row or one column, ragged row and column masks and
    none, dustbin anchors, a cloud without a valid point: S0 / S1, the
    forward's counts exactly and, at random cotangents, dd / dbin_row /
-   dbin_col against the formula twins, the [B] loss and its gradients
-   against ``ops/losses.gap_loss`` under autograd, bit-equal from run to
-   run; the forward one kernel a call; their times and bounds, the forward
+   dbin_col bit-equal to the formula twins, the [B] loss and its
+   gradients against ``ops/losses.gap_loss`` under autograd, bit-equal from
+   run to run; the forward one kernel a call; their times and bounds, each
    beside its previous design's time and under each cluster size beside
    the clusters the card holds at once);
 7. the training path: ``create_train_state`` with seeded weights and three
@@ -118,6 +118,22 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    parameters), and the same run with ``--loss_kernel false`` launches no
    gap-loss kernel and logs the same losses within 2e-3; the loop's wall
    time per step is printed beside the bare step's.
+9. wide clouds (more than 1024 keypoints): every wide arm against its twin
+   at 1025, 1500 and 4096 keys or columns with ragged masks: the attention
+   forward (k = 128, 64, dense; lse; exact scores with thr equal to the
+   twin's bit for bit; an all-masked entry; the slab in its global scratch
+   at 6000 and 8192 keys), the attention backward (o, dq, dk, dv) and the
+   fused-MHA forward and backward under autograd at 2 x 1500 (the rebuilt
+   attention output equal to the forward's on every row), the Sinkhorn
+   forward and backward (20 and 100 iterations), the gap-loss kernels (also
+   at 20000 rows), every arm bit-equal from run to run, each timed at 2 x
+   1500 x 1500 beside its twin and its bound; ``Matcher(device="cuda")
+   .match`` on pairs of 1025 and 1500 keypoints against ``use_kernels=
+   False`` (match agreement, matching scores) and one default-route
+   training step of 2 pairs x 1500 keypoints against the plain route
+   (loss, grad_norm), each with the counters zeroed just before and read
+   just after (36 layers and 1 Sinkhorn a forward; 36 whole-layer forwards
+   and backwards, 36 attention backwards, 1 + 1 Sinkhorn a step).
 
 The line before the last is a JSON object with one entry per kernel (its
 time beside the plain twin's, the card's bound for the same work and, where
@@ -2024,6 +2040,9 @@ def gap_case(rng, dev, b, n, m):
 # gap_fwd_reduce_kernel: two launches and a partials scratch), in a CUDA
 # graph, this script on one H100 80GB HBM3 at 700 W
 GAP_FWD_BEFORE_MS = {"64x512x512": 0.1141, "8x1024x1024": 0.0614}
+# ... and of the backward (gap_bwd_kernel on a grid of 32-row tiles, each
+# staging the whole column side), in a CUDA graph, the same card
+GAP_BWD_BEFORE_MS = {"64x512x512": 0.1027, "8x1024x1024": 0.0785}
 GAP_CLUSTERS = (1, 2, 4, 8, 16)
 
 
@@ -2047,15 +2066,92 @@ def device_launches(fn, reps: int):
     return seen
 
 
+def gap_parity(rng, dev, b, n, m, gamma=0.5):
+    """Kernels #11 and #12 at b x n x m against their formula twins (S0 /
+    S1, the forward's counts exactly, dd / dbin_row / dbin_col bit for bit
+    at random cotangents), with ragged masks and without, and the [B] loss
+    and its gradients against ``ops/losses.gap_loss`` under autograd; two
+    runs bit-equal. Returns (S0 / S1 error, cotangent error, the case's
+    tensors)."""
+    import torch
+    from mdgat_tpu_torch.ops import losses as L
+    from mdgat_tpu_torch.ops.cuda import gap_loss as G
+    from mdgat_tpu_torch.ops.transport import OTScores
+    case = gap_case(rng, dev, b, n, m)
+    dense, br, bc, gt0, gt1, rm, cm, ds0, ds1 = case
+    name = f"gap_loss {b}x{n}x{m}"
+    worst_f = worst_b = 0.0
+    for masks in ((rm, cm), (None, None)):
+        args = (dense, br, bc, gt0, gt1, *masks, gamma)
+        leaves = [t.clone().requires_grad_() for t in (dense, br, bc)]
+
+        def run():
+            s = G.fused_gap_margins(*leaves, *args[3:])
+            return s, torch.autograd.grad(list(s), leaves, [ds0, ds1])
+
+        (s0, s1), grads = run()
+        (s0b, s1b), grads2 = run()
+        counts = G._margins_forward(*args)[2:]
+        with torch.no_grad():
+            r0, r1 = G.fused_gap_margins_reference(*args)
+            counts_ref = G.fused_gap_counts_reference(*args)
+            grads_ref = G.fused_gap_margins_backward_reference(*args, ds0, ds1)
+        torch.cuda.synchronize()
+        require(torch.equal(s0, s0b) and torch.equal(s1, s1b)
+                and all(torch.equal(a, c) for a, c in zip(grads, grads2)),
+                f"{name}: two runs differ")
+        require(all(torch.isfinite(a).all().item()
+                    for a in (s0, s1, *grads)), f"{name}: non-finite")
+        # elementwise, relative to max(1, |twin|): anchors whose
+        # positive is masked carry sums of the order of M * 1e30
+        f_err = max(((a - r).abs() / r.abs().clamp_min(1.0)).max().item()
+                    for a, r in ((s0, r0), (s1, r1)))
+        b_err = max(_rel_err(a, r) for a, r in zip(grads, grads_ref))
+        b_equal = all(torch.equal(a, r) for a, r in zip(grads, grads_ref))
+        counts_equal = all(torch.equal(a, c) for a, c in zip(counts, counts_ref))
+        tag = "masked" if masks[0] is not None else "unmasked"
+        print(f"{name} {tag} (plan {G.gap_plan(b, n, m)}): S0/S1 max rel "
+              f"err {f_err:.3e} (tol "
+              f"{TOL['gap_margins']:g}), counts equal to the twin's "
+              f"{counts_equal}, dd/dbin_row/dbin_col at random cotangents "
+              f"bit-equal to the twin's {b_equal} (max rel err {b_err:.3e}); "
+              f"forward and backward bit-equal over two runs")
+        require(f_err <= TOL["gap_margins"], f"{name} {tag}: forward disagrees")
+        require(counts_equal, f"{name} {tag}: the forward's counts disagree")
+        require(b_equal, f"{name} {tag}: the backward is not its twin's bits")
+        worst_f, worst_b = max(worst_f, f_err), max(worst_b, b_err)
+
+    # the whole loss against ops/losses.gap_loss under autograd
+    def loss_and_grads(fn):
+        lv = [t.clone().requires_grad_() for t in (dense, br, bc)]
+        ot = OTScores(*lv, torch.zeros(b, device=dev))
+        loss = fn(ot, gt0.long(), gt1.long(), gamma, rm, cm)
+        return loss.detach(), torch.autograd.grad(loss.sum(), lv)
+
+    loss, lg = loss_and_grads(G.gap_loss_kernel)
+    loss_ref, lg_ref = loss_and_grads(L.gap_loss)
+    torch.cuda.synchronize()
+    l_err = ((loss - loss_ref).abs() / loss_ref.abs().clamp_min(1.0)).max().item()
+    g_err = max((a - r).abs().max().item() for a, r in zip(lg, lg_ref))
+    print(f"{name} against gap_loss under autograd: loss [B] max rel err "
+          f"{l_err:.3e} (tol {TOL['gap_loss']:g}), d dense / d bin_row / "
+          f"d bin_col max abs err {g_err:.3e} (tol {TOL['gap_loss_grad']:g})")
+    require(torch.isfinite(loss).all().item(), f"{name}: non-finite loss")
+    require(l_err <= TOL["gap_loss"] and g_err <= TOL["gap_loss_grad"],
+            f"{name}: disagrees with gap_loss under autograd")
+    return worst_f, worst_b, case
+
+
 def check_gap_loss(rng, dev, report, card):
     """Kernels #11 and #12 against their formula twins on the card (S0 / S1,
-    the forward's counts exactly, dd / dbin_row / dbin_col) and against
-    ``ops/losses.gap_loss`` under autograd, at the training shape, the wide
-    shapes (8 and 2 pairs of 1024 x 1024), an odd one and pairs of one row
-    or one column, where the forward's cluster plan changes; two runs
+    the forward's counts exactly, dd / dbin_row / dbin_col bit for bit) and
+    against ``ops/losses.gap_loss`` under autograd, at the training shape,
+    the wide shapes (8 and 2 pairs of 1024 x 1024, 2 of 1500 x 1500), an odd
+    one and pairs of one row or one column, where the plans change; two runs
     bit-equal; the forward one launch a call; times with their bounds at
-    the training shape and 8 x 1024 x 1024, the forward under its plan and
-    each cluster size beside the clusters the card holds at once."""
+    the training shape and 8 x 1024 x 1024, each kernel under its plan and
+    each cluster size beside the clusters the card holds at once, and
+    beside its previous design's time."""
     import torch
     from mdgat_tpu_torch.ops import losses as L
     from mdgat_tpu_torch.ops.cuda import gap_loss as G
@@ -2065,68 +2161,13 @@ def check_gap_loss(rng, dev, report, card):
     worst_f = worst_b = 0.0
     times = {}
     for b, n, m in ((64, 512, 512), (8, 1024, 1024), (3, 200, 231),
-                    (2, 1024, 1024), (4, 1, 1), (3, 1, 300), (3, 300, 1)):
-        dense, br, bc, gt0, gt1, rm, cm, ds0, ds1 = gap_case(rng, dev, b, n, m)
+                    (2, 1024, 1024), (2, 1500, 1500), (4, 1, 1), (3, 1, 300),
+                    (3, 300, 1)):
+        f_err, b_err, case = gap_parity(rng, dev, b, n, m, gamma)
+        dense, br, bc, gt0, gt1, rm, cm, ds0, ds1 = case
         name = f"gap_loss {b}x{n}x{m}"
-        for masks in ((rm, cm), (None, None)):
-            args = (dense, br, bc, gt0, gt1, *masks, gamma)
-            leaves = [t.clone().requires_grad_() for t in (dense, br, bc)]
-
-            def run():
-                s = G.fused_gap_margins(*leaves, *args[3:])
-                return s, torch.autograd.grad(list(s), leaves, [ds0, ds1])
-
-            (s0, s1), grads = run()
-            (s0b, s1b), grads2 = run()
-            counts = G._margins_forward(*args)[2:]
-            with torch.no_grad():
-                r0, r1 = G.fused_gap_margins_reference(*args)
-                counts_ref = G.fused_gap_counts_reference(*args)
-                grads_ref = G.fused_gap_margins_backward_reference(*args, ds0, ds1)
-            torch.cuda.synchronize()
-            require(torch.equal(s0, s0b) and torch.equal(s1, s1b)
-                    and all(torch.equal(a, c) for a, c in zip(grads, grads2)),
-                    f"{name}: two runs differ")
-            require(all(torch.isfinite(a).all().item()
-                        for a in (s0, s1, *grads)), f"{name}: non-finite")
-            # elementwise, relative to max(1, |twin|): anchors whose
-            # positive is masked carry sums of the order of M * 1e30
-            f_err = max(((a - r).abs() / r.abs().clamp_min(1.0)).max().item()
-                        for a, r in ((s0, r0), (s1, r1)))
-            b_err = max(_rel_err(a, r) for a, r in zip(grads, grads_ref))
-            counts_equal = all(torch.equal(a, c) for a, c in zip(counts, counts_ref))
-            tag = "masked" if masks[0] is not None else "unmasked"
-            print(f"{name} {tag} (forward plan {G.gap_plan(b, n, m)}): S0/S1 max "
-                  f"rel err {f_err:.3e} (tol {TOL['gap_margins']:g}), counts "
-                  f"equal to the twin's {counts_equal}, dd/dbin_row/dbin_col at "
-                  f"random cotangents max rel err {b_err:.3e} (tol "
-                  f"{TOL['gap_cotangent']:g}); forward and backward bit-equal "
-                  f"over two runs")
-            require(f_err <= TOL["gap_margins"], f"{name} {tag}: forward disagrees")
-            require(counts_equal, f"{name} {tag}: the forward's counts disagree")
-            require(b_err <= TOL["gap_cotangent"], f"{name} {tag}: backward disagrees")
-            if b == 64:
-                worst_f, worst_b = max(worst_f, f_err), max(worst_b, b_err)
-
-        # the whole loss against ops/losses.gap_loss under autograd
-        def loss_and_grads(fn):
-            lv = [t.clone().requires_grad_() for t in (dense, br, bc)]
-            ot = OTScores(*lv, torch.zeros(b, device=dev))
-            loss = fn(ot, gt0.long(), gt1.long(), gamma, rm, cm)
-            return loss.detach(), torch.autograd.grad(loss.sum(), lv)
-
-        loss, lg = loss_and_grads(G.gap_loss_kernel)
-        loss_ref, lg_ref = loss_and_grads(L.gap_loss)
-        torch.cuda.synchronize()
-        l_err = ((loss - loss_ref).abs() / loss_ref.abs().clamp_min(1.0)).max().item()
-        g_err = max((a - r).abs().max().item() for a, r in zip(lg, lg_ref))
-        print(f"{name} against gap_loss under autograd: loss [B] max rel err "
-              f"{l_err:.3e} (tol {TOL['gap_loss']:g}), d dense / d bin_row / "
-              f"d bin_col max abs err {g_err:.3e} (tol {TOL['gap_loss_grad']:g})")
-        require(torch.isfinite(loss).all().item(), f"{name}: non-finite loss")
-        require(l_err <= TOL["gap_loss"] and g_err <= TOL["gap_loss_grad"],
-                f"{name}: disagrees with gap_loss under autograd")
-
+        if b == 64:
+            worst_f, worst_b = max(worst_f, f_err), max(worst_b, b_err)
         if (b, n) not in ((64, 512), (8, 1024)):
             continue
         args = (dense, br, bc, gt0, gt1, rm, cm, gamma)
@@ -2156,6 +2197,10 @@ def check_gap_loss(rng, dev, report, card):
                        *args, ds0, ds1)))
             sweep = {g: (graph_ms(lambda: G._margins_forward(*args, cluster=g)),
                          G.active_clusters(m, g)) for g in GAP_CLUSTERS}
+            bwd_sweep = {f"G={g}": (graph_ms(lambda: G._margins_backward(
+                *args, *cnt, ds0, ds1, cluster=g)),
+                G.active_clusters(m, g, backward=True)) for g in GAP_CLUSTERS}
+            sweep = {f"G={g}": v for g, v in sweep.items()}
         auto_f = cuda_ms(lambda: L.gap_loss(ot, gt0l, gt1l, gamma, rm, cm), 10)
         auto_b = cuda_ms(lambda: torch.autograd.grad(plain_loss, lv,
                                                      retain_graph=True), 10)
@@ -2168,24 +2213,28 @@ def check_gap_loss(rng, dev, report, card):
         bounds = (bound(slab + vec_in + vec, 8.0 * b * n * m),
                   bound(2 * slab + vec_in + 2 * vec, 8.0 * b * n * m))
         shape = f"{b}x{n}x{m}"
-        was = GAP_FWD_BEFORE_MS[shape]
+        was, was_b = GAP_FWD_BEFORE_MS[shape], GAP_BWD_BEFORE_MS[shape]
         times[f"gap_loss_fwd_{shape}"] = fwd
         times[f"gap_loss_bwd_{shape}"] = bwd
         print(f"gap-loss times on {card}, {shape} (ms, CUDA graphs): forward "
               f"kernel {fwd[0]:.4f} (plan {G.gap_plan(b, n, m)}; before "
               f"{was:.4f}, {was / fwd[0]:.2f}x) / twin {fwd[1]:.4f} / bound "
               f"{bounds[0][0]:.4f} ({bounds[0][1]}); backward kernel "
-              f"{bwd[0]:.4f} / twin {bwd[1]:.4f} / bound {bounds[1][0]:.4f} "
-              f"({bounds[1][1]}); ops/losses.gap_loss under autograd forward "
-              f"{auto_f:.4f}, backward {auto_b:.4f}")
-        print(f"gap-loss forward sweep on {card}, {shape}: "
-              + ", ".join(f"G={g} {ms:.4f} ms ({act} clusters at once)"
-                          for g, (ms, act) in sweep.items()))
+              f"{bwd[0]:.4f} (before "
+              f"{was_b:.4f}, {was_b / bwd[0]:.2f}x) / twin {bwd[1]:.4f} / bound "
+              f"{bounds[1][0]:.4f} ({bounds[1][1]}); ops/losses.gap_loss under "
+              f"autograd forward {auto_f:.4f}, backward {auto_b:.4f}")
+        for label, sw in (("forward", sweep), ("backward", bwd_sweep)):
+            print(f"gap-loss {label} sweep on {card}, {shape}: "
+                  + ", ".join(f"{g} {ms:.4f} ms ({act} clusters at once)"
+                              for g, (ms, act) in sw.items()))
         report.setdefault("_gap_loss", {})[shape] = dict(
             fwd_ms=fwd[0], fwd_twin_ms=fwd[1], fwd_bound_ms=bounds[0][0],
             fwd_before_ms=was, fwd_plan=list(G.gap_plan(b, n, m)),
             fwd_sweep={str(g): list(v) for g, v in sweep.items()},
             bwd_ms=bwd[0], bwd_twin_ms=bwd[1], bwd_bound_ms=bounds[1][0],
+            bwd_before_ms=was_b,
+            bwd_sweep={str(g): list(v) for g, v in bwd_sweep.items()},
             gap_loss_autograd_fwd_ms=auto_f, gap_loss_autograd_bwd_ms=auto_b)
         if b == 64:
             for key, t, (ms, by) in (("gap_loss_fwd", fwd, bounds[0]),
@@ -2774,6 +2823,397 @@ def train_cli(dev, report, counters, card):
                                 launches=launches, bare_step_ms=bare)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: wide clouds (more than 1024 keypoints)
+# ---------------------------------------------------------------------------
+
+# key / column counts of the wide arms' parity checks
+WIDE_KEYS = (1025, 1500, 4096)
+
+
+def wide_attention(rng, dev):
+    """The attention forward's wide arm against its twin at 1025, 1500 and
+    4096 keys (the slab in shared memory) and 6000 / 8192 (in the global
+    scratch), ragged masks, k = 128, 64 and dense, lse on: o, thr, lse
+    within the attention tolerances off near ties, two runs bit-equal; exact
+    scores (integer q and k, a power-of-two scale) with thr equal to the
+    twin's bit for bit; an all-masked entry; head sizes 8 to 64 and one
+    bfloat16 case. Returns the worst f32 o error."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import attention as A
+    worst = 0.0
+    cases = [(2, 4, m if m < 4096 else 1000, m, 32, k, "")
+             for m in WIDE_KEYS for k in (128, 64, 0)]
+    cases += [(1, 2, 40, 8192, 32, 128, ""), (1, 2, 24, 6000, 64, 0, ""),
+              (2, 2, 100, 2000, 8, 16, ""), (2, 2, 300, 1500, 32, 64, "bf16"),
+              (2, 2, 300, 1500, 16, 64, "ties"), (2, 2, 200, 4096, 16, 128, "ties"),
+              (3, 2, 100, 1500, 32, 64, "all-masked entry")]
+    for b, h, n, m, dh, k, kind in cases:
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+
+        def t(*shape):
+            x = rng.normal(size=shape)
+            if kind == "ties":
+                x = np.clip(np.round(x), -2, 2)
+            return torch.from_numpy(x.astype(np.float32)).to(dev, dt)
+        q, kk, v = t(b, h, n, dh), t(b, h, m, dh), t(b, h, m, dh)
+        mask = ragged_mask(rng, b, m, int(0.78 * m), dev)
+        if kind == "all-masked entry":
+            mask[b - 1] = False
+        scale = dh ** -0.5
+        o, thr, lse = A.topk_attention(q, kk, v, mask, k, scale, return_lse=True)
+        o2, thr2, lse2 = A.topk_attention(q, kk, v, mask, k, scale, return_lse=True)
+        o_ref, thr_ref, lse_ref = A.topk_attention_reference(
+            q, kk, v, mask, k, scale, return_lse=True)
+        torch.cuda.synchronize()
+        name = (f"wide attention {b}x{h}x{n}x{m} dh{dh} k{k}"
+                f"{' ' + kind if kind else ''} (slab "
+                f"{'global' if A.slab_floats(b, h, n, m, dh) else 'on chip'})")
+        require(torch.equal(o, o2) and torch.equal(thr, thr2)
+                and torch.equal(lse, lse2), f"{name}: two runs differ")
+        require(torch.isfinite(o.float()).all().item(), f"{name}: non-finite")
+        s = torch.matmul(q.float(), kk.float().transpose(-1, -2)) * scale
+        valid = mask[:, None, None, :].expand(s.shape)
+        if kind == "ties":
+            require(torch.equal(thr, thr_ref), f"{name}: thr differs from the k-th value")
+            keep = torch.ones(s.shape[:-1], dtype=torch.bool, device=dev)
+        else:
+            keep = ~(near_tie_rows(s, valid, k) & (valid.sum(-1) > k))
+        del s, valid
+        if kind == "all-masked entry":
+            require(not o[b - 1].any().item() and (lse[b - 1] == -1e30).all().item()
+                    and (thr[b - 1] == (1e30 if k else -1e30)).all().item(),
+                    f"{name}: all-masked rows")
+        err = (o.float() - o_ref.float()).abs().amax(-1)[keep].max().item()
+        terr = (thr - thr_ref).abs()[..., 0][keep].max().item()
+        lerr = ((lse - lse_ref).abs() / lse_ref.abs().clamp_min(1.0))[..., 0][keep].max().item()
+        tol = TOL["attention_f32" if dt == torch.float32 else "attention_bf16"]
+        print(f"{name}: max|o-o_ref| {err:.3e} max|thr-thr_ref| {terr:.3e} lse "
+              f"rel {lerr:.3e} (tol {tol:g}, thr and lse "
+              f"{TOL['attention_f32']:g}); rows left out "
+              f"{int((~keep).sum())} of {keep.numel()}; bit-equal over two runs")
+        require(err <= tol and terr <= TOL["attention_f32"]
+                and lerr <= TOL["attention_f32"], f"{name} disagrees")
+        if dt == torch.float32:
+            worst = max(worst, err)
+    return worst
+
+
+def wide_attention_backward(rng, dev):
+    """The attention backward (rows kernel's wide arm, keys kernel) against
+    its twin at 1025, 1500, 4096 keys and 8192 (the rows kernel's slab in
+    the global scratch), k = 128 / 64 / dense: o, dq, dk, dv, bit-equal
+    over two runs; then the fused-MHA forward and backward under autograd at
+    2 x 1500 (self) and 1025 queries x 1500 keys (cross), k = 128, with the
+    attention output the backward's rows kernel rebuilds from thr and lse
+    held to the forward's on every row (no entry flips). Returns the worst
+    (o error, gradient error)."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import attention as A
+    from mdgat_tpu_torch.ops.cuda import mha as M
+    h, dh = 4, 32
+    worst_o = worst_g = 0.0
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    for b, n, m, kk in [(2, m, m, k) for m in (1025, 1500) for k in (128, 64, 0)] + [
+            (2, 1000, 4096, 128), (2, 1000, 4096, 0), (1, 64, 8192, 64)]:
+        q, k, v, do = t(b, h, n, dh) * dh ** -0.5, t(b, h, m, dh), t(b, h, m, dh), t(b, h, n, dh)
+        mask = ragged_mask(rng, b, m, int(0.78 * m), dev)
+        with torch.no_grad():
+            _, thr, lse = A.topk_attention(q, k, v, mask, kk, 1.0, return_lse=True)
+            _, thr_r, lse_r = A.topk_attention_reference(q, k, v, mask, kk, 1.0,
+                                                         return_lse=True)
+            s = q @ k.transpose(-1, -2)
+            tie = near_tie_rows(s, mask[:, None, None, :].expand(s.shape), kk)
+            del s
+            dz = do * (~tie)[..., None]
+            got = M._attention_backward(q, k, v, dz, mask, thr, lse)
+            again = M._attention_backward(q, k, v, dz, mask, thr, lse)
+            ref = M.attention_backward_reference(q, k, v, dz, mask, thr_r, lse_r)
+        torch.cuda.synchronize()
+        name = (f"wide attention backward {b}x{h}x{n}x{m}x{dh} k{kk} (rows slab "
+                f"{'global' if A.slab_floats(b, h, n, m, dh, 2) else 'on chip'})")
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"{name}: two runs differ")
+        require(all(torch.isfinite(x).all().item() for x in got), f"{name}: non-finite")
+        keep = (~tie).permute(0, 2, 1).reshape(b * n, h)[..., None]
+        o_err = ((got[0] - ref[0]).reshape(b * n, h, dh).abs() * keep).max().item()
+        errs = [_rel_err(x, y) for x, y in zip(got[1:], ref[1:])]
+        print(f"{name}: o max err {o_err:.3e}, dq / dk / dv max rel err "
+              + " / ".join(f"{e:.3e}" for e in errs)
+              + f" (tol {TOL['mha_out']:g} / {TOL['mha_grad']:g}; "
+              f"{int(tie.sum())} near-tie rows of {tie.numel()} left out); "
+              f"bit-equal over two runs")
+        require(o_err <= TOL["mha_out"] and max(errs) <= TOL["mha_grad"],
+                f"{name} disagrees with its twin")
+        worst_o, worst_g = max(worst_o, o_err), max(worst_g, max(errs))
+    for b, n, m, selfattn in ((2, 1500, 1500, True), (2, 1025, 1500, False)):
+        fwd_err, grad_err, gap, ties, rows = mha_case(
+            rng, dev, b, n, m, 128, 4, 128, selfattn, seed=31)
+        print(f"wide fused MHA {b}x{n}x{m} k128 {'self' if selfattn else 'cross'}: "
+              f"out/thr/lse max err {fwd_err:.3e} (tol {TOL['mha_out']:g}), "
+              f"gradients max rel err {grad_err:.3e} (tol {TOL['mha_grad']:g}), "
+              f"forward vs rebuilt attention output {gap:.3e} (tol "
+              f"{TOL['mha_selection_gap']:g}); {ties} near-tie rows of {rows} "
+              f"left out; backward bit-equal over two runs")
+        require(fwd_err <= TOL["mha_out"] and grad_err <= TOL["mha_grad"],
+                f"wide fused MHA {b}x{n}x{m} disagrees with its twin")
+        require(gap <= TOL["mha_selection_gap"],
+                f"wide fused MHA {b}x{n}x{m}: the backward kept other entries")
+        worst_g = max(worst_g, grad_err)
+    return worst_o, worst_g
+
+
+def wide_sinkhorn(rng, dev):
+    """The Sinkhorn forward's and backward's wide arms against their twin
+    at 2 x 1025 x 1025, 2 x 1500 x 1500 and 2 x 1000 x 4096, ragged, 20
+    iterations (and 100 at 1500; none at 1100), bit-equal over two runs
+    each; the backward
+    also under a cluster size the plan does not take. Returns the worst
+    forward error, dZ error."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import sinkhorn as S
+    worst_f = worst_b = 0.0
+    for b, n, m, iters in ((2, 1025, 1025, 20), (2, 1500, 1500, 20),
+                           (2, 1000, 4096, 20), (2, 1500, 1500, 100),
+                           (2, 1100, 1100, 0)):
+        scores = torch.from_numpy(rng.normal(size=(b, n, m)).astype(np.float32)).to(dev)
+        rm = ragged_mask(rng, b, n, int(0.78 * n), dev)
+        cm = ragged_mask(rng, b, m, int(0.78 * m), dev)
+        ref = S.log_optimal_transport_reference(scores, 1.0, iters, rm, cm)
+        scalars, lmu, lnu = S._prep(scores, torch.tensor(1.0, device=dev), rm, cm)
+        first = S._forward(scores, scalars, lmu, lnu, iters)
+        again = S._forward(scores, scalars, lmu, lnu, iters)
+        torch.cuda.synchronize()
+        name = f"wide sinkhorn {b}x{n}x{m} {iters} it (plan {S.sinkhorn_plan(b, n, m)})"
+        require(all(torch.equal(x, y) for x, y in zip(first, again)),
+                f"{name}: the forward differs from run to run")
+        errs, pad_ok = _sinkhorn_errs(first, ref, rm, cm)
+        require(pad_ok, f"{name}: padding leaked")
+        # the backward, by launch, twice, under its plan and another cluster
+        cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+               for shape in ((b, n, m), (b, m), (b, n), (b,))]
+        dzs = [S._backward(scores, scalars, lmu, lnu, cot, iters, g)
+               for g in (0, 0, 4)]
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(dzs[0], dzs[1])),
+                f"{name}: the backward differs from run to run")
+        g_err = _rel_err(dzs[2][0], dzs[0][0])
+        require(g_err <= TOL["sinkhorn_bwd"],
+                f"{name}: the backward at 4 CTAs a pair disagrees ({g_err:.3e})")
+        dz_err, da_err = sinkhorn_bwd_case(rng, dev, b, n, m, iters)
+        print(f"{name}: forward max err dense/bin_row/bin_col/corner "
+              + " ".join(f"{e:.3e}" for e in errs)
+              + f" (tol {TOL['sinkhorn_f32']:g}); backward (plan "
+              f"{S.bwd_plan(b, n, m)[0]} CTAs a pair) dZ rel err {dz_err:.3e}, "
+              f"dalpha rel err {da_err:.3e} (tol {TOL['sinkhorn_bwd']:g}), at 4 "
+              f"CTAs a pair {g_err:.3e} from the plan's; each bit-equal over "
+              f"two runs")
+        require(max(errs) <= TOL["sinkhorn_f32"], f"{name}: the forward disagrees")
+        require(dz_err <= TOL["sinkhorn_bwd"] and da_err <= TOL["sinkhorn_bwd"],
+                f"{name}: the backward disagrees")
+        worst_f, worst_b = max(worst_f, max(errs)), max(worst_b, dz_err, da_err)
+    return worst_f, worst_b
+
+
+def wide_times(rng, dev, card):
+    """Each wide arm's time at 2 pairs x 1500 x 1500 (attention at 4 heads
+    x 32, k = 128, ragged), beside its plain twin and its bound: ms by
+    events (the attention backward a call of both kernels; the Sinkhorn 20
+    iterations), the gap-loss kernels in CUDA graphs."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import attention as A
+    from mdgat_tpu_torch.ops.cuda import gap_loss as G
+    from mdgat_tpu_torch.ops.cuda import mha as M
+    from mdgat_tpu_torch.ops.cuda import sinkhorn as S
+    b, h, n, dh, kk = 2, 4, 1500, 32, 128
+    out = {}
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    q, k, v, do = t(b, h, n, dh) * dh ** -0.5, t(b, h, n, dh), t(b, h, n, dh), t(b, h, n, dh)
+    mask = ragged_mask(rng, b, n, int(0.78 * n), dev)
+    with torch.no_grad():
+        _, thr, lse = A.topk_attention(q, k, v, mask, kk, 1.0, return_lse=True)
+        fwd = abba_ms(lambda: A.topk_attention(q, k, v, mask, kk, 1.0),
+                      lambda: A.topk_attention_reference(q, k, v, mask, kk, 1.0), 10)
+        bwd = abba_ms(lambda: M._attention_backward(q, k, v, do, mask, thr, lse),
+                      lambda: M.attention_backward_reference(q, k, v, do, mask, thr, lse), 5)
+    keys = mask.sum().item()
+    kept = torch.clamp(mask.sum(1), max=kk).sum().item() * h * n
+    out["attention_fwd"] = (*fwd, *bound(4 * 4.0 * b * h * n * dh + b * n + 8.0 * b * h * n,
+                                         2.0 * h * n * dh * keys + 2.0 * kept * dh))
+    (rb, rby), (kb, kby) = attention_backward_bounds(mask, b, h, n, n, dh, kk)
+    out["attention_bwd"] = (*bwd, rb + kb, rby)
+    scores = t(b, n, n)
+    scalars, lmu, lnu = S._prep(scores, torch.tensor(1.0, device=dev), mask, mask)
+    cot = [t(b, n, n), t(b, n), t(b, n), t(b)]
+    sfwd = abba_ms(lambda: S._forward(scores, scalars, lmu, lnu, 20),
+                   lambda: S.log_optimal_transport_reference(scores, 1.0, 20, mask, mask), 5)
+    sbwd = cuda_ms(lambda: S._backward(scores, scalars, lmu, lnu, cot, 20), 5, 1)
+    valid = (mask.sum(1).float() ** 2).sum().item()
+    out["sinkhorn_fwd"] = (*sfwd, *bound(2 * 4.0 * b * n * n, 20 * 2 * 5.0 * valid))
+    out["sinkhorn_bwd"] = (sbwd, None, *bound(4 * 4.0 * b * n * n, 20 * 4 * 5.0 * valid))
+    dense, br, bc, gt0, gt1, rm, cm, ds0, ds1 = gap_case(rng, dev, b, n, n)
+    args = (dense, br, bc, gt0, gt1, rm, cm, 0.5)
+    with torch.no_grad():
+        cnt = G._margins_forward(*args)[2:]
+        gf = (graph_ms(lambda: G._margins_forward(*args)),
+              graph_ms(lambda: G.fused_gap_margins_reference(*args)))
+        gb = (graph_ms(lambda: G._margins_backward(*args, *cnt, ds0, ds1)),
+              graph_ms(lambda: G.fused_gap_margins_backward_reference(*args, ds0, ds1)))
+    slab, vec = 4.0 * b * n * n, 4.0 * b * 2 * n
+    vec_in = 2 * vec + b * 2 * n
+    out["gap_fwd"] = (*gf, *bound(slab + vec_in + vec, 8.0 * b * n * n))
+    out["gap_bwd"] = (*gb, *bound(2 * slab + vec_in + 2 * vec, 8.0 * b * n * n))
+    print(f"wide arms at {b} x {n} x {n} on {card} (ms: kernel / twin / bound): "
+          + "; ".join(f"{key} {ms:.4f} / "
+                      + (f"{pl:.4f}" if pl is not None else "-")
+                      + f" / {bd:.4f} ({by})"
+                      for key, (ms, pl, bd, by) in out.items()))
+    return {key: dict(ms=ms, plain_ms=pl, bound_ms=bd, bound_by=by)
+            for key, (ms, pl, bd, by) in out.items()}
+
+
+def wide_serving(rng, dev, counters):
+    """``Matcher(device="cuda").match`` on the flagship model (seeded
+    weights) on two pairs of 1025 and two of 1500 keypoints (buckets 1152
+    and 1536), counters zeroed just before and read just after (36 eval
+    layers and 1 Sinkhorn a forward), against the same Matcher with
+    ``use_kernels=False`` on the card: match agreement, and the matching
+    scores where both sides match alike."""
+    import torch
+    from mdgat_tpu_torch import Matcher
+    matcher = Matcher(seed=0, device=dev)
+    plain = Matcher(seed=0, device=dev, use_kernels=False)
+    pairs = make_pairs(rng, 2, 1025, 1025) + make_pairs(rng, 2, 1500, 1500)
+
+    def run(m):
+        return [m.match(p["kp0"], p["desc0"], p["kp1"], p["desc1"], p["score0"],
+                        p["score1"]) for p in pairs]
+
+    for c in counters.values():
+        c.reset()
+    outs = run(matcher)
+    torch.cuda.synchronize()
+    launches = {name: c.read() for name, c in counters.items()}
+    forwards = len(pairs)
+    require(launches["eval_layer"] == 36 * forwards
+            and launches["topk_attention"] == 36 * forwards
+            and launches["sinkhorn"] == forwards,
+            f"wide serving: launches {launches}, not 36 layers and 1 Sinkhorn "
+            f"a forward")
+    check_outputs(outs, pairs)
+    ref = run(plain)
+    agree = agreement(outs, ref)
+    score_err = max(float(np.abs(o[key] - r[key])[o[m] == r[m]].max(initial=0.0))
+                    for o, r in zip(outs, ref)
+                    for key, m in (("matching_scores0", "matches0"),
+                                   ("matching_scores1", "matches1")))
+    n_matched = sum(int((o["matches0"] >= 0).sum()) for o in outs)
+    print(f"wide serving: Matcher.match on 2 pairs of 1025 and 2 of 1500 "
+          f"keypoints: launches eval layer {launches['eval_layer']}, attention "
+          f"{launches['topk_attention']}, Sinkhorn {launches['sinkhorn']}; "
+          f"agreement with use_kernels=False {agree:.6f} (min "
+          f"{MIN_AGREEMENT}); {n_matched} matches0 set; matching-score max "
+          f"err where the matches agree {score_err:.3e} (tol 1e-3)")
+    require(agree >= MIN_AGREEMENT, "wide serving: kernels disagree with the plain route")
+    require(score_err <= 1e-3, "wide serving: matching scores disagree")
+    return dict(agreement=agree, score_err=score_err, launches=launches)
+
+
+def wide_training(dev, counters):
+    """One training step at 2 pairs x 1500 keypoints from ``train_batch`` on
+    the default whole-layer route (counters zeroed just before and read
+    just after: 36 whole-layer forwards and backwards, 36 attention
+    backwards, 1 + 1 Sinkhorn), against the plain route: loss and grad_norm
+    within the training tolerances."""
+    import torch
+    from mdgat_tpu_torch.core.config import train_defaults
+    from mdgat_tpu_torch.train import create_train_state
+    cfg = train_defaults()
+    _, batch = train_batch(5, 2, 1500, dev)
+    require(batch["keypoints0"].shape == (2, 1500, 3), "wide training batch shape")
+    state = create_train_state(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    (loss, gn), = run_steps(state, batch, 1)
+    launches = {name: c.read() for name, c in counters.items()}
+    want = {"train_layer_fwd": 36, "train_layer_bwd": 36, "mha_bwd": 36,
+            "sinkhorn": 1, "sinkhorn_bwd": 1, "fused_mha_fwd": 0}
+    require(all(launches[k] == v for k, v in want.items()),
+            f"wide training: launches {launches}, want {want}")
+    (loss_p, gn_p), = run_steps(
+        create_train_state(cfg.replace(use_kernels=False), device=dev, seed=0),
+        batch, 1)
+    rel = lambda a, r: abs(a - r) / max(abs(r), 1e-12)
+    print(f"wide training: one step of 2 pairs x 1500 keypoints, default "
+          f"route: loss {loss:.6f} (plain {loss_p:.6f}, rel {rel(loss, loss_p):.2e}, "
+          f"tol {TOL['train_loss_rel']:g}), grad_norm {gn:.6f} (plain "
+          f"{gn_p:.6f}, rel {rel(gn, gn_p):.2e}, tol "
+          f"{TOL['train_grad_norm_rel']:g}); launches {launches}")
+    require(np.isfinite([loss, gn]).all(), "wide training: non-finite loss")
+    require(rel(loss, loss_p) <= TOL["train_loss_rel"]
+            and rel(gn, gn_p) <= TOL["train_grad_norm_rel"],
+            "wide training: the kernels disagree with the plain route")
+    return dict(loss=loss, grad_norm=gn, plain_loss=loss_p,
+                plain_grad_norm=gn_p, launches=launches)
+
+
+def wide_clouds(rng, dev, report, counters, card):
+    """Phase 9: every wide arm against its twin, bit-equal from run to run,
+    with its time; the serving and training paths at 1025 and 1500
+    keypoints through the entry points a user calls."""
+    import torch
+    out = dict(attention_err=wide_attention(rng, dev))
+    out["attention_bwd_err"] = wide_attention_backward(rng, dev)
+    torch.cuda.empty_cache()
+    out["sinkhorn_err"] = wide_sinkhorn(rng, dev)
+    out["gap_err"] = [gap_parity(rng, dev, b, n, m)[:2]
+                      for b, n, m in ((2, 1025, 1025), (2, 1500, 1500),
+                                      (2, 1000, 4096), (1, 20000, 64))]
+    out["times"] = wide_times(rng, dev, card)
+    torch.cuda.empty_cache()
+    out["serving"] = wide_serving(rng, dev, counters)
+    torch.cuda.empty_cache()
+    out["training"] = wide_training(dev, counters)
+    report["_wide_clouds"] = out
+
+
+def make_counters():
+    """Every kernel wrapper's launch count, by name."""
+    from mdgat_tpu_torch.ops.cuda import attention as A
+    from mdgat_tpu_torch.ops.cuda import gap_loss as G
+    from mdgat_tpu_torch.ops.cuda import layer as Lk
+    from mdgat_tpu_torch.ops.cuda import mha as M
+    from mdgat_tpu_torch.ops.cuda import sinkhorn as S
+    from mdgat_tpu_torch.ops.cuda import train_layer as T
+    return {
+        "topk_attention": Counter(A.topk_attention),
+        "eval_layer": Counter(Lk.fused_layer), "gemm": Counter(Lk.gemm),
+        "gemm_wt": Counter(Lk.gemm, "wt_launches"),
+        "sinkhorn": Counter(S.log_optimal_transport_kernel),
+        "fused_mha_fwd": Counter(M.fused_mha, "forward_launches"),
+        "fused_mha_bwd": Counter(M.fused_mha, "backward_launches"),
+        "sinkhorn_bwd": Counter(S.log_optimal_transport_kernel,
+                                "backward_launches"),
+        "gemm_tn": Counter(Lk.gemm_tn),
+        "mha_bwd": Counter(M._attention_backward),
+        "train_layer_fwd": Counter(T.fused_train_layer, "forward_launches"),
+        "train_layer_bwd": Counter(T.fused_train_layer, "backward_launches"),
+        "train_layer_fwd1": Counter(T.h1_stats),
+        "train_layer_fwd2": Counter(T.bn_relu_conv2),
+        "train_layer_bwd1": Counter(T.bn_backward_sums),
+        "train_layer_bwd1_dw2": Counter(T.dw2_db2),
+        "train_layer_bwd2": Counter(T.dh1_kernel),
+        "gap_loss_fwd": Counter(G.fused_gap_margins, "forward_launches"),
+        "gap_loss_bwd": Counter(G.fused_gap_margins, "backward_launches")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2808,29 +3248,7 @@ def main() -> int:
           f"stores (at most {max(spills, default=0)} bytes); full report in "
           f"chip_smoke_out/ptxas.log")
 
-    from mdgat_tpu_torch.ops.cuda import gap_loss as G
-    from mdgat_tpu_torch.ops.cuda import mha as M
-    from mdgat_tpu_torch.ops.cuda import train_layer as T
-    counters = {
-        "topk_attention": Counter(A.topk_attention),
-        "eval_layer": Counter(Lk.fused_layer), "gemm": Counter(Lk.gemm),
-        "gemm_wt": Counter(Lk.gemm, "wt_launches"),
-        "sinkhorn": Counter(S.log_optimal_transport_kernel),
-        "fused_mha_fwd": Counter(M.fused_mha, "forward_launches"),
-        "fused_mha_bwd": Counter(M.fused_mha, "backward_launches"),
-        "sinkhorn_bwd": Counter(S.log_optimal_transport_kernel,
-                                "backward_launches"),
-        "gemm_tn": Counter(Lk.gemm_tn),
-        "mha_bwd": Counter(M._attention_backward),
-        "train_layer_fwd": Counter(T.fused_train_layer, "forward_launches"),
-        "train_layer_bwd": Counter(T.fused_train_layer, "backward_launches"),
-        "train_layer_fwd1": Counter(T.h1_stats),
-        "train_layer_fwd2": Counter(T.bn_relu_conv2),
-        "train_layer_bwd1": Counter(T.bn_backward_sums),
-        "train_layer_bwd1_dw2": Counter(T.dw2_db2),
-        "train_layer_bwd2": Counter(T.dh1_kernel),
-        "gap_loss_fwd": Counter(G.fused_gap_margins, "forward_launches"),
-        "gap_loss_bwd": Counter(G.fused_gap_margins, "backward_launches")}
+    counters = make_counters()
     tl_src = "mdgat_tpu_torch/csrc/train_layer.cu"
     tl_line = {"fwd1": 1329, "fwd2": 1410, "bwd1": 1425, "bwd2": 1477}
     gap_src = "mdgat_tpu_torch/csrc/gap_loss.cu"
@@ -2916,6 +3334,8 @@ def main() -> int:
     del state, mha_state, plain_state, batch
     torch.cuda.empty_cache()
     train_cli(dev, report, counters, card)
+    torch.cuda.empty_cache()
+    wide_clouds(rng, dev, report, counters, card)
 
     kernels = [dict(name=name, **{k: report[name][k] for k in
                                   ("route", "source", "replaces", "launches",

@@ -28,7 +28,8 @@
 //     a 4 x 8 warp: disjoint banks), so per four d steps TR + 8 loads feed
 //     32 * TR FMAs. The masked, scaled scores go to a [rows][M + 8] slab in
 //     shared memory. K streams through one tile buffer, so M up to 1024
-//     fits beside the slab at every head size.
+//     fits beside the slab at every head size (the wide arm below takes
+//     more).
 //  B. Selection and softmax, one warp per row, the row's keys in registers
 //     (up to four of the warp's rows advance together, 32 keys a lane at
 //     most, so that one row's dependent steps fill another's latency). The
@@ -52,6 +53,12 @@
 //     and measured: each pair costs a 128-byte read of a V row that no
 //     other query row shares, and at k = M / 8 it only drew level with the
 //     dense product, at k = M / 4 and M / 2 it lost; PERF.md has the times.)
+//  Wide arm (M > 1024, C = 0): 8 rows a block and a row a warp; phase B
+//     walks the row's slab at every counting step instead of registers
+//     (select_wide_row), with the same pivots, so thr is the same bits. The
+//     slab stays in shared memory where it fits and goes to a global
+//     scratch that the wrapper allocates beyond; phases A and C are the
+//     register arm's at TR = 1. Simple, not tuned: PERF.md has its times.
 // Nothing is atomic: two runs give the same bits. Internals are f32 for f32
 // and bf16 I/O. The launch below owns the plan: it picks TR and the chunk
 // count from M and sizes the shared memory; the wrapper only refuses the
@@ -95,22 +102,104 @@ __host__ __device__ constexpr int rows_in_flight(int TR, int C) {
   return TR * C <= 32 ? TR : 32 / C;
 }
 
+// Phase B of the wide arm (M > 1024 keys, C = 0): one warp selects one
+// row, `Sr`, whose scores stay in the slab; every counting step reads the
+// row again instead of registers. The same pivots, counts and candidate
+// ranking as the register arm, so the threshold is the same bits
+// (ops/cuda/attention.py::selection_mirror). Leaves the row's weights in
+// the slab (zeros through the last 32-key chunk) and writes 1 / sum, thr
+// and lse; a dead row (past N) does nothing.
+__device__ __forceinline__ void select_wide_row(
+    float* Sr, const uint8_t* __restrict__ mb, bool live, int M, int nc,
+    int topk, int lane, int* cand, float& inv, size_t row,
+    float* __restrict__ thr, float* __restrict__ lse) {
+  if (!live) return;                     // warp-uniform
+  int nv = 0, hi = INT_MIN, lo = monotone_key(-kBigNeg);
+  for (int j = lane; j < M; j += 32) {
+    const int key = monotone_key(Sr[j]);  // masked keys hold the sentinel
+    hi = max(hi, key);
+    if (mb[j] != 0) {
+      ++nv;
+      lo = min(lo, key);
+    }
+  }
+  nv = __reduce_add_sync(kFull, nv);
+  hi = __reduce_max_sync(kFull, hi);     // pre-search row max
+  lo = __reduce_min_sync(kFull, lo);     // smallest valid (+1e30 if none)
+  const float mx = key_to_float(hi);
+  if (topk > 0) {
+    int c_lo = nv, c_hi = 0;
+    bool act = topk < nv && lo < hi && nv > kCandidates;
+    for (int it = 0; act; ++it) {
+      int mid = ceil_avg(lo, hi);
+      if (it < kValueSteps) {
+        const int vmid = monotone_key(0.5f * key_to_float(lo) + 0.5f * key_to_float(hi));
+        if (vmid > lo && vmid <= hi) mid = vmid;
+      }
+      int cnt = 0;
+      for (int j = lane; j < M; j += 32) cnt += monotone_key(Sr[j]) >= mid;
+      cnt = __reduce_add_sync(kFull, cnt);
+      if (cnt >= topk) { lo = mid; c_lo = cnt; }
+      else { hi = mid - 1; c_hi = cnt; }
+      act = lo < hi && c_lo - c_hi > kCandidates;
+    }
+    if (topk < nv && lo < hi) {          // at most kCandidates keys in [lo, hi]
+      int nu = 0;
+      for (int j0 = 0; j0 < M; j0 += 32) {
+        const int j = j0 + lane;
+        const int key = j < M ? monotone_key(Sr[j]) : INT_MIN;
+        const bool in = j < M && key >= lo && key <= hi;
+        const unsigned bal = __ballot_sync(kFull, in);
+        if (in) cand[nu + __popc(bal & ((1u << lane) - 1u))] = key;
+        nu += __popc(bal);
+      }
+      __syncwarp();
+      const int x = lane < nu ? cand[lane] : INT_MIN;
+      int at_least = 0;
+      for (int j = 0; j < kCandidates; ++j) at_least += __shfl_sync(kFull, x, j) >= x;
+      const int rank = topk - c_hi;      // 1 <= rank <= nu
+      lo = __reduce_max_sync(kFull, lane < nu && at_least >= rank ? x : INT_MIN);
+      __syncwarp();
+    }
+  }
+  float sum = 0.f;
+  for (int j = lane; j < nc * 32; j += 32) {
+    const float s = Sr[j];
+    const bool keep = j < M && mb[j] != 0 && (topk == 0 || monotone_key(s) >= lo);
+    const float e = keep ? expf(s - mx) : 0.f;
+    sum += e;
+    Sr[j] = e;
+  }
+  sum = warp_sum(sum);
+  if (lane == 0) {
+    inv = 1.f / fmaxf(sum, 1e-30f);
+    thr[row] = topk > 0 ? key_to_float(lo) : kBigNeg;
+    if (lse != nullptr) lse[row] = mx + logf(fmaxf(sum, 1e-30f));
+  }
+}
+
 template <typename T, int DH, int TR, int C>
 __global__ void __launch_bounds__(kThreads, 2)
 topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const uint8_t* __restrict__ mask,
                       T* __restrict__ o, float* __restrict__ thr,
-                      float* __restrict__ lse, int H, int N, int M, int topk,
-                      float scale) {
+                      float* __restrict__ lse, float* __restrict__ slab, int H,
+                      int N, int M, int topk, float scale) {
   constexpr int BR = 8 * TR, LD = DH + 4, DG = DH / 4;
   constexpr int RW = rows_in_flight(TR, C);
+  constexpr bool kWide = C == 0;
+  static_assert(!kWide || TR == 1, "the wide arm runs a row a warp");
   extern __shared__ __align__(16) float smem[];
   __shared__ float row_inv[BR];
   __shared__ int cand[kWarps][RW][kCandidates];
   const int nc = (M + 31) / 32;          // 32-key chunks of a row
   const int LDS = slab_stride(M);
-  float* S = smem;                       // [BR][LDS] scores, then weights
-  float* KV = S + BR * LDS;              // [kKT][LD] K or V tile; PV partials
+  // [BR][LDS] scores, then weights: in shared memory, or (the wide arm,
+  // where it does not fit) this block's part of a global scratch
+  float* S = smem;
+  if (kWide && slab != nullptr)
+    S = slab + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * BR * LDS;
+  float* KV = S == smem ? smem + BR * LDS : smem;  // [kKT][LD] K or V tile; PV partials
   float* Qs = KV + tile_floats(DH, BR);  // [BR][LD]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -188,6 +277,11 @@ topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_kv(vb, 0);                        // in flight during phase B
 
   // ---- phase B: selection and softmax, one warp per row ------------------
+  if constexpr (kWide) {
+    select_wide_row(S + warp * LDS, mb, row0 + warp < N, M, nc, topk, lane,
+                    cand[warp][0], row_inv[warp],
+                    static_cast<size_t>(bh) * N + row0 + warp, thr, lse);
+  } else {
   unsigned valid_bits = 0;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -356,6 +450,7 @@ topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
+  }  // the register arm
 
   // ---- phase C: PV as a second register-tiled product ------------------
   __syncthreads();                       // every row's weights are written
@@ -417,56 +512,70 @@ topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH, int TR, int C>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const uint8_t* mask, void* o, float* thr, float* lse, int B,
-                   int H, int N, int M, int topk, float scale,
-                   cudaStream_t stream) {
+                   const uint8_t* mask, void* o, float* thr, float* lse,
+                   float* slab, long long slab_floats, int B, int H, int N,
+                   int M, int topk, float scale, cudaStream_t stream) {
   constexpr int BR = 8 * TR;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(BR) * slab_stride(M) +
-                                       tile_floats(DH, BR) + BR * (DH + 4));
+  const size_t rest = tile_floats(DH, BR) + BR * (DH + 4);
+  const size_t slab_smem = static_cast<size_t>(BR) * slab_stride(M);
+  dim3 grid((N + BR - 1) / BR, B * H);
+  size_t smem = sizeof(float) * (slab_smem + rest);
+  if (C > 0 || smem <= kMaxSmem) {
+    slab = nullptr;
+  } else {  // the wide arm's slab goes to the wrapper's scratch
+    smem = sizeof(float) * rest;
+    if (slab == nullptr ||
+        slab_floats < static_cast<long long>(grid.x) * grid.y * slab_smem)
+      return cudaErrorInvalidValue;
+  }
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = topk_attention_kernel<T, DH, TR, C>;
   static SmemCap cap;
   cudaError_t err = allow_smem(kernel, smem, cap);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BR - 1) / BR, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), thr, lse, H, N, M,
-      topk, scale);
+      static_cast<const T*>(v), mask, static_cast<T*>(o), thr, lse, slab, H, N,
+      M, topk, scale);
   return cudaGetLastError();
 }
 
 // C = 8 / 16 / 32 chunks of 32 keys a lane holds (M <= 256 / 512 / 1024), at
 // 32, 32 and 16 query rows a block, so that the score slab leaves room for
 // two blocks an SM at the models' shapes. (64 rows at M <= 256 and 16 rows
-// at M <= 512 were built and timed too: both slower, PERF.md.)
+// at M <= 512 were built and timed too: both slower, PERF.md.) Above 1024
+// keys the wide arm: 8 rows a block, a row a warp, the slab in shared
+// memory where it fits (about 5800 keys at Dh 32) and in the wrapper's
+// scratch (ops/cuda/attention.py::slab_floats) beyond.
 template <typename T, int DH>
 cudaError_t dispatch_rows(const void* q, const void* k, const void* v,
                           const uint8_t* mask, void* o, float* thr, float* lse,
-                          int B, int H, int N, int M, int topk, float scale,
+                          float* slab, long long slab_floats, int B, int H,
+                          int N, int M, int topk, float scale,
                           cudaStream_t stream) {
 #define MDGAT_ATTN(TR, C)                                                     \
-  return launch<T, DH, TR, C>(q, k, v, mask, o, thr, lse, B, H, N, M, topk,   \
-                              scale, stream)
+  return launch<T, DH, TR, C>(q, k, v, mask, o, thr, lse, slab, slab_floats,  \
+                              B, H, N, M, topk, scale, stream)
   if (M <= 256) MDGAT_ATTN(4, 8);
   if (M <= 512) MDGAT_ATTN(4, 16);
   if (M <= 1024) MDGAT_ATTN(2, 32);
+  MDGAT_ATTN(1, 0);
 #undef MDGAT_ATTN
-  return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
                         const uint8_t* mask, void* o, float* thr, float* lse,
-                        int B, int H, int N, int M, int Dh, int topk, float scale,
+                        float* slab, long long slab_floats, int B, int H, int N,
+                        int M, int Dh, int topk, float scale,
                         cudaStream_t stream) {
   if (!aligned_to(q, 4 * sizeof(T)) || !aligned_to(k, 4 * sizeof(T)) ||
       !aligned_to(v, 4 * sizeof(T)) || !aligned_to(o, 4 * sizeof(T)))
     return cudaErrorInvalidValue;
 #define MDGAT_DH(DH)                                                          \
   case DH:                                                                    \
-    return dispatch_rows<T, DH>(q, k, v, mask, o, thr, lse, B, H, N, M, topk, \
-                                scale, stream);
+    return dispatch_rows<T, DH>(q, k, v, mask, o, thr, lse, slab,            \
+                                slab_floats, B, H, N, M, topk, scale, stream);
   switch (Dh) {
     MDGAT_DH(8)
     MDGAT_DH(16)
@@ -482,22 +591,25 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
 
 // q [B,H,N,Dh], k/v [B,H,M,Dh] (f32 or bf16, contiguous), mask [B,M] uint8,
 // o [B,H,N,Dh] (input dtype), thr [B,H,N] f32, lse [B,H,N] f32 or null.
-// topk 0 = dense.
+// topk 0 = dense. slab: f32 scratch of slab_floats floats for the wide
+// arm's score slab where it does not fit in shared memory, else null.
 extern "C" cudaError_t mdgat_topk_attention(
     const void* q, const void* k, const void* v, const void* mask, void* o,
-    void* thr, void* lse, int B, int H, int N, int M, int Dh, int topk,
-    float scale, int io_dtype, cudaStream_t stream) {
+    void* thr, void* lse, void* slab, long long slab_floats, int B, int H,
+    int N, int M, int Dh, int topk, float scale, int io_dtype,
+    cudaStream_t stream) {
   using namespace mdgat;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || topk < 0) return cudaErrorInvalidValue;
   const auto* m = static_cast<const uint8_t*>(mask);
   auto* t = static_cast<float*>(thr);
   auto* l = static_cast<float*>(lse);
+  auto* sl = static_cast<float*>(slab);
   if (io_dtype == kF32)
-    return dispatch_dh<float>(q, k, v, m, o, t, l, B, H, N, M, Dh, topk, scale,
-                              stream);
+    return dispatch_dh<float>(q, k, v, m, o, t, l, sl, slab_floats, B, H, N, M,
+                              Dh, topk, scale, stream);
   if (io_dtype == kBF16)
-    return dispatch_dh<__nv_bfloat16>(q, k, v, m, o, t, l, B, H, N, M, Dh, topk,
-                                      scale, stream);
+    return dispatch_dh<__nv_bfloat16>(q, k, v, m, o, t, l, sl, slab_floats, B,
+                                      H, N, M, Dh, topk, scale, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -97,15 +97,21 @@ mha_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const uint8_t* __restrict__ mask,
                     const float* __restrict__ thr, const float* __restrict__ lse,
                     float* __restrict__ o_full, float* __restrict__ dq_full,
-                    float* __restrict__ delta, int H, int N, int M) {
+                    float* __restrict__ delta, float* __restrict__ slab, int H,
+                    int N, int M) {
   constexpr int BR = 8 * TR, LD = DH + 4, DG = DH / 4;
   constexpr int KS = 32 / DG;           // key groups of the P V / dS K layout
+  constexpr bool kWide = TR == 1;       // the arm above 1024 keys
   extern __shared__ __align__(16) float smem[];
   __shared__ float row_thr[BR], row_lse[BR], row_delta[BR];
   __shared__ int warp_last[kWarps];
   const int LDS = slab_stride(M);
-  float* S = smem;                      // [BR][LDS]: p, then ds
-  float* KV = S + BR * LDS;             // [kKT][LD] K or V tile; partial sums
+  // [BR][LDS]: p, then ds; in shared memory, or (the wide arm, where it
+  // does not fit) this block's part of a global scratch
+  float* S = smem;
+  if (kWide && slab != nullptr)
+    S = slab + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * BR * LDS;
+  float* KV = S == smem ? smem + BR * LDS : smem;  // [kKT][LD] K or V tile; partial sums
   float* Qs = KV + tile_floats(DH, BR);   // [BR][LD]
   float* Ds = Qs + BR * LD;             // [BR][LD] dO
 
@@ -635,19 +641,29 @@ template <int DH, int TR>
 cudaError_t launch_rows(const float* q, const float* k, const float* v,
                         const float* dout, const uint8_t* mask, const float* thr,
                         const float* lse, float* o_full, float* dq_full,
-                        float* delta, int B, int H, int N, int M,
-                        cudaStream_t stream) {
+                        float* delta, float* slab, long long slab_floats, int B,
+                        int H, int N, int M, cudaStream_t stream) {
   constexpr int BR = 8 * TR;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(BR) * slab_stride(M) +
-                                       tile_floats(DH, BR) + 2 * BR * (DH + 4));
+  const size_t rest = tile_floats(DH, BR) + 2 * BR * (DH + 4);
+  const size_t slab_smem = static_cast<size_t>(BR) * slab_stride(M);
+  dim3 grid((N + BR - 1) / BR, B * H);
+  size_t smem = sizeof(float) * (slab_smem + rest);
+  if (TR > 1 || smem <= kMaxSmem) {
+    slab = nullptr;
+  } else {  // the wide arm's slab goes to the wrapper's scratch
+    smem = sizeof(float) * rest;
+    if (slab == nullptr ||
+        slab_floats < static_cast<long long>(grid.x) * grid.y * slab_smem)
+      return cudaErrorInvalidValue;
+  }
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = mha_bwd_rows_kernel<DH, TR>;
   static SmemCap cap;
   cudaError_t err = allow_smem(kernel, smem, cap);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BR - 1) / BR, B * H);
   kernel<<<grid, kWarps * 32, smem, stream>>>(q, k, v, dout, mask, thr, lse,
-                                              o_full, dq_full, delta, H, N, M);
+                                              o_full, dq_full, delta, slab, H,
+                                              N, M);
   return cudaGetLastError();
 }
 
@@ -671,8 +687,11 @@ cudaError_t launch_keys(const float* q, const float* k, const float* v,
 }
 
 // The launch owns the plan. Rows kernel: 32 query rows a block up to 512
-// keys (two blocks an SM at Dh 32), 16 above, so that the slab leaves room
-// for the tile. Keys kernel: 64 keys x 64 rows a block at Dh <= 32 (94 KB,
+// keys (two blocks an SM at Dh 32), 16 up to 1024, so that the slab leaves
+// room for the tile; above 1024 keys the wide arm, 8 rows a block, the slab
+// in shared memory where it fits and in the wrapper's scratch beyond (ops/
+// cuda/attention.py::slab_floats). The keys kernel has no limit on M: a
+// block owns a tile of keys whatever their number. Keys kernel: 64 keys x 64 rows a block at Dh <= 32 (94 KB,
 // two blocks an SM; 4% faster than 128 keys x 32 rows, 97 KB, at 64 x 4 x
 // 512 x 512 x 32, the smoke's sweep), 64 keys x 32 rows at Dh 64.
 // `key_tile` 64 or 128 asks for that tiling instead (the smoke's sweep);
@@ -681,19 +700,21 @@ template <int DH>
 cudaError_t launch_both(const float* q, const float* k, const float* v,
                         const float* dout, const uint8_t* mask, const float* thr,
                         const float* lse, float* o_full, float* dq_full,
-                        float* dk_full, float* dv_full, float* delta, int B,
-                        int H, int N, int M, int key_tile, cudaStream_t stream) {
+                        float* dk_full, float* dv_full, float* delta,
+                        float* slab, long long slab_floats, int B, int H, int N,
+                        int M, int key_tile, cudaStream_t stream) {
   if (key_tile == 0) key_tile = kKeyTile;
   if (key_tile != 64 && (key_tile != 128 || DH == 64)) return cudaErrorInvalidValue;
   cudaError_t err;
   if (M <= 512)
     err = launch_rows<DH, 4>(q, k, v, dout, mask, thr, lse, o_full, dq_full,
-                             delta, B, H, N, M, stream);
+                             delta, slab, slab_floats, B, H, N, M, stream);
   else if (M <= 1024)
     err = launch_rows<DH, 2>(q, k, v, dout, mask, thr, lse, o_full, dq_full,
-                             delta, B, H, N, M, stream);
+                             delta, slab, slab_floats, B, H, N, M, stream);
   else
-    return cudaErrorInvalidValue;
+    err = launch_rows<DH, 1>(q, k, v, dout, mask, thr, lse, o_full, dq_full,
+                             delta, slab, slab_floats, B, H, N, M, stream);
   if (err != cudaSuccess) return err;
   if constexpr (DH == 64)   // 64 keys x 32 rows
     return launch_keys<DH, 4, 4, 2>(q, k, v, dout, mask, thr, lse, delta,
@@ -712,13 +733,16 @@ cudaError_t launch_both(const float* q, const float* k, const float* v,
 // q, dout [B,H,N,Dh], k, v [B,H,M,Dh], thr, lse [B,H,N], all f32 and
 // contiguous; mask [B,M] uint8. Outputs, f32: o_full, dq_full [B,N,H*Dh] and
 // dk_full, dv_full [B,M,H*Dh] with head-blocked columns h*Dh + d; delta
-// [B,H,N] is scratch (do . o per row). Two launches: rows, then keys.
-// key_tile: 0 for the launch's plan, or 64 / 128 keys a block.
+// [B,H,N] is scratch (do . o per row); slab, f32 scratch of slab_floats
+// floats for the wide arm's slab where it does not fit in shared memory,
+// else null. Two launches: rows, then keys. key_tile: 0 for the launch's
+// plan, or 64 / 128 keys a block.
 extern "C" cudaError_t mdgat_mha_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* mask, const void* thr, const void* lse, void* o_full,
-    void* dq_full, void* dk_full, void* dv_full, void* delta, int B, int H,
-    int N, int M, int Dh, int key_tile, cudaStream_t stream) {
+    void* dq_full, void* dk_full, void* dv_full, void* delta, void* slab,
+    long long slab_floats, int B, int H, int N, int M, int Dh, int key_tile,
+    cudaStream_t stream) {
   using namespace mdgat;
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0) return cudaErrorInvalidValue;
   // both kernels stage q, dout, k, v by 16-byte copies and store by
@@ -734,7 +758,8 @@ extern "C" cudaError_t mdgat_mha_attention_bwd(
 #define MDGAT_BWD(DH)                                                        \
   return launch_both<DH>(f(q), f(k), f(v), f(dout), m, f(thr), f(lse),       \
                          g(o_full), g(dq_full), g(dk_full), g(dv_full),      \
-                         g(delta), B, H, N, M, key_tile, stream)
+                         g(delta), g(slab), slab_floats, B, H, N, M, key_tile, \
+                         stream)
   switch (Dh) {
     case 8: MDGAT_BWD(8);
     case 16: MDGAT_BWD(16);

@@ -19,6 +19,8 @@
 //   once, into the band, and dense written once.
 // * Streamed (8 x 1024 x 1024: a band of 1024 columns fits at no G <= 16):
 //   every pass reads the band from L2 (8 pairs, 32 MB, stay there).
+// * Wide (above 1024 columns, or where a band's vectors do not fit in shared
+//   memory): sinkhorn_wide_kernel below, its vectors in a global scratch.
 // An iteration:
 // 1. rows, a warp a row (load_masked_row / row_lse of sinkhorn_common.cuh):
 //    u_i = lmu_i - lse_j([Z + v | alpha + vbin]), CTA-local;
@@ -61,7 +63,7 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kMaxCluster = 16;
-constexpr int kMaxCols = 1024;
+constexpr int kMaxCols = 1024;   // columns the register arms take
 constexpr int kThreads = 1024;
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
@@ -312,6 +314,165 @@ sinkhorn_kernel(const float* __restrict__ Z, const float* __restrict__ log_mu,
   }
 }
 
+// ---- the wide arm: more than 1024 columns, or a band whose vectors do not
+// fit in shared memory ----
+//
+// The same iteration and the same exchange in rank order, with what the
+// register arms keep on chip moved out: a row's logsumexp loops over its
+// columns (max first, then the sum of exps, as row_lse does), a thread
+// walks its columns in chunks of kThreads, and v, u and the two exchange
+// buffers live in a global scratch of wide_fwd_floats a CTA that the
+// wrapper allocates (the CTAs of a cluster read each other's buffers from
+// L2 after the cluster barrier, whose release / acquire orders them). Z is
+// streamed. Only device memory limits N and M. Simple, not tuned.
+
+// floats of the wide arm's scratch a CTA: v [M], u [band], two exchange
+// buffers of a max half and a sum half [M + 4] each (index M: u's
+// statistics)
+__host__ __device__ inline size_t wide_fwd_floats(int band, int M) {
+  const size_t mp = pad4(M);
+  return mp + pad4(band) + 4 * (mp + 4);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+sinkhorn_wide_kernel(const float* __restrict__ Z, const float* __restrict__ log_mu,
+                     const float* __restrict__ log_nu,
+                     const float* __restrict__ scalars, float* __restrict__ out,
+                     float* __restrict__ bin_row, float* __restrict__ bin_col,
+                     float* __restrict__ corner, float* __restrict__ scratch,
+                     int N, int M, int iters) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int W = kWarps - 1;    // also forms the statistics of u
+  constexpr int WB = kWarps - 2;   // also forms the bin row
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / G;
+  const int band = (N + G - 1) / G;
+  const int row0 = rank * band;
+  const int nb = max(0, min(N, row0 + band) - row0);
+  const int mp = pad4(M);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t per_cta = wide_fwd_floats(band, M);
+  auto cta = [&](int r) { return scratch + (static_cast<size_t>(b) * G + r) * per_cta; };
+  float* v = cta(rank);                 // [M]
+  float* u = v + mp;                    // [band]
+  const size_t xoff = mp + pad4(band);  // the exchange buffers
+  const int xsum = mp + 4;
+  __shared__ float bins[2];             // the new ubin, the new vbin
+
+  const float half_neg = 0.5f * kBigNeg;
+  const float alpha = scalars[b * 4 + 0], lmub = scalars[b * 4 + 1];
+  const float lnub = scalars[b * 4 + 2], norm = scalars[b * 4 + 3];
+  const float* lnu = log_nu + static_cast<size_t>(b) * M;
+  const float* lmu = log_mu + static_cast<size_t>(b) * N + row0;
+  const float* Zb = Z + (static_cast<size_t>(b) * N + row0) * M;
+
+  for (int j = tid; j < M; j += kThreads) v[j] = lnu[j] > half_neg ? 0.f : kBigNeg;
+  for (int il = tid; il < nb; il += kThreads) u[il] = lmu[il] > half_neg ? 0.f : kBigNeg;
+  __syncthreads();
+
+  auto zat = [&](int il, int j) -> float {   // masked Z of band row il
+    return (lnu[j] > half_neg && lmu[il] > half_neg)
+               ? __ldg(Zb + static_cast<size_t>(il) * M + j) : kBigNeg;
+  };
+  // logsumexp over [x_j for j < M | bin], one warp, max first
+  auto warp_lse = [&](auto&& x, float bin) {
+    float m = -CUDART_INF_F;
+    for (int j = lane; j < M; j += 32) m = fmaxf(m, x(j));
+    const float mm = fmaxf(warp_max(m), bin);
+    float s = 0.f;
+    for (int j = lane; j < M; j += 32) s += expf(x(j) - mm);
+    return logf(warp_sum(s) + expf(bin - mm)) + mm;
+  };
+
+  float ubin = 0.f, vbin = 0.f;
+  int xsel = 0;
+  for (int it = 0; it < iters; ++it) {
+    // 1. u_i = lmu_i - lse_j([Z + v | alpha + vbin]), a warp a row
+    const float row_bin = alpha + vbin;
+    for (int il = warp; il < nb; il += kWarps) {
+      const float r = warp_lse([&](int j) { return zat(il, j) + v[j]; }, row_bin);
+      if (lane == 0) u[il] = lmu[il] - r;
+    }
+    __syncthreads();
+
+    // 2. (max, sum of exps) of Z + u over this CTA's rows, a column a thread
+    float* X = cta(rank) + xoff + xsel * 2 * (mp + 4);
+    for (int j = tid; j < M; j += kThreads) {
+      float m = -CUDART_INF_F, s = 0.f;
+      for (int il0 = 0; il0 < nb; il0 += kBatch) {
+        float zr[kBatch];
+#pragma unroll
+        for (int r = 0; r < kBatch; ++r)
+          zr[r] = il0 + r < nb ? zat(il0 + r, j) : 0.f;
+#pragma unroll
+        for (int r = 0; r < kBatch; ++r)
+          if (il0 + r < nb) online_add(m, s, zr[r] + u[il0 + r]);
+      }
+      X[j] = m;
+      X[xsum + j] = s;
+    }
+    if (warp == W) {              // u over the band, into index M
+      float m = -CUDART_INF_F, s = 0.f;
+      for (int il = lane; il < nb; il += 32) online_add(m, s, u[il]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float m2 = __shfl_xor_sync(kFull, m, o);
+        const float s2 = __shfl_xor_sync(kFull, s, o);
+        lse_merge(m, s, m2, s2);
+      }
+      if (lane == 0) { X[M] = m; X[xsum + M] = s; }
+    }
+    if (warp == WB) {             // the bin row from v and vbin
+      const float rb = warp_lse([&](int j) { return v[j]; }, vbin) + alpha;
+      if (lane == 0) bins[0] = lmub - rb;
+    }
+    cluster.sync();
+    // 3. the CTAs' statistics in rank order: v, and vbin from index M
+    const float ubin_new = bins[0];
+    const float col_bin = alpha + ubin_new;
+    const size_t xat = xoff + xsel * 2 * (mp + 4);
+    auto merged = [&](int j, float bin) {   // lse over the cluster and bin
+      float xm[kMaxCluster], xs[kMaxCluster];
+      float mx = bin;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        if (r < G) {
+          xm[r] = __ldcg(cta(r) + xat + j);
+          xs[r] = __ldcg(cta(r) + xat + xsum + j);
+          mx = fmaxf(mx, xm[r]);
+        }
+      }
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < G) s += xs[r] * expf(xm[r] - mx);
+      return logf(s + expf(bin - mx)) + mx;
+    };
+    for (int j = tid; j < M; j += kThreads) v[j] = lnu[j] - merged(j, col_bin);
+    if (tid == kThreads - 1) bins[1] = lnub - (merged(M, ubin_new) + alpha);
+    ubin = ubin_new;
+    xsel ^= 1;
+    __syncthreads();
+    vbin = bins[1];
+  }
+  cluster.sync();   // no CTA leaves while another may read its buffers
+
+  float* ob = out + (static_cast<size_t>(b) * N + row0) * M;
+  for (int il = warp; il < nb; il += kWarps) {
+    const float ui = u[il];
+    for (int j = lane; j < M; j += 32)
+      ob[static_cast<size_t>(il) * M + j] = zat(il, j) + ui + v[j] - norm;
+    if (lane == 0) bin_col[static_cast<size_t>(b) * N + row0 + il] = alpha + ui + vbin - norm;
+  }
+  if (rank == 0) {
+    for (int j = tid; j < M; j += kThreads)
+      bin_row[static_cast<size_t>(b) * M + j] = alpha + ubin + v[j] - norm;
+    if (tid == 0) corner[b] = alpha + ubin + vbin - norm;
+  }
+}
+
 using Kernel = void (*)(const float*, const float*, const float*, const float*,
                         float*, float*, float*, float*, int, int, int);
 
@@ -328,17 +489,22 @@ bool fits_resident(int N, int M, int G) {
   return fwd_smem_floats(band, M, true) * sizeof(float) <= kMaxSmem;
 }
 
+// the wide arm: more columns than a register arm holds, or a band whose
+// vectors do not fit in shared memory even streamed
+bool wide_arm(int N, int M, int G) {
+  const int band = (N + G - 1) / G;
+  return M > kMaxCols || fwd_smem_floats(band, M, false) * sizeof(float) > kMaxSmem;
+}
+
 bool valid_args(int N, int M, int G) {
-  return N > 0 && M > 0 && M <= kMaxCols && G >= 1 && G <= kMaxCluster;
+  return N > 0 && M > 0 && G >= 1 && G <= kMaxCluster;
 }
 
 // the launch configuration of a pair a cluster of G CTAs; sets the kernel's
 // shared-memory cap (and the non-portable cluster size above 8)
-cudaError_t configure(Kernel kernel, int B, int N, int M, int G, bool res,
-                      cudaStream_t stream, cudaLaunchConfig_t& cfg,
-                      cudaLaunchAttribute (&attr)[1]) {
-  const int band = (N + G - 1) / G;
-  const size_t smem = fwd_smem_floats(band, M, res) * sizeof(float);
+template <typename K>
+cudaError_t configure(K kernel, int B, int G, size_t smem, cudaStream_t stream,
+                      cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1]) {
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kernel, smem);
   if (err == cudaSuccess && G > 8)
@@ -358,6 +524,10 @@ cudaError_t configure(Kernel kernel, int B, int N, int M, int G, bool res,
   return cudaSuccess;
 }
 
+size_t smem_bytes(int N, int M, int G, bool res) {
+  return fwd_smem_floats((N + G - 1) / G, M, res) * sizeof(float);
+}
+
 }  // namespace
 }  // namespace mdgat
 
@@ -365,25 +535,41 @@ cudaError_t configure(Kernel kernel, int B, int N, int M, int G, bool res,
 // (alpha, log_mu_bin, log_nu_bin, norm), all f32 and contiguous. Outputs:
 // dense [B,N,M], bin_row [B,M], bin_col [B,N], corner [B]. cluster: the CTAs
 // a pair (1-16), which the plan (ops/cuda/sinkhorn.py::sinkhorn_plan)
-// picks. The band stays resident wherever it fits.
-// Takes every iteration count and N, M <= 1024 columns.
+// picks. The band stays resident wherever it fits. Takes every iteration
+// count and every N and M: the wide arm (above 1024 columns, or where the
+// vectors of a band do not fit in shared memory) takes a scratch of
+// B * cluster * wide_fwd_floats floats (ops/cuda/sinkhorn.py::
+// fwd_scratch_floats), null otherwise.
 extern "C" cudaError_t mdgat_sinkhorn(const void* Z, const void* log_mu,
                                       const void* log_nu, const void* scalars,
                                       void* out, void* bin_row, void* bin_col,
-                                      void* corner, int B, int N, int M,
-                                      int iters, int cluster,
+                                      void* corner, void* scratch,
+                                      long long scratch_floats, int B, int N,
+                                      int M, int iters, int cluster,
                                       cudaStream_t stream) {
   using namespace mdgat;
   if (B <= 0 || iters < 0 || !valid_args(N, M, cluster))
     return cudaErrorInvalidValue;
-  const bool res = fits_resident(N, M, cluster);
-  const Kernel kernel = pick_kernel(M, res);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  cudaError_t err = configure(kernel, B, N, M, cluster, res, stream, cfg, attr);
-  if (err != cudaSuccess) return err;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto g = [](void* p) { return static_cast<float*>(p); };
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  if (wide_arm(N, M, cluster)) {
+    const size_t need = static_cast<size_t>(B) * cluster *
+                        wide_fwd_floats((N + cluster - 1) / cluster, M);
+    if (scratch == nullptr || static_cast<size_t>(scratch_floats) < need)
+      return cudaErrorInvalidValue;
+    cudaError_t err = configure(sinkhorn_wide_kernel, B, cluster, 0, stream, cfg, attr);
+    if (err != cudaSuccess) return err;
+    return cudaLaunchKernelEx(&cfg, sinkhorn_wide_kernel, f(Z), f(log_mu), f(log_nu),
+                              f(scalars), g(out), g(bin_row), g(bin_col), g(corner),
+                              g(scratch), N, M, iters);
+  }
+  const bool res = fits_resident(N, M, cluster);
+  const Kernel kernel = pick_kernel(M, res);
+  cudaError_t err = configure(kernel, B, cluster, smem_bytes(N, M, cluster, res),
+                              stream, cfg, attr);
+  if (err != cudaSuccess) return err;
   return cudaLaunchKernelEx(&cfg, kernel, f(Z), f(log_mu), f(log_nu), f(scalars),
                             g(out), g(bin_row), g(bin_col), g(corner), N, M, iters);
 }
@@ -395,11 +581,17 @@ extern "C" cudaError_t mdgat_sinkhorn_active_clusters(int N, int M, int cluster,
   using namespace mdgat;
   if (!valid_args(N, M, cluster) || count == nullptr)
     return cudaErrorInvalidValue;
-  const bool res = fits_resident(N, M, cluster);
-  const Kernel kernel = pick_kernel(M, res);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t err = configure(kernel, 1, N, M, cluster, res, nullptr, cfg, attr);
+  if (wide_arm(N, M, cluster)) {
+    cudaError_t err = configure(sinkhorn_wide_kernel, 1, cluster, 0, nullptr, cfg, attr);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveClusters(count, sinkhorn_wide_kernel, &cfg);
+  }
+  const bool res = fits_resident(N, M, cluster);
+  const Kernel kernel = pick_kernel(M, res);
+  cudaError_t err = configure(kernel, 1, cluster, smem_bytes(N, M, cluster, res),
+                              nullptr, cfg, attr);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
 }

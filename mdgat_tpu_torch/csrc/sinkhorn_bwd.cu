@@ -21,6 +21,8 @@
 //   written once.
 // * Streamed (e.g. 8 x 1024 x 1024): 512 threads, the same passes read Z
 //   from L2 / HBM into registers and keep dZ in global memory.
+// * Wide (above 1024 columns, or a streamed band too long for shared
+//   memory): sinkhorn_bwd_wide_kernel below, its vectors in a global scratch.
 // A replayed iteration sweeps the band twice: the row logsumexp (u_i) with
 // the column max of Z + u on the same row at hand, then the column sums of
 // exps. Column work is per-warp partials in shared memory, added in warp
@@ -66,7 +68,7 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kMaxCluster = 16;
-constexpr int kMaxCols = 1024;
+constexpr int kMaxCols = 1024;   // columns the register arms take
 
 // threads a CTA: resident, 1024 (two rows a warp at C = 16, so 32 warps an
 // SM hide the latency of a row's chain of reductions); streamed, 512 (a row
@@ -549,6 +551,303 @@ sinkhorn_bwd_kernel(const float* __restrict__ Z, const float* __restrict__ log_m
   cluster.sync();   // no CTA leaves while another may read its buffers
 }
 
+// ---- the wide arm: more than 1024 columns, or a band whose streamed
+// vectors do not fit in shared memory ----
+//
+// The same replay and reverse walk, the same exchanges in rank order and
+// the same history, with what the register arms keep on chip moved out:
+// a row's logsumexp and sums loop over its columns (a warp a row); every
+// column reduction is a column pass, a thread a column walking the band's
+// rows in order (the replay's column max and sums of exps; in the reverse
+// step contrib2, which that pass also adds into dZ, after a row pass has
+// added contrib and formed each row's du); the vectors v_t, v_{t-1}, dv,
+// the rows' logsumexp and -du and the two exchange buffers live in a
+// global scratch of wide_bwd_floats a CTA that the wrapper allocates (the
+// CTAs of a cluster read each other's buffers from L2 after the cluster
+// barrier, whose release / acquire orders them). Z, dO and dZ stream. Only
+// device memory limits N and M. Simple, not tuned.
+constexpr int kWideThreads = 512;
+
+// floats of the wide arm's scratch a CTA: vc, vp, dv [M]; two exchange
+// buffers [M + 4] (index pad4(M): a scalar); the rows' logsumexp and -du
+// [band]
+__host__ __device__ inline size_t wide_bwd_floats(int band, int M) {
+  const size_t mp = pad4(M);
+  return 3 * mp + 2 * (mp + 4) + 2 * static_cast<size_t>(pad4(band));
+}
+
+template <int THREADS>
+__device__ float block_max(float x, float* red) {
+  x = warp_max(x);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float r = red[0];
+  for (int i = 1; i < THREADS / 32; ++i) r = fmaxf(r, red[i]);
+  return r;
+}
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+sinkhorn_bwd_wide_kernel(const float* __restrict__ Z, const float* __restrict__ log_mu,
+                         const float* __restrict__ log_nu,
+                         const float* __restrict__ scalars,
+                         const float* __restrict__ d_out,
+                         const float* __restrict__ d_bin_row,
+                         const float* __restrict__ d_bin_col,
+                         const float* __restrict__ d_corner, float* __restrict__ dZ,
+                         float* __restrict__ dalpha_out, float* __restrict__ hist,
+                         float* __restrict__ scratch, int N, int M, int iters) {
+  constexpr int kThreads = kWideThreads, kWarps = kThreads / 32;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / G;
+  const int band = (N + G - 1) / G;
+  const int row0 = rank * band;
+  const int nb = max(0, min(N, row0 + band) - row0);
+  const int mp = pad4(M);
+  const int hs = M + 2;                   // history row: v [M], vbin, rb
+  const size_t per_cta = wide_bwd_floats(band, M);
+  auto cta = [&](int r) { return scratch + (static_cast<size_t>(b) * G + r) * per_cta; };
+  float* vc = cta(rank);                  // replay: v; reverse: -(lnu - v_t)
+  float* vp = vc + mp;                    // reverse: v_{t-1}
+  float* dv = vp + mp;                    // replay: column max; reverse: dv_t
+  const size_t xoff = 3 * static_cast<size_t>(mp);   // [2][M + 4]
+  float* u = vc + xoff + 2 * (mp + 4);    // [band] replay: u; reverse: r
+  float* ndu = u + pad4(band);            // [band] reverse: -du
+  __shared__ float red[kWarps];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float half_neg = 0.5f * kBigNeg;
+  const float alpha = scalars[b * 4 + 0], lmub = scalars[b * 4 + 1];
+  const float lnub = scalars[b * 4 + 2];
+  const float* lnu = log_nu + static_cast<size_t>(b) * M;
+  const float* lmu = log_mu + static_cast<size_t>(b) * N + row0;
+  const float* Zb = Z + (static_cast<size_t>(b) * N + row0) * M;
+  const float* dOb = d_out + (static_cast<size_t>(b) * N + row0) * M;
+  float* dZb = dZ + (static_cast<size_t>(b) * N + row0) * M;
+  const float* dbr = d_bin_row + static_cast<size_t>(b) * M;
+  const float* dbc = d_bin_col + static_cast<size_t>(b) * N;
+  float* hb = hist + static_cast<size_t>(b) * hist_floats(N, M, iters);
+  float* rh = hb + static_cast<size_t>(iters + 1) * hs + row0;
+
+  auto zat = [&](int il, int j) -> float {   // masked Z of band row il
+    return (lnu[j] > half_neg && lmu[il] > half_neg)
+               ? __ldg(Zb + static_cast<size_t>(il) * M + j) : kBigNeg;
+  };
+  // f(il, z) over the band's rows of column j, in order, kBatch loads
+  // issued before any is used
+  auto column = [&](int j, auto&& f) {
+    for (int il0 = 0; il0 < nb; il0 += kBatch) {
+      float zr[kBatch];
+#pragma unroll
+      for (int r = 0; r < kBatch; ++r) zr[r] = il0 + r < nb ? zat(il0 + r, j) : 0.f;
+#pragma unroll
+      for (int r = 0; r < kBatch; ++r)
+        if (il0 + r < nb) f(il0 + r, zr[r]);
+    }
+  };
+  // exchange buffer `xsel` of CTA r; the cluster's entries in rank order
+  int xsel = 0;
+  auto xbuf = [&](int r) { return cta(r) + xoff + xsel * (mp + 4); };
+  auto cluster_max = [&](int at) {
+    float m = -CUDART_INF_F;
+    for (int r = 0; r < G; ++r) m = fmaxf(m, __ldcg(xbuf(r) + at));
+    return m;
+  };
+  auto cluster_sum = [&](int at, float s) {   // s + the entries, rank order
+    for (int r = 0; r < G; ++r) s += __ldcg(xbuf(r) + at);
+    return s;
+  };
+
+  // ---- set-up: v_0 ----
+  for (int j = tid; j < M; j += kThreads) {
+    vc[j] = lnu[j] > half_neg ? 0.f : kBigNeg;
+    if (rank == 0) hb[j] = vc[j];
+  }
+  if (rank == 0 && tid == 0) hb[M] = 0.f;
+  __syncthreads();
+
+  // ---- forward replay, keeping the history (index 0 = start) ----
+  float vbin = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    // the bin row: rb = lse_j([a + v | a + vbin]), CTA-local (every CTA
+    // holds all of v)
+    float m = -CUDART_INF_F;
+    for (int j = tid; j < M; j += kThreads) m = fmaxf(m, vc[j]);
+    const float mx = fmaxf(block_max<kThreads>(m, red), vbin);
+    float e = 0.f;
+    for (int j = tid; j < M; j += kThreads) e += expf(vc[j] - mx);
+    const float rb = logf(block_sum<kThreads>(e, red) + expf(vbin - mx)) + mx + alpha;
+    const float ubin = lmub - rb;
+    const float col_bin = alpha + ubin;
+    if (rank == 0 && tid == 0) hb[static_cast<size_t>(it) * hs + M + 1] = rb;
+    // rows: u_i = lmu_i - lse_j([Z + v | alpha + vbin]), its logsumexp kept
+    const float row_bin = alpha + vbin;
+    for (int il = warp; il < nb; il += kWarps) {
+      float mr = -CUDART_INF_F;
+      for (int j = lane; j < M; j += 32) mr = fmaxf(mr, zat(il, j) + vc[j]);
+      const float mm = fmaxf(warp_max(mr), row_bin);
+      float sr = 0.f;
+      for (int j = lane; j < M; j += 32) sr += expf(zat(il, j) + vc[j] - mm);
+      const float r = logf(warp_sum(sr) + expf(row_bin - mm)) + mm;
+      if (lane == 0) {
+        u[il] = lmu[il] - r;
+        rh[static_cast<size_t>(it) * N + il] = r;
+      }
+    }
+    __syncthreads();
+    // column max of Z + u over the band, and the max of u
+    float* X = xbuf(rank);
+    for (int j = tid; j < M; j += kThreads) {
+      float cm = -CUDART_INF_F;
+      column(j, [&](int il, float z) { cm = fmaxf(cm, z + u[il]); });
+      X[j] = cm;
+    }
+    float um = -CUDART_INF_F;
+    for (int il = tid; il < nb; il += kThreads) um = fmaxf(um, u[il]);
+    um = block_max<kThreads>(um, red);
+    if (tid == 0) X[mp] = um;
+    cluster.sync();
+    for (int j = tid; j < M; j += kThreads) dv[j] = fmaxf(cluster_max(j), col_bin);
+    const float umx = fmaxf(cluster_max(mp), ubin);
+    xsel ^= 1;
+    __syncthreads();                      // the column max is in dv
+    // sums of exps over the band: columns, and u
+    X = xbuf(rank);
+    for (int j = tid; j < M; j += kThreads) {
+      float cs = 0.f;
+      const float dvj = dv[j];
+      column(j, [&](int il, float z) { cs += expf(z + u[il] - dvj); });
+      X[j] = cs;
+    }
+    float us = 0.f;
+    for (int il = tid; il < nb; il += kThreads) us += expf(u[il] - umx);
+    us = block_sum<kThreads>(us, red);
+    if (tid == 0) X[mp] = us;
+    cluster.sync();
+    float* hn = hb + static_cast<size_t>(it + 1) * hs;
+    for (int j = tid; j < M; j += kThreads) {
+      const float s = cluster_sum(j, 0.f) + expf(col_bin - dv[j]);
+      vc[j] = lnu[j] - (logf(s) + dv[j]);
+      if (rank == 0) hn[j] = vc[j];
+    }
+    const float su = cluster_sum(mp, 0.f);
+    vbin = lnub - (logf(su + expf(ubin - umx)) + umx + alpha);
+    if (rank == 0 && tid == 0) hn[M] = vbin;
+    xsel ^= 1;
+    __syncthreads();
+  }
+
+  // ---- adjoints of the outputs ----
+  float s = 0.f;
+  for (int j = tid; j < M; j += kThreads) s += dbr[j];
+  const float sum_dbr = block_sum<kThreads>(s, red);
+  s = 0.f;
+  for (int i = tid; i < N; i += kThreads) s += dbc[i];
+  const float sum_dbc = block_sum<kThreads>(s, red);
+  const float dc = d_corner[b];
+  float dalpha = sum_dbr + sum_dbc + dc;
+  float dvbin = sum_dbc + dc;
+  const float dubin_out = sum_dbr + dc;
+  // dv_T[j] = sum_i dO[i][j] + dbr[j]; with no iteration dZ is dO
+  {
+    float* X = xbuf(rank);
+    for (int j = tid; j < M; j += kThreads) {
+      float acc = 0.f;
+      for (int il = 0; il < nb; ++il) {
+        const float g = __ldg(dOb + static_cast<size_t>(il) * M + j);
+        acc += g;
+        if (iters == 0) dZb[static_cast<size_t>(il) * M + j] = g;
+      }
+      X[j] = acc;
+    }
+    cluster.sync();
+    for (int j = tid; j < M; j += kThreads) dv[j] = cluster_sum(j, dbr[j]);
+    xsel ^= 1;
+  }
+  float vbin_t = iters >= 1 ? __ldcg(hb + static_cast<size_t>(iters) * hs + M) : 0.f;
+  __syncthreads();
+
+  // ---- adjoint recursion, t = iters .. 1 ----
+  for (int t = iters; t >= 1; --t) {
+    const bool is_last = t == iters;
+    const float* hprev = hb + static_cast<size_t>(t - 1) * hs;
+    const float vbin_prev = __ldcg(hprev + M), rb = __ldcg(hprev + M + 1);
+    const float ubin_t = lmub - rb;       // as the replay formed it
+    // step 3, bin part: pb, CTA-local (every CTA holds all columns)
+    float pb_part = 0.f;
+    for (int j = tid; j < M; j += kThreads) {
+      vc[j] = -(lnu[j] - __ldcg(hb + static_cast<size_t>(t) * hs + j));
+      vp[j] = __ldcg(hprev + j);
+      pb_part += expf(alpha + ubin_t + vc[j]) * (-dv[j]);
+    }
+    const float pb = block_sum<kThreads>(pb_part, red);
+    for (int il = tid; il < nb; il += kThreads)
+      u[il] = __ldcg(rh + static_cast<size_t>(t - 1) * N + il);
+    __syncthreads();
+    // step 4: vbin_t = lnub - cb, cb = lse_i([a + u_t ; a + ubin_t])
+    const float cb = lnub - vbin_t;
+    const float row_bin = alpha + vbin_prev;
+
+    // the row pass: dZ += contrib, du per row (-du kept), sb
+    const float* gsrc = is_last ? dOb : dZb;
+    float sb = 0.f;
+    for (int il = warp; il < nb; il += kWarps) {
+      const float r = u[il];              // the replay's row logsumexp
+      const float u_i = lmu[il] - r;
+      float gsum = 0.f, csum = 0.f;
+      for (int j = lane; j < M; j += 32) {
+        const size_t at = static_cast<size_t>(il) * M + j;
+        const float g = gsrc[at];
+        // step 3: contrib = exp(Z + u_t - c) * (-dv)
+        const float contrib = expf(zat(il, j) + u_i + vc[j]) * (-dv[j]);
+        gsum += g;
+        csum += contrib;
+        dZb[at] = g + contrib;
+      }
+      float du = (-dvbin) * expf(alpha + u_i - cb) + warp_sum(csum);
+      if (is_last) du += warp_sum(gsum) + dbc[row0 + il];
+      if (lane == 0) ndu[il] = -du;
+      sb += (-du) * expf(row_bin - r);
+    }
+    const float sb_cta = block_sum<kThreads>(lane == 0 ? sb : 0.f, red);
+    // step 1: u_t = lmu - r, r_i = lse_j([Z + v_prev | a + vbin_prev]):
+    // contrib2 = -du_i exp(Z + v_prev - r_i), into dZ and the column sums
+    float* X = xbuf(rank);
+    for (int j = tid; j < M; j += kThreads) {
+      float acc = 0.f;
+      const float vpj = vp[j];
+      column(j, [&](int il, float z) {
+        const float c2 = ndu[il] * expf(z + vpj - u[il]);
+        dZb[static_cast<size_t>(il) * M + j] += c2;
+        acc += c2;
+      });
+      X[j] = acc;
+    }
+    if (tid == 0) X[mp] = sb_cta;
+    cluster.sync();
+    float dubin = (is_last ? dubin_out : 0.f) + (-dvbin) * expf(alpha + ubin_t - cb);
+    dalpha += -dvbin;
+    dubin += pb;
+    dalpha += pb;
+    // step 2: ubin_t = lmub - rb, rb = lse_j([a + v_prev | a + vbin_prev])
+    for (int j = tid; j < M; j += kThreads)
+      dv[j] = cluster_sum(j, (-dubin) * expf(alpha + vp[j] - rb));
+    const float sb_t = cluster_sum(mp, 0.f);
+    xsel ^= 1;
+    dvbin = (-dubin) * expf(alpha + vbin_prev - rb) + sb_t;
+    dalpha += -dubin;
+    dalpha += sb_t;
+    vbin_t = vbin_prev;
+    __syncthreads();                      // dv, before the next step reads it
+  }
+
+  if (rank == 0 && tid == 0) dalpha_out[b] = dalpha;
+  cluster.sync();   // no CTA leaves while another may read its buffers
+}
+
 template <int C, int R>
 cudaError_t launch(const float* Z, const float* log_mu, const float* log_nu,
                    const float* scalars, const float* d_out,
@@ -601,6 +900,46 @@ int plan_cluster(int N, int M) {
   return 8;
 }
 
+// whether a streamed band of ceil(N / G) rows fits (its vectors and the
+// warps' column partials in shared memory)
+bool fits_streamed(int N, int M, int G) {
+  return M <= kMaxCols &&
+         smem_floats((N + G - 1) / G, M, 0) * sizeof(float) <= kMaxSmem;
+}
+
+cudaError_t launch_wide(const float* Z, const float* log_mu, const float* log_nu,
+                        const float* scalars, const float* d_out,
+                        const float* d_bin_row, const float* d_bin_col,
+                        const float* d_corner, float* dZ, float* dalpha,
+                        float* hist, float* scratch, long long scratch_floats,
+                        int B, int N, int M, int iters, int G,
+                        cudaStream_t stream) {
+  const size_t need =
+      static_cast<size_t>(B) * G * wide_bwd_floats((N + G - 1) / G, M);
+  if (scratch == nullptr || static_cast<size_t>(scratch_floats) < need)
+    return cudaErrorInvalidValue;
+  auto kernel = sinkhorn_bwd_wide_kernel;
+  if (G > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * G);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, Z, log_mu, log_nu, scalars, d_out,
+                            d_bin_row, d_bin_col, d_corner, dZ, dalpha, hist,
+                            scratch, N, M, iters);
+}
+
 template <int C>
 cudaError_t dispatch(const float* Z, const float* log_mu, const float* log_nu,
                      const float* scalars, const float* d_out,
@@ -626,17 +965,29 @@ cudaError_t dispatch(const float* Z, const float* log_mu, const float* log_nu,
 // Z, d_out, dZ [B,N,M]; log_mu, d_bin_col [B,N]; log_nu, d_bin_row [B,M];
 // scalars [B,4] = (alpha, log_mu_bin, log_nu_bin, norm); d_corner, dalpha
 // [B]; hist scratch of B x hist_floats(N, M, iters) floats (the v / vbin
-// history, then each row's logsumexp); all f32 and contiguous. cluster: 0 for the plan, else the CTAs a pair (1-16; the
-// smoke's sweep). Takes every iteration count at every M <= 1024.
+// history, then each row's logsumexp); all f32 and contiguous. cluster: 0
+// for the plan, else the CTAs a pair (1-16; the smoke's sweep). Takes every
+// iteration count, N and M: the wide arm (above 1024 columns, or where a
+// streamed band does not fit at that cluster size; the wrapper's plan,
+// ops/cuda/sinkhorn.py::bwd_plan, names its cluster) takes a scratch of
+// B x cluster x wide_bwd_floats floats, null otherwise.
 extern "C" cudaError_t mdgat_sinkhorn_bwd(
     const void* Z, const void* log_mu, const void* log_nu, const void* scalars,
     const void* d_out, const void* d_bin_row, const void* d_bin_col,
-    const void* d_corner, void* dZ, void* dalpha, void* hist, int B, int N,
-    int M, int iters, int cluster, cudaStream_t stream) {
+    const void* d_corner, void* dZ, void* dalpha, void* hist, void* scratch,
+    long long scratch_floats, int B, int N, int M, int iters, int cluster,
+    cudaStream_t stream) {
   using namespace mdgat;
-  if (B <= 0 || N <= 0 || M <= 0 || iters < 0) return cudaErrorInvalidValue;
+  if (B <= 0 || N <= 0 || M <= 0 || iters < 0 || cluster < 0 ||
+      cluster > kMaxCluster)
+    return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto g = [](void* p) { return static_cast<float*>(p); };
+  if (cluster > 0 && !fits_streamed(N, M, cluster))
+    return launch_wide(f(Z), f(log_mu), f(log_nu), f(scalars), f(d_out),
+                       f(d_bin_row), f(d_bin_col), f(d_corner), g(dZ), g(dalpha),
+                       g(hist), g(scratch), scratch_floats, B, N, M, iters,
+                       cluster, stream);
 #define MDGAT_SBWD(C)                                                        \
   return dispatch<C>(f(Z), f(log_mu), f(log_nu), f(scalars), f(d_out),       \
                      f(d_bin_row), f(d_bin_col), f(d_corner), g(dZ),         \

@@ -40,10 +40,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes (all return cudaError_t as int)
 _SIGNATURES = {
-    # q, k, v, mask, o, thr, lse, B, H, N, M, Dh, topk, scale, io_dtype,
-    # stream
-    "mdgat_topk_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _F, _I, _P],
+    # q, k, v, mask, o, thr, lse, slab, slab_floats, B, H, N, M, Dh, topk,
+    # scale, io_dtype, stream
+    "mdgat_topk_attention": [_P] * 8 + [_L] + [_I] * 6 + [_F, _I, _P],
     # a1, a1_dtype, a1_heads, a2, K1, K2, w, bias, res, out, out_dtype,
     # out_heads, rows_per_batch, R, C, relu, w_trans, stream
     "mdgat_gemm": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -52,14 +51,14 @@ _SIGNATURES = {
     # splits, stream
     "mdgat_gemm_tn": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, dout, mask, thr, lse, o_full, dq_full, dk_full, dv_full,
-    # delta, B, H, N, M, Dh, key_tile, stream
-    "mdgat_mha_attention_bwd": [_P] * 12 + [_I] * 6 + [_P],
+    # delta, slab, slab_floats, B, H, N, M, Dh, key_tile, stream
+    "mdgat_mha_attention_bwd": [_P] * 13 + [_L] + [_I] * 6 + [_P],
     # Z, log_mu, log_nu, scalars, d_out, d_bin_row, d_bin_col, d_corner, dZ,
-    # dalpha, hist, B, N, M, iters, cluster, stream
-    "mdgat_sinkhorn_bwd": [_P] * 11 + [_I] * 5 + [_P],
-    # Z, log_mu, log_nu, scalars, out, bin_row, bin_col, corner, B, N, M,
-    # iters, cluster, stream
-    "mdgat_sinkhorn": [_P] * 8 + [_I] * 5 + [_P],
+    # dalpha, hist, scratch, scratch_floats, B, N, M, iters, cluster, stream
+    "mdgat_sinkhorn_bwd": [_P] * 12 + [_L] + [_I] * 5 + [_P],
+    # Z, log_mu, log_nu, scalars, out, bin_row, bin_col, corner, scratch,
+    # scratch_floats, B, N, M, iters, cluster, stream
+    "mdgat_sinkhorn": [_P] * 9 + [_L] + [_I] * 5 + [_P],
     # N, M, cluster, count
     "mdgat_sinkhorn_active_clusters": [_I] * 3 + [_P],
     # x, msg, w1, b1, rowmask, h1, partial, partial_floats, sums, D, R,
@@ -79,12 +78,36 @@ _SIGNATURES = {
     # dense, bin_row, bin_col, gt0, gt1, rm, cm, s0, s1, cnt0, cnt1, B, N, M,
     # cluster, band, gamma, stream
     "mdgat_gap_fwd": [_P] * 11 + [_I] * 5 + [_F, _P],
-    # M, cluster, count
-    "mdgat_gap_active_clusters": [_I] * 2 + [_P],
+    # M, cluster, backward, count
+    "mdgat_gap_active_clusters": [_I] * 3 + [_P],
     # dense, bin_row, bin_col, gt0, gt1, rm, cm, cnt0, cnt1, ds0, ds1, dd,
-    # dbin_row, dbin_col, B, N, M, gamma, stream
-    "mdgat_gap_bwd": [_P] * 14 + [_I] * 3 + [_F, _P],
+    # dbin_row, dbin_col, B, N, M, cluster, band, gamma, stream
+    "mdgat_gap_bwd": [_P] * 14 + [_I] * 5 + [_F, _P],
 }
+
+
+def device_scratch(floats: int, device, what: str):
+    """A float32 scratch tensor of ``floats`` elements on ``device`` for a
+    kernel's wide arm, None for none. Refused with a ``ValueError`` that
+    names the plain route when the card's free memory (and what PyTorch's
+    allocator holds unused) cannot take it: device memory is the only limit
+    of those arms."""
+    if not floats:
+        return None
+    need = 4 * int(floats)
+    free, _ = torch.cuda.mem_get_info(device)
+    free += (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    if need > free:
+        raise ValueError(f"{what}: the kernel needs {need} bytes of device "
+                         f"scratch and {free} are free; run this shape with "
+                         f"use_kernels=False")
+    return torch.empty(int(floats), dtype=torch.float32, device=device)
+
+
+def _ptr(t):
+    """A tensor's device address for a C entry, null for None."""
+    return None if t is None else t.data_ptr()
 
 
 class KernelLibrary:

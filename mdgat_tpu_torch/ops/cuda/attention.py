@@ -17,7 +17,10 @@ a CUDA call the kernel cannot take raises.
 
 :func:`check_shape` refuses the shapes the kernel has no instantiation for
 (the launch in ``csrc/attention.cu`` plans the rest: rows a block, shared
-memory), and :func:`selection_mirror` is the kernel's exact k-th-value
+memory). Every key count is taken: above :data:`REGISTER_KEYS` the wide
+arm keeps a row's scores in a slab, in shared memory where it fits and in a
+global scratch of :func:`slab_floats` floats beyond (device memory is the
+only limit). :func:`selection_mirror` is the kernel's exact k-th-value
 search, step for step, in plain PyTorch on int32 keys: it runs on the CPU,
 where the tests hold it to the twin.
 """
@@ -29,20 +32,46 @@ from typing import Optional
 import torch
 
 from mdgat_tpu_torch.ops.attention import BIG_NEG, acc_dtype, attention_core
-from mdgat_tpu_torch.ops.cuda._build import DTYPE_CODES, library
+from mdgat_tpu_torch.ops.cuda._build import (DTYPE_CODES, _ptr,
+                                             device_scratch, library)
 
 HEAD_DIMS = (8, 16, 32, 64)
-MAX_KEYS = 1024
+REGISTER_KEYS = 1024    # keys the register arms hold; the wide arm beyond
 VALUE_STEPS = 12        # kValueSteps of csrc/attention.cu
 CANDIDATES = 32         # kCandidates
+SMEM_CAP = 227 * 1024   # shared memory a block may take on the H100
+WIDE_ROWS = 8           # query rows a block of the wide arm (TR = 1)
+KEY_TILE = 256          # kKT of csrc/common.cuh
 
 
 def check_shape(m: int, dh: int, topk: int):
     """Raises ``ValueError`` unless the kernel takes ``m`` keys at head size
     ``dh`` with ``topk`` kept (0 = dense)."""
     _check(dh in HEAD_DIMS, f"head dim {dh} not in {HEAD_DIMS}")
-    _check(0 < m <= MAX_KEYS, f"{m} keys (1 to {MAX_KEYS})")
+    _check(m > 0, f"{m} keys")
     _check(topk >= 0, "topk < 0")
+
+
+def slab_stride(m: int) -> int:
+    """Floats a row of the score slab (``csrc/common.cuh::slab_stride``)."""
+    return (m + 31) // 32 * 32 + 8
+
+
+def slab_floats(b: int, h: int, n: int, m: int, dh: int,
+                staged: int = 1) -> int:
+    """Floats of the global scratch that the wide arm's score slab needs:
+    0 at ``m <= REGISTER_KEYS`` and wherever the slab of ``WIDE_ROWS`` rows
+    fits in shared memory beside the key tile and ``staged`` row tiles of
+    ``dh`` (1: Q, the forward; 2: Q and dO, the backward's rows kernel),
+    else a ``WIDE_ROWS``-row slab for every block of the grid. Mirrors the
+    launches of ``csrc/attention.cu`` and ``csrc/mha_bwd.cu``."""
+    if m <= REGISTER_KEYS:
+        return 0
+    tile = max(KEY_TILE * (dh + 4), 128 * WIDE_ROWS)
+    rows = WIDE_ROWS * slab_stride(m)
+    if 4 * (rows + tile + staged * WIDE_ROWS * (dh + 4)) <= SMEM_CAP:
+        return 0
+    return -(-n // WIDE_ROWS) * b * h * rows
 
 
 def _monotone_key(s: torch.Tensor) -> torch.Tensor:
@@ -146,14 +175,16 @@ def topk_attention(q, k, v, kv_mask: Optional[torch.Tensor], topk: int,
     out = torch.empty_like(q)
     thr = torch.empty((b, h, n, 1), dtype=torch.float32, device=q.device)
     lse = torch.empty_like(thr) if return_lse else None
+    floats = slab_floats(b, h, n, m, dh)
+    slab = device_scratch(floats, q.device, f"attention kernel ({m} keys)")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         library().call("mdgat_topk_attention", q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), mask.data_ptr(), out.data_ptr(),
                        thr.data_ptr(),
-                       lse.data_ptr() if return_lse else None, b, h, n, m,
-                       dh, int(topk), float(scale), DTYPE_CODES[q.dtype],
-                       stream)
+                       _ptr(lse), _ptr(slab), floats,
+                       b, h, n, m, dh, int(topk), float(scale),
+                       DTYPE_CODES[q.dtype], stream)
     topk_attention.launches += 1
     return (out, thr, lse) if return_lse else (out, thr)
 

@@ -14,11 +14,12 @@ for the design and what bounds it on the H100.
 
 The forward also produces each anchor's count of active margins, which the
 autograd function keeps: with them the backward reads the block once and
-writes ``dd`` once. It is one launch, a pair on a cluster of CTAs by
+writes ``dd`` once. Each is one launch, a pair on a cluster of CTAs by
 :func:`gap_plan`.
 
-A CUDA tensor launches the kernels (float32, contiguous, at most 1024
-columns and 16384 rows; anything else raises, nothing falls back). A CPU
+A CUDA tensor launches the kernels (float32, contiguous, any number of rows
+and columns: the kernels take columns in chunks of 1024 and a CTA's rows in
+pieces of 1024; anything else raises, nothing falls back). A CPU
 tensor takes the plain twins :func:`fused_gap_margins_reference` and
 :func:`fused_gap_margins_backward_reference` (with
 :func:`fused_gap_counts_reference` for the counts), the formulas of the TPU
@@ -33,14 +34,14 @@ from typing import Optional
 
 import torch
 
-from mdgat_tpu_torch.ops.cuda._build import library
+from mdgat_tpu_torch.ops.cuda._build import _ptr, library
 from mdgat_tpu_torch.ops.cuda.layer import NUM_SMS
-from mdgat_tpu_torch.ops.cuda.train_layer import _launch, _ptr
+from mdgat_tpu_torch.ops.cuda.train_layer import _launch
 from mdgat_tpu_torch.ops.losses import _masks, _mean_over
 from mdgat_tpu_torch.ops.transport import BIG_NEG, OTScores
 
-MAX_COLS = 1024
-MAX_CLUSTER = 16     # CTAs a pair of the forward; above 8 non-portable
+PIECE = 1024         # rows of a band a CTA stages at a time (kGapPiece)
+MAX_CLUSTER = 16     # CTAs a pair; above 8 non-portable
 
 
 def _direction0(dense, bin_col, gt0, cm):
@@ -141,11 +142,7 @@ def _check(dense, bin_row, bin_col, gt0, gt1, rm, cm):
     if dense.dtype != torch.float32:
         raise ValueError(f"gap-loss kernels take float32 scores, not "
                          f"{dense.dtype}")
-    if (not 0 < m <= MAX_COLS or not 0 < n <= MAX_CLUSTER * MAX_COLS
-            or not 0 < b <= 65535):
-        raise ValueError(f"gap-loss kernels: {b} x {n} x {m} block (columns "
-                         f"at most {MAX_COLS}, rows at most "
-                         f"{MAX_CLUSTER * MAX_COLS})")
+    _check_block(b, n, m)
     shapes = ((bin_row, (b, m), torch.float32), (bin_col, (b, n), torch.float32),
               (gt0, (b, n), torch.int32), (gt1, (b, m), torch.int32),
               (rm, (b, n), torch.bool), (cm, (b, m), torch.bool))
@@ -160,33 +157,55 @@ def _check(dense, bin_row, bin_col, gt0, gt1, rm, cm):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def _check_block(b: int, n: int, m: int):
+    if n <= 0 or m <= 0 or not 0 < b <= 65535:
+        raise ValueError(f"gap-loss kernels: {b} x {n} x {m} block (at least "
+                         f"one row and one column, at most 65535 pairs)")
+
+
+def _cut(n: int, g: int) -> int:
+    """``g`` halved while the last CTA would get no row."""
+    while g > 1 and (g - 1) * -(-n // g) >= n:
+        g //= 2
+    return g
+
+
 def gap_plan(b: int, n: int, m: int):
     """``(cluster, band)`` of the forward for ``b`` pairs of ``n x m``
     scores: a pair on a cluster of ``cluster`` CTAs, CTA ``r`` taking the
     rows ``[r * band, min(n, (r + 1) * band))``. The cluster doubles from 1
     (up to 16) while the batch, doubled, still fits in one wave of one CTA
     an SM, or while a band would pass 1024 rows (a CTA stages its band's
-    row side), and is cut while the last CTA would get no row."""
-    if not 0 < m <= MAX_COLS or not 0 < n <= MAX_CLUSTER * MAX_COLS or b <= 0:
-        raise ValueError(f"gap-loss kernels: {b} x {n} x {m} block (columns "
-                         f"at most {MAX_COLS}, rows at most "
-                         f"{MAX_CLUSTER * MAX_COLS})")
+    row side 1024 rows at a time), and is cut while the last CTA would get
+    no row. The columns do not move the plan: the kernel takes them in
+    chunks."""
+    _check_block(b, n, m)
     g = 1
-    while g < MAX_CLUSTER and (b * 2 * g <= NUM_SMS or -(-n // g) > MAX_COLS):
+    while g < MAX_CLUSTER and (b * 2 * g <= NUM_SMS or -(-n // g) > PIECE):
         g *= 2
-    while g > 1 and (g - 1) * -(-n // g) >= n:
-        g //= 2
+    g = _cut(n, g)
     return g, -(-n // g)
 
 
-def active_clusters(m: int, cluster: int) -> int:
-    """How many clusters of ``cluster`` CTAs of the forward's launch for
-    ``m`` columns the current card holds at once
+def active_clusters(m: int, cluster: int, backward: bool = False) -> int:
+    """How many clusters of ``cluster`` CTAs of the forward's (or the
+    backward's) launch for ``m`` columns the current card holds at once
     (``cudaOccupancyMaxActiveClusters``)."""
     count = ctypes.c_int(0)
     library().call("mdgat_gap_active_clusters", m, int(cluster),
-                   ctypes.addressof(count))
+                   int(backward), ctypes.addressof(count))
     return count.value
+
+
+def _cluster_band(b: int, n: int, m: int, cluster: int, what: str):
+    """:func:`gap_plan`'s ``(cluster, band)``, or ``cluster`` 1-16 CTAs a
+    pair with bands of ``ceil(n / cluster)`` rows (the smoke's sweeps)."""
+    if not cluster:
+        return gap_plan(b, n, m)
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"gap-loss {what}: {cluster} CTAs a pair "
+                         f"(1-{MAX_CLUSTER})")
+    return cluster, -(-n // cluster)
 
 
 def _margins_forward(dense, bin_row, bin_col, gt0, gt1, rm, cm, gamma,
@@ -197,13 +216,7 @@ def _margins_forward(dense, bin_row, bin_col, gt0, gt1, rm, cm, gamma,
     asks for that many CTAs a pair instead (the smoke's sweep)."""
     _check(dense, bin_row, bin_col, gt0, gt1, rm, cm)
     b, n, m = dense.shape
-    if not cluster:
-        cluster, band = gap_plan(b, n, m)
-    elif 1 <= cluster <= MAX_CLUSTER:
-        band = -(-n // cluster)
-    else:
-        raise ValueError(f"gap-loss forward: {cluster} CTAs a pair "
-                         f"(1-{MAX_CLUSTER})")
+    cluster, band = _cluster_band(b, n, m, cluster, "forward")
     f32, dev = torch.float32, dense.device
     s0, cnt0 = (torch.empty((b, n), dtype=f32, device=dev) for _ in range(2))
     s1, cnt1 = (torch.empty((b, m), dtype=f32, device=dev) for _ in range(2))
@@ -216,10 +229,13 @@ def _margins_forward(dense, bin_row, bin_col, gt0, gt1, rm, cm, gamma,
 
 
 def _margins_backward(dense, bin_row, bin_col, gt0, gt1, rm, cm, gamma, cnt0,
-                      cnt1, ds0, ds1):
+                      cnt1, ds0, ds1, cluster: int = 0):
     """The backward launch: ``(dd, dbin_row, dbin_col)`` from the forward's
-    operands and counts and the float32 cotangents."""
+    operands and counts and the float32 cotangents. The pairs run on
+    clusters of CTAs by :func:`gap_plan`, as the forward's; ``cluster``
+    1-16 asks for that many CTAs a pair instead (the smoke's sweep)."""
     b, n, m = dense.shape
+    cluster, band = _cluster_band(b, n, m, cluster, "backward")
     if (ds0.shape != (b, n) or ds1.shape != (b, m)
             or any(t.dtype != torch.float32 or not t.is_contiguous()
                    or t.device != dense.device for t in (ds0, ds1, cnt0, cnt1))):
@@ -231,7 +247,7 @@ def _margins_backward(dense, bin_row, bin_col, gt0, gt1, rm, cm, gamma, cnt0,
             bin_col.data_ptr(), gt0.data_ptr(), gt1.data_ptr(), _ptr(rm),
             _ptr(cm), cnt0.data_ptr(), cnt1.data_ptr(), ds0.data_ptr(),
             ds1.data_ptr(), dd.data_ptr(), dbin_row.data_ptr(),
-            dbin_col.data_ptr(), b, n, m, gamma)
+            dbin_col.data_ptr(), b, n, m, cluster, band, gamma)
     fused_gap_margins.backward_launches += 1
     return dd, dbin_row, dbin_col
 

@@ -42,7 +42,8 @@ import torch
 
 from mdgat_tpu_torch.ops.attention import acc_dtype, attention_core
 from mdgat_tpu_torch.ops.cuda import attention as attn_kernel
-from mdgat_tpu_torch.ops.cuda._build import DTYPE_CODES, library
+from mdgat_tpu_torch.ops.cuda._build import (DTYPE_CODES, _ptr,
+                                             device_scratch, library)
 from mdgat_tpu_torch.ops.cuda.layer import gemm, gemm_tn
 
 
@@ -200,14 +201,16 @@ def _attention_backward(q, k, v, do, kv_mask, thr, lse, key_tile: int = 0):
     dk = torch.empty((b * m, h * dh), dtype=f32, device=dev)
     dv = torch.empty((b * m, h * dh), dtype=f32, device=dev)
     delta = torch.empty((b, h, n), dtype=f32, device=dev)
+    floats = attn_kernel.slab_floats(b, h, n, m, dh, staged=2)
+    slab = device_scratch(floats, dev, f"attention-backward kernel ({m} keys)")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         library().call("mdgat_mha_attention_bwd", q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), do.data_ptr(), mask.data_ptr(),
                        thr.data_ptr(), lse.data_ptr(), o_full.data_ptr(),
                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                       delta.data_ptr(), b, h, n, m, dh, int(key_tile),
-                       stream)
+                       delta.data_ptr(), _ptr(slab), floats, b, h, n, m, dh,
+                       int(key_tile), stream)
     _attention_backward.launches += 1
     return o_full, dq, dk, dv
 

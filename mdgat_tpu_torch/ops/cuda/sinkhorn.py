@@ -16,15 +16,18 @@ for the designs and what bounds them on the H100.
 Both kernels run a pair on a thread-block cluster of CTAs, each owning a
 band of rows. The forward's cluster size comes from :func:`sinkhorn_plan`;
 the band stays in shared memory wherever it fits (:func:`fwd_smem_bytes`
-mirrors the kernel's layout).
+mirrors the kernel's layout). Above 1024 columns (or where a band's
+vectors do not fit in shared memory) both kernels take their wide arm,
+whose vectors live in a scratch tensor (:func:`fwd_scratch_floats`,
+:func:`bwd_plan`): device memory is the only limit on N and M.
 
 A CUDA tensor launches the kernels (float32 scores only); a CPU tensor takes
 :func:`log_optimal_transport_reference`, the plain transport of
 ``ops/transport.py``, which autograd differentiates through its unrolled
-loop. Nothing falls back: a CUDA call the kernels cannot take raises (more
-than 1024 columns). The backward keeps the replay's history (v and each
-row's logsumexp) in a scratch tensor of ``B x ((iters + 1) (M + 2) + iters
-N)`` floats, so it takes every iteration count.
+loop. Nothing falls back: a CUDA call the kernels cannot take raises. The
+backward keeps the replay's history (v and each row's logsumexp) in a
+scratch tensor of ``B x ((iters + 1) (M + 2) + iters N)`` floats, so it
+takes every iteration count.
 """
 
 from __future__ import annotations
@@ -34,16 +37,17 @@ from typing import Optional
 
 import torch
 
-from mdgat_tpu_torch.ops.cuda._build import library
+from mdgat_tpu_torch.ops.cuda._build import _ptr, device_scratch, library
 from mdgat_tpu_torch.ops.cuda.layer import NUM_SMS
 from mdgat_tpu_torch.ops.transport import (BIG_NEG, OTScores,
                                            log_optimal_transport,
                                            transport_marginals)
 
-MAX_COLS = 1024
+REGISTER_COLS = 1024      # columns the register arms take (kMaxCols)
 MAX_CLUSTER = 16          # CTAs a pair; above 8 the size is non-portable
 SMEM_CAP = 227 * 1024     # shared memory a CTA may take on the H100
 FWD_THREADS = 1024        # threads a forward CTA (csrc/sinkhorn.cu kThreads)
+BWD_STREAMED_THREADS = 512  # threads a streamed backward CTA (threads_for(0))
 
 
 # the plain PyTorch twin of the kernel
@@ -66,9 +70,8 @@ def _check(scores):
     if scores.dtype != torch.float32:
         raise ValueError(f"Sinkhorn kernel takes float32 scores, not "
                          f"{scores.dtype}")
-    if not 0 < m <= MAX_COLS or n <= 0:
-        raise ValueError(f"Sinkhorn kernel: {n} x {m} block (columns at "
-                         f"most {MAX_COLS})")
+    if m <= 0 or n <= 0:
+        raise ValueError(f"Sinkhorn kernel: {n} x {m} block")
 
 
 def _pad4(n: int) -> int:
@@ -86,10 +89,39 @@ def fwd_smem_bytes(band: int, m: int, resident: bool) -> int:
     return 4 * floats
 
 
+def fwd_wide(n: int, m: int, cluster: int) -> bool:
+    """Whether the forward takes its wide arm at that cluster size: more
+    than 1024 columns, or a band whose streamed vectors do not fit in
+    shared memory (``csrc/sinkhorn.cu::wide_arm``)."""
+    return (m > REGISTER_COLS
+            or fwd_smem_bytes(-(-n // cluster), m, False) > SMEM_CAP)
+
+
 def fwd_resident(n: int, m: int, cluster: int) -> bool:
     """Whether the forward keeps its band of ``ceil(n / cluster)`` rows in
     shared memory (the launch decides the same way)."""
-    return fwd_smem_bytes(-(-n // cluster), m, True) <= SMEM_CAP
+    return (not fwd_wide(n, m, cluster)
+            and fwd_smem_bytes(-(-n // cluster), m, True) <= SMEM_CAP)
+
+
+def fwd_scratch_floats(b: int, n: int, m: int, cluster: int) -> int:
+    """Floats of the wide forward's scratch (v, u and the exchange buffers
+    of every CTA, ``csrc/sinkhorn.cu::wide_fwd_floats``); 0 where the
+    launch takes a register arm."""
+    if not fwd_wide(n, m, cluster):
+        return 0
+    mp = _pad4(m)
+    return b * cluster * (mp + _pad4(-(-n // cluster)) + 4 * (mp + 4))
+
+
+def _spread(b: int, n: int, g: int, top: int) -> int:
+    """``g`` doubled up to ``top`` while the batch still fits in one wave
+    of the card's SMs, then cut while the last CTA would get no row."""
+    while g < top and b * 2 * g <= NUM_SMS:
+        g *= 2
+    while g > 1 and (g - 1) * -(-n // g) >= n:
+        g //= 2
+    return g
 
 
 def sinkhorn_plan(b: int, n: int, m: int):
@@ -98,14 +130,52 @@ def sinkhorn_plan(b: int, n: int, m: int):
     (streamed, clusters of 8, where none does: at 8 pairs x 1024 columns 16
     CTAs a pair leave 7 clusters on the card at once, two waves), doubled
     up to 8 while the batch still fits in one wave of the card's SMs, and
-    cut while the last CTA would get no row."""
+    cut while the last CTA would get no row. The wide arm starts at 8 and
+    doubles up to 16 (its CTAs hold no band, so a small batch spreads)."""
+    if fwd_wide(n, m, 8):
+        g = _spread(b, n, 8, MAX_CLUSTER)
+        return g, fwd_resident(n, m, g)
     fit = [g for g in (1, 2, 4, 8, MAX_CLUSTER) if fwd_resident(n, m, g)]
-    g = fit[0] if fit else 8
-    while g < 8 and b * 2 * g <= NUM_SMS:
-        g *= 2
-    while g > 1 and (g - 1) * -(-n // g) >= n:
-        g //= 2
+    g = _spread(b, n, fit[0] if fit else 8, 8)
     return g, fwd_resident(n, m, g)
+
+
+def bwd_smem_bytes(band: int, m: int) -> int:
+    """Shared memory of one streamed backward CTA (``csrc/sinkhorn_bwd.cu::
+    smem_floats`` at R = 0): lnu, v, v_prev, dv, two exchange buffers,
+    lmu and u of the band, the warps' column partials."""
+    mp = _pad4(m)
+    return 4 * (4 * mp + 2 * (mp + 4) + 2 * _pad4(band)
+                + BWD_STREAMED_THREADS // 32 * mp)
+
+
+def bwd_wide(n: int, m: int, cluster: int) -> bool:
+    """Whether the backward takes its wide arm at that cluster size: more
+    than 1024 columns, or a streamed band that does not fit in shared
+    memory (``csrc/sinkhorn_bwd.cu``: not ``fits_streamed``)."""
+    return (m > REGISTER_COLS
+            or bwd_smem_bytes(-(-n // cluster), m) > SMEM_CAP)
+
+
+def bwd_scratch_floats(b: int, n: int, m: int, cluster: int) -> int:
+    """Floats of the wide backward's scratch (``B x cluster x
+    wide_bwd_floats``: v_t, v_{t-1}, dv, two exchange buffers, the rows'
+    logsumexp and -du); 0 where the launch takes a register arm."""
+    if not bwd_wide(n, m, cluster):
+        return 0
+    mp = _pad4(m)
+    return b * cluster * (3 * mp + 2 * (mp + 4) + 2 * _pad4(-(-n // cluster)))
+
+
+def bwd_plan(b: int, n: int, m: int):
+    """``(cluster, scratch_floats)`` of the backward: ``(0, 0)`` where the
+    launch plans a register arm itself (up to 1024 columns, a streamed band
+    of clusters of 8 in shared memory); else the wide arm's cluster (from
+    8, doubled up to 16 as the forward's) and its scratch."""
+    if not bwd_wide(n, m, 8):
+        return 0, 0
+    g = _spread(b, n, 8, MAX_CLUSTER)
+    return g, bwd_scratch_floats(b, n, m, g)
 
 
 def _forward(scores, scalars, log_mu, log_nu, iters: int,
@@ -122,13 +192,16 @@ def _forward(scores, scalars, log_mu, log_nu, iters: int,
     bin_row = torch.empty((b, m), dtype=scores.dtype, device=scores.device)
     bin_col = torch.empty((b, n), dtype=scores.dtype, device=scores.device)
     corner = torch.empty((b,), dtype=scores.dtype, device=scores.device)
+    floats = fwd_scratch_floats(b, n, m, cluster)
+    scratch = device_scratch(floats, scores.device,
+                             f"Sinkhorn forward ({n} x {m})")
     with torch.cuda.device(scores.device):
         stream = torch.cuda.current_stream(scores.device).cuda_stream
         library().call("mdgat_sinkhorn", scores.data_ptr(), log_mu.data_ptr(),
                        log_nu.data_ptr(), scalars.data_ptr(), dense.data_ptr(),
                        bin_row.data_ptr(), bin_col.data_ptr(),
-                       corner.data_ptr(), b, n, m, int(iters), int(cluster),
-                       stream)
+                       corner.data_ptr(), _ptr(scratch), floats, b, n, m,
+                       int(iters), int(cluster), stream)
     log_optimal_transport_kernel.launches += 1
     return OTScores(dense, bin_row, bin_col, corner)
 
@@ -167,9 +240,13 @@ class _KernelOT(torch.autograd.Function):
 def _backward(scores, scalars, log_mu, log_nu, cot, iters: int,
               cluster: int = 0):
     """One launch of the replay backward: (dZ [B, N, M], dalpha [B]).
-    ``cluster`` 0 takes the launch's plan in ``csrc/`` (CTAs a pair);
-    1-16 asks for that cluster size (the smoke's sweep)."""
+    ``cluster`` 0 takes the plan (:func:`bwd_plan`: the launch's own in
+    ``csrc/`` for the register arms, the wide arm's cluster else); 1-16
+    asks for that cluster size (the smoke's sweep)."""
     b, n, m = scores.shape
+    if not 0 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"Sinkhorn backward: {cluster} CTAs a pair "
+                         f"(1-{MAX_CLUSTER})")
     dz = torch.empty_like(scores)
     dalpha = torch.empty((b,), dtype=scores.dtype, device=scores.device)
     # the replay's history: v, vbin and the bin row's logsumexp [iters + 1,
@@ -177,13 +254,20 @@ def _backward(scores, scalars, log_mu, log_nu, cot, iters: int,
     # hist_floats)
     hist = torch.empty((b, (iters + 1) * (m + 2) + iters * n),
                        dtype=scores.dtype, device=scores.device)
+    if cluster == 0:
+        cluster, floats = bwd_plan(b, n, m)
+    else:
+        floats = bwd_scratch_floats(b, n, m, cluster)
+    scratch = device_scratch(floats, scores.device,
+                             f"Sinkhorn backward ({n} x {m})")
     with torch.cuda.device(scores.device):
         stream = torch.cuda.current_stream(scores.device).cuda_stream
         library().call("mdgat_sinkhorn_bwd", scores.data_ptr(),
                        log_mu.data_ptr(), log_nu.data_ptr(),
                        scalars.data_ptr(), *(t.data_ptr() for t in cot),
-                       dz.data_ptr(), dalpha.data_ptr(), hist.data_ptr(), b,
-                       n, m, int(iters), int(cluster), stream)
+                       dz.data_ptr(), dalpha.data_ptr(), hist.data_ptr(),
+                       _ptr(scratch), floats, b, n, m, int(iters),
+                       int(cluster), stream)
     log_optimal_transport_kernel.backward_launches += 1
     return dz, dalpha
 

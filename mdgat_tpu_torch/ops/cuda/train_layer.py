@@ -58,7 +58,8 @@ kernels' own plain twins (:func:`h1_stats_reference`,
 takes on CPU tensors.
 Nothing falls back, and
 no size gate steps down to another route: a CUDA call the kernels cannot
-take (more than 1024 keys, a head size the attention kernel lacks) raises.
+take (a head size the attention kernel lacks, a scratch larger than the
+card's free memory) raises; any number of keys is taken.
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ import torch
 
 from mdgat_tpu_torch.ops.attention import acc_dtype
 from mdgat_tpu_torch.ops.cuda import mha
-from mdgat_tpu_torch.ops.cuda._build import DTYPE_CODES, library
+from mdgat_tpu_torch.ops.cuda._build import DTYPE_CODES, _ptr, library
 from mdgat_tpu_torch.ops.cuda.layer import (NUM_SMS, TN_STAGE_ROWS, gemm,
                                            gemm_tn, tn_plan)
 from mdgat_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
@@ -303,10 +304,6 @@ def _row_mask(valid_mask):
     """uint8 ``[B*N]`` for the kernels, or None (every row valid)."""
     return (None if valid_mask is None
             else valid_mask.to(torch.uint8).contiguous())
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 def _require_cuda(*tensors):

@@ -228,8 +228,9 @@ def test_kernel_operand_check_raises(fault):
         args[3] = args[3].long()
     elif fault == "not_contiguous":
         args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
-    elif fault == "too_wide":
-        args[0] = torch.zeros(1, 2, G.MAX_COLS + 1)
+    elif fault == "too_wide":       # wider than its bin_row and gt1
+        args[0] = torch.zeros(args[0].shape[0], args[0].shape[1],
+                              args[0].shape[2] + 1)
     elif fault == "bin_shape":
         args[1] = args[1][:, :-1]
     with pytest.raises(ValueError, match="gap-loss kernels"):

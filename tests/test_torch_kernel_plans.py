@@ -42,11 +42,13 @@ def _mirror(s, valid, topk):
             topk_threshold(masked, valid, topk))
 
 
-@pytest.mark.parametrize("m", [45, 200, 231, 256, 513, 1024])
+@pytest.mark.parametrize("m", [45, 200, 231, 256, 513, 1024, 1025, 1500,
+                               4096])
 @pytest.mark.parametrize("topk", [1, 8, 64, 128, 2000])
 def test_selection_mirror_bit_equal_to_twin_threshold(m, topk):
     """Random scores of every sign, ragged masks, one all-masked row, and
-    k from 1 to beyond the valid count."""
+    k from 1 to beyond the valid count; past 1024 keys the wide arm walks
+    the same pivots over the slab."""
     rng = np.random.default_rng(500 + m + topk)
     s = (rng.normal(size=(2, 3, 17, m)) * 3).astype(np.float32)
     valid = np.arange(m)[None, None, None, :] < rng.integers(
@@ -85,6 +87,26 @@ def test_selection_mirror_on_ties_zeros_and_tiny_gaps(topk):
     assert got[1, 0] == 0.5
 
 
+@pytest.mark.parametrize("m", [1025, 1500, 4096])
+@pytest.mark.parametrize("topk", [1, 40, 128, 1000])
+def test_selection_mirror_on_ties_past_1024_keys(m, topk):
+    """The wide arm's key counts: heavy ties at the k-th value (every tie
+    kept), signed zeros, an all-equal row, an all-masked row and a ragged
+    mask; the mirror's threshold equals the twin's bit for bit."""
+    rng = np.random.default_rng(530 + m + topk)
+    rows = [np.round(rng.normal(size=m)), np.full(m, -0.25),
+            np.where(rng.random(m) < 0.5, 0.0, -0.0),
+            np.exp(rng.uniform(-60, 60, size=m)) * rng.choice([-1, 1], m),
+            rng.normal(size=m)]
+    s = np.stack(rows).astype(np.float32)
+    valid = np.ones_like(s, bool)
+    valid[:, m - 97:] = False
+    valid[4] = False                                       # all masked
+    got, want = _mirror(s, valid, topk)
+    assert torch.equal(got, want)
+    assert got[1, 0] == -0.25 and got[4, 0] == 1e30
+
+
 @pytest.mark.parametrize("topk", [1, 5, 33, 63])
 def test_selection_mirror_bit_equal_to_exact_pallas(topk):
     """Where the JAX exact kernel reproduces the scores bit for bit (unit
@@ -114,20 +136,60 @@ def test_selection_mirror_bit_equal_to_exact_pallas(topk):
 
 @pytest.mark.parametrize("dh", [8, 16, 32, 64])
 def test_attention_plan_covers_every_supported_shape(dh):
-    """The launch in ``csrc/attention.cu`` plans every key count up to 1024
-    at every head size; the wrapper's shape check lets all of them through,
-    dense and top-k."""
+    """The launch in ``csrc/attention.cu`` plans every key count at every
+    head size (the register arms up to 1024 keys, the wide arm beyond); the
+    wrapper's shape check lets all of them through, dense and top-k."""
     assert dh in kernel.HEAD_DIMS
-    for m in range(1, kernel.MAX_KEYS + 1):
+    for m in list(range(1, 2049)) + [4095, 4096, 8192, 32768, 100000]:
         kernel.check_shape(m, dh, 128)
         kernel.check_shape(m, dh, 0)
 
 
 @pytest.mark.parametrize("m, dh, topk", [
-    (0, 32, 8), (1025, 32, 8), (256, 12, 8), (256, 128, 8), (256, 32, -1)])
+    (0, 32, 8), (-3, 32, 8), (256, 12, 8), (256, 128, 8), (256, 32, -1)])
 def test_attention_plan_refuses_unsupported_shapes(m, dh, topk):
     with pytest.raises(ValueError, match="attention kernel"):
         kernel.check_shape(m, dh, topk)
+
+
+@pytest.mark.parametrize("dh", [8, 16, 32, 64])
+@pytest.mark.parametrize("staged", [1, 2], ids=["forward", "backward_rows"])
+def test_attention_wide_slab_plan(dh, staged):
+    """The wide arm's score slab (``slab_floats``): none at or below 1024
+    keys (the register arms); in shared memory, and so no scratch, while 8
+    rows of it fit beside the key tile and the staged row tiles (227 KB);
+    beyond, a slab of 8 rows for every block of the grid, so every query
+    row of every (batch, head) has one. The first count that spills is
+    the smallest whose 8-row slab passes the shared memory."""
+    b, h, n = 2, 4, 1500
+    first_global = None
+    for m in range(1, 8193):
+        floats = kernel.slab_floats(b, h, n, m, dh, staged)
+        tile = max(kernel.KEY_TILE * (dh + 4), 128 * kernel.WIDE_ROWS)
+        smem = 4 * (kernel.WIDE_ROWS * kernel.slab_stride(m) + tile
+                    + staged * kernel.WIDE_ROWS * (dh + 4))
+        if m <= kernel.REGISTER_KEYS or smem <= kernel.SMEM_CAP:
+            assert floats == 0, m
+            continue
+        first_global = first_global or m
+        blocks = -(-n // kernel.WIDE_ROWS) * b * h
+        assert floats == blocks * kernel.WIDE_ROWS * kernel.slab_stride(m)
+        assert floats >= b * h * n * m           # a row of slab a query row
+    assert 4096 < first_global < 8192            # 4096 keys stay on chip
+
+
+def test_wide_scratch_is_refused_for_memory_naming_the_plain_route(monkeypatch):
+    """The wide arms' only limit is device memory: a scratch larger than the
+    card's free memory (and what PyTorch's allocator holds unused) raises a
+    ValueError that names ``use_kernels=False`` before any allocation; no
+    scratch needs no card."""
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d: (4000, 10 ** 10))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d: 3000)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d: 1000)
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: pytest.fail("allocated"))
+    assert _build.device_scratch(0, "cuda:0", "attention kernel") is None
+    with pytest.raises(ValueError, match="use_kernels=False"):
+        _build.device_scratch(1501, "cuda:0", "attention kernel (8192 keys)")
 
 
 def test_gemm_refuses_cpu_tensors():
@@ -205,6 +267,61 @@ def test_sinkhorn_plan_bands_cover_every_row_once(n, m):
         g2 = 2 * g
         assert (g >= 8 or b * g2 > layer_kernel.NUM_SMS
                 or (g2 - 1) * -(-n // g2) >= n)
+
+
+WIDE_N = [1, 31, 1025, 1500, 4096, 16385, 32768]
+WIDE_M = [1025, 1500, 2048, 4096, 8192]
+
+
+@pytest.mark.parametrize("m", WIDE_M)
+@pytest.mark.parametrize("n", WIDE_N)
+def test_sinkhorn_wide_plans_cover_every_row_once(n, m):
+    """Above 1024 columns both kernels take their wide arm: the forward's
+    plan streams (never resident) on clusters of 8 doubled up to 16 for a
+    small batch, its shared memory a few bytes and its scratch every CTA's
+    vectors; the backward's plan names a cluster and a scratch of its own.
+    Both plans' bands cover every row once with no CTA empty."""
+    for b in (1, 2, 8, 64):
+        for g, resident, floats in (
+                (*sk.sinkhorn_plan(b, n, m), None), (*sk.bwd_plan(b, n, m),)[:1]
+                + (False, sk.bwd_plan(b, n, m)[1])):
+            assert 1 <= g <= sk.MAX_CLUSTER and not resident
+            band = -(-n // g)
+            spans = [(r * band, min(n, (r + 1) * band)) for r in range(g)]
+            assert all(lo < hi for lo, hi in spans)
+            assert spans[0][0] == 0 and spans[-1][1] == n
+            assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))
+            assert g >= 8 or (g - 1) * -(-n // (2 * g)) < n <= 8 * band
+            if floats is None:     # the forward
+                assert sk.fwd_wide(n, m, g)
+                mp = -(-m // 4) * 4
+                assert (sk.fwd_scratch_floats(b, n, m, g)
+                        >= b * g * (5 * mp + band))
+            else:
+                assert sk.bwd_wide(n, m, g)
+                assert floats == sk.bwd_scratch_floats(b, n, m, g) > 0
+
+
+@pytest.mark.parametrize("n", [1, 512, 1024, 16384, 32768, 300000])
+def test_sinkhorn_register_arms_up_to_1024_columns(n):
+    """At 1024 columns and below the register arms keep their plans at
+    every row count whose streamed band fits in shared memory (no scratch);
+    a band too long for it (hundreds of thousands of rows) goes to the
+    wide arm instead of being refused."""
+    for m in (1, 256, 512, 1024):
+        g, resident = sk.sinkhorn_plan(8, n, m)
+        band = -(-n // g)
+        if sk.fwd_wide(n, m, g):
+            assert n >= 100000 and not resident
+            assert sk.fwd_scratch_floats(8, n, m, g) > 0
+        else:
+            assert sk.fwd_scratch_floats(8, n, m, g) == 0
+            assert sk.fwd_smem_bytes(band, m, resident) <= sk.SMEM_CAP
+        bg, floats = sk.bwd_plan(8, n, m)
+        assert (bg, floats) == ((0, 0) if not sk.bwd_wide(n, m, 8)
+                                else (bg, sk.bwd_scratch_floats(8, n, m, bg)))
+        if (bg, floats) == (0, 0):
+            assert sk.bwd_smem_bytes(-(-n // 8), m) <= sk.SMEM_CAP
 
 
 def test_sinkhorn_plan_at_the_main_path_shapes():
@@ -468,7 +585,8 @@ def test_gap_plan_at_the_main_path_shapes_and_refused_shapes(monkeypatch):
     """The train step's 64 x 512 x 512 runs clusters of 2 CTAs of 256 rows
     (128 CTAs), 8 x 1024 x 1024 clusters of 16 (128 CTAs); a 1-row pair a
     cluster of one; 4096 rows in bands of at most 1024 rows. More than 1024
-    columns, no row, or more than 16384 rows is refused by the plan and,
+    columns or 16384 rows is taken (columns in chunks, a band in pieces of
+    1024 rows); no row, no column or no pair is refused by the plan and,
     on meta-device tensors, by the forward before the kernel library."""
     _no_library(monkeypatch)
     monkeypatch.setattr(gap, "_launch", lambda *_: pytest.fail("launched"))
@@ -478,13 +596,42 @@ def test_gap_plan_at_the_main_path_shapes_and_refused_shapes(monkeypatch):
     assert gap.gap_plan(2, 1024, 1024) == (16, 64)
     assert gap.gap_plan(200, 4096, 10) == (4, 1024)
     assert gap.gap_plan(1, 16384, 10) == (16, 1024)
-    for b, n, m in ((2, 10, 1025), (2, 0, 10), (0, 10, 10), (1, 16385, 10)):
-        with pytest.raises(ValueError, match="columns at most"):
+    assert gap.gap_plan(2, 10, 1025) == gap.gap_plan(2, 10, 10)
+    assert gap.gap_plan(1, 16385, 10) == (16, 1025)
+    for b, n, m in ((2, 0, 10), (0, 10, 10), (2, 10, 0)):
+        with pytest.raises(ValueError, match="at least one row"):
             gap.gap_plan(b, n, m)
     meta = lambda *shape, dt=torch.float32: torch.zeros(shape, device="meta",
                                                          dtype=dt)
-    b, n, m = 2, 10, 1025
-    with pytest.raises(ValueError, match="columns at most"):
+    b, n, m = 2, 10, 0
+    with pytest.raises(ValueError, match="at least one row"):
         gap._margins_forward(meta(b, n, m), meta(b, m), meta(b, n),
                              meta(b, n, dt=torch.int32),
                              meta(b, m, dt=torch.int32), None, None, 0.5)
+
+
+GAP_WIDE_N = [1, 1000, 1025, 1500, 4096, 16384, 16385, 20000, 32768]
+GAP_WIDE_M = [1, 512, 1024, 1025, 1500, 4096, 8192]
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 64])
+def test_gap_plans_take_wide_clouds(b):
+    """The gap-loss plan (the forward's and the backward's) at N up to
+    32768 and M up to 8192: a legal cluster (a power of two of 1-16),
+    bands that cover every row once with no CTA empty, in pieces of at
+    most 1024 rows past 16 CTAs, the columns leaving the plan as it is,
+    and one wave of a CTA an SM filled where the batch allows (a larger
+    cluster would pass it, pass 16 or leave a CTA without rows)."""
+    for n in GAP_WIDE_N:
+        g, band = gap.gap_plan(b, n, 512)
+        assert 1 <= g <= gap.MAX_CLUSTER and g & (g - 1) == 0
+        assert band == -(-n // g) and (band <= gap.PIECE or g == 16)
+        spans = [(r * band, min(n, (r + 1) * band)) for r in range(g)]
+        assert all(lo < hi for lo, hi in spans)
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))
+        g2 = 2 * g
+        assert (g2 > gap.MAX_CLUSTER or b * g2 > layer_kernel.NUM_SMS
+                or (g2 - 1) * -(-n // g2) >= n)
+        for m in GAP_WIDE_M:
+            assert gap.gap_plan(b, n, m) == (g, band)

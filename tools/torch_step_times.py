@@ -11,8 +11,10 @@ torch.profiler of ``tl_h1_kernel`` (``h1_stats``), of ``tl_fwd2_kernel``
 (``bn_relu_conv2``, also with bfloat16 I/O), of ``tl_dh2_kernel`` in the
 BatchNorm backward's two launches (``bn_backward_sums``, ``dh1_kernel``)
 and of ``tl_dw2_kernel`` (``dw2_db2``), and the whole-layer training
-forward at k = 128 by events; the gap-loss margin forward in a
-CUDA graph at 64 x 512 x 512 and 8 x 1024 x 1024; and the train step with
+forward at k = 128 by events; the attention forward (k = 128) at the
+serving and train shapes in a CUDA graph and its backward at the train
+shape; the gap-loss margin forward and backward in a CUDA graph at 64 x
+512 x 512 and 8 x 1024 x 1024; and the train step with
 ``loss_kernel=True`` (events and device time).
 
     python3 tools/torch_step_times.py [label]     # from the root of a checkout
@@ -124,18 +126,54 @@ def whole_layer_forward_ms(rng, dev):
                for _ in range(2))
 
 
-def gap_forward_times(rng, dev):
-    """ms of the gap-loss margin forward (``_margins_forward``: every launch
-    of one call) in a CUDA graph at 64 x 512 x 512 and 8 x 1024 x 1024."""
+def attention_times(rng, dev):
+    """ms of the attention forward (``topk_attention``, k = 128) in a CUDA
+    graph at the serving shape 64 x 4 x 256 x 256 x 32 and the train shape
+    64 x 4 x 512 x 512 x 32, and of the attention backward (``mha.
+    _attention_backward``: the rows and the keys kernel) at the train
+    shape by events, ragged masks."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import attention as A
+    from mdgat_tpu_torch.ops.cuda import mha as M
+    out = {}
+    h, dh, kk = 4, 32, 128
+    for n in (256, 512):
+        q, k, v, do = (torch.from_numpy(rng.normal(size=(64, h, n, dh))
+                                        .astype(np.float32)).to(dev)
+                       for _ in range(4))
+        q = q * dh ** -0.5
+        mask = ragged_mask(rng, 64, n, int(0.78 * n), dev)
+        with torch.no_grad():
+            out[f"attention_fwd_64x{n}_ms"] = min(
+                graph_ms(lambda: A.topk_attention(q, k, v, mask, kk, 1.0))
+                for _ in range(2))
+            if n == 512:
+                _, thr, lse = A.topk_attention(q, k, v, mask, kk, 1.0,
+                                               return_lse=True)
+                out["attention_bwd_64x512_ms"] = min(
+                    cuda_ms(lambda: M._attention_backward(q, k, v, do, mask,
+                                                          thr, lse), reps=10)
+                    for _ in range(2))
+    return out
+
+
+def gap_times(rng, dev):
+    """ms of the gap-loss margin forward and backward (``_margins_forward``,
+    ``_margins_backward``: every launch of one call) in a CUDA graph at 64 x
+    512 x 512 and 8 x 1024 x 1024."""
     import torch
     from mdgat_tpu_torch.ops.cuda import gap_loss as G
     out = {}
     for b, n in ((64, 512), (8, 1024)):
-        dense, br, bc, gt0, gt1, rm, cm, _, _ = gap_case(rng, dev, b, n, n)
+        dense, br, bc, gt0, gt1, rm, cm, ds0, ds1 = gap_case(rng, dev, b, n, n)
         args = (dense, br, bc, gt0, gt1, rm, cm, 0.5)
         with torch.no_grad():
             out[f"gap_fwd_{b}x{n}x{n}_ms"] = min(
                 graph_ms(lambda: G._margins_forward(*args)) for _ in range(2))
+            cnt = G._margins_forward(*args)[2:]
+            out[f"gap_bwd_{b}x{n}x{n}_ms"] = min(
+                graph_ms(lambda: G._margins_backward(*args, *cnt, ds0, ds1))
+                for _ in range(2))
     return out
 
 
@@ -224,7 +262,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     out["whole_layer_forward_k128_ms"] = whole_layer_forward_ms(rng, dev)
     out.update(train_layer_kernel_times(rng, dev))
-    out.update(gap_forward_times(rng, dev))
+    out.update(attention_times(rng, dev))
+    out.update(gap_times(rng, dev))
     print(json.dumps(out))
     return 0
 
