@@ -118,7 +118,20 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    parameters), and the same run with ``--loss_kernel false`` launches no
    gap-loss kernel and logs the same losses within 2e-3; the loop's wall
    time per step is printed beside the bare step's.
-9. wide clouds (more than 1024 keypoints): every wide arm against its twin
+9. the eval entry points: a synthetic KITTI-layout dataset whose test split
+   holds 200 pairs (512 keypoints a frame, cut to the test preset's 256 by
+   ``--ensure_kpts_num true``) and the checkpoint phase 8 saved;
+   ``test_torch.main`` and ``test_registration_metric_torch.main`` at full
+   width, batch 64 (three batches and a tail of 8, padded to 64), and
+   ``test_torch.main --net superglue``, each with ``--use_kernels true``
+   then ``false``, counters zeroed just before and read just after each
+   run: per eval batch 36 layer calls, 216 GEMM, 36 attention and 1
+   Sinkhorn launches and no other kernel (the plain runs none); the top-k
+   of every layer call (superglue: all dense); match agreement
+   between the two runs >= 99.9% of valid slots, and identical per-pair
+   lines wherever a pair's matches are equal; the aggregate lines and each
+   run's pairs/s by wall clock beside the serving phase's bare forward;
+10. wide clouds (more than 1024 keypoints): every wide arm against its twin
    at 1025, 1500 and 4096 keys or columns with ragged masks: the attention
    forward (k = 128, 64, dense; lse; exact scores with thr equal to the
    twin's bit for bit; an all-masked entry; the slab in its global scratch
@@ -2824,7 +2837,222 @@ def train_cli(dev, report, counters, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: wide clouds (more than 1024 keypoints)
+# phase 9: the eval entry points over a KITTI-layout dataset
+# ---------------------------------------------------------------------------
+
+# 200 test pairs in batches of 64: three full batches and a tail of 8, which
+# the pipeline pads to 64 and trims again
+EVAL_PAIRS, EVAL_BATCH = 200, 64
+
+
+def matching_checkpoint(path: str) -> str:
+    """A ``.pth`` of the flagship model that matches the synthetic data
+    without training: seeded weights, then the descriptor encoder passes
+    the normalised FPFH descriptor through (identity into its first 33
+    channels, centred by its last conv), the keypoint encoder's and each
+    GNN layer's last conv scaled down, and the final projection about 18 x
+    identity, so that corresponding keypoints score high. The same recipe
+    as ``tests/test_torch_eval_cli.py``'s checkpoint."""
+    import torch
+    from mdgat_tpu_torch.core.config import test_defaults
+    from mdgat_tpu_torch.models.mdgat import MDGAT
+    model = MDGAT(test_defaults())
+    model.reset_parameters(0)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    eye = torch.eye(33)
+    for key in ("kenc.encoder.9.weight", "kenc.encoder.9.bias"):
+        sd[key] *= 0.03
+    for i in range(len(model.gnn.layers)):
+        sd[f"gnn.layers.{i}.mlp.3.weight"] *= 0.1
+    for pos in (0, 3, 6):
+        w = torch.zeros_like(sd[f"denc.encoder.{pos}.weight"])
+        w[:33, :33, 0] = eye - (1.0 / 33 if pos == 6 else 0.0)
+        sd[f"denc.encoder.{pos}.weight"] = w
+        sd[f"denc.encoder.{pos}.bias"].zero_()
+    sd["final_proj.weight"] *= 0.01
+    sd["final_proj.weight"][:33, :33, 0] += 18.0 * eye
+    torch.save(sd, path)
+    return path
+
+
+def eval_cli(dev, report, counters, card):
+    """``test_torch.main`` and ``test_registration_metric_torch.main`` on the
+    card at full width (the flagship model, batch 64, the test preset's 256
+    keypoints) with the checkpoint the train_cli phase saved, each with
+    ``--use_kernels true`` then ``false``, and ``test_torch.main --net
+    superglue`` the same way: launch counts per eval batch, match agreement
+    between the two runs, identical per-pair lines where the matches are
+    equal, every superglue layer dense; pairs/s beside the bare forward."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    import test_registration_metric_torch
+    import test_torch
+    from mdgat_tpu_torch.data.synthetic import write_synthetic_kitti
+    from mdgat_tpu_torch.models import gnn
+
+    ckpt = report["_train_cli"]["loss_kernel"]["checkpoints"][-1]
+    matching = matching_checkpoint(os.path.join(OUT_DIR, "matching.pth"))
+    root = os.path.join(OUT_DIR, "kitti_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    kp_dir = write_synthetic_kitti(root, seqs=(10,), frames_per_seq=12,
+                                   pairs_per_seq=EVAL_PAIRS, n_points=512,
+                                   seed=0)
+    # --ensure_kpts_num true: every cloud cut to the preset's 256 keypoints
+    base = ["--train_path", root, "--keypoints_path", kp_dir,
+            "--txt_path", os.path.join(root, "preprocess-random-full"),
+            "--device", str(dev),
+            "--batch_size", str(EVAL_BATCH), "--ensure_kpts_num", "true",
+            "--seed", "0"]
+    n_batches = -(-EVAL_PAIRS // EVAL_BATCH)
+    ks = []                       # the top-k of every layer call (0: dense)
+    layer = gnn.fused_layer
+
+    def spy(x, src, kv_mask, topk, w):
+        ks.append(int(topk or 0))
+        return layer(x, src, kv_mask, topk, w)
+
+    def run(label, main, extra):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        ks.clear()
+        buf = io.StringIO()
+        gnn.fused_layer = spy
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                result = main(base + extra)
+            torch.cuda.synchronize()
+        finally:
+            gnn.fused_layer = layer
+        wall = time.perf_counter() - t0
+        launches = {name: c.read() for name, c in counters.items()}
+        out = buf.getvalue()
+        with open(os.path.join(OUT_DIR, f"eval_cli_{label}.log"), "w") as f:
+            f.write(out)
+        tail = [line for line in out.splitlines()
+                if not (line.startswith("idx") or line == "registration fail")]
+        for line in tail:
+            print(f"eval_cli {label}: {line}")
+        require(result["n_pairs"] == EVAL_PAIRS
+                and result["n_batches"] == n_batches,
+                f"eval_cli {label}: {result['n_pairs']} pairs in "
+                f"{result['n_batches']} batches")
+        return dict(result=result, launches=launches, wall_s=wall,
+                    ks=sorted(set(ks)))
+
+    def check_pair(label, kern, plain, want_ks, min_matches):
+        per = {"eval_layer": 36, "gemm": 216, "topk_attention": 36,
+               "sinkhorn": 1}
+        for name, launches in kern["launches"].items():
+            want = per.get(name, 0) * n_batches
+            require(launches == want,
+                    f"eval_cli {label}: {name} {launches} launches, not "
+                    f"{want} (per eval batch 36 layers, 216 GEMM, 36 "
+                    f"attention, 1 Sinkhorn, no other kernel)")
+        require(not any(plain["launches"].values()),
+                f"eval_cli {label}: the plain run launched a kernel")
+        require(kern["ks"] == want_ks,
+                f"eval_cli {label}: layer top-k {kern['ks']}, not {want_ks}")
+        same = total = equal_pairs = 0
+        for a, b in zip(kern["result"]["pairs"], plain["result"]["pairs"]):
+            require(a["idx"] == b["idx"], f"eval_cli {label}: pair order")
+            same += int((a["matches0"] == b["matches0"]).sum())
+            total += a["matches0"].size
+            if np.array_equal(a["matches0"], b["matches0"]):
+                equal_pairs += 1
+                require(a["line"] == b["line"],
+                        f"eval_cli {label}: idx{a['idx']} prints "
+                        f"{a['line']!r} and {b['line']!r} on equal matches")
+        agree = same / total
+        n_set = sum(int((p["matches0"] >= 0).sum())
+                    for p in kern["result"]["pairs"])
+        print(f"eval_cli {label}: match agreement kernel vs plain {agree:.6f} "
+              f"(min {MIN_AGREEMENT}) over {total} valid slots, {n_set} "
+              f"matches0 set; {equal_pairs} of {EVAL_PAIRS} pairs with equal "
+              f"matches print identical lines; launches per batch "
+              f"{ {k: v // n_batches for k, v in kern['launches'].items() if v} }")
+        require(agree >= MIN_AGREEMENT,
+                f"eval_cli {label}: kernel run disagrees with the plain run")
+        require(n_set >= min_matches * total,
+                f"eval_cli {label}: {n_set} matches set, fewer than "
+                f"{min_matches:g} of the valid slots")
+        return agree
+
+    out = {}
+    # the trained checkpoint (6 steps: it matches next to nothing at the
+    # 0.2 threshold), then the matching one, whose pairs pass and fail the
+    # pose gate: the agreement and the per-pair lines are then tested on
+    # real matches
+    trained, fitted = ["--resume_model", ckpt], ["--resume_model", matching]
+    cases = (("test", test_torch.main, trained, [0, 64, 128], 0.0),
+             ("registration", test_registration_metric_torch.main, trained,
+              [0, 64, 128], 0.0),
+             ("test_superglue", test_torch.main,
+              trained + ["--net", "superglue"], [0], 0.0),
+             ("test_matching", test_torch.main, fitted, [0, 64, 128], 0.1),
+             ("registration_matching", test_registration_metric_torch.main,
+              fitted, [0, 64, 128], 0.1))
+    bare = report["_times_ms"]["forward_64_pairs"]["kernel"]
+    for label, main, extra, want_ks, min_matches in cases:
+        kern = run(f"{label}_kernels", main, extra + ["--use_kernels", "true"])
+        plain = run(f"{label}_plain", main, extra + ["--use_kernels", "false"])
+        agree = check_pair(label, kern, plain, want_ks, min_matches)
+        if label == "test_matching":
+            statuses = {}
+            for p in kern["result"]["pairs"]:
+                statuses[p["status"]] = statuses.get(p["status"], 0) + 1
+            print(f"eval_cli {label}: statuses {statuses}")
+            require(statuses.get("ok", 0) > 0,
+                    f"eval_cli {label}: no pair passed the pose gate")
+        if label == "registration_matching":
+            require(kern["result"]["summary"]["RR"] > 0,
+                    f"eval_cli {label}: registration recall 0")
+        for arm, r in (("kernels", kern), ("plain", plain)):
+            res = r["result"]
+            steady = ((res["seconds"] - res["first_batch_s"])
+                      / (res["n_batches"] - 1))
+            print(f"eval_cli on {card}, {label} --use_kernels "
+                  f"{arm == 'kernels'}: {EVAL_PAIRS / r['wall_s']:.1f} pairs/s "
+                  f"by wall clock ({r['wall_s']:.3f} s for {EVAL_PAIRS} pairs "
+                  f"in {res['n_batches']} batches of {EVAL_BATCH} x 256 "
+                  f"keypoints), {1e3 * steady:.2f} ms a batch after the "
+                  f"first; bare kernel forward {bare:.2f} ms a batch of 64 "
+                  f"(serving phase, CUDA events)")
+        out[label] = {arm: dict(launches=r["launches"], wall_s=r["wall_s"],
+                                pairs_per_s=EVAL_PAIRS / r["wall_s"],
+                                seconds=r["result"]["seconds"],
+                                first_batch_s=r["result"]["first_batch_s"],
+                                summary=r["result"]["summary"], ks=r["ks"])
+                      for arm, r in (("kernels", kern), ("plain", plain))}
+        out[label]["agreement"] = agree
+    out["bare_forward_ms"] = bare
+
+    # torch.profiler over one more kernel run: the card's busy share of
+    # the CLI's pipeline loop (the profiler adds host time of its own)
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        r = run("test_matching_profiled", test_torch.main,
+                fitted + ["--use_kernels", "true"])
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    loop_ms = 1e3 * r["result"]["seconds"]
+    print(f"eval_cli profile on {card}: test_torch.main, matching "
+          f"checkpoint, kernels: {EVAL_PAIRS} pairs, pipeline loop "
+          f"{loop_ms:.3f} ms (whole call {1e3 * r['wall_s']:.3f} ms), device "
+          f"kernel time {device_ms:.3f} ms ({device_ms / n_batches:.3f} a "
+          f"batch), busy share of the loop {device_ms / loop_ms:.3f}")
+    out["profile"] = dict(loop_ms=loop_ms, wall_ms=1e3 * r["wall_s"],
+                          device_ms=device_ms,
+                          busy_share=device_ms / loop_ms)
+    report["_eval_cli"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: wide clouds (more than 1024 keypoints)
 # ---------------------------------------------------------------------------
 
 # key / column counts of the wide arms' parity checks
@@ -3334,6 +3562,8 @@ def main() -> int:
     del state, mha_state, plain_state, batch
     torch.cuda.empty_cache()
     train_cli(dev, report, counters, card)
+    torch.cuda.empty_cache()
+    eval_cli(dev, report, counters, card)
     torch.cuda.empty_cache()
     wide_clouds(rng, dev, report, counters, card)
 

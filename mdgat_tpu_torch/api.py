@@ -21,6 +21,7 @@ import torch
 from mdgat_tpu_torch.core.checkpoint import (load_npz, load_pth_state_dict,
                                              state_dict_from_numpy)
 from mdgat_tpu_torch.core.config import Config, test_defaults
+from mdgat_tpu_torch.eval.metrics import np_kabsch
 from mdgat_tpu_torch.models.mdgat import MDGAT
 
 _BUCKET = 128
@@ -28,20 +29,6 @@ _BUCKET = 128
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
-
-
-def np_kabsch(P: np.ndarray, Q: np.ndarray) -> np.ndarray:
-    """One-step SVD fit T: P -> Q (``solve_icp``, no reflection fix, like
-    the reference); a copy of ``mdgat_tpu/eval/metrics.py::np_kabsch``."""
-    up, uq = P.mean(axis=0), Q.mean(axis=0)
-    U, _, Vh = np.linalg.svd((Q - uq).T @ (P - up))
-    R = U @ Vh
-    t = uq - R @ up
-    T = np.zeros((4, 4))
-    T[:3, :3] = R
-    T[:3, 3] = t
-    T[3, 3] = 1.0
-    return T
 
 
 class Matcher:

@@ -126,14 +126,11 @@ def build_parser(preset: str) -> argparse.ArgumentParser:
 
 
 def config_from_args(args, preset: str) -> Config:
-    if args.net != "mdgat":
-        raise NotImplementedError(
-            f"--net {args.net}: the port runs the mdgat net only")
     if args.descriptor != "FPFH":
         raise NotImplementedError(
             f"--descriptor {args.descriptor}: the port runs FPFH only")
     base = train_defaults() if preset == "train" else test_defaults()
-    return base.replace(
+    cfg = base.replace(
         sinkhorn_iterations=args.sinkhorn_iterations,
         learning_rate=args.learning_rate,
         epoch=args.epoch,
@@ -168,6 +165,9 @@ def config_from_args(args, preset: str) -> Config:
         prefetch=args.prefetch,
         seed=args.seed,
     )
+    if cfg.net == "raw":
+        cfg = cfg.replace(k=None, L=9)  # train.py:130-132
+    return cfg
 
 
 def maybe_generate_synthetic(cfg: Config, args) -> Config:

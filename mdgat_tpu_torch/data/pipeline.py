@@ -254,11 +254,18 @@ def prepare_batch(batch: Dict[str, np.ndarray], threshold: float,
     package): descriptors L2-normalised
     with the norm floored at 1e-30 (``load_data.py:290-292``), ground-truth
     matches from the world-frame keypoints in ``gt_dtype`` (int32, -1 =
-    unmatched), everything as tensors on ``device``. ``T_gt`` and the
-    host-side ``sequence`` / ``idx0`` / ``idx1`` pass through as they are."""
+    unmatched), everything as tensors on ``device`` (to a CUDA device from
+    pinned host memory, asynchronously). ``T_gt`` and the host-side
+    ``sequence`` / ``idx0`` / ``idx1`` pass through as they are."""
     dev = torch.device(device)
-    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-         for k, v in batch.items() if k not in HOST_KEYS}
+
+    def upload(v):
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if dev.type == "cuda":      # from pinned memory, without a host wait
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t.to(dev)
+
+    t = {k: upload(v) for k, v in batch.items() if k not in HOST_KEYS}
     out = {}
     for side in ("0", "1"):
         de = t["descriptors" + side]

@@ -76,9 +76,22 @@ def test_parser_defaults_equal_the_jax_parsers(preset):
                                   ["--descriptor", "pointnet"],
                                   ["--descriptor", "FPFH_only"]])
 def test_unported_nets_and_descriptors_raise(argv):
-    args = cli.build_parser("train").parse_args(argv)
-    with pytest.raises(NotImplementedError, match="the port runs"):
-        cli.config_from_args(args, "train")
+    """The two baseline nets build, as the JAX package's config does (raw:
+    k=None and L=9, train.py:130-132), each with an all-dense schedule; the
+    non-FPFH descriptors are not ported and raise."""
+    for preset in ("train", "test"):
+        args = cli.build_parser(preset).parse_args(argv)
+        if argv[0] == "--descriptor":
+            with pytest.raises(NotImplementedError, match="the port runs"):
+                cli.config_from_args(args, preset)
+            continue
+        cfg = cli.config_from_args(args, preset)
+        jcfg = jax_cli.config_from_args(
+            jax_cli.build_parser(preset).parse_args(argv), preset)
+        assert cfg.net == argv[1]
+        assert (cfg.k, cfg.L) == (jcfg.k, jcfg.L)
+        assert cfg.layer_k_schedule(512) == [None] * (2 * cfg.L)
+        assert cfg.run_dir("x") == jcfg.run_dir("x")
 
 
 def test_missing_keypoints_without_synthetic_exits(tmp_path):
