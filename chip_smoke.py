@@ -147,6 +147,25 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    (loss, grad_norm), each with the counters zeroed just before and read
    just after (36 layers and 1 Sinkhorn a forward; 36 whole-layer forwards
    and backwards, 36 attention backwards, 1 + 1 Sinkhorn a step).
+11. descriptors: the learned-descriptor modes and the FPFH variants at the
+   published widths (D=128, 4 heads, L=9, the default k-schedule, 20
+   Sinkhorn iterations, the reference's SSG / MSG radii, samples and
+   channels) on raw clouds of 16384 x 8 points around the keypoints: the
+   single-scale encoder's training (``train_step`` 3, 64 pairs x 512
+   keypoints, three steps on the kernel route with ``loss_kernel`` and on
+   the plain route in turns; loss and grad_norm within the training
+   tolerances, the loss falls); the multi-scale encoder's staged training
+   (``train_step`` 1, 2, 3, one step each at 16 pairs x 512: the batch cut
+   for memory; step 1 no GNN and so no layer launch, step 2 no encoder
+   gradient); the multi-scale, ``FPFH_only`` and ``FPFH_gloabal`` eval
+   forwards at 64 x 256, kernels against plain (agreement >= 99.9%; the
+   encoder's device ms beside the forward's); then ``train_torch.main``,
+   ``test_torch.main`` and ``test_registration_metric_torch.main`` with
+   ``--descriptor pointnetmsg`` on a synthetic tree with clouds of 4 x 512
+   points. Counters zeroed just before and read just after each run: every
+   train step launches what the training phase's FPFH step does (plus the
+   gap-loss pair), every eval forward 36 / 216 / 36 / 1 and nothing else.
+   Step ms, peak memory and the phase's wall time beside the card.
 
 The line before the last is a JSON object with one entry per kernel (its
 time beside the plain twin's, the card's bound for the same work and, where
@@ -230,7 +249,11 @@ TOL = {"attention_f32": 1e-4, "attention_bf16": 2e-2, "layer_f32": 1e-3,
        # the whole loss against ops/losses.gap_loss under autograd: the [B]
        # loss relative; its gradients absolute (entries are at most ~2 / N
        # times the anchor's count of active margins)
-       "gap_loss": 2e-6, "gap_loss_grad": 2e-6}
+       "gap_loss": 2e-6, "gap_loss_grad": 2e-6,
+       # eval forwards, kernel route against plain: the largest difference
+       # of the [B, N+1, M+1] transport as probabilities (exp of the log
+       # transport), as the wide serving check holds the matching scores
+       "transport_prob": 1e-3}
 # published peaks of one H100 SXM (dense, no sparsity): f32 outside the
 # tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -3412,6 +3435,408 @@ def wide_clouds(rng, dev, report, counters, card):
     report["_wide_clouds"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the learned-descriptor modes and the FPFH variants
+# ---------------------------------------------------------------------------
+
+# the raw clouds' size in the KITTI files (kitti_randomsample_16384_n8)
+CLOUD_POINTS = 16384
+# the learned-descriptor train batch the card holds with the multi-scale
+# encoder's 128-sample grouping (64 pairs would keep ~40-50 GB of BN
+# activations for the backward): cut from the train preset's 64
+MSG_TRAIN_PAIRS = 16
+DESC_TRAIN_STEPS = 3
+# the launches of one eval forward (and of a validation step, with the
+# gap-loss forward under loss_kernel); every other counter reads 0
+EVAL_LAUNCHES = {"eval_layer": 36, "gemm": 216, "topk_attention": 36,
+                 "sinkhorn": 1}
+
+
+def fpfh_step_launches(report):
+    """Every counter's launches in one default-route FPFH train step, from
+    the training phase's arm (three steps), with ``loss_kernel``'s gap-loss
+    pair added: what a learned-descriptor step must launch too."""
+    total = report["_training"]["launches"]
+    require(all(v % TRAIN_STEPS == 0 for v in total.values()),
+            f"training launches {total} not a multiple of {TRAIN_STEPS}")
+    per = {k: v // TRAIN_STEPS for k, v in total.items()}
+    per.update(gap_loss_fwd=1, gap_loss_bwd=1)
+    return per
+
+
+def with_clouds(host, batch, seed, dev, points=CLOUD_POINTS):
+    """``batch`` with raw clouds ``cloud0`` / ``cloud1`` [B, points, 8]
+    around each side's keypoints, in that side's frame: every point a
+    keypoint picked at random plus N(0, 1 m) on each axis, then five N(0, 1)
+    channels (the files' layout: xyz and five more)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    out = dict(batch)
+    for side in "01":
+        kp = host["keypoints" + side]
+        b, n, _ = kp.shape
+        pick = rng.integers(0, n, size=(b, points))
+        xyz = (np.take_along_axis(kp, pick[..., None], axis=1)
+               + rng.normal(size=(b, points, 3)))
+        cloud = np.concatenate([xyz, rng.normal(size=(b, points, 5))], axis=-1)
+        out["cloud" + side] = torch.from_numpy(cloud.astype(np.float32)).to(dev)
+    return out
+
+
+def read_counts(counters):
+    return {name: c.read() for name, c in counters.items()}
+
+
+def require_launches(label, launches, per, times):
+    """Every counter at ``per[name] * times`` (0 where ``per`` has none)."""
+    for name, got in launches.items():
+        want = per.get(name, 0) * times
+        require(got == want, f"{label}: {name} {got} launches, not {want} "
+                             f"({per} x {times}, every other kernel 0)")
+
+
+def timed_step(state, batch):
+    """One ``make_train_step`` step: (loss, grad_norm, host ms to the
+    read-back, peak bytes of the step)."""
+    import torch
+    from mdgat_tpu_torch.train import make_train_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, m = make_train_step()(state, batch)
+    loss, gn = m["loss"].item(), m["grad_norm"].item()
+    return loss, gn, (time.perf_counter() - t0) * 1e3, \
+        torch.cuda.max_memory_allocated()
+
+
+def compare_step(label, kern, plain):
+    rel = lambda a, r: abs(a - r) / max(abs(r), 1e-12)
+    (lk, gk), (lp, gp) = kern[:2], plain[:2]
+    print(f"  {label}: loss {lk:.6f} (plain {lp:.6f}, rel {rel(lk, lp):.2e}), "
+          f"grad_norm {gk:.6f} (plain {gp:.6f}, rel {rel(gk, gp):.2e}); "
+          f"{kern[2]:.2f} / {plain[2]:.2f} ms, peak {kern[3] / 2**30:.3f} / "
+          f"{plain[3] / 2**30:.3f} GiB (kernels / plain)")
+    require(np.isfinite([lk, gk]).all(), f"{label}: non-finite loss")
+    require(rel(lk, lp) <= TOL["train_loss_rel"]
+            and rel(gk, gp) <= TOL["train_grad_norm_rel"],
+            f"{label}: the kernels disagree with the plain route")
+
+
+def pointnet_training(dev, counters, card, per_step):
+    """The single-scale encoder at the train shape, 64 pairs x 512 keypoints
+    x 16384 cloud points, ``train_step`` 3: three steps on the kernel route
+    (the default, with ``loss_kernel``) and on the plain route, in turns,
+    counters zeroed just before and read just after."""
+    import torch
+    from mdgat_tpu_torch.core.config import train_defaults
+    from mdgat_tpu_torch.train import create_train_state
+    cfg = train_defaults(descriptor="pointnet", loss_kernel=True)
+    host, batch = train_batch(11, cfg.batch_size, cfg.max_keypoints, dev)
+    batch = with_clouds(host, batch, 12, dev)
+    kern = create_train_state(cfg, device=dev, seed=0)
+    plain = create_train_state(cfg.replace(use_kernels=False,
+                                           loss_kernel=False),
+                               device=dev, seed=0)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    k_steps, p_steps = [], []
+    for i in range(DESC_TRAIN_STEPS):
+        k_steps.append(timed_step(kern, batch))
+        p_steps.append(timed_step(plain, batch))
+    launches = read_counts(counters)
+    require_launches("pointnet training", launches, per_step,
+                     DESC_TRAIN_STEPS)
+    print(f"descriptors, pointnet (SSG) training on {card}: "
+          f"{DESC_TRAIN_STEPS} steps of 64 pairs x 512 keypoints x "
+          f"{CLOUD_POINTS} cloud points a route, in turns; launches "
+          f"{launches}")
+    for i, (k, p) in enumerate(zip(k_steps, p_steps)):
+        compare_step(f"pointnet step {i + 1}", k, p)
+    require(k_steps[-1][0] < k_steps[0][0], "pointnet: the loss did not fall")
+    med = lambda steps: float(np.median([s[2] for s in steps]))
+    out = dict(launches=launches, kernel=k_steps, plain=p_steps,
+               kernel_ms=med(k_steps), plain_ms=med(p_steps),
+               peak_bytes=max(s[3] for s in k_steps),
+               plain_peak_bytes=max(s[3] for s in p_steps))
+    print(f"descriptors, pointnet training on {card}: median step "
+          f"{out['kernel_ms']:.2f} ms (plain {out['plain_ms']:.2f}), peak "
+          f"{out['peak_bytes']} bytes (plain {out['plain_peak_bytes']})")
+    return out
+
+
+def staged_training(dev, counters, card, per_step):
+    """The multi-scale encoder's staged training, 16 pairs x 512 keypoints x
+    16384 cloud points: ``train_step`` 1, 2 and 3, one step each from
+    seeded weights on the kernel route and on the plain route, counters
+    zeroed just before and read just after each kernel step (step 1: no GNN,
+    so no layer launch, and the Sinkhorn and gap-loss pairs). Step 1 leaves
+    the GNN and ``final_proj`` without a gradient, step 2 the encoder. Each
+    route then takes a second step, timed warm (the first includes its
+    state's first-use work)."""
+    import torch
+    from mdgat_tpu_torch.core.config import train_defaults
+    from mdgat_tpu_torch.train import create_train_state
+    host, batch = train_batch(13, MSG_TRAIN_PAIRS, 512, dev)
+    batch = with_clouds(host, batch, 14, dev)
+    out = {}
+    for train_step in (1, 2, 3):
+        cfg = train_defaults(descriptor="pointnetmsg", train_step=train_step,
+                             loss_kernel=True)
+        kern = create_train_state(cfg, device=dev, seed=0)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        k = timed_step(kern, batch)
+        launches = read_counts(counters)
+        per = (per_step if train_step > 1 else
+               {"sinkhorn": 1, "sinkhorn_bwd": 1, "gap_loss_fwd": 1,
+                "gap_loss_bwd": 1})
+        require_launches(f"pointnetmsg train_step {train_step}", launches,
+                         per, 1)
+        grads = {name: p.grad is not None
+                 for name, p in kern.model.named_parameters()}
+        has = lambda prefix: [v for n, v in grads.items()
+                              if n.startswith(prefix)]
+        want_enc, want_gnn = {1: (True, False), 2: (False, True),
+                              3: (True, True)}[train_step]
+        require(all(v == want_enc for v in has("penc."))
+                and all(v == want_gnn for v in has("gnn.") + has("final_proj.")),
+                f"pointnetmsg train_step {train_step}: gradient pattern")
+        for name, p in kern.model.named_parameters():
+            if p.grad is not None:
+                require(torch.isfinite(p.grad).all().item(),
+                        f"pointnetmsg train_step {train_step}: {name}")
+        k_warm = timed_step(kern, batch)
+        del kern
+        plain = create_train_state(cfg.replace(use_kernels=False,
+                                               loss_kernel=False),
+                                   device=dev, seed=0)
+        p = timed_step(plain, batch)
+        p_warm = timed_step(plain, batch)
+        del plain
+        print(f"descriptors, pointnetmsg train_step {train_step} on {card}: "
+              f"{MSG_TRAIN_PAIRS} pairs x 512 x {CLOUD_POINTS}; launches "
+              f"{launches}; gradients: encoder {want_enc}, GNN {want_gnn}")
+        compare_step(f"pointnetmsg train_step {train_step}", k, p)
+        compare_step(f"pointnetmsg train_step {train_step}, second step",
+                     k_warm, p_warm)
+        out[train_step] = dict(launches=launches, kernel=k, plain=p,
+                               kernel_warm=k_warm, plain_warm=p_warm)
+        torch.cuda.empty_cache()
+    return out
+
+
+def device_ms(fn, reps=3, top=0):
+    """Device time of ``fn`` over ``reps`` calls by torch.profiler, ms a
+    call; with ``top`` also the ``top`` longest kernels as (ms a call,
+    launches a call, name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    if not top:
+        return total
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return total, [(e.self_device_time_total / 1e3 / reps, e.count / reps,
+                    e.key[:80]) for e in events[:top]]
+
+
+def eval_agreement(label, model, plain, batch, counters, card, encoder=False):
+    """One eval forward of ``model`` (kernels) with the counters zeroed
+    just before and read just after (36 / 216 / 36 / 1), agreement with
+    ``plain`` over the valid slots and the largest difference of their
+    transports as probabilities, forward ms by events; with ``encoder`` the
+    profiler's device ms of the encoder beside the whole forward's."""
+    import torch
+    from mdgat_tpu_torch.models.mdgat import torch_dtype
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        got = model(batch, return_full_scores=True)
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        require_launches(f"{label} eval forward", launches, EVAL_LAUNCHES, 1)
+        ref = plain(batch, return_full_scores=True)
+        valid = torch.cat([batch["mask0"], batch["mask1"]], dim=1)
+        same = torch.cat([got["matches0"] == ref["matches0"],
+                          got["matches1"] == ref["matches1"]], dim=1)
+        agree = float(same[valid].float().mean())
+        n_matched = int((got["matches0"] >= 0).sum())
+        prob_err = float((got["scores"].exp() - ref["scores"].exp()).abs()
+                         .max())
+        ms, plain_ms = abba_ms(lambda: model(batch), lambda: plain(batch), 5)
+        out = dict(launches=launches, agreement=agree, matches0_set=n_matched,
+                   transport_prob_err=prob_err, ms=ms, plain_ms=plain_ms)
+        if encoder:
+            dt = torch_dtype(model.config.compute_dtype)
+            enc = lambda: [model.encode(batch, s, dt) for s in "01"]
+            out["device_ms"] = device_ms(lambda: model(batch))
+            out["encoder_device_ms"], out["encoder_kernels"] = device_ms(
+                enc, top=8)
+            out["encoder_ms"] = cuda_ms(enc, reps=5, warmup=1)
+    split = ""
+    if encoder:
+        split = (f"; device {out['device_ms']:.3f} ms a forward, the encoder "
+                 f"{out['encoder_device_ms']:.3f} ms of it (share "
+                 f"{out['encoder_device_ms'] / out['device_ms']:.3f}; "
+                 f"{out['encoder_ms']:.3f} ms by events)")
+    print(f"descriptors, {label} eval forward on {card}: 64 pairs x 256 "
+          f"keypoints, {ms:.3f} ms by events (plain {plain_ms:.3f}); "
+          f"agreement {agree:.6f} (min {MIN_AGREEMENT}), {n_matched} "
+          f"matches0 set, transport max err {prob_err:.3e} as probabilities "
+          f"(tol {TOL['transport_prob']:g}); launches {launches}{split}")
+    for ms_call, count, name in out.get("encoder_kernels", ()):
+        print(f"  encoder: {ms_call:8.3f} ms {count:5.0f} x  {name}")
+    require(agree >= MIN_AGREEMENT, f"{label}: kernels disagree with plain")
+    require(prob_err <= TOL["transport_prob"],
+            f"{label}: the transports disagree")
+    return out
+
+
+def descriptor_eval(dev, counters, card):
+    """Eval forwards at the serving shape, 64 pairs x 256 keypoints, of the
+    multi-scale learned descriptors (16384-point clouds) and of FPFH_only
+    and FPFH_gloabal, kernels against ``use_kernels=False``. The models are
+    seeded and untrained, so the dustbin wins most rows and the agreement
+    of the matches says little: the transports are held to each other as
+    well."""
+    from mdgat_tpu_torch.core.config import test_defaults
+    from mdgat_tpu_torch.models.factory import build_model
+    host, batch = train_batch(15, 64, 256, dev)
+    out = {}
+    for descriptor in ("pointnetmsg", "FPFH_only", "FPFH_gloabal"):
+        cfg = test_defaults(descriptor=descriptor)
+        models = []
+        for use_kernels in (True, False):
+            m = build_model(cfg.replace(use_kernels=use_kernels))
+            m.reset_parameters(0)
+            models.append(m.to(dev).eval())
+        pointnet = descriptor == "pointnetmsg"
+        b = with_clouds(host, batch, 16, dev) if pointnet else batch
+        out[descriptor] = eval_agreement(descriptor, *models, b, counters,
+                                         card, encoder=pointnet)
+    return out
+
+
+def descriptor_clis(dev, counters, card, per_step):
+    """The three entry points with ``--descriptor pointnetmsg``: a synthetic
+    KITTI-layout tree written as ``--synthetic true`` writes it for that
+    mode (clouds of 4 x 512 points), with 64 pairs a sequence;
+    ``train_torch.main`` for 2 epochs x 2 steps of ``MSG_TRAIN_PAIRS`` pairs
+    (``--loss_kernel true``; the 128-sample grouping does not shrink with
+    the cloud), then ``test_torch.main`` and ``test_registration_metric_torch
+    .main`` on its last checkpoint over the 64 test pairs in one batch;
+    counters zeroed just before and read just after each; pairs/s by wall
+    clock."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    import test_registration_metric_torch
+    import test_torch
+    import train_torch
+    from mdgat_tpu_torch.data.synthetic import write_synthetic_kitti
+    root = os.path.join(OUT_DIR, "kitti_pointnetmsg")
+    shutil.rmtree(root, ignore_errors=True)
+    kp_dir = write_synthetic_kitti(root, seqs=(0, 2, 3, 4, 5, 6, 7, 9, 10),
+                                   frames_per_seq=12, pairs_per_seq=64,
+                                   n_points=512, seed=0, cloud_points=4 * 512)
+    data = ["--synthetic", "true", "--train_path", root, "--keypoints_path",
+            kp_dir, "--txt_path", os.path.join(root, "preprocess-random-full"),
+            "--device", str(dev), "--descriptor", "pointnetmsg", "--seed",
+            "0"]
+
+    def run(main, argv):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.chdir(OUT_DIR):
+            result = main(data + argv)
+        torch.cuda.synchronize()
+        return result, read_counts(counters), time.perf_counter() - t0, \
+            buf.getvalue()
+
+    steps, epochs = 2, 2
+    out_dir = os.path.join(OUT_DIR, "checkpoint_pointnetmsg")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    summary, launches, wall, _ = run(train_torch.main, [
+        "--batch_size", str(MSG_TRAIN_PAIRS), "--max_keypoints", "512",
+        "--epoch", str(epochs), "--steps_per_epoch", str(steps),
+        "--loss_kernel", "true", "--model_out_path", out_dir])
+    n_train, n_val = steps * epochs, epochs
+    val_step = dict(EVAL_LAUNCHES, gap_loss_fwd=1)
+    require_launches("descriptor train_cli", launches, {
+        k: per_step.get(k, 0) * n_train + val_step.get(k, 0) * n_val
+        for k in launches}, 1)
+    losses = summary["epoch_loss"] + summary["val_loss"]
+    require(summary["steps"] == [steps] * epochs and np.isfinite(losses).all(),
+            f"descriptor train_cli: steps {summary['steps']}, losses {losses}")
+    ckpt = summary["checkpoints"][-1]
+    require("/train_step3/" in ckpt, f"descriptor train_cli: run dir {ckpt}")
+    print(f"descriptors, train_torch.main --descriptor pointnetmsg on {card}: "
+          f"{n_train} steps of {MSG_TRAIN_PAIRS} pairs x 512 keypoints x 2048 "
+          f"cloud points and {n_val} validation steps in {wall:.2f} s wall "
+          f"({MSG_TRAIN_PAIRS * n_train / wall:.1f} train pairs/s); epoch_loss "
+          f"{summary['epoch_loss']}, val_loss {summary['val_loss']}; "
+          f"launches {launches}")
+    out = dict(train=dict(steps=n_train, val_steps=n_val, wall_s=wall,
+                          epoch_loss=summary["epoch_loss"],
+                          val_loss=summary["val_loss"], launches=launches))
+    for name, main in (("test_torch", test_torch.main),
+                       ("test_registration_metric_torch",
+                        test_registration_metric_torch.main)):
+        result, launches, wall, text = run(main, [
+            "--resume_model", ckpt, "--batch_size", "64",
+            "--ensure_kpts_num", "true"])
+        with open(os.path.join(OUT_DIR, f"descriptors_{name}.log"), "w") as f:
+            f.write(text)
+        require(result["n_pairs"] == 64 and result["n_batches"] == 1,
+                f"descriptor {name}: {result['n_pairs']} pairs in "
+                f"{result['n_batches']} batches")
+        require_launches(f"descriptor {name}", launches, EVAL_LAUNCHES, 1)
+        tail = [ln for ln in text.splitlines()
+                if not (ln.startswith("idx") or ln == "registration fail")]
+        print(f"descriptors, {name}.main --descriptor pointnetmsg on {card}: "
+              f"64 pairs in {wall:.2f} s wall ({64 / wall:.1f} pairs/s); "
+              f"launches {launches}; " + " | ".join(tail))
+        out[name] = dict(wall_s=wall, pairs_per_s=64 / wall,
+                         launches=launches)
+    return out
+
+
+def descriptors(dev, report, counters, card):
+    """Phase 11: the learned-descriptor modes and the FPFH variants on
+    their entry points, at the published widths."""
+    import torch
+    t0 = time.perf_counter()
+    per_step = fpfh_step_launches(report)
+    out = dict(pointnet_training=pointnet_training(dev, counters, card,
+                                                   per_step))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["staged_training"] = staged_training(dev, counters, card, per_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["eval"] = descriptor_eval(dev, counters, card)
+    torch.cuda.empty_cache()
+    out["entry_points"] = descriptor_clis(dev, counters, card, per_step)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"descriptors phase on {card}: {out['wall_s']:.1f} s wall")
+    report["_descriptors"] = out
+
+
 def make_counters():
     """Every kernel wrapper's launch count, by name."""
     from mdgat_tpu_torch.ops.cuda import attention as A
@@ -3566,6 +3991,8 @@ def main() -> int:
     eval_cli(dev, report, counters, card)
     torch.cuda.empty_cache()
     wide_clouds(rng, dev, report, counters, card)
+    torch.cuda.empty_cache()
+    descriptors(dev, report, counters, card)
 
     kernels = [dict(name=name, **{k: report[name][k] for k in
                                   ("route", "source", "replaces", "launches",

@@ -20,7 +20,8 @@ import torch
 
 from mdgat_tpu_torch.core.checkpoint import (load_npz, load_pth_state_dict,
                                              state_dict_from_numpy)
-from mdgat_tpu_torch.core.config import Config, test_defaults
+from mdgat_tpu_torch.core.config import (POINTNET_DESCRIPTORS, Config,
+                                         test_defaults)
 from mdgat_tpu_torch.eval.metrics import np_kabsch
 from mdgat_tpu_torch.models.mdgat import MDGAT
 
@@ -40,14 +41,23 @@ class Matcher:
     ``device`` (required) is where the model runs ("cpu", "cuda",
     "cuda:1", ...); a CUDA device that is not there raises. ``overrides`` are
     :class:`~mdgat_tpu_torch.core.config.Config` fields on top of the eval
-    preset (``test_defaults()``), e.g. ``compute_dtype="bfloat16"`` or
-    ``use_kernels=False``.
+    preset (``test_defaults()``), e.g. ``compute_dtype="bfloat16"``,
+    ``use_kernels=False``, ``net="superglue"`` or ``descriptor="FPFH_only"``
+    / ``"FPFH_gloabal"``. The Matcher takes keypoints and FPFH descriptors,
+    no raw cloud, so the learned-descriptor modes (``pointnet``,
+    ``pointnetmsg``) raise ``ValueError``: their pairs go through the eval
+    CLIs' pipeline (``eval/runner.py``).
     """
 
     def __init__(self, checkpoint: Optional[str] = None, *, device,
                  params=None, bn_state=None, seed: Optional[int] = None,
                  **overrides):
         self.cfg: Config = test_defaults().replace(**overrides)
+        if self.cfg.descriptor in POINTNET_DESCRIPTORS:
+            raise ValueError(
+                f"Matcher(descriptor={self.cfg.descriptor!r}): the Matcher "
+                "takes keypoints and FPFH descriptors, not the raw clouds "
+                "this mode encodes; evaluate it with test_torch.py")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():

@@ -20,7 +20,8 @@ import argparse
 import ast
 import os
 
-from mdgat_tpu_torch.core.config import Config, test_defaults, train_defaults
+from mdgat_tpu_torch.core.config import (POINTNET_DESCRIPTORS, Config,
+                                         test_defaults, train_defaults)
 
 _EPILOG = ("Flags of the JAX package that are not ported (they steer JAX, "
            "the TPU or several hosts): --platform, --data_parallel, "
@@ -126,9 +127,6 @@ def build_parser(preset: str) -> argparse.ArgumentParser:
 
 
 def config_from_args(args, preset: str) -> Config:
-    if args.descriptor != "FPFH":
-        raise NotImplementedError(
-            f"--descriptor {args.descriptor}: the port runs FPFH only")
     base = train_defaults() if preset == "train" else test_defaults()
     cfg = base.replace(
         sinkhorn_iterations=args.sinkhorn_iterations,
@@ -182,9 +180,13 @@ def maybe_generate_synthetic(cfg: Config, args) -> Config:
             "README) or pass --synthetic true for a generated dataset.")
     from mdgat_tpu_torch.data.synthetic import write_synthetic_kitti
     root = cfg.train_path
+    n_points = max(300, cfg.max_keypoints)
     print(f"[synthetic] generating KITTI-format dataset under {root}")
     kp_dir = write_synthetic_kitti(
         root, seqs=(0, 2, 3, 4, 5, 6, 7, 9, 10), frames_per_seq=12,
-        pairs_per_seq=24, n_points=max(300, cfg.max_keypoints), seed=cfg.seed)
+        pairs_per_seq=24, n_points=n_points, seed=cfg.seed,
+        # the learned-descriptor modes read raw clouds
+        cloud_points=(4 * n_points if cfg.descriptor in POINTNET_DESCRIPTORS
+                      else 0))
     return cfg.replace(keypoints_path=kp_dir,
                        txt_path=os.path.join(root, "preprocess-random-full"))

@@ -4,9 +4,11 @@ reference ``.pth`` files, all as state dicts with the upstream key names.
 * :func:`state_dict_from_numpy` turns the JAX package's ``(params,
   bn_state)`` trees, given as numpy arrays, into the port's state dict. It
   mirrors ``mdgat_tpu/core/checkpoint.py::export_pth_state_dict`` without
-  importing JAX: dense kernels ``[in, out]`` become ``Conv1d`` weights
-  ``[out, in, 1]``, BN scale/bias/running stats map to ``BatchNorm1d``'s
-  names, and ``num_batches_tracked`` is 0.
+  importing JAX, for every descriptor mode and net: dense kernels
+  ``[in, out]`` become ``Conv1d`` weights ``[out, in, 1]`` (the PointNet++
+  stacks' ``Conv2d`` weights ``[out, in, 1, 1]``), BN scale/bias/running
+  stats map to ``BatchNorm1d``'s (``BatchNorm2d``'s) names, and
+  ``num_batches_tracked`` is 0.
 * :func:`load_npz` reads a native ``.npz`` checkpoint (flat ``group::a/b/0``
   keys) back into those trees with numpy alone, as ``load_checkpoint`` +
   ``flat_to_tree`` do.
@@ -39,14 +41,24 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from mdgat_tpu_torch.core.config import POINTNET_DESCRIPTORS
+
 _NONE_SENTINEL = "__none__"
 
 
-def _conv(p, prefix: str, out: Dict[str, torch.Tensor]):
-    w = np.asarray(p["w"])
-    out[f"{prefix}.weight"] = torch.from_numpy(
-        np.array(w.T[:, :, None], order="C"))
+def _conv(p, prefix: str, out: Dict[str, torch.Tensor], spatial_dims=1):
+    w = np.asarray(p["w"]).T.reshape(np.shape(p["w"])[::-1]
+                                     + (1,) * spatial_dims)
+    out[f"{prefix}.weight"] = torch.from_numpy(np.array(w, order="C"))
     out[f"{prefix}.bias"] = torch.from_numpy(np.array(p["b"]))
+
+
+def _bn(bn, st, prefix: str, out: Dict[str, torch.Tensor]):
+    out[f"{prefix}.weight"] = torch.from_numpy(np.array(bn["scale"]))
+    out[f"{prefix}.bias"] = torch.from_numpy(np.array(bn["bias"]))
+    out[f"{prefix}.running_mean"] = torch.from_numpy(np.array(st["mean"]))
+    out[f"{prefix}.running_var"] = torch.from_numpy(np.array(st["var"]))
+    out[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
 
 
 def _mlp(params, state, prefix: str, out: Dict[str, torch.Tensor]):
@@ -56,12 +68,29 @@ def _mlp(params, state, prefix: str, out: Dict[str, torch.Tensor]):
         pos = 3 * i
         _conv(layer["lin"], f"{prefix}.{pos}", out)
         if "bn" in layer:
-            bn = f"{prefix}.{pos + 1}"
-            out[f"{bn}.weight"] = torch.from_numpy(np.array(layer["bn"]["scale"]))
-            out[f"{bn}.bias"] = torch.from_numpy(np.array(layer["bn"]["bias"]))
-            out[f"{bn}.running_mean"] = torch.from_numpy(np.array(state[i]["mean"]))
-            out[f"{bn}.running_var"] = torch.from_numpy(np.array(state[i]["var"]))
-            out[f"{bn}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+            _bn(layer["bn"], state[i], f"{prefix}.{pos + 1}", out)
+
+
+def _conv_bn_stack(params, state, conv_prefix: str, bn_prefix: str,
+                   out: Dict[str, torch.Tensor]):
+    """A PointNet++ stack: ``Conv2d`` j under ``conv_prefix.j`` and its BN
+    (every layer has one) under ``bn_prefix.j``."""
+    for j, layer in enumerate(params):
+        _conv(layer["lin"], f"{conv_prefix}.{j}", out, spatial_dims=2)
+        _bn(layer["bn"], state[j], f"{bn_prefix}.{j}", out)
+
+
+def _pointnet_encoder(params, state, net: str, out: Dict[str, torch.Tensor]):
+    """The ``penc`` tree (``_export_pointnet_encoder`` of the JAX package)."""
+    for i, (p, s) in enumerate(zip(params["sa1"], state["sa1"])):
+        _conv_bn_stack(p, s, f"penc.sa1.conv_blocks.{i}",
+                       f"penc.sa1.bn_blocks.{i}", out)
+    _conv_bn_stack(params["sa2"], state["sa2"], "penc.sa2.mlp_convs",
+                   "penc.sa2.mlp_bns", out)
+    if net != "superglue":
+        _mlp(params["mlp"], state["mlp"], "penc.mlp", out)
+        _mlp(params["kenc"]["mlp"], state["kenc"]["mlp"], "penc.kenc.encoder",
+             out)
 
 
 def propagation_state_dict(layer, layer_state) -> Dict[str, torch.Tensor]:
@@ -76,13 +105,28 @@ def propagation_state_dict(layer, layer_state) -> Dict[str, torch.Tensor]:
 
 
 def state_dict_from_numpy(params, bn_state, config) -> Dict[str, torch.Tensor]:
-    """JAX package trees (numpy leaves) -> the port's state dict."""
-    if config.descriptor != "FPFH":
-        raise NotImplementedError(
-            f"descriptor {config.descriptor!r}: the port runs FPFH only")
+    """JAX package trees (numpy leaves) -> the port's state dict, for every
+    descriptor mode and net; an unknown descriptor raises ``ValueError``."""
+    desc = config.descriptor
     out: Dict[str, torch.Tensor] = {}
-    _mlp(params["kenc"]["mlp"], bn_state["kenc"]["mlp"], "kenc.encoder", out)
-    _mlp(params["denc"]["mlp"], bn_state["denc"]["mlp"], "denc.encoder", out)
+    if desc in ("FPFH", "FPFH_gloabal") or (
+            desc in POINTNET_DESCRIPTORS and config.net == "superglue"):
+        # SuperGlue's pointnet modes: built, never called (superglue.py:345)
+        _mlp(params["kenc"]["mlp"], bn_state["kenc"]["mlp"], "kenc.encoder",
+             out)
+    if desc in POINTNET_DESCRIPTORS:
+        _pointnet_encoder(params["penc"], bn_state["penc"], config.net, out)
+        if config.net == "superglue":
+            _mlp(params["denc"]["mlp"], bn_state["denc"]["mlp"],
+                 "denc.encoder", out)
+    elif desc in ("FPFH", "FPFH_only", "FPFH_gloabal"):
+        _mlp(params["denc"]["mlp"], bn_state["denc"]["mlp"], "denc.encoder",
+             out)
+        if desc == "FPFH_gloabal":
+            _mlp(params["denc"]["mlp2"], bn_state["denc"]["mlp2"],
+                 "denc.encoder2", out)
+    else:
+        raise ValueError(f"unknown descriptor {desc!r}")
     for i, (layer, lstate) in enumerate(zip(params["gnn"], bn_state["gnn"])):
         for k, v in propagation_state_dict(layer, lstate).items():
             out[f"gnn.layers.{i}.{k}"] = v

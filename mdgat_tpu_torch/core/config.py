@@ -35,6 +35,8 @@ from typing import List, Optional, Tuple
 # The reference's k-schedule default (train.py:61, test.py:83): None entries
 # mean full attention for that layer.
 DEFAULT_K: Tuple[Optional[int], ...] = (128, None, 128, None, 64, None, 64, None)
+# the descriptor modes that learn descriptors from the raw clouds
+POINTNET_DESCRIPTORS = ("pointnet", "pointnetmsg")
 
 
 @dataclasses.dataclass
@@ -131,7 +133,7 @@ class Config:
         path = "{}/{}/{}{}-k{}-{}-{}".format(
             root, self.dataset, self.net, self.L, kstr,
             self.loss_method, self.descriptor)
-        if self.descriptor in ("pointnet", "pointnetmsg"):
+        if self.descriptor in POINTNET_DESCRIPTORS:
             path = "{}/train_step{}".format(path, self.train_step)
         return "{}/{}".format(path, self.model_name())
 

@@ -11,14 +11,19 @@ Port of ``mdgat_tpu/data/pipeline.py`` (reference ``SparseDataset``,
 * **device** (:func:`prepare_batch`): descriptor L2 normalisation and
   pose-based ground-truth correspondences as batched tensor code.
 
+The learned-descriptor modes (``pointnet``, ``pointnetmsg``) also read each
+frame's raw cloud, 16384 x 8 float32 from
+``<train_path>/kitti_randomsample_16384_n8/<seq>/<idx>.bin``
+(``load_data.py:171-178``), as ``cloud0`` / ``cloud1``; they go to the
+device as they are, not normalised.
+
 Fixed-size policy, as in the JAX package: with ``max_keypoints`` a cloud is
 truncated or duplicate-padded to exactly that many points (the reference's
 train policy, ``load_data.py:191-211``: every slot holds a real keypoint,
 masks all true); without it clouds are zero-padded to the batch's largest
 128-bucket with validity masks. Of the JAX package's ``SparseDataset`` the
-multi-host arguments (``rows=``, ``pair_range=``), the native threaded loader,
-the raw clouds of the learned-descriptor modes and the reduced-precision
-descriptor shipping are not ported.
+multi-host arguments (``rows=``, ``pair_range=``), the native threaded loader
+and the reduced-precision descriptor shipping are not ported.
 """
 
 from __future__ import annotations
@@ -29,13 +34,15 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from mdgat_tpu_torch.core.config import Config
+from mdgat_tpu_torch.core.config import POINTNET_DESCRIPTORS, Config
 from mdgat_tpu_torch.data import kitti
 from mdgat_tpu_torch.ops.geometry import gt_correspondences
 
 MODEL_KEYS = ("keypoints0", "keypoints1", "scores0", "scores1",
               "descriptors0", "descriptors1", "gt_matches0", "gt_matches1",
               "mask0", "mask1")
+# the raw clouds of the learned-descriptor modes, where a batch has them
+CLOUD_KEYS = ("cloud0", "cloud1")
 
 
 # what prepare_batch leaves on the host
@@ -142,6 +149,12 @@ class SparseDataset:
         cloud1 = self._shape_keypoints(*self._load_frame(s, i1), pad_to)
         return self._assemble_pair(s, i0, i1, *cloud0, *cloud1)
 
+    def _load_cloud(self, s: str, idx: int) -> np.ndarray:
+        """A frame's raw 16384 x 8 cloud (``load_data.py:171-178``)."""
+        path = os.path.join(self.cfg.train_path, "kitti_randomsample_16384_n8",
+                            s, "%06d.bin" % idx)
+        return np.fromfile(path, dtype=np.float32).reshape(-1, 8)
+
     def _assemble_pair(self, s, i0, i1, kp0, sc0, de0, n0,
                        kp1, sc1, de1, n1) -> Dict:
         pose0 = self.poses[s][i0].astype(np.float64)
@@ -154,7 +167,12 @@ class SparseDataset:
         M0 = pose0 @ Tcv
         M1 = pose1 @ Tcv
         hdt = self.host_dtype
+        clouds = {}
+        if self.cfg.descriptor in POINTNET_DESCRIPTORS:
+            clouds = {"cloud0": self._load_cloud(s, i0).astype(hdt),
+                      "cloud1": self._load_cloud(s, i1).astype(hdt)}
         return {
+            **clouds,
             "kpts0_world": (kp0.astype(np.float64) @ M0[:3, :3].T
                             + M0[:3, 3]).astype(hdt),
             "kpts1_world": (kp1.astype(np.float64) @ M1[:3, :3].T
@@ -256,7 +274,9 @@ def prepare_batch(batch: Dict[str, np.ndarray], threshold: float,
     matches from the world-frame keypoints in ``gt_dtype`` (int32, -1 =
     unmatched), everything as tensors on ``device`` (to a CUDA device from
     pinned host memory, asynchronously). ``T_gt`` and the host-side
-    ``sequence`` / ``idx0`` / ``idx1`` pass through as they are."""
+    ``sequence`` / ``idx0`` / ``idx1`` pass through as they are. Raw clouds
+    (``cloud0`` / ``cloud1``, where the batch has them) are copied to
+    ``device`` the same way and not normalised, as in the JAX package."""
     dev = torch.device(device)
 
     def upload(v):
@@ -280,10 +300,11 @@ def prepare_batch(batch: Dict[str, np.ndarray], threshold: float,
                             t["kpts1_world"].to(gt_dtype), threshold,
                             mutual_check, t["mask0"], t["mask1"])
     out.update(gt_matches0=gt.matches0, gt_matches1=gt.matches1, rep=gt.rep)
+    out.update({k: t[k] for k in CLOUD_KEYS if k in t})
     out.update({k: batch[k] for k in HOST_KEYS if k in batch})
     return out
 
 
 def model_inputs(batch: Dict) -> Dict:
     """The tensors the model's forward reads."""
-    return {k: batch[k] for k in MODEL_KEYS if k in batch}
+    return {k: batch[k] for k in MODEL_KEYS + CLOUD_KEYS if k in batch}

@@ -93,8 +93,7 @@ def write_synthetic_kitti(root: str, seqs=(0, 9, 10), frames_per_seq: int = 6,
     stored in each frame's sensor frame consistent with the poses, so the
     pose-based GT correspondence generation finds the planted matches.
     ``cloud_points`` also writes the raw clouds the learned-descriptor modes
-    read (not consumed by the port yet; kept so that the random stream, and
-    with it every other file, agrees with the JAX package's writer).
+    read (the frame's keypoints, then uniform filler; 8 channels).
     """
     rng = np.random.default_rng(seed)
     kp_dir = os.path.join(root, "keypoints", "synthetic")

@@ -1,15 +1,29 @@
-"""MDGAT, the paper model, with FPFH descriptors: eval and train forward.
+"""MDGAT, the paper model: eval and train forward, all five descriptor modes.
 
 Port of ``mdgat_tpu/models/mdgat.py`` (reference ``MDGAT``,
-``models/mdgat.py:315-603``): keypoint and descriptor encoders -> 2L-layer
-attentional GNN with the dynamic top-k schedule -> final 1x1 projection ->
-scaled descriptor inner-product scores -> dustbin log-Sinkhorn -> match
-decision (+ the loss when ground truth is given).
+``models/mdgat.py:315-603``): encoders -> 2L-layer attentional GNN with the
+dynamic top-k schedule -> final 1x1 projection -> scaled descriptor
+inner-product scores -> dustbin log-Sinkhorn -> match decision (+ the loss
+when ground truth is given).
+
+Encoders by ``config.descriptor`` (``mdgat_tpu/models/mdgat.py:50-81``):
+``FPFH`` and ``FPFH_gloabal`` (sic) sum a keypoint encoder and an FPFH
+encoder (the latter global-aware); ``FPFH_only`` has the FPFH encoder
+alone; ``pointnet`` / ``pointnetmsg`` learn the descriptors from the raw
+clouds ``cloud0`` / ``cloud1`` (``models/pointnet_encoder.py``), cast to the
+compute dtype first. For those two modes SuperGlue also builds a keypoint
+encoder and a ``pointnetDescriptorEncoder`` that its forward never calls,
+as the reference does. Staged training of the pointnet modes
+(``config.train_step``, ``models/mdgat.py:398-420`` of the reference):
+step 1 runs no GNN and no final projection and scores the encoder output;
+step 2 detaches the descriptors (the encoder's gradients are None where
+JAX's are zero); step 3 is the joint step. As in the JAX package this holds
+in eval mode too.
 
 Module names follow the reference, so ``state_dict()`` keys are the
-upstream ones (``kenc.encoder.*``, ``denc.encoder.*``, ``gnn.layers.*``,
-``final_proj.*``, ``bin_score``) and reference ``.pth`` files load with
-``strict=True``.
+upstream ones (``kenc.encoder.*``, ``denc.encoder.*``, ``denc.encoder2.*``,
+``penc.*``, ``gnn.layers.*``, ``final_proj.*``, ``bin_score``) and reference
+``.pth`` files load with ``strict=True``.
 
 Precision: the encoders and the GNN run in ``compute_dtype``; the scores,
 the transport, the decision and the loss run in at least float32
@@ -40,9 +54,13 @@ from typing import Dict
 import torch
 from torch import nn
 
-from mdgat_tpu_torch.core.config import Config
-from mdgat_tpu_torch.models.encoders import DescriptorEncoder, KeypointEncoder
+from mdgat_tpu_torch.core.config import POINTNET_DESCRIPTORS, Config
+from mdgat_tpu_torch.models.encoders import (DescriptorEncoder,
+                                             DescriptorGlobalEncoder,
+                                             KeypointEncoder,
+                                             PointnetDescriptorEncoder)
 from mdgat_tpu_torch.models.gnn import AttentionalGNN
+from mdgat_tpu_torch.models.pointnet_encoder import PointnetEncoder
 from mdgat_tpu_torch.ops.cuda.gap_loss import gap_loss_kernel
 from mdgat_tpu_torch.ops.cuda.sinkhorn import log_optimal_transport_kernel
 from mdgat_tpu_torch.ops.losses import gap_loss, superglue_nll_loss, triplet_loss
@@ -60,15 +78,29 @@ def torch_dtype(name: str) -> torch.dtype:
 class MDGAT(nn.Module):
     def __init__(self, config: Config, device=None):
         super().__init__()
-        if config.descriptor != "FPFH":
-            raise NotImplementedError(
-                f"descriptor {config.descriptor!r}: the port runs FPFH only")
         self.config = config
         dtype = torch_dtype(config.param_dtype)
         fd = config.descriptor_dim
         kw = dict(dtype=dtype, device=device)
-        self.kenc = KeypointEncoder(fd, config.keypoint_encoder, **kw)
-        self.denc = DescriptorEncoder(fd, config.descriptor_encoder, **kw)
+        desc = config.descriptor
+        if desc in ("FPFH", "FPFH_gloabal"):
+            self.kenc = KeypointEncoder(fd, config.keypoint_encoder, **kw)
+        if desc in ("FPFH", "FPFH_only"):
+            self.denc = DescriptorEncoder(fd, config.descriptor_encoder, **kw)
+        elif desc == "FPFH_gloabal":
+            self.denc = DescriptorGlobalEncoder(fd, config.descriptor_encoder,
+                                                **kw)
+        elif desc in POINTNET_DESCRIPTORS:
+            superglue = config.net == "superglue"
+            self.penc = PointnetEncoder(fd, config.keypoint_encoder,
+                                        msg=desc == "pointnetmsg",
+                                        superglue=superglue, **kw)
+            if superglue:
+                # built, never called (superglue.py:345-360, 421-424)
+                self.kenc = KeypointEncoder(fd, config.keypoint_encoder, **kw)
+                self.denc = PointnetDescriptorEncoder(fd, **kw)
+        else:
+            raise ValueError(f"Invalid descriptor: {desc}")
         self.gnn = AttentionalGNN(fd, config.gnn_layer_names,
                                   config.num_heads, **kw)
         self.final_proj = Conv1x1(fd, fd, **kw)
@@ -80,8 +112,9 @@ class MDGAT(nn.Module):
         zero final biases where the reference zeroes them), BN at identity,
         ``bin_score`` 1.0 (``models/mdgat.py:359``)."""
         g = torch.Generator(device="cpu").manual_seed(seed)
-        self.kenc.reset_parameters(g)
-        self.denc.reset_parameters(g)
+        for name in ("kenc", "denc", "penc"):
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters(g)
         for layer in self.gnn.layers:
             layer.reset_parameters(g)
         self.final_proj.reset_parameters(g)
@@ -89,27 +122,32 @@ class MDGAT(nn.Module):
 
     def forward(self, data: Dict[str, torch.Tensor],
                 return_full_scores: bool = False) -> Dict[str, torch.Tensor]:
-        """``data``: keypoints0/1 [B, N, 3], scores0/1 [B, N],
-        descriptors0/1 [B, N, 33], optional mask0/1 [B, N] bool and
-        gt_matches0/1 [B, N] int (-1 = unmatched). Returns matches0/1,
-        matching_scores0/1, with ground truth loss [B], and with
-        ``return_full_scores`` the reference's [B, N+1, M+1] transport
-        (``scores``)."""
+        """``data``: keypoints0/1 [B, N, 3], scores0/1 [B, N], the FPFH
+        modes' descriptors0/1 [B, N, 33] or the pointnet modes' cloud0/1
+        [B, Np, 8], optional mask0/1 [B, N] bool and gt_matches0/1 [B, N]
+        int (-1 = unmatched). Returns matches0/1, matching_scores0/1, with
+        ground truth loss [B], and with ``return_full_scores`` the
+        reference's [B, N+1, M+1] transport (``scores``)."""
         cfg = self.config
         dt = torch_dtype(cfg.compute_dtype)
         mask0, mask1 = data.get("mask0"), data.get("mask1")
-        desc0 = (self.denc(data["descriptors0"].to(dt), mask0)
-                 + self.kenc(data["keypoints0"].to(dt), data["scores0"].to(dt),
-                             mask0))
-        desc1 = (self.denc(data["descriptors1"].to(dt), mask1)
-                 + self.kenc(data["keypoints1"].to(dt), data["scores1"].to(dt),
-                             mask1))
+        desc0, desc1 = (self.encode(data, side, dt, mask)
+                        for side, mask in (("0", mask0), ("1", mask1)))
 
-        k_sched = cfg.layer_k_schedule(desc0.shape[1])
-        desc0, desc1 = self.gnn(desc0, desc1, k_sched, mask0, mask1,
-                                use_kernels=cfg.use_kernels,
-                                train_layer=cfg.train_layer)
-        mdesc0, mdesc1 = self.final_proj(desc0), self.final_proj(desc1)
+        run_gnn = True
+        if cfg.descriptor in POINTNET_DESCRIPTORS:
+            if cfg.train_step == 1:
+                run_gnn = False
+            elif cfg.train_step == 2:
+                desc0, desc1 = desc0.detach(), desc1.detach()
+        if run_gnn:
+            k_sched = cfg.layer_k_schedule(desc0.shape[1])
+            desc0, desc1 = self.gnn(desc0, desc1, k_sched, mask0, mask1,
+                                    use_kernels=cfg.use_kernels,
+                                    train_layer=cfg.train_layer)
+            mdesc0, mdesc1 = self.final_proj(desc0), self.final_proj(desc1)
+        else:
+            mdesc0, mdesc1 = desc0, desc1
 
         ot_dtype = torch.float32 if dt == torch.bfloat16 else dt
         scores = torch.matmul(mdesc0.to(ot_dtype),
@@ -144,3 +182,18 @@ class MDGAT(nn.Module):
         if return_full_scores:
             out["scores"] = assemble_full_scores(ot)
         return out
+
+    def encode(self, data: Dict[str, torch.Tensor], side: str,
+               dt: torch.dtype, mask=None) -> torch.Tensor:
+        """One cloud's descriptors [B, N, D] in ``dt`` (``side`` "0" or
+        "1"); ``mask`` keeps padded points out of the FPFH encoders' BN
+        statistics (the pointnet encoder takes none)."""
+        kpts = data["keypoints" + side].to(dt)
+        scores = data["scores" + side].to(dt)
+        desc = self.config.descriptor
+        if desc in POINTNET_DESCRIPTORS:
+            return self.penc(data["cloud" + side].to(dt), kpts, scores)
+        out = self.denc(data["descriptors" + side].to(dt), mask)
+        if desc == "FPFH_only":
+            return out
+        return out + self.kenc(kpts, scores, mask)

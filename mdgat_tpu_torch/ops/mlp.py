@@ -20,7 +20,7 @@ points only, so fixed-shape padding does not move them.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -31,18 +31,23 @@ BN_MOMENTUM = 0.1
 
 class Conv1x1(nn.Module):
     """Per-point dense layer with the upstream ``Conv1d(kernel_size=1)``
-    parameters; the weights are cast to the activation dtype, as
-    ``conv1x1_apply`` casts them in the JAX package."""
+    parameters (``Conv2d``'s with ``spatial_dims=2``); the weights are cast
+    to the activation dtype, as ``conv1x1_apply`` casts them in the JAX
+    package."""
 
     def __init__(self, c_in: int, c_out: int, *, dtype: torch.dtype,
-                 device=None):
+                 device=None, spatial_dims: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(
-            torch.empty(c_out, c_in, 1, dtype=dtype, device=device))
+        self.weight = nn.Parameter(torch.empty(
+            (c_out, c_in) + (1,) * spatial_dims, dtype=dtype, device=device))
         self.bias = nn.Parameter(torch.empty(c_out, dtype=dtype, device=device))
 
+    def matrix(self) -> torch.Tensor:
+        """The weight as ``[Cout, Cin]``."""
+        return self.weight.flatten(1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight[:, :, 0].to(x.dtype)
+        w = self.matrix().to(x.dtype)
         return torch.matmul(x, w.t()) + self.bias.to(x.dtype)
 
     @torch.no_grad()
@@ -163,7 +168,7 @@ def apply_mlp(seq: nn.Sequential, x,
     layers = list(seq)
     if isinstance(x, (tuple, list)):
         first = layers.pop(0)
-        w = first.weight[:, :, 0]
+        w = first.matrix()
         acc, off = None, 0
         for part in x:
             c = part.shape[-1]
@@ -173,4 +178,28 @@ def apply_mlp(seq: nn.Sequential, x,
         x = acc + first.bias.to(acc.dtype)
     for layer in layers:
         x = layer(x, valid_mask) if isinstance(layer, BatchNorm) else layer(x)
+    return x
+
+
+def conv_bn_stack(channels: Sequence[int], *, dtype: torch.dtype,
+                  device=None) -> Tuple[nn.ModuleList, nn.ModuleList]:
+    """The PointNet++ stack over ``channels``: ``Conv2d(1x1)`` layers and
+    one BatchNorm for each (``BatchNorm2d``'s names), as the two lists the
+    reference keeps them in (``mlp_convs`` / ``mlp_bns``, ``conv_blocks[i]``
+    / ``bn_blocks[i]``)."""
+    pairs = zip(channels[:-1], channels[1:])
+    convs = nn.ModuleList([Conv1x1(a, b, dtype=dtype, device=device,
+                                   spatial_dims=2) for a, b in pairs])
+    bns = nn.ModuleList([BatchNorm(c, dtype=dtype, device=device)
+                         for c in channels[1:]])
+    return convs, bns
+
+
+def apply_conv_bn_stack(convs: nn.ModuleList, bns: nn.ModuleList,
+                        x: torch.Tensor) -> torch.Tensor:
+    """``relu(bn(conv(x)))`` layer after layer over ``x`` [..., C]. In
+    training mode each BN's statistics run over every axis but the channel
+    and no point is masked out (``pointnet_util.py:215-217, 337-340``)."""
+    for conv, bn in zip(convs, bns):
+        x = torch.relu(bn(conv(x)))
     return x

@@ -61,7 +61,11 @@ def _plot(batch, out, b, line_width):
     tp_mask = (matches > -1) & (matches == gt0)
     fp_mask = (matches > -1) & (gt0 == -1)   # test.py:280
     gt_valid = gt0 > -1
-    plot_match([], [], kpts0, kpts1, kpts0[valid], kpts1[matches[valid]],
+    # the pointnet modes' batches carry the raw scans: the panels are drawn
+    # over them, as the reference does (test.py:322)
+    pc0, pc1 = (np.asarray(batch[k][b]) if k in batch else []
+                for k in ("cloud0", "cloud1"))
+    plot_match(pc0, pc1, kpts0, kpts1, kpts0[valid], kpts1[matches[valid]],
                kpts0[gt_valid], kpts1[gt0[gt_valid]], matches, conf[valid],
                tp_mask, fp_mask, line_radius=line_width)
 

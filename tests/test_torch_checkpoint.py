@@ -114,3 +114,48 @@ def test_import_pulls_in_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("descriptor,net", [
+    ("FPFH", "mdgat"), ("FPFH_only", "mdgat"), ("FPFH_gloabal", "mdgat"),
+    ("pointnet", "mdgat"), ("pointnet", "superglue"),
+    ("pointnetmsg", "mdgat")])
+def test_every_descriptor_tree_round_trips(descriptor, net):
+    """A reference-layout state dict of each ``(descriptor, net)`` of
+    ``tests/test_convert.py`` loads into the port's model with
+    ``strict=True``; through the JAX package's ``convert_pth_state_dict``
+    and back through ``state_dict_from_numpy`` it gives the key set, the
+    shapes and the values of ``export_pth_state_dict``."""
+    import torch_ref
+    from mdgat_tpu.core.checkpoint import convert_pth_state_dict
+    from mdgat_tpu_torch.models.factory import build_model
+    cfg = jax_test_defaults(**dict(TINY, L=2, k=(8, None, 4, None)),
+                            descriptor=descriptor, net=net)
+    ref = {k: np.asarray(v) for k, v in
+           torch_ref.make_state_dict(cfg, seed=7, module_prefix=False).items()}
+    pcfg = port_defaults(**dict(TINY, L=2, k=(8, None, 4, None)),
+                         descriptor=descriptor, net=net)
+    model = build_model(pcfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in ref.items()},
+                          strict=True)
+    params, state = convert_pth_state_dict(ref, cfg)
+    params = jax.tree.map(np.asarray, params)
+    state = jax.tree.map(np.asarray, state)
+    got = state_dict_from_numpy(params, state, pcfg)
+    want = export_pth_state_dict(params, state, cfg, dtype=np.float64,
+                                 module_prefix=False)
+    assert sorted(got) == sorted(want) == sorted(model.state_dict()) \
+        == sorted(ref)
+    for key, val in want.items():
+        assert tuple(got[key].shape) == val.shape, key
+        if not key.endswith("num_batches_tracked"):
+            np.testing.assert_array_equal(got[key].numpy(), val, err_msg=key)
+            np.testing.assert_array_equal(val, ref[key], err_msg=key)
+    model.load_state_dict(got, strict=True)
+
+
+def test_unknown_descriptor_raises():
+    with pytest.raises(ValueError, match="unknown descriptor"):
+        state_dict_from_numpy({}, {}, port_defaults(descriptor="SHOT"))
+    with pytest.raises(ValueError, match="Invalid descriptor"):
+        MDGAT(port_defaults(descriptor="SHOT"))

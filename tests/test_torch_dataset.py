@@ -253,3 +253,38 @@ def test_prefetcher_reraises_a_producer_error_and_stops_when_abandoned():
     assert len(produced) < 10
     with pytest.raises(ValueError, match="depth"):
         prefetch.BatchPrefetcher(endless, 0)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "float64"])
+def test_sparse_dataset_clouds_equal_the_jax_packages(tmp_path, compute_dtype):
+    """The learned-descriptor modes: a tree written with ``cloud_points``,
+    ``SparseDataset.batches`` with ``cloud0`` / ``cloud1`` [B, Np, 8] equal
+    to the JAX package's, and ``prepare_batch`` carrying them to the device
+    as they are (not normalised) into ``model_inputs``."""
+    root = str(tmp_path / "kd")
+    kp_dir = syn.write_synthetic_kitti(root, seqs=SEQS, frames_per_seq=4,
+                                       pairs_per_seq=3, n_points=40, seed=6,
+                                       cloud_points=160)
+    kw = dict(train_path=root, keypoints_path=kp_dir,
+              txt_path=os.path.join(root, "preprocess-random-full"),
+              descriptor="pointnetmsg", max_keypoints=32,
+              compute_dtype=compute_dtype)
+    pset = pipe.SparseDataset(train_defaults(**kw), "train")
+    jset = jpipe.SparseDataset(jax_train_defaults(**kw), "train")
+    got = list(pset.batches(4, shuffle=True, seed=2))
+    _assert_batches_equal(got, list(jset.batches(4, shuffle=True, seed=2,
+                                                 use_native=False)))
+    first = got[0]
+    assert first["cloud0"].shape == first["cloud1"].shape == (4, 160, 8)
+    cloud = np.fromfile(os.path.join(root, "kitti_randomsample_16384_n8",
+                                     "%02d" % pset.pairs[0]["seq"],
+                                     "%06d.bin" % pset.pairs[0]["anc_idx"]),
+                        np.float32).reshape(-1, 8)
+    one = pset.get_pair(0)
+    np.testing.assert_array_equal(one["cloud0"], cloud.astype(pset.host_dtype))
+    tdt = torch.float64 if compute_dtype == "float64" else torch.float32
+    prepared = pipe.prepare_batch(first, 0.5, False, "cpu", tdt, tdt)
+    inputs = pipe.model_inputs(prepared)
+    assert set(inputs) == set(pipe.MODEL_KEYS) | {"cloud0", "cloud1"}
+    for key in ("cloud0", "cloud1"):
+        np.testing.assert_array_equal(inputs[key].numpy(), first[key])

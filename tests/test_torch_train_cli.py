@@ -72,26 +72,60 @@ def test_parser_defaults_equal_the_jax_parsers(preset):
     assert pcfg.loss_kernel is False
 
 
-@pytest.mark.parametrize("argv", [["--net", "superglue"], ["--net", "raw"],
-                                  ["--descriptor", "pointnet"],
-                                  ["--descriptor", "FPFH_only"]])
-def test_unported_nets_and_descriptors_raise(argv):
+@pytest.mark.parametrize("argv", [
+    ["--net", "superglue"], ["--net", "raw"], ["--descriptor", "pointnet"],
+    ["--descriptor", "FPFH_only"], ["--descriptor", "FPFH_gloabal"],
+    ["--descriptor", "pointnetmsg"],
+    ["--descriptor", "pointnetmsg", "--train_step", "1"],
+    ["--descriptor", "pointnet", "--net", "superglue", "--train_step", "2"]])
+def test_baseline_nets_and_descriptors_build(argv):
     """The two baseline nets build, as the JAX package's config does (raw:
-    k=None and L=9, train.py:130-132), each with an all-dense schedule; the
-    non-FPFH descriptors are not ported and raise."""
+    k=None and L=9, train.py:130-132), each with an all-dense schedule;
+    every descriptor mode builds, with the JAX package's descriptor,
+    train_step and run directory (``train_step{n}`` for the pointnet
+    modes), and a model of it."""
+    from mdgat_tpu_torch.models.factory import build_model
     for preset in ("train", "test"):
         args = cli.build_parser(preset).parse_args(argv)
-        if argv[0] == "--descriptor":
-            with pytest.raises(NotImplementedError, match="the port runs"):
-                cli.config_from_args(args, preset)
-            continue
         cfg = cli.config_from_args(args, preset)
         jcfg = jax_cli.config_from_args(
             jax_cli.build_parser(preset).parse_args(argv), preset)
-        assert cfg.net == argv[1]
-        assert (cfg.k, cfg.L) == (jcfg.k, jcfg.L)
-        assert cfg.layer_k_schedule(512) == [None] * (2 * cfg.L)
+        assert (cfg.net, cfg.k, cfg.L) == (jcfg.net, jcfg.k, jcfg.L)
+        assert (cfg.descriptor, cfg.train_step) == (jcfg.descriptor,
+                                                    jcfg.train_step)
         assert cfg.run_dir("x") == jcfg.run_dir("x")
+        if "--net" in argv:
+            assert cfg.layer_k_schedule(512) == [None] * (2 * cfg.L)
+        if cfg.descriptor.startswith("pointnet"):
+            assert f"/train_step{cfg.train_step}/" in cfg.run_dir("x")
+    assert build_model(cfg.replace(L=1)).config.descriptor == cfg.descriptor
+
+
+def test_pointnetmsg_entry_points_run_on_the_cpu(tmp_path, monkeypatch):
+    """``train_torch.main --descriptor pointnetmsg --synthetic true`` writes
+    the raw clouds (4 x 300 points a frame, as the JAX package's CLI) and
+    trains; ``test_torch.main`` and ``test_registration_metric_torch.main``
+    evaluate its checkpoint, the clouds flowing through ``EvalPipeline``."""
+    import test_registration_metric_torch
+    import test_torch
+    monkeypatch.chdir(tmp_path)
+    kd = str(tmp_path / "kd")
+    small = ["--synthetic", "true", "--train_path", kd, "--device", "cpu",
+             "--descriptor", "pointnetmsg", "--l", "1", "--batch_size", "4"]
+    summary = train_torch.main(small + [
+        "--max_keypoints", "64", "--epoch", "1", "--steps_per_epoch", "2",
+        "--model_out_path", str(tmp_path / "ck")])
+    assert summary["steps"] == [2] and np.isfinite(summary["epoch_loss"]).all()
+    cloud = np.fromfile(os.path.join(kd, "kitti_randomsample_16384_n8", "10",
+                                     "000000.bin"), np.float32)
+    assert cloud.shape == (4 * 300 * 8,)
+    ckpt = summary["checkpoints"][-1]
+    assert "/train_step3/" in ckpt
+    for main in (test_torch.main, test_registration_metric_torch.main):
+        out = main(small + ["--resume_model", ckpt, "--max_pairs", "8",
+                            "--max_keypoints", "64", "--ensure_kpts_num",
+                            "true"])
+        assert out["n_pairs"] == 8
 
 
 def test_missing_keypoints_without_synthetic_exits(tmp_path):
