@@ -131,7 +131,27 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    between the two runs >= 99.9% of valid slots, and identical per-pair
    lines wherever a pair's matches are equal; the aggregate lines and each
    run's pairs/s by wall clock beside the serving phase's bare forward;
-10. wide clouds (more than 1024 keypoints): every wide arm against its twin
+10. data-parallel training and multi-process eval: two ranks, subprocesses
+   of this script over gloo sharing the card's one device (NCCL refuses two
+   ranks on one device). Each rank trains on its 32 rows of the same three
+   global batches of 64 pairs x 512 keypoints, from the same seeded
+   weights, as a one-process kernel run in this process: loss and grad_norm
+   of each step within the training tolerances of the one-process step,
+   every parameter and running statistic ``torch.equal`` across the ranks
+   after three steps, each rank's launch counts per step equal to the
+   one-process step's, and per step exactly the collectives the step
+   issues (``parallel.collective_counts``: one all-reduce each way per
+   whole-layer call, two each way per plain BatchNorm call, one of the
+   gradients, one of the loss); each rank's step ms beside the one-process
+   step's (two ranks sharing one card: not a scaling figure) and the time
+   of its all-reduces. Then ``train_torch.py`` as two ranks (1 epoch x 3
+   steps: rank 0 alone writes the checkpoint, it loads, the losses are the
+   train_cli phase's first epoch's), and ``test_torch.py`` and
+   ``test_registration_metric_torch.py`` as two ranks over 256 pairs in
+   batches of 64 (each rank's batches the one-process run's batches 1-2 or
+   3-4: every pair's matches bit-equal, rank 0's aggregate lines equal to
+   the one-process run's, rank 1's none).
+11. wide clouds (more than 1024 keypoints): every wide arm against its twin
    at 1025, 1500 and 4096 keys or columns with ragged masks: the attention
    forward (k = 128, 64, dense; lse; exact scores with thr equal to the
    twin's bit for bit; an all-masked entry; the slab in its global scratch
@@ -147,7 +167,7 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    (loss, grad_norm), each with the counters zeroed just before and read
    just after (36 layers and 1 Sinkhorn a forward; 36 whole-layer forwards
    and backwards, 36 attention backwards, 1 + 1 Sinkhorn a step).
-11. descriptors: the learned-descriptor modes and the FPFH variants at the
+12. descriptors: the learned-descriptor modes and the FPFH variants at the
    published widths (D=128, 4 heads, L=9, the default k-schedule, 20
    Sinkhorn iterations, the reference's SSG / MSG radii, samples and
    channels) on raw clouds of 16384 x 8 points around the keypoints: the
@@ -3075,7 +3095,428 @@ def eval_cli(dev, report, counters, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: wide clouds (more than 1024 keypoints)
+# phase 10: data-parallel training and multi-process eval, two ranks
+# ---------------------------------------------------------------------------
+
+# Two ranks over gloo, both on the card's one device: NCCL refuses two ranks
+# on one device, gloo stages CUDA tensors through the host. This checks the
+# cross-rank semantics on the card (statistics between the kernels, the
+# gradient average, the row split, the eval merge), not NCCL and not scaling.
+DP_WORLD, DP_STEPS, DP_EVAL_PAIRS, DP_SEED = 2, 3, 256, 20
+# one plain BatchNorm call forward (count and sum, then squared deviations)
+# and backward: two all-reduces each; one whole-layer call: one each way
+DP_BN_REDUCTIONS = 2
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_flags(rank: int, port: int):
+    return ["--coordinator_address", f"127.0.0.1:{port}", "--num_processes",
+            str(DP_WORLD), "--process_id", str(rank), "--dist_backend", "gloo"]
+
+
+def start_ranks(job, label, argv=()):
+    """``job`` as DP_WORLD rank processes of this script (``--rank-worker``),
+    each writing ``chip_smoke_out/dp_<label>_rank<r>.{log,pt}``."""
+    port = free_port()
+    procs = []
+    for r in range(DP_WORLD):
+        log = open(os.path.join(OUT_DIR, f"dp_{label}_rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker", job,
+             label, str(r), str(port), *argv],
+            stdout=log, stderr=subprocess.STDOUT), log))
+    return label, procs
+
+
+def finish_ranks(handle, timeout: float = 600.0):
+    """Wait for every rank; as soon as one fails, stop the others (they would
+    wait in a collective) and fail the smoke. Each rank's result."""
+    import torch
+    label, procs = handle
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            failed = [p for p, _ in procs if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    for r, (p, _) in enumerate(procs):
+        require(p.returncode == 0,
+                f"data_parallel {label}: rank {r} exited {p.returncode} "
+                f"(chip_smoke_out/dp_{label}_rank{r}.log)")
+    return [torch.load(os.path.join(OUT_DIR, f"dp_{label}_rank{r}.pt"),
+                       weights_only=False) for r in range(DP_WORLD)]
+
+
+def dp_batch(i, dev, rows=None):
+    """Global batch ``i`` of the phase (64 pairs x 512 keypoints, seeded), or
+    the rows ``rows`` of it, prepared on ``dev``."""
+    from mdgat_tpu_torch.data.pipeline import (collate_pairs, model_inputs,
+                                               prepare_batch)
+    from mdgat_tpu_torch.data.synthetic import SyntheticDataset
+    from mdgat_tpu_torch.parallel import shard_batch
+    host = collate_pairs(SyntheticDataset(n_pairs=64, n_points=512,
+                                          seed=DP_SEED + i).pairs,
+                         max_keypoints=512)
+    if rows is not None:
+        host = shard_batch(host, rows)
+    return model_inputs(prepare_batch(host, 0.5, False, dev))
+
+
+def dp_steps(dev, group=None):
+    """DP_STEPS steps of the flagship model from seeded weights on the
+    phase's global batches (this rank's rows of them with ``group``), the
+    counters zeroed just before each step and read just after: per step
+    (loss, grad_norm, ms by the host clock to the synchronised end, kernel
+    launches, collectives), and the final state."""
+    import torch
+    from mdgat_tpu_torch.core.config import train_defaults
+    from mdgat_tpu_torch.parallel import (collective_counts,
+                                          process_batch_rows, replicate)
+    from mdgat_tpu_torch.train import create_train_state, make_train_step
+    cfg = train_defaults()
+    state = create_train_state(cfg, device=dev, seed=0)
+    rows = None
+    if group is not None:
+        replicate(state.model, group)
+        rows = process_batch_rows(cfg.batch_size)
+    step = make_train_step(group)
+    counters = make_counters()
+    out = []
+    for i in range(DP_STEPS):
+        batch = dp_batch(i, dev, rows)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        collective_counts.clear()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        out.append(dict(loss=loss, grad_norm=gn,
+                        ms=1e3 * (time.perf_counter() - t0),
+                        launches=read_counts(counters),
+                        collectives=dict(collective_counts)))
+    return out, state
+
+
+def timed_collectives(state, group, dev):
+    """One more step with every all-reduce timed by the host clock, the
+    card synchronised before and after each: (step ms, ms in the
+    all-reduces, their count)."""
+    import torch
+    import torch.distributed as dist
+    from mdgat_tpu_torch.parallel import process_batch_rows
+    from mdgat_tpu_torch.train import make_train_step
+    batch = dp_batch(0, dev, process_batch_rows(64))
+    spent = []
+    untimed = dist.all_reduce
+
+    def timed(t, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = untimed(t, *args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return work
+
+    torch.cuda.synchronize()
+    dist.all_reduce = timed
+    try:
+        t0 = time.perf_counter()
+        make_train_step(group)(state, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    finally:
+        dist.all_reduce = untimed
+    return 1e3 * step_s, 1e3 * sum(spent), len(spent)
+
+
+def rank_worker(argv) -> int:
+    """One rank of the data_parallel phase: ``job`` is ``step`` (the
+    training step on this rank's rows), or ``train`` / ``test`` /
+    ``registration`` (that entry point's ``main`` with the three
+    multi-process flags and ``--dist_backend gloo``). Writes its result to
+    ``chip_smoke_out/dp_<label>_rank<r>.pt``."""
+    import contextlib
+    import torch
+    job, label, rank, port = argv[0], argv[1], int(argv[2]), int(argv[3])
+    rest = list(argv[4:]) + dp_flags(rank, port)
+    if job == "step":
+        from mdgat_tpu_torch.parallel import (data_parallel_group,
+                                              initialize_distributed,
+                                              rank_device)
+        initialize_distributed(f"127.0.0.1:{port}", DP_WORLD, rank, "gloo")
+        dev = rank_device("cuda")
+        torch.cuda.set_device(dev)
+        group = data_parallel_group(dev)
+        steps, state = dp_steps(dev, group)
+        result = dict(device=str(dev), steps=steps,
+                      state={k: v.to("cpu", copy=True) for k, v in
+                             state.model.state_dict().items()})
+        result.update(zip(("timed_step_ms", "collective_ms", "n_collectives"),
+                          timed_collectives(state, group, dev)))
+    else:
+        import test_registration_metric_torch
+        import test_torch
+        import train_torch
+        main = {"train": train_torch.main, "test": test_torch.main,
+                "registration": test_registration_metric_torch.main}[job]
+        cwd = os.path.join(OUT_DIR, f"dp_{label}_rank{rank}")
+        os.makedirs(cwd, exist_ok=True)
+        with contextlib.chdir(cwd):             # ./logs of a train rank
+            res = main(rest)
+        if job == "train":
+            result = {k: res[k] for k in ("checkpoints", "epoch_loss",
+                                          "val_loss", "steps")}
+        else:
+            result = dict(summary=res["summary"], pairs=[
+                dict(idx=p["idx"], line=p["line"], matches0=p["matches0"])
+                for p in res["pairs"]])
+    torch.save(result, os.path.join(OUT_DIR, f"dp_{label}_rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def aggregate_lines(text: str):
+    keys = ("average repeatibility", "baned_data", "repeatibility,")
+    return [ln for ln in text.splitlines()
+            if ln.startswith(keys) or " || " in ln]
+
+
+def dp_training(dev, card, counters):
+    """The two-rank step against the one-process step on the same global
+    batches from the same seeded weights."""
+    import torch
+    from mdgat_tpu_torch.models.mdgat import MDGAT
+    from mdgat_tpu_torch.core.config import train_defaults
+    # the one-process steps first, so that neither side's times include the
+    # other's work on the card
+    one, state = dp_steps(dev)
+    one_state = {k: v.to("cpu", copy=True)
+                 for k, v in state.model.state_dict().items()}
+    del state
+    ranks = finish_ranks(start_ranks("step", "step"))
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+    model = MDGAT(train_defaults())
+    bn_calls = 2 * sum(type(m).__name__ == "BatchNorm"
+                       for enc in (model.kenc, model.denc)
+                       for m in enc.modules())
+    layer_calls = 2 * len(model.gnn.layers)
+    want_coll = {"bn": DP_BN_REDUCTIONS * bn_calls,
+                 "bn_backward": DP_BN_REDUCTIONS * bn_calls,
+                 "layer_bn": layer_calls, "layer_bn_backward": layer_calls,
+                 "gradients": 1, "loss": 1}
+    for i, o in enumerate(one):
+        require(o["launches"]["train_layer_fwd"] == 36
+                and o["launches"]["train_layer_bwd"] == 36
+                and o["launches"]["sinkhorn"] == 1
+                and o["launches"]["sinkhorn_bwd"] == 1,
+                f"data_parallel: one-process step {i + 1} launches "
+                f"{o['launches']}")
+        for r, rk in enumerate(ranks):
+            s = rk["steps"][i]
+            print(f"data_parallel step {i + 1}, rank {r} of 2 (32 pairs x 512 "
+                  f"keypoints, {rk['device']}): loss {s['loss']:.6f} (one "
+                  f"process, 64 pairs: {o['loss']:.6f}, rel "
+                  f"{rel(s['loss'], o['loss']):.2e}), grad_norm "
+                  f"{s['grad_norm']:.6f} ({o['grad_norm']:.6f}, rel "
+                  f"{rel(s['grad_norm'], o['grad_norm']):.2e})")
+            require(np.isfinite([s["loss"], s["grad_norm"]]).all(),
+                    "data_parallel: non-finite loss")
+            require(rel(s["loss"], o["loss"]) <= TOL["train_loss_rel"]
+                    and rel(s["grad_norm"], o["grad_norm"])
+                    <= TOL["train_grad_norm_rel"],
+                    f"data_parallel step {i + 1}, rank {r}: the two-rank "
+                    f"step disagrees with the one-process step")
+            require(s["launches"] == o["launches"],
+                    f"data_parallel step {i + 1}, rank {r}: launches "
+                    f"{s['launches']}, one process {o['launches']}")
+            require(s["collectives"] == want_coll,
+                    f"data_parallel step {i + 1}, rank {r}: collectives "
+                    f"{s['collectives']}, not {want_coll}")
+        require(ranks[0]["steps"][i]["loss"] == ranks[1]["steps"][i]["loss"]
+                and ranks[0]["steps"][i]["grad_norm"]
+                == ranks[1]["steps"][i]["grad_norm"],
+                f"data_parallel step {i + 1}: the ranks' metrics differ")
+    a, b = ranks[0]["state"], ranks[1]["state"]
+    require(sorted(a) == sorted(b) == sorted(one_state),
+            "data_parallel: state keys")
+    for key in a:
+        require(torch.equal(a[key], b[key]),
+                f"data_parallel: {key} differs between the ranks after "
+                f"{DP_STEPS} steps")
+    gap = max(float((a[k].double() - one_state[k].double()).abs().max())
+              for k in a if a[k].is_floating_point())
+    print(f"data_parallel: after {DP_STEPS} steps every parameter and running "
+          f"statistic ({len(a)} tensors) torch.equal across the 2 ranks; "
+          f"largest gap to the one-process state {gap:.3e}")
+    print(f"data_parallel: per step and rank {one[0]['launches']['train_layer_fwd']} "
+          f"+ {one[0]['launches']['train_layer_bwd']} whole-layer, "
+          f"{one[0]['launches']['gemm']} GEMM, {one[0]['launches']['gemm_tn']} "
+          f"A^T, {one[0]['launches']['sinkhorn']} + "
+          f"{one[0]['launches']['sinkhorn_bwd']} Sinkhorn launches (equal to "
+          f"the one-process step's); collectives {want_coll}")
+    step_ms = lambda steps: " / ".join(f"{s['ms']:.2f}" for s in steps)
+    for r, rk in enumerate(ranks):
+        print(f"data_parallel times on {card}, two ranks sharing one card; "
+              f"not a scaling figure: rank {r} step ms {step_ms(rk['steps'])} "
+              f"(32 pairs each), one process {step_ms(one)} (64 pairs); a "
+              f"fourth step {rk['timed_step_ms']:.2f} ms, of it "
+              f"{rk['collective_ms']:.2f} ms in the {rk['n_collectives']} "
+              f"all-reduces (gloo, through the host; synchronised before and "
+              f"after each)")
+    return dict(one_process=one,
+                ranks=[{k: v for k, v in rk.items() if k != "state"}
+                       for rk in ranks],
+                collectives=want_coll, max_state_gap=gap)
+
+
+def dp_train_cli(dev, report):
+    """``train_torch.py`` as two ranks, 1 epoch x 3 steps of 64 pairs on the
+    train_cli phase's tree: rank 0 alone writes the checkpoint, it loads,
+    and the epoch's losses are those of the train_cli phase's first epoch
+    (the same batches, one process, ``--loss_kernel false``)."""
+    from mdgat_tpu_torch.core.checkpoint import load_train_checkpoint
+    from mdgat_tpu_torch.core.config import train_defaults
+    from mdgat_tpu_torch.train import create_train_state
+    import shutil
+    root = os.path.join(OUT_DIR, "kitti_synthetic")
+    for r in range(DP_WORLD):
+        shutil.rmtree(os.path.join(OUT_DIR, f"dp_train_rank{r}"),
+                      ignore_errors=True)
+    argv = ["--train_path", root, "--keypoints_path",
+            os.path.join(root, "keypoints", "synthetic"), "--txt_path",
+            os.path.join(root, "preprocess-random-full"),
+            "--batch_size", "64", "--max_keypoints", "512", "--epoch", "1",
+            "--steps_per_epoch", str(CLI_STEPS), "--seed", "0",
+            "--model_out_path", "ck"]
+    t0 = time.perf_counter()
+    ranks = finish_ranks(start_ranks("train", "train", argv))
+    wall = time.perf_counter() - t0
+    r0, r1 = ranks
+    require(len(r0["checkpoints"]) == 1 and not r1["checkpoints"],
+            f"data_parallel train: checkpoints {r0['checkpoints']} / "
+            f"{r1['checkpoints']}")
+    require(not os.path.exists(os.path.join(OUT_DIR, "dp_train_rank1", "ck")),
+            "data_parallel train: rank 1 wrote a checkpoint directory")
+    path = os.path.join(OUT_DIR, "dp_train_rank0", r0["checkpoints"][0])
+    meta = load_train_checkpoint(path, create_train_state(
+        train_defaults(), device=dev, seed=1))
+    require(meta["epoch"] == 1, "data_parallel train: checkpoint fields")
+    require(r0["epoch_loss"] == r1["epoch_loss"]
+            and r0["val_loss"] == r1["val_loss"] and r0["steps"] == [CLI_STEPS],
+            "data_parallel train: the ranks log different losses")
+    plain = report["_train_cli"]["plain_loss"]
+    want = (plain["epoch_loss"][0], plain["val_loss"][0])
+    got = (r0["epoch_loss"][0], r0["val_loss"][0])
+    print(f"data_parallel train: train_torch.py as 2 ranks, {CLI_STEPS} steps "
+          f"of 64 pairs in {wall:.1f} s wall (start-up included): epoch_loss "
+          f"{got[0]:.6f}, val_loss {got[1]:.6f} on both ranks (one process, "
+          f"train_cli phase epoch 1: {want[0]:.6f}, {want[1]:.6f}); rank 0 "
+          f"alone wrote {os.path.basename(path)}, which loads")
+    for g, w in zip(got, want):
+        require(np.isfinite(g) and abs(g - w) <= TOL["train_loss_rel"] * abs(w),
+                "data_parallel train: the two-rank run disagrees with the "
+                "one-process run")
+    return dict(epoch_loss=got[0], val_loss=got[1], one_process=want,
+                wall_s=wall)
+
+
+def dp_eval_clis(dev, report):
+    """``test_torch.py`` and ``test_registration_metric_torch.py`` as two
+    ranks each (four processes at once) over 256 pairs in batches of 64,
+    every cloud cut to 256 keypoints: each rank's batches are the
+    one-process run's batches 1-2 or 3-4, so every pair's matches are
+    bit-equal, and rank 0's aggregate lines equal the one-process run's."""
+    import contextlib
+    import io
+    import shutil
+    import test_registration_metric_torch
+    import test_torch
+    from mdgat_tpu_torch.data.synthetic import write_synthetic_kitti
+    root = os.path.join(OUT_DIR, "kitti_dp_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    kp_dir = write_synthetic_kitti(root, seqs=(10,), frames_per_seq=12,
+                                   pairs_per_seq=DP_EVAL_PAIRS, n_points=512,
+                                   seed=0)
+    argv = ["--train_path", root, "--keypoints_path", kp_dir, "--txt_path",
+            os.path.join(root, "preprocess-random-full"), "--batch_size", "64",
+            "--ensure_kpts_num", "true", "--seed", "0", "--resume_model",
+            os.path.join(OUT_DIR, "matching.pth")]
+    t0 = time.perf_counter()
+    handles = {job: start_ranks(job, job, argv)
+               for job in ("test", "registration")}
+    out = {}
+    for job, main in (("test", test_torch.main),
+                      ("registration", test_registration_metric_torch.main)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            one = main(argv + ["--device", str(dev)])
+        ranks = finish_ranks(handles[job])
+        logs = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(OUT_DIR, f"dp_{job}_rank{r}.log")) as f:
+                logs.append(f.read())
+        want = aggregate_lines(buf.getvalue())
+        require(want and aggregate_lines(logs[0]) == want,
+                f"data_parallel {job}: rank 0's aggregate lines "
+                f"{aggregate_lines(logs[0])} differ from one process's {want}")
+        require(not aggregate_lines(logs[1]),
+                f"data_parallel {job}: rank 1 printed aggregate lines")
+        require(ranks[1]["summary"] is None,
+                f"data_parallel {job}: rank 1 returned a summary")
+        pairs = ranks[0]["pairs"] + ranks[1]["pairs"]
+        require(len(pairs) == len(one["pairs"]) == DP_EVAL_PAIRS
+                and [len(r["pairs"]) for r in ranks] == [128, 128],
+                f"data_parallel {job}: pair counts")
+        for a, b in zip(pairs, one["pairs"]):
+            require(a["idx"] == b["idx"] and a["line"] == b["line"]
+                    and np.array_equal(a["matches0"], b["matches0"]),
+                    f"data_parallel {job}: pair idx{b['idx']} differs from "
+                    f"the one-process run")
+        for line in want:
+            print(f"data_parallel {job}, rank 0 of 2 = one process: {line}")
+        out[job] = dict(aggregates=want)
+    wall = time.perf_counter() - t0
+    print(f"data_parallel eval: both CLIs as 2 ranks over {DP_EVAL_PAIRS} "
+          f"pairs (128 a rank, 2 batches of 64 x 256 keypoints): every "
+          f"pair's matches0 and line bit-equal to one process, rank 0's "
+          f"aggregate lines equal, rank 1's none; {wall:.1f} s wall for the "
+          f"four rank processes and the two one-process runs")
+    out["wall_s"] = wall
+    return out
+
+
+def data_parallel(dev, report, counters, card):
+    """Phase 10: data-parallel training and multi-process eval as two ranks
+    sharing the card (gloo)."""
+    t0 = time.perf_counter()
+    print("data_parallel: 2 ranks over gloo on the card's one device (NCCL "
+          "refuses two ranks on one device); checks the cross-rank "
+          "semantics, not NCCL and not scaling")
+    out = dict(training=dp_training(dev, card, counters))
+    out["train_cli"] = dp_train_cli(dev, report)
+    out["eval_clis"] = dp_eval_clis(dev, report)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"data_parallel phase on {card}: {out['wall_s']:.1f} s wall")
+    report["_data_parallel"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: wide clouds (more than 1024 keypoints)
 # ---------------------------------------------------------------------------
 
 # key / column counts of the wide arms' parity checks
@@ -3436,7 +3877,7 @@ def wide_clouds(rng, dev, report, counters, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the learned-descriptor modes and the FPFH variants
+# phase 12: the learned-descriptor modes and the FPFH variants
 # ---------------------------------------------------------------------------
 
 # the raw clouds' size in the KITTI files (kitti_randomsample_16384_n8)
@@ -3817,7 +4258,7 @@ def descriptor_clis(dev, counters, card, per_step):
 
 
 def descriptors(dev, report, counters, card):
-    """Phase 11: the learned-descriptor modes and the FPFH variants on
+    """Phase 12: the learned-descriptor modes and the FPFH variants on
     their entry points, at the published widths."""
     import torch
     t0 = time.perf_counter()
@@ -3990,6 +4431,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     eval_cli(dev, report, counters, card)
     torch.cuda.empty_cache()
+    data_parallel(dev, report, counters, card)
+    torch.cuda.empty_cache()
     wide_clouds(rng, dev, report, counters, card)
     torch.cuda.empty_cache()
     descriptors(dev, report, counters, card)
@@ -4012,4 +4455,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main())

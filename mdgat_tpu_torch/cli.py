@@ -10,8 +10,12 @@ None]``).
 The JAX package's accelerator flags collapse as its config did: ``--device``
 says where the model runs (``cuda`` unless asked otherwise), ``--use_kernels``
 / ``--train_layer`` / ``--loss_kernel`` choose the hand-written kernel routes
-(``core/config.py``). The flags that steer JAX, the TPU or several hosts
-are not ported; ``--help`` lists them in its epilog.
+(``core/config.py``). Its multi-process flags (``--coordinator_address``,
+``--num_processes``, ``--process_id``) run the entry points as one rank a
+process (:func:`setup_distributed`), with ``--dist_backend`` naming the
+``torch.distributed`` backend. The flags that steer JAX, the TPU or one
+process over several devices are not ported; ``--help`` lists them in its
+epilog.
 """
 
 from __future__ import annotations
@@ -24,10 +28,10 @@ from mdgat_tpu_torch.core.config import (POINTNET_DESCRIPTORS, Config,
                                          test_defaults, train_defaults)
 
 _EPILOG = ("Flags of the JAX package that are not ported (they steer JAX, "
-           "the TPU or several hosts): --platform, --data_parallel, "
+           "the TPU or one process over several devices; in the port one "
+           "rank is one device): --platform, --data_parallel, "
            "--seq_parallel, --shard_map, --use_pallas, --pallas_*, "
-           "--scan_gnn_pairs, --coordinator_address, --num_processes, "
-           "--process_id, --debug_nans, --trace_dir, --ship_bf16.")
+           "--scan_gnn_pairs, --debug_nans, --trace_dir, --ship_bf16.")
 
 
 def _parse_k(s: str):
@@ -118,6 +122,18 @@ def build_parser(preset: str) -> argparse.ArgumentParser:
                         "batches ahead (DataLoader(num_workers) "
                         "equivalent, reference train.py:166-171); "
                         "0 = serial")
+    p.add_argument("--coordinator_address", type=str,
+                   default=d.coordinator_address,
+                   help="multi-process: rank 0's 'host:port'; with "
+                        "--num_processes / --process_id this process joins "
+                        "as one rank with one device. Empty = one process, "
+                        "unless a torchrun environment is set")
+    p.add_argument("--num_processes", type=int, default=d.num_processes)
+    p.add_argument("--process_id", type=int, default=d.process_id)
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend of a multi-process run; "
+                        "default nccl on a CUDA device, gloo on the CPU")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--steps_per_epoch", type=int, default=0,
                    help="0 = full epoch; >0 truncates (smoke runs)")
@@ -161,6 +177,9 @@ def config_from_args(args, preset: str) -> Config:
         train_layer=args.train_layer,
         loss_kernel=args.loss_kernel,
         prefetch=args.prefetch,
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes,
+        process_id=args.process_id,
         seed=args.seed,
     )
     if cfg.net == "raw":
@@ -168,10 +187,37 @@ def config_from_args(args, preset: str) -> Config:
     return cfg
 
 
+def setup_distributed(cfg: Config, args):
+    """Join the multi-process run the flags (or a torchrun environment)
+    describe, before the first device use. Returns ``(device, group)``:
+    this rank's device (``parallel/multihost.py::rank_device``) and its
+    ``parallel.DataParallelGroup``, or ``--device`` and None for one
+    process."""
+    import torch
+    from mdgat_tpu_torch.parallel import (data_parallel_group,
+                                          initialize_distributed, rank_device)
+    backend = args.dist_backend or (
+        "gloo" if torch.device(args.device).type == "cpu" else "nccl")
+    if not initialize_distributed(cfg.coordinator_address, cfg.num_processes,
+                                  cfg.process_id, backend):
+        return torch.device(args.device), None
+    device = rank_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)   # NCCL's communicator binds to it
+    group = data_parallel_group(device)
+    print(f"multi-process: rank {group.rank}/{group.world}, device {device}, "
+          f"backend {backend}")
+    return device, group
+
+
 def maybe_generate_synthetic(cfg: Config, args) -> Config:
     """Demo mode: materialize a synthetic KITTI-layout dataset when the
-    real keypoint features are absent."""
-    if os.path.isdir(cfg.keypoints_path):
+    real keypoint features are absent. In a multi-process run the ranks
+    share one file system: rank 0 writes, the others wait for it."""
+    from mdgat_tpu_torch.parallel.multihost import host_barrier, is_primary
+    present = os.path.isdir(cfg.keypoints_path)
+    host_barrier()          # every rank has looked before rank 0 writes
+    if present:
         return cfg
     if not args.synthetic:
         raise SystemExit(
@@ -181,12 +227,15 @@ def maybe_generate_synthetic(cfg: Config, args) -> Config:
     from mdgat_tpu_torch.data.synthetic import write_synthetic_kitti
     root = cfg.train_path
     n_points = max(300, cfg.max_keypoints)
-    print(f"[synthetic] generating KITTI-format dataset under {root}")
-    kp_dir = write_synthetic_kitti(
-        root, seqs=(0, 2, 3, 4, 5, 6, 7, 9, 10), frames_per_seq=12,
-        pairs_per_seq=24, n_points=n_points, seed=cfg.seed,
-        # the learned-descriptor modes read raw clouds
-        cloud_points=(4 * n_points if cfg.descriptor in POINTNET_DESCRIPTORS
-                      else 0))
+    kp_dir = os.path.join(root, "keypoints", "synthetic")
+    if is_primary():
+        print(f"[synthetic] generating KITTI-format dataset under {root}")
+        write_synthetic_kitti(
+            root, seqs=(0, 2, 3, 4, 5, 6, 7, 9, 10), frames_per_seq=12,
+            pairs_per_seq=24, n_points=n_points, seed=cfg.seed,
+            # the learned-descriptor modes read raw clouds
+            cloud_points=(4 * n_points
+                          if cfg.descriptor in POINTNET_DESCRIPTORS else 0))
+    host_barrier()
     return cfg.replace(keypoints_path=kp_dir,
                        txt_path=os.path.join(root, "preprocess-random-full"))

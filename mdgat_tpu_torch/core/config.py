@@ -4,10 +4,15 @@ A copy of ``mdgat_tpu/core/config.py`` (that package's ``__init__`` pulls
 in JAX, so the port never imports it). Same fields and defaults, same
 ``train_defaults()`` / ``test_defaults()`` presets of the reference entry
 points. The JAX package's accelerator knobs (Pallas gates, shard_map, mesh
-sizes, layer scanning, remat, multi-host) collapse into one switch,
-``use_kernels``: the device a model is placed on decides where it runs, and
-on a CUDA device ``use_kernels`` routes the GNN layers and the Sinkhorn
-through the hand-written kernels of ``mdgat_tpu_torch/csrc``.
+sizes, layer scanning, remat) collapse into one switch, ``use_kernels``: the
+device a model is placed on decides where it runs, and on a CUDA device
+``use_kernels`` routes the GNN layers and the Sinkhorn through the
+hand-written kernels of ``mdgat_tpu_torch/csrc``.
+
+The multi-process fields keep the JAX package's names and defaults:
+``coordinator_address`` (``host:port``, empty for one process or a torchrun
+environment), ``num_processes`` and ``process_id``; each process is one rank
+with one device (``parallel/multihost.py``).
 
 In eval mode that is the whole-layer kernels and the Sinkhorn forward. In
 training mode, with ``train_layer`` (the default, the counterpart of the JAX
@@ -85,6 +90,11 @@ class Config:
     loss_kernel: bool = False       # gap loss through the margin kernels
     prefetch: int = 2
     seed: int = 0
+
+    # --- multi-process (parallel/multihost.py) ---
+    coordinator_address: str = ""
+    num_processes: int = 0
+    process_id: int = -1
 
     # ------------------------------------------------------------------
     @property

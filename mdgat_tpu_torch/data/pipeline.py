@@ -21,9 +21,11 @@ Fixed-size policy, as in the JAX package: with ``max_keypoints`` a cloud is
 truncated or duplicate-padded to exactly that many points (the reference's
 train policy, ``load_data.py:191-211``: every slot holds a real keypoint,
 masks all true); without it clouds are zero-padded to the batch's largest
-128-bucket with validity masks. Of the JAX package's ``SparseDataset`` the
-multi-host arguments (``rows=``, ``pair_range=``), the native threaded loader
-and the reduced-precision descriptor shipping are not ported.
+128-bucket with validity masks. :meth:`SparseDataset.batches` takes the
+JAX package's multi-process arguments: ``rows=`` (a training rank's rows of
+every global batch) and ``pair_range=`` (an eval rank's block of pairs). Of
+its ``SparseDataset`` the native threaded loader and the reduced-precision
+descriptor shipping are not ported.
 """
 
 from __future__ import annotations
@@ -203,18 +205,40 @@ class SparseDataset:
         return _round_up(max(max(rows), 1), 128)
 
     def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
-                drop_last: bool = True) -> Iterator[Dict]:
+                drop_last: bool = True, rows: Optional[slice] = None,
+                pair_range: Optional[tuple] = None) -> Iterator[Dict]:
         """Stacked numpy batches (the DataLoader equivalent): every array
-        key stacked, ``sequence`` a list, ``idx0`` / ``idx1`` arrays."""
-        order = np.arange(len(self))
+        key stacked, ``sequence`` a list, ``idx0`` / ``idx1`` arrays.
+
+        ``rows``: one training rank's slice of every global batch
+        (``parallel/multihost.py::process_batch_rows``). The shuffle order
+        and the variable-N bucket stay those of the global batch, the same
+        on every rank, so every rank pads to the same N; only the rank's
+        rows are loaded. Requires ``drop_last`` (a short last batch has no
+        equal shares).
+
+        ``pair_range``: ``(lo, hi)``, one eval rank's block of the
+        (unshuffled) pair list (``eval_pair_range``); batches are formed
+        from it alone. ``rows`` and ``pair_range`` exclude each other."""
+        if rows is not None and not drop_last:
+            raise ValueError("batches(rows=...) requires drop_last=True: "
+                             "per-process slices assume equal full-size "
+                             "global batches")
+        if pair_range is not None and rows is not None:
+            raise ValueError("rows= (global batches, sliced per process) "
+                             "and pair_range= (process-local pair subset) "
+                             "are mutually exclusive")
+        order = (np.arange(len(self)) if pair_range is None
+                 else np.arange(*pair_range))
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
         n_b = (len(order) // batch_size if drop_last
                else -(-len(order) // batch_size))
         for b in range(n_b):
-            idxs = order[b * batch_size:(b + 1) * batch_size]
+            g_idxs = order[b * batch_size:(b + 1) * batch_size]
             tgt = (None if self.cfg.ensure_kpts_num
-                   else self._batch_bucket(idxs))
+                   else self._batch_bucket(g_idxs))
+            idxs = g_idxs if rows is None else g_idxs[rows]
             pairs = [self.get_pair(int(i), pad_to=tgt) for i in idxs]
             out = {}
             for k in pairs[0]:

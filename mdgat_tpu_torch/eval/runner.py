@@ -17,8 +17,9 @@ compute. This loop overlaps three stages:
 Printed metrics are unchanged; only the schedule differs. A remainder batch
 is padded to the full batch size by repeating its last pair and trimmed
 again before the yield, so that every batch of a bucket has one shape.
-Multi-device and multi-host eval (the JAX package's ``shard_inputs`` and
-``pair_range``) are not ported.
+``pair_range`` restricts the pipeline to one eval rank's block of pairs
+(``parallel/multihost.py::eval_pair_range``); the one-process multi-device
+eval (the JAX package's ``shard_inputs``) is not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from mdgat_tpu_torch.data.pipeline import (SparseDataset, model_inputs,
                                            prepare_batch)
 from mdgat_tpu_torch.models.factory import build_model
 from mdgat_tpu_torch.models.mdgat import torch_dtype
+from mdgat_tpu_torch.parallel.multihost import eval_pair_range
 from mdgat_tpu_torch.train.loop import make_eval_step
 
 
@@ -73,12 +75,14 @@ def eval_model(cfg, device):
     return model.to(device).eval(), source
 
 
-def eval_pipeline(cfg, model, device, fetch: Sequence[str]) -> "EvalPipeline":
+def eval_pipeline(cfg, model, device, fetch: Sequence[str],
+                  split: bool = False, max_pairs: int = 0) -> "EvalPipeline":
     """The eval CLIs' pipeline over the test split of ``cfg``: host batches
     of ``cfg.batch_size`` pairs, ``prepare_batch`` on ``device`` (ground
     truth at float64 when the model computes in it, float32 otherwise),
     ``model``'s eval forward, ``fetch`` outputs and ``gt_matches0`` read
-    back."""
+    back. With ``split`` (a multi-process run) only this rank's block of
+    the first ``max_pairs`` pairs (``eval_pair_range``; 0 = all)."""
     compute_dtype = torch_dtype(cfg.compute_dtype)
     gt_dtype = (torch.float64 if cfg.compute_dtype == "float64"
                 else torch.float32)
@@ -87,8 +91,11 @@ def eval_pipeline(cfg, model, device, fetch: Sequence[str]) -> "EvalPipeline":
         return prepare_batch(batch, cfg.threshold, cfg.mutual_check, device,
                              compute_dtype, gt_dtype)
 
-    return EvalPipeline(SparseDataset(cfg, "test"), prepare,
-                        make_eval_step(model), cfg.batch_size, fetch=fetch)
+    dataset = SparseDataset(cfg, "test")
+    pair_range = (eval_pair_range(len(dataset), max_pairs, cfg.batch_size)
+                  if split else None)
+    return EvalPipeline(dataset, prepare, make_eval_step(model),
+                        cfg.batch_size, fetch=fetch, pair_range=pair_range)
 
 
 def timing_lines(n_pairs: int, seconds: float, first_batch_s, n_batches: int):
@@ -115,16 +122,18 @@ class EvalPipeline:
     device (``data/pipeline.py::prepare_batch``), ``eval_step(inputs)`` runs
     the forward (``train/loop.py::make_eval_step``). ``host_outputs`` holds
     the ``fetch`` outputs and ``gt_matches0`` as numpy arrays. The producer
-    runs at most two batches ahead.
+    runs at most two batches ahead. ``pair_range`` ``(lo, hi)`` evaluates
+    that block of the pair list only.
     """
 
     def __init__(self, dataset, prepare, eval_step, batch_size: int,
-                 fetch: Sequence[str] = ("matches0",)):
+                 fetch: Sequence[str] = ("matches0",), pair_range=None):
         self.dataset = dataset
         self.prepare = prepare
         self.eval_step = eval_step
         self.batch_size = batch_size
         self.fetch = tuple(fetch)
+        self.pair_range = pair_range
 
     def _produce(self, q: queue.Queue, stop: threading.Event):
         def put(item) -> bool:
@@ -137,8 +146,12 @@ class EvalPipeline:
             return False
 
         try:
+            # pair_range only when set: a one-process caller's dataset needs
+            # no more than batches(batch_size, shuffle, drop_last)
+            kw = ({} if self.pair_range is None
+                  else {"pair_range": self.pair_range})
             for batch in self.dataset.batches(self.batch_size, shuffle=False,
-                                              drop_last=False):
+                                              drop_last=False, **kw):
                 if not put(self._pad_tail(batch)):
                     return
             put(None)

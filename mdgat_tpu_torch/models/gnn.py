@@ -28,6 +28,11 @@ there:
   train-mode BatchNorm and the residual (``pallas_train_layer=False``).
 * otherwise the plain path under autograd.
 
+Under a data-parallel step the BatchNorm statistics of every route are the
+global batch's (``ops/mlp.py::bn_cross_replica``), and each cross-rank
+reduction is a collective: every rank must run every layer call, both
+clouds, in the same order, or the ranks wait on each other forever.
+
 The layer-pair scan, remat and the context-parallel axis have no
 counterpart: PyTorch runs eagerly.
 """

@@ -40,6 +40,13 @@ is the Sinkhorn kernel with its replay backward, so ``loss.backward()`` runs
 on hand-written kernels too. With ``train_layer`` a CPU model takes the
 whole-layer kernels' plain twin, whose variance is single-pass.
 
+Data-parallel training (``parallel/smap.py``) passes the process group of
+the ranks: the training forward then runs under ``bn_cross_replica(group)``
+(``apply(axis_name=...)`` of the JAX package), so every training-mode
+BatchNorm, plain or inside the whole-layer train kernels, normalises with
+the statistics of the global batch. An eval-mode forward uses the running
+statistics and issues no collective, whatever group it is given.
+
 ``config.loss_kernel`` routes the gap loss through
 ``ops/cuda/gap_loss.py::gap_loss_kernel`` (the margin kernels on a CUDA
 tensor, their plain twins on a CPU tensor), in both modes and independently
@@ -65,7 +72,7 @@ from mdgat_tpu_torch.ops.cuda.gap_loss import gap_loss_kernel
 from mdgat_tpu_torch.ops.cuda.sinkhorn import log_optimal_transport_kernel
 from mdgat_tpu_torch.ops.losses import gap_loss, superglue_nll_loss, triplet_loss
 from mdgat_tpu_torch.ops.matching import match_decision
-from mdgat_tpu_torch.ops.mlp import Conv1x1
+from mdgat_tpu_torch.ops.mlp import Conv1x1, bn_cross_replica
 from mdgat_tpu_torch.ops.transport import (assemble_full_scores,
                                            log_optimal_transport)
 
@@ -121,13 +128,20 @@ class MDGAT(nn.Module):
         self.bin_score.fill_(1.0)
 
     def forward(self, data: Dict[str, torch.Tensor],
-                return_full_scores: bool = False) -> Dict[str, torch.Tensor]:
+                return_full_scores: bool = False,
+                group=None) -> Dict[str, torch.Tensor]:
         """``data``: keypoints0/1 [B, N, 3], scores0/1 [B, N], the FPFH
         modes' descriptors0/1 [B, N, 33] or the pointnet modes' cloud0/1
         [B, Np, 8], optional mask0/1 [B, N] bool and gt_matches0/1 [B, N]
         int (-1 = unmatched). Returns matches0/1, matching_scores0/1, with
         ground truth loss [B], and with ``return_full_scores`` the
-        reference's [B, N+1, M+1] transport (``scores``)."""
+        reference's [B, N+1, M+1] transport (``scores``). ``group``, a
+        ``torch.distributed`` process group, makes the training-mode
+        BatchNorm statistics those of its ranks' batches together."""
+        with bn_cross_replica(group if self.training else None):
+            return self._forward(data, return_full_scores)
+
+    def _forward(self, data, return_full_scores):
         cfg = self.config
         dt = torch_dtype(cfg.compute_dtype)
         mask0, mask1 = data.get("mask0"), data.get("mask1")

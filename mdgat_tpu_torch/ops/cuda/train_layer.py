@@ -50,6 +50,18 @@ reduction vectors run over every row, padded ones too (every row is
 normalised with the batch statistics); the row mask enters only as the
 factor on the centering correction of ``dh1``.
 
+Under a data-parallel step (``ops/mlp.py::bn_cross_replica`` with a process
+group, ``parallel/smap.py``) the statistics are the global batch's, as the
+JAX package's ``axis_name`` psums make them: between the two forward kernel
+groups the masked sums ``[2, 2D]`` and the row count go into one all-reduce
+before the mean, the variance and the affine are formed; between the two
+backward groups ``Sg`` and ``Sgh`` go into one all-reduce before ``vec6``
+(``dscale`` and ``dbias`` are parameter gradients, averaged with the
+others by the step); the running statistics move with the global count.
+The collectives run on the tensors' device and stream, between the
+launches; the group is taken when the forward runs and kept for the
+backward. The twin does the same through differentiable all-reduces.
+
 A CUDA tensor launches the kernels; a CPU tensor takes
 :func:`fused_train_layer_reference` under autograd, built from the
 kernels' own plain twins (:func:`h1_stats_reference`,
@@ -73,7 +85,8 @@ from mdgat_tpu_torch.ops.cuda import mha
 from mdgat_tpu_torch.ops.cuda._build import DTYPE_CODES, _ptr, library
 from mdgat_tpu_torch.ops.cuda.layer import (NUM_SMS, TN_STAGE_ROWS, gemm,
                                            gemm_tn, tn_plan)
-from mdgat_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
+from mdgat_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM, bn_group
+from mdgat_tpu_torch.parallel.mesh import all_reduce
 
 # row tiles of the csrc/train_layer.cu launches that take a row plan (the
 # dw2 launch's are the A^T product's ring stages, layer.TN_STAGE_ROWS)
@@ -100,12 +113,23 @@ def train_layer_weights(layer):
 
 
 def _row_count(x, valid_mask, dtype):
-    """Rows that enter the batch statistics, floored at 1: a 0-dim tensor on
-    ``x``'s device (no host sync)."""
+    """Rows that enter this rank's batch statistics: a 0-dim tensor on
+    ``x``'s device (no host sync), not yet floored at 1."""
     if valid_mask is None:
         return torch.full((), float(x.shape[0] * x.shape[1]), dtype=dtype,
                           device=x.device)
-    return valid_mask.sum().to(dtype).clamp_min(1.0)
+    return valid_mask.sum().to(dtype)
+
+
+def _global_sums(sums, cnt, group, differentiable=False):
+    """``(sums [2, 2D], cnt)`` over every rank of ``group`` (one all-reduce
+    of both, counted as ``layer_bn``), or this rank's alone when ``group``
+    is None; the count then floored at 1."""
+    if group is not None:
+        packed = torch.cat([sums.reshape(-1), cnt.reshape(1)])
+        packed = all_reduce(packed, group, "layer_bn", differentiable)
+        sums, cnt = packed[:-1].view_as(sums), packed[-1]
+    return sums, cnt.clamp_min(1.0)
 
 
 def _batch_stats(ssum, ssq, cnt):
@@ -126,24 +150,33 @@ def fused_train_layer_reference(x, source, kv_mask: Optional[torch.Tensor],
     selection frozen; the variance is single-pass and ``h1`` is rounded to
     ``x``'s dtype where the kernels round it (module docstring). The clamp
     of the variance at zero passes its gradient straight through, as the
-    kernels' backward formula does."""
+    kernels' backward formula does. ``ssum`` and ``ssq`` are this rank's
+    sums; the statistics are the group's under ``bn_cross_replica``."""
+    out = _reference(x, source, kv_mask, valid_mask, topk, num_heads, wq, bq,
+                     wk, bk, wv, bv, wm, bm, w1, b1, w2, b2, bn_scale, bn_bias)
+    return out[:3] + out[4:] if return_residuals else out[:3]
+
+
+def _reference(x, source, kv_mask, valid_mask, topk, num_heads, wq, bq, wk,
+               bk, wv, bv, wm, bm, w1, b1, w2, b2, bn_scale, bn_bias):
+    """The twin's ``(y, mean, var, cnt, h1, thr, lse, ssum, ssq)``, ``cnt``
+    the (global) row count floored at 1."""
     acc = acc_dtype(x.dtype)
     cast = lambda t: t.to(acc)
     msg, thr, lse = mha.fused_mha_reference(
         x, source, kv_mask, topk, num_heads, wq, bq, wk, bk, wv, bv, wm, bm,
         return_residuals=True, out_dtype=acc)
-    h1, (ssum, ssq) = h1_stats_reference(x, msg, w1, b1, valid_mask)
+    h1, sums = h1_stats_reference(x, msg, w1, b1, valid_mask)
     h1 = h1.reshape(*x.shape[:2], -1)
-    mean, raw = _batch_stats(ssum, ssq, _row_count(x, valid_mask, acc))
+    (ssum, ssq), cnt = _global_sums(sums, _row_count(x, valid_mask, acc),
+                                    bn_group(), differentiable=True)
+    mean, raw = _batch_stats(ssum, ssq, cnt)
     var = raw + (raw.clamp_min(0.0) - raw).detach()
     inv = torch.rsqrt(var + BN_EPS)
     a = cast(bn_scale) * inv
     y = bn_relu_conv2_reference(x, h1, a, cast(bn_bias) - mean * a, w2, b2)
-    mean, var = mean.detach(), var.detach()
-    if return_residuals:
-        return (y, mean, var, h1.detach(), thr, lse, ssum.detach(),
-                ssq.detach())
-    return y, mean, var
+    return (y, mean.detach(), var.detach(), cnt.detach(), h1.detach(), thr,
+            lse, sums[0].detach(), sums[1].detach())
 
 
 def h1_stats_reference(x, msg, w1, b1, row_mask):
@@ -476,12 +509,15 @@ def _tl_fwd1(x, source, kv_mask, valid_mask, topk, h, wq, bq, wk, bk, wv, bv,
 
 
 def _tl_forward(x, source, kv_mask, valid_mask, topk, h, wq, bq, wk, bk, wv,
-                bv, wm, bm, w1, b1, w2, b2, bn_scale, bn_bias):
-    """The forward launches: ``(y, mean, var, cnt, h1, thr, lse, sums)``."""
+                bv, wm, bm, w1, b1, w2, b2, bn_scale, bn_bias, group=None):
+    """The forward launches: ``(y, mean, var, cnt, h1, thr, lse, sums)``;
+    ``sums`` are this rank's, the statistics and ``cnt`` those of the ranks
+    of ``group`` (this rank alone when it is None)."""
     h1, thr, lse, sums = _tl_fwd1(x, source, kv_mask, valid_mask, topk, h, wq,
                                   bq, wk, bk, wv, bv, wm, bm, w1, b1)
-    cnt = _row_count(x, valid_mask, torch.float32)
-    mean, var = _batch_stats(sums[0], sums[1], cnt)
+    (ssum, ssq), cnt = _global_sums(
+        sums, _row_count(x, valid_mask, torch.float32), group)
+    mean, var = _batch_stats(ssum, ssq, cnt)
     var = var.clamp_min(0.0)
     a = bn_scale * torch.rsqrt(var + BN_EPS)
     y = bn_relu_conv2(x, h1, a, bn_bias - mean * a, w2, b2)
@@ -522,14 +558,19 @@ def _tl_bwd2(x, source, kv_mask, valid_mask, thr, lse, h1, g, vec6, h, wq, bq,
 
 def _tl_backward(x, source, kv_mask, valid_mask, thr, lse, h1, mean, var, cnt,
                  g, h, wq, bq, wk, bk, wv, bv, wm, bm, w1, w2, bn_scale,
-                 bn_bias):
+                 bn_bias, group=None):
     """The backward launches: ``(dx, dsrc, dwq, dbq, dwk, dbk, dwv, dbv, dwm,
     dbm, dw1, db1, dw2, db2, dscale, dbias)``; the weight gradients are
-    float32, blocked as the weights came in."""
+    float32, blocked as the weights came in. With ``group``, ``Sg`` and
+    ``Sgh`` are summed over its ranks (every rank's rows were normalised
+    with the global statistics); ``cnt`` is already global."""
     g = g.to(x.dtype).contiguous()
     vec4 = torch.stack([mean, torch.rsqrt(var + BN_EPS), bn_scale, bn_bias])
     sums, dw2, db2 = _tl_bwd1(g, h1, w2, vec4)
-    vec6 = torch.cat([vec4, sums[:2] / cnt])
+    sg_sgh = sums[:2]
+    if group is not None:
+        sg_sgh = all_reduce(sg_sgh.contiguous(), group, "layer_bn_backward")
+    vec6 = torch.cat([vec4, sg_sgh / cnt])
     grads = _tl_bwd2(x, source, kv_mask, valid_mask, thr, lse, h1, g, vec6, h,
                      wq, bq, wk, bk, wv, bv, wm, bm, w1, w2)
     fused_train_layer.backward_launches += 1
@@ -540,20 +581,24 @@ class _FusedTrainLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, source, kv_mask, valid_mask, topk, num_heads,
                 *weights):
+        # the group of this forward, kept for the backward: autograd runs it
+        # on its own thread, outside the forward's bn_cross_replica context
+        ctx.group = bn_group()
         y, mean, var, cnt, h1, thr, lse, _ = _tl_forward(
-            x, source, kv_mask, valid_mask, topk, num_heads, *weights)
+            x, source, kv_mask, valid_mask, topk, num_heads, *weights,
+            group=ctx.group)
         wq, bq, wk, bk, wv, bv, wm, bm, w1, _, w2, _, scale, bias = weights
         ctx.save_for_backward(x, source, thr, lse, h1, mean, var, cnt, wq, bq,
                               wk, bk, wv, bv, wm, bm, w1, w2, scale, bias)
         ctx.masks, ctx.num_heads = (kv_mask, valid_mask), num_heads
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        ctx.mark_non_differentiable(mean, var, cnt)
+        return y, mean, var, cnt
 
     @staticmethod
-    def backward(ctx, g, _g_mean, _g_var):
+    def backward(ctx, g, _g_mean, _g_var, _g_cnt):
         x, source, thr, lse, h1, mean, var, cnt, *weights = ctx.saved_tensors
         grads = _tl_backward(x, source, *ctx.masks, thr, lse, h1, mean, var,
-                             cnt, g, ctx.num_heads, *weights)
+                             cnt, g, ctx.num_heads, *weights, group=ctx.group)
         return (grads[0], grads[1], None, None, None, None) + grads[2:]
 
 
@@ -580,10 +625,18 @@ def fused_train_layer(x, source, kv_mask: Optional[torch.Tensor],
     operands of :func:`train_layer_weights`; ``topk`` None or 0 is dense.
     ``y`` includes the residual and is differentiable in x, source and the
     fourteen operands; the mean and the biased variance ``[2D]`` feed the
-    running statistics and carry no gradient."""
+    running statistics and carry no gradient. Under ``bn_cross_replica``
+    the statistics are the group's."""
+    return _train_layer(x, source, kv_mask, valid_mask, topk, num_heads,
+                        *weights)[:3]
+
+
+def _train_layer(x, source, kv_mask, valid_mask, topk, num_heads, *weights):
+    """:func:`fused_train_layer`'s outputs and the row count of the
+    statistics, floored at 1."""
     if x.device.type == "cpu":
-        return fused_train_layer_reference(x, source, kv_mask, valid_mask,
-                                           topk, num_heads, *weights)
+        return _reference(x, source, kv_mask, valid_mask, topk, num_heads,
+                          *weights)[:4]
     weights = tuple(w.contiguous() for w in weights)
     _check_inputs(x, source, kv_mask, valid_mask, num_heads, weights)
     return _FusedTrainLayer.apply(x.contiguous(), source.contiguous(),
@@ -625,13 +678,14 @@ def fused_train_layer_apply(layer, x, source, topk: Optional[int],
     delta`` from :func:`fused_train_layer`, and the layer's BatchNorm
     running statistics moved in place (momentum ``BN_MOMENTUM``, the
     single-pass variance unbiased by ``cnt / max(cnt - 1, 1)``,
-    ``num_batches_tracked`` ticked)."""
-    y, mean, var = fused_train_layer(x, source, kv_mask, valid_mask, topk,
+    ``num_batches_tracked`` ticked); ``cnt`` is the global row count under
+    ``bn_cross_replica``."""
+    y, mean, var, cnt = _train_layer(x, source, kv_mask, valid_mask, topk,
                                      layer.num_heads,
                                      *train_layer_weights(layer))
     bn = layer.mlp[1]
     with torch.no_grad():
-        cnt = _row_count(x, valid_mask, mean.dtype)
+        cnt = cnt.to(mean.dtype)
         unbiased = var * (cnt / (cnt - 1.0).clamp_min(1.0))
         rdt = bn.running_mean.dtype
         bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.to(rdt))

@@ -15,18 +15,60 @@ affine; in training mode batch statistics over the (batch, points) axes
 with the biased variance, and running stats updated with momentum 0.1 and
 the unbiased variance. With a validity mask the statistics run over valid
 points only, so fixed-shape padding does not move them.
+
+Cross-rank BatchNorm (``bn_cross_replica`` / ``bn_axis_name`` of the JAX
+package): under :class:`bn_cross_replica` with a process group, training-mode
+statistics are those of the global batch, every rank's rows together. The
+count and the per-channel sum are summed over the ranks in one all-reduce,
+then the sums of squared deviations from the global mean in a second (the
+two-pass form). Both all-reduces are differentiable: their backward sums the
+cotangents over the ranks, as the transpose of ``psum`` does, which is what
+makes each rank's gradient its share of the global-batch gradient. The
+running statistics move with the global count and the global unbiased
+variance, the same on every rank.
 """
 
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from mdgat_tpu_torch.parallel.mesh import all_reduce
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+
+# The process group of the training-mode BatchNorm statistics, set by the
+# model's forward under a data-parallel step (parallel/smap.py); a
+# ContextVar, so a forward on another thread (EvalPipeline's) sees none.
+_BN_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "mdgat_bn_group", default=None)
+
+
+class bn_cross_replica:
+    """Context manager: training-mode BatchNorm statistics are summed over
+    the ranks of ``group`` (a ``torch.distributed`` process group) inside
+    it; ``None`` is the one-process statistics."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __enter__(self):
+        self._token = _BN_GROUP.set(self.group)
+        return self
+
+    def __exit__(self, *exc):
+        _BN_GROUP.reset(self._token)
+        return False
+
+
+def bn_group():
+    """The active cross-rank BatchNorm group, or None."""
+    return _BN_GROUP.get()
 
 
 class Conv1x1(nn.Module):
@@ -107,7 +149,10 @@ class BatchNorm(nn.Module):
 
     def _batch_stats(self, x, valid_mask):
         axes = tuple(range(x.dim() - 1))
-        if valid_mask is None:
+        group = bn_group()
+        if group is not None:
+            mean, var, unbias = _global_stats(x, valid_mask, axes, group)
+        elif valid_mask is None:
             n = x.numel() // x.shape[-1]
             mean = x.mean(dim=axes)
             var = ((x - mean) ** 2).mean(dim=axes)
@@ -131,6 +176,29 @@ class BatchNorm(nn.Module):
         """``weight / sqrt(var + eps)``: ``bn(h) == (h - mean) * f + bias``."""
         return (self.weight.to(dtype)
                 / torch.sqrt(self.running_var.to(dtype) + BN_EPS))
+
+
+def _global_stats(x, valid_mask, axes, group):
+    """``(mean, biased var, unbias factor)`` over every rank's points of
+    ``x`` (those ``valid_mask`` marks; the count floored at 1), through two
+    differentiable all-reduces: count and sum, then squared deviations."""
+    c = x.shape[-1]
+    if valid_mask is None:
+        m = None
+        cnt = torch.full((1,), float(x.numel() // c), dtype=x.dtype,
+                         device=x.device)
+        s = x.sum(dim=axes)
+    else:
+        m = valid_mask[..., None].to(x.dtype)
+        cnt = m.sum().reshape(1)
+        s = (x * m).sum(dim=axes)
+    red = all_reduce(torch.cat([s, cnt]), group, "bn", differentiable=True)
+    cnt = red[c:].reshape(()).clamp_min(1.0)
+    mean = red[:c] / cnt
+    dev = (x - mean) ** 2
+    dev = (dev if m is None else dev * m).sum(dim=axes)
+    var = all_reduce(dev, group, "bn", differentiable=True) / cnt
+    return mean, var, cnt / (cnt - 1.0).clamp_min(1.0)
 
 
 def mlp(channels: Sequence[int], *, dtype: torch.dtype,

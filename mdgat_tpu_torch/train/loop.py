@@ -67,12 +67,19 @@ def create_train_state(config: Config, *, device, seed: Optional[int] = None,
     return TrainState(model, torch.optim.Adam(model.parameters(), lr=lr))
 
 
-def make_train_step() -> Callable[[TrainState, Dict[str, torch.Tensor]],
-                                  Tuple[TrainState, Dict[str, torch.Tensor]]]:
+def make_train_step(group=None) -> Callable[
+        [TrainState, Dict[str, torch.Tensor]],
+        Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns ``step(state, batch) -> (state, metrics)``. ``batch`` holds
     the model's inputs with ground truth, on the model's device; the state
     is updated in place. ``metrics`` are 0-dim tensors on the device
-    (reading one waits for the step)."""
+    (reading one waits for the step). With ``group`` (a
+    ``parallel.DataParallelGroup``) ``batch`` is this rank's share of the
+    global batch and the step is
+    ``parallel/smap.py::make_data_parallel_train_step``'s."""
+    if group is not None:
+        from mdgat_tpu_torch.parallel.smap import make_data_parallel_train_step
+        return make_data_parallel_train_step(group)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model, opt = state.model, state.optimizer

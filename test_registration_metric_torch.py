@@ -15,7 +15,10 @@ and the ``[timing]`` lines in the formats of
         --batch_size 8 --max_pairs 16
 
 ``--device`` defaults to ``cuda`` (absent: an error); batches run through
-``eval/runner.py::EvalPipeline`` as in ``test_torch.py``.
+``eval/runner.py::EvalPipeline`` as in ``test_torch.py``. As W processes
+each rank evaluates a contiguous block of the pairs; the meters' update
+histories are merged on rank 0 in rank order (bit-equal to one sequential
+pass), and rank 0 alone prints the summary.
 """
 
 import time
@@ -33,28 +36,35 @@ def main(argv=None):
     ``matches0``), ``baned_data``, ``n_pairs``, ``n_batches``, ``seconds``
     and ``first_batch_s``."""
     from mdgat_tpu_torch.cli import (build_parser, config_from_args,
-                                     maybe_generate_synthetic)
+                                     maybe_generate_synthetic,
+                                     setup_distributed)
     args = build_parser("test").parse_args(argv)
     cfg = config_from_args(args, "test")
 
-    from mdgat_tpu_torch.eval import (AverageMeter, registration_batch_metrics,
+    from mdgat_tpu_torch.eval import (AverageMeter, merge_meter_records,
+                                      pack_meter_records,
+                                      registration_batch_metrics,
                                       registration_summary)
     from mdgat_tpu_torch.eval.runner import (eval_model, eval_pipeline,
                                              timing_lines)
+    from mdgat_tpu_torch.parallel import allgather_host_vector, is_primary
 
+    device, group = setup_distributed(cfg, args)
     cfg = maybe_generate_synthetic(cfg, args)
-    model, source = eval_model(cfg, args.device)
+    model, source = eval_model(cfg, device)
     if source == "missing":
         print(f"[warn] checkpoint not found ({cfg.resume_model}); using "
               "random init — metrics will be near-chance")
     elif source == "none":
         print("[warn] no checkpoint; random init")
 
-    meters = {k: AverageMeter() for k in METER_KEYS}
+    multi = group is not None
+    meters = {k: AverageMeter(record=multi) for k in METER_KEYS}
     baned_data = 0
     n_pairs = 0
     records = []
-    pipeline = eval_pipeline(cfg, model, args.device, ("matches0",))
+    pipeline = eval_pipeline(cfg, model, device, ("matches0",), split=multi,
+                             max_pairs=args.max_pairs)
     t0 = time.time()
     t_first = None  # first completed batch (start-up), reported apart
     n_batches = 0
@@ -116,9 +126,19 @@ def main(argv=None):
                         mm["tp_rate"]))
             print(rec["line"])
 
-        if args.max_pairs and n_pairs >= args.max_pairs:
+        if not multi and args.max_pairs and n_pairs >= args.max_pairs:
             break
 
+    dt = time.time() - t0
+    result = dict(pairs=records, n_batches=n_batches, seconds=dt)
+    if multi:
+        states = allgather_host_vector(pack_meter_records(
+            [baned_data, n_pairs], meters, METER_KEYS))
+        if not is_primary():
+            return dict(result, summary=None, baned_data=baned_data,
+                        n_pairs=n_pairs, first_batch_s=None)
+        head, meters = merge_meter_records(states, METER_KEYS)
+        baned_data, n_pairs = int(head[0]), int(head[1])
     s = registration_summary(meters)
     print("repeatibility, inlier, RR || precision(inlier ratio), recall, "
           "F1 || fp_rate, tp_rate || RTE, RRE")
@@ -128,12 +148,10 @@ def main(argv=None):
               s["recall"], s["F1"], s["fp_rate"], s["tp_rate"],
               s["RTE"], s["RRE"]))
     print("baned_data {}".format(baned_data / max(n_pairs, 1)))
-    dt = time.time() - t0
     first = None if t_first is None else t_first - t0
-    for line in timing_lines(n_pairs, dt, first, n_batches):
+    for line in timing_lines(len(records), dt, first, n_batches):
         print(line)
-    return dict(summary=s, pairs=records, baned_data=baned_data,
-                n_pairs=n_pairs, n_batches=n_batches, seconds=dt,
+    return dict(result, summary=s, baned_data=baned_data, n_pairs=n_pairs,
                 first_batch_s=first)
 
 

@@ -17,6 +17,12 @@ absent is an error). Pairs are evaluated in batches of ``--batch_size``
 through ``eval/runner.py::EvalPipeline`` (host batches on a thread, one
 readback a batch, one batch behind); the metrics are host numpy at float64
 (``eval/metrics.py``), computed from the host keypoints of each batch.
+
+As W processes (``torchrun`` or ``--coordinator_address / --num_processes
+/ --process_id``), each rank evaluates a contiguous block of the pairs on
+its own device, and the per-pair records are merged on rank 0, which alone
+prints the aggregate lines: the same lines as one process over the same
+pairs.
 """
 
 import time
@@ -77,16 +83,19 @@ def main(argv=None):
     ``mm``, ``pm`` and the pair's valid ``matches0``), ``n_pairs``,
     ``n_batches``, ``seconds`` and ``first_batch_s``."""
     from mdgat_tpu_torch.cli import (build_parser, config_from_args,
-                                     maybe_generate_synthetic)
+                                     maybe_generate_synthetic,
+                                     setup_distributed)
     args = build_parser("test").parse_args(argv)
     cfg = config_from_args(args, "test")
 
     from mdgat_tpu_torch.eval import TestEvalAccumulator
     from mdgat_tpu_torch.eval.runner import (eval_model, eval_pipeline,
                                              timing_lines)
+    from mdgat_tpu_torch.parallel import allgather_host_vector, is_primary
 
+    device, group = setup_distributed(cfg, args)
     cfg = maybe_generate_synthetic(cfg, args)
-    model, source = eval_model(cfg, args.device)
+    model, source = eval_model(cfg, device)
     if source == "missing":
         print(f"[warn] checkpoint not found ({cfg.resume_model}); using "
               "random init — metrics will be near-chance")
@@ -98,7 +107,11 @@ def main(argv=None):
 
     fetch = (("matches0", "matching_scores0") if args.visualize
              else ("matches0",))
-    pipeline = eval_pipeline(cfg, model, args.device, fetch)
+    # several ranks: this rank's contiguous block of the pairs, the cap
+    # applied to the global prefix first
+    pipeline = eval_pipeline(cfg, model, device, fetch,
+                             split=group is not None,
+                             max_pairs=args.max_pairs)
     acc = TestEvalAccumulator()
     records = []
     t0 = time.time()
@@ -126,10 +139,17 @@ def main(argv=None):
             print(line)
             if args.visualize and status in ("ok", "ok_nopose"):
                 _plot(batch, out, b, args.vis_line_width)
-        if args.max_pairs and acc.n_pairs >= args.max_pairs:
+        if group is None and args.max_pairs and acc.n_pairs >= args.max_pairs:
             break
 
     dt = time.time() - t0
+    result = dict(pairs=records, n_pairs=acc.n_pairs, n_batches=n_batches,
+                  seconds=dt)
+    if group is not None:
+        states = allgather_host_vector(acc.state_vector())
+        if not is_primary():
+            return dict(result, summary=None, first_batch_s=None)
+        acc = TestEvalAccumulator.from_state_vectors(states)
     mean = acc.summary()
     print(
         "average repeatibility: {:.3f}, inlier_mean {:.3f}, "
@@ -145,11 +165,9 @@ def main(argv=None):
             mean["rot_error"]))
     print("baned_data {}".format(mean["baned_rate"]))
     first = None if t_first is None else t_first - t0
-    for line in timing_lines(acc.n_pairs, dt, first, n_batches):
+    for line in timing_lines(result["n_pairs"], dt, first, n_batches):
         print(line)
-    return dict(summary=mean, pairs=records, n_pairs=acc.n_pairs,
-                n_batches=n_batches, seconds=dt,
-                first_batch_s=first)
+    return dict(result, summary=mean, first_batch_s=first)
 
 
 if __name__ == "__main__":

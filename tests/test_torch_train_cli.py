@@ -37,9 +37,9 @@ SIZE = ["--l", "2", "--max_keypoints", "64", "--batch_size", "4",
 NOT_PORTED = {"data_parallel", "seq_parallel", "use_pallas",
               "pallas_attention", "scan_gnn_pairs", "pallas_exact_topk",
               "pallas_train_layer", "pallas_loss", "pallas_interpret",
-              "shard_map", "platform", "coordinator_address", "num_processes",
-              "process_id", "debug_nans", "trace_dir", "ship_bf16"}
-PORT_ONLY = {"device", "use_kernels", "train_layer", "loss_kernel"}
+              "shard_map", "platform", "debug_nans", "trace_dir", "ship_bf16"}
+PORT_ONLY = {"device", "use_kernels", "train_layer", "loss_kernel",
+             "dist_backend"}
 
 
 @pytest.mark.parametrize("preset", ["train", "test"])

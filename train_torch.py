@@ -16,6 +16,19 @@ absent is an error, nothing carries on on the CPU). Host batches are
 assembled a few ahead on a thread (``--prefetch``); descriptor normalisation
 and the ground-truth correspondences run on the device; losses stay on the
 device until the epoch ends.
+
+Data-parallel training: W processes, one rank and one device each, started
+by ``torchrun --nproc_per_node W train_torch.py ...`` or with
+``--coordinator_address host:port --num_processes W --process_id r`` on each.
+Every rank loads its ``batch_size / W`` rows of each global batch and runs
+``parallel/smap.py``'s step (global BatchNorm statistics, averaged
+gradients); the validation loss is averaged over the ranks, so every rank
+takes the same best-model decision, and rank 0 alone writes the logs and
+the checkpoints.
+
+    python3 train_torch.py --synthetic true --train_path /tmp/kd/ \
+        --device cpu --batch_size 8 --coordinator_address 127.0.0.1:29500 \
+        --num_processes 2 --process_id 0      # and --process_id 1
 """
 
 import os
@@ -64,7 +77,8 @@ def main(argv=None):
     loop (synchronised at the epoch end), the phase timer's summary and the
     final ``TrainState``."""
     from mdgat_tpu_torch.cli import (build_parser, config_from_args,
-                                     maybe_generate_synthetic)
+                                     maybe_generate_synthetic,
+                                     setup_distributed)
     args = build_parser("train").parse_args(argv)
     cfg = config_from_args(args, "train")
 
@@ -74,21 +88,29 @@ def main(argv=None):
                                                prepare_batch)
     from mdgat_tpu_torch.data.prefetch import prefetch_batches
     from mdgat_tpu_torch.models.mdgat import torch_dtype
+    from mdgat_tpu_torch.parallel import (all_reduce, process_batch_rows,
+                                          replicate)
     from mdgat_tpu_torch.train import (create_train_state, make_eval_step,
                                        make_train_step)
     from mdgat_tpu_torch.utils import PhaseTimer, ScalarLogger
 
+    device, group = setup_distributed(cfg, args)
+    # host-side side effects (logs, checkpoints) belong to rank 0; every
+    # rank holds the same state and metrics
+    primary = group is None or group.rank == 0
+    # each rank's contiguous rows of every global batch; W must divide it
+    batch_rows = None if group is None else process_batch_rows(cfg.batch_size)
     cfg = maybe_generate_synthetic(cfg, args)
 
     log_path = cfg.run_dir("./logs")
     model_out_path = cfg.run_dir(cfg.model_out_path)
-    os.makedirs(log_path, exist_ok=True)
-    os.makedirs(model_out_path, exist_ok=True)
+    if primary:
+        os.makedirs(log_path, exist_ok=True)
+        os.makedirs(model_out_path, exist_ok=True)
     print(f"Train {cfg.net} | k={cfg.k} | descriptor={cfg.descriptor} | "
           f"loss={cfg.loss_method} | dataset={cfg.dataset}\n"
           f"model_out_path: {model_out_path}\nlog_path: {log_path}")
 
-    device = torch.device(args.device)
     start_epoch, best_loss = 1, 1e6
     if cfg.resume:
         state, meta, best_loss = resolve_resume(cfg, device)
@@ -97,6 +119,8 @@ def main(argv=None):
               f"loss {meta['loss']:.4f}, lr {lr}")
     else:
         state = create_train_state(cfg, device=device, seed=cfg.seed)
+    if group is not None:
+        replicate(state.model, group)
 
     train_set = SparseDataset(cfg, "train")
     val_set = SparseDataset(cfg, "val")
@@ -109,10 +133,10 @@ def main(argv=None):
             batch, cfg.threshold, cfg.mutual_check, device, compute_dtype,
             gt_dtype))
 
-    train_step = make_train_step()
+    train_step = make_train_step(group)
     eval_step = make_eval_step(state.model)
     timer = PhaseTimer()
-    logger = ScalarLogger(log_path)
+    logger = ScalarLogger(log_path) if primary else None
     summary = {"epoch_loss": [], "val_loss": [], "checkpoints": [],
                "steps": [], "train_loop_s": []}
     print(f"device: {device} | use_kernels: {cfg.use_kernels} | train_layer: "
@@ -130,7 +154,8 @@ def main(argv=None):
             # surface in this loop
             for batch in prefetch_batches(
                     lambda: train_set.batches(cfg.batch_size, shuffle=True,
-                                              seed=cfg.seed + epoch),
+                                              seed=cfg.seed + epoch,
+                                              rows=batch_rows),
                     cfg.prefetch):
                 with timer("prepare"):
                     prepared = prepare(batch)
@@ -149,13 +174,21 @@ def main(argv=None):
             # validation (reference: every epoch on seq 9, train.py:263-285)
             val_losses = []
             for batch in prefetch_batches(
-                    lambda: val_set.batches(cfg.batch_size, shuffle=False),
+                    lambda: val_set.batches(cfg.batch_size, shuffle=False,
+                                            rows=batch_rows),
                     cfg.prefetch):
                 with timer("validation"):
                     val_losses.append(eval_step(prepare(batch))["loss"].mean())
                 if args.steps_per_epoch and len(val_losses) >= max(
                         1, args.steps_per_epoch // 4):
                     break
+            if group is not None and val_losses:
+                # each rank's batches hold its rows: the mean over the ranks
+                # is the global batches' mean, and every rank takes the same
+                # best-model decision on it
+                mine = torch.stack(val_losses).mean()
+                val_losses = [all_reduce(mine, group.group, "val_loss")
+                              / group.world]
             mean_val_loss = _mean_loss(val_losses, float("inf"))
             dt = time.time() - t_epoch
             print(f"Epoch [{epoch}/{cfg.epoch}] {dt:.1f}s | epoch_loss "
@@ -168,18 +201,20 @@ def main(argv=None):
                             f"(val_loss{best_loss}).pth")
             else:
                 out_file = f"{model_out_path}/model_epoch_{epoch}.pth"
-            # all five reference checkpoint fields, the optimizer state and
-            # the current lr included (train.py:288-294)
-            save_train_checkpoint(out_file, state, epoch=epoch,
-                                  loss=mean_val_loss)
-            print(f"Checkpoint saved to {out_file}")
-            logger.add_scalar("Train/val_loss", mean_val_loss, epoch)
-            logger.add_scalar("Train/epoch_loss", epoch_loss, epoch)
+            if primary:
+                # all five reference checkpoint fields, the optimizer state
+                # and the current lr included (train.py:288-294)
+                save_train_checkpoint(out_file, state, epoch=epoch,
+                                      loss=mean_val_loss)
+                print(f"Checkpoint saved to {out_file}")
+                logger.add_scalar("Train/val_loss", mean_val_loss, epoch)
+                logger.add_scalar("Train/epoch_loss", epoch_loss, epoch)
+                summary["checkpoints"].append(out_file)
             summary["epoch_loss"].append(epoch_loss)
             summary["val_loss"].append(mean_val_loss)
-            summary["checkpoints"].append(out_file)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
     print(timer.report())
     summary["timer"] = timer.summary()
