@@ -108,8 +108,11 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    ``loss_kernel=True``);
 8. the training entry point: a synthetic KITTI-layout dataset is written
    under ``chip_smoke_out/`` (9 sequences, 512 keypoints a frame, 64 pairs a
-   sequence) and ``train_torch.main`` runs on it at full width (batch 64,
-   512 keypoints, 2 epochs of 3 steps, ``--loss_kernel true``), counters
+   sequence); the native keypoint loader builds, and two batches through it
+   equal the numpy path's bit for bit; ``train_torch.main`` runs on it at
+   full width on the disk path (batch 64, 512 keypoints, 2 epochs of 3
+   steps, ``--loss_kernel true``, ``--memory_is_enough false``: the native
+   loader must read batches), counters
    zeroed just before and read just after: per train step 36 whole-layer
    forwards, 36 backwards, 1 Sinkhorn forward, 1 backward, 1 gap-loss
    forward, 1 backward; per validation step 36 eval-layer calls, 1
@@ -151,7 +154,26 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    batches of 64 (each rank's batches the one-process run's batches 1-2 or
    3-4: every pair's matches bit-equal, rank 0's aggregate lines equal to
    the one-process run's, rank 1's none).
-11. wide clouds (more than 1024 keypoints): every wide arm against its twin
+11. context parallelism (the ``seq`` axis): the whole-layer train kernels
+   against their twin at a seq member's shape (64 x 256 query rows against
+   512 keys, ragged; half the query blocks, then every one, all padding);
+   the flagship step as one data row of two seq ranks (each 256 of the 512
+   keypoints of the same three global batches) and as 2 x 2 ranks (one
+   step), subprocesses of this script over gloo on the one device, against
+   phase 10's one-process steps within the training tolerances, every rank
+   ``torch.equal``, launches per step equal to one process's, collectives
+   exact (phase 10's, plus one input gather, one key gather a GNN layer
+   each way, one tail gather each way), each rank's step ms and the time
+   of its gathers; one step of the fused-MHA route (``train_layer=False``)
+   as 1 x 2 seq ranks against the same step in one process; the eval forward at 64 x 256 as two seq ranks against
+   one process (agreement >= 99.9%, matching scores within 1e-5 where the
+   matches agree, and whether the outputs are bit-equal); then
+   ``train_torch.py``, ``test_torch.py`` and
+   ``test_registration_metric_torch.py`` with ``--seq_parallel 2`` as two
+   ranks (the train losses the train_cli phase's first epoch's; rank 0's
+   aggregate lines phase 10's one-process lines, rank 0 recording every
+   pair and rank 1 none).
+12. wide clouds (more than 1024 keypoints): every wide arm against its twin
    at 1025, 1500 and 4096 keys or columns with ragged masks: the attention
    forward (k = 128, 64, dense; lse; exact scores with thr equal to the
    twin's bit for bit; an all-masked entry; the slab in its global scratch
@@ -167,7 +189,7 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    (loss, grad_norm), each with the counters zeroed just before and read
    just after (36 layers and 1 Sinkhorn a forward; 36 whole-layer forwards
    and backwards, 36 attention backwards, 1 + 1 Sinkhorn a step).
-12. descriptors: the learned-descriptor modes and the FPFH variants at the
+13. descriptors: the learned-descriptor modes and the FPFH variants at the
    published widths (D=128, 4 heads, L=9, the default k-schedule, 20
    Sinkhorn iterations, the reference's SSG / MSG radii, samples and
    channels) on raw clouds of 16384 x 8 points around the keypoints: the
@@ -1357,28 +1379,50 @@ def check_fused_mha(rng, dev, report):
     report["fused_mha_bwd"]["max_abs_err"] = worst_g
 
 
+# profiler windows a name needed in kernel_ms_by_name, by name, this run
+PROFILER_WINDOWS: dict = {}
+PROFILER_MAX_WINDOWS = 3
+
+
 def kernel_ms_by_name(fn, names, reps: int = 5):
     """Device ms a launch of each kernel whose name contains one of
     ``names``, from torch.profiler over ``reps`` calls of ``fn`` (after one
-    call outside the window): ``{name: (ms a launch, launches)}``."""
+    call outside the window): ``{name: (ms a launch, launches)}``. A window
+    in which the profiler recorded no launch of a name (it happens now and
+    then after the kernel ran) is taken again, up to PROFILER_MAX_WINDOWS
+    windows, the card synchronised before each, as
+    ``tools/torch_step_times.py`` does; the windows each name needed are
+    printed and kept in PROFILER_WINDOWS."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    out, needed = {}, {}
+    for window in range(1, PROFILER_MAX_WINDOWS + 1):
         torch.cuda.synchronize()
-    out = {}
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        for name in names:
+            if name in out:
+                continue
+            hits = [e for e in events if name in e.key]
+            count = sum(e.count for e in hits)
+            if count:
+                total = sum(e.self_device_time_total for e in hits) / 1e3
+                out[name], needed[name] = (total / count, count), window
+        if len(out) == len(names):
+            break
+    print("profiler windows needed: " + ", ".join(
+        f"{name} {needed.get(name, 'none of ' + str(PROFILER_MAX_WINDOWS))}"
+        for name in names))
     for name in names:
-        hits = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and name in e.key]
-        count = sum(e.count for e in hits)
-        total = sum(e.self_device_time_total for e in hits) / 1e3
-        require(count > 0, f"the profiler saw no {name} launch")
-        out[name] = (total / count, count)
+        require(name in out, f"the profiler saw no {name} launch in "
+                             f"{PROFILER_MAX_WINDOWS} windows")
+        PROFILER_WINDOWS.setdefault(name, []).append(needed[name])
     return out
 
 
@@ -1588,12 +1632,14 @@ def check_sinkhorn_bwd(rng, dev, report, card):
     report["_sinkhorn_bwd_sweep"] = sweep
 
 
-def train_layer_case(rng, dev, b, n, m, d, heads, k, selfattn, seed, dt):
+def train_layer_case(rng, dev, b, n, m, d, heads, k, selfattn, seed, dt,
+                     row_mask=None):
     """One whole-layer comparison, kernels against twin on the card, with
-    ragged key and row masks: (worst forward error, worst error of bwd1's
-    six outputs, worst of the twelve non-zero gradients, worst of the four
-    that are zero in exact arithmetic, selection gap, rows left out,
-    rows)."""
+    ragged key and row masks (``row_mask`` [b, n] in place of the drawn
+    one): (worst forward error, worst error of bwd1's six outputs, worst of
+    the non-zero gradients, worst of those that are zero in exact
+    arithmetic: the four bias gradients bk, bv, bm, b1, or bk alone when
+    no row is valid, selection gap, rows left out, rows)."""
     import torch
     from mdgat_tpu_torch.ops.cuda import train_layer as T
 
@@ -1607,7 +1653,9 @@ def train_layer_case(rng, dev, b, n, m, d, heads, k, selfattn, seed, dt):
     src = x if selfattn else t(b, m, d)
     m = src.shape[1]
     kv_mask = ragged_mask(rng, b, m, int(0.78 * m), dev)
-    row_mask = kv_mask if selfattn else ragged_mask(rng, b, n, int(0.78 * n), dev)
+    if row_mask is None:
+        row_mask = (kv_mask if selfattn
+                    else ragged_mask(rng, b, n, int(0.78 * n), dev))
 
     (y, mean, var, h1, thr, lse, ssum,
      ssq) = T.fused_train_layer_forward(x, src, kv_mask, row_mask, k, heads, *w)
@@ -1672,6 +1720,11 @@ def train_layer_case(rng, dev, b, n, m, d, heads, k, selfattn, seed, dt):
             "train-layer backward: non-finite gradient")
     first_w = 1 if selfattn else 2
     zero = [first_w + i for i in (3, 5, 7, 9)]            # bk, bv, bm, b1
+    if not bool(row_mask.any()):
+        # no valid row: the batch mean is 0, not the rows' mean, so the
+        # gradients of bv, bm and b1 are not zero (bk's still is): held
+        # relative, as the other gradients are
+        zero = zero[:1]
     grad_err = max(_rel_err(a.float(), r.float()) for i, (a, r) in
                    enumerate(zip(grads, grads_ref)) if i not in zero)
     zero_err = max((grads[i] - grads_ref[i]).abs().max().item() for i in zero)
@@ -2764,6 +2817,32 @@ def train_timings(rng, dev, report, card, state, mha_state, plain_state, batch):
 CLI_EPOCHS, CLI_STEPS = 2, 3
 
 
+def native_loader_parity(root, kp_dir):
+    """The native loader builds on this machine, and the first batches of
+    the train split through it equal the numpy path's, bit for bit."""
+    from mdgat_tpu_torch.core.config import train_defaults
+    from mdgat_tpu_torch.data.pipeline import SparseDataset
+    from mdgat_tpu_torch.native import native_available
+    require(native_available(), "the native loader did not build (g++)")
+    ds = SparseDataset(train_defaults(
+        train_path=root, keypoints_path=kp_dir, memory_is_enough=False,
+        txt_path=os.path.join(root, "preprocess-random-full")), "train")
+    t0 = time.perf_counter()
+    fast = [b for b, _ in zip(ds.batches(64, shuffle=True, seed=1), range(2))]
+    t1 = time.perf_counter()
+    slow = [b for b, _ in zip(ds.batches(64, shuffle=True, seed=1,
+                                         use_native=False), range(2))]
+    t2 = time.perf_counter()
+    for a, b in zip(fast, slow):
+        require(sorted(a) == sorted(b) and all(
+            a[k] == b[k] if k == "sequence" else np.array_equal(a[k], b[k])
+            and a[k].dtype == b[k].dtype for k in b),
+            "native loader: a batch differs from the numpy path's")
+    print(f"native loader: 2 train batches of 64 pairs x 512 keypoints equal "
+          f"to the numpy path's bit for bit; host time {1e3 * (t1 - t0) / 2:.1f} "
+          f"ms a batch (numpy path {1e3 * (t2 - t1) / 2:.1f} ms)")
+
+
 def train_cli(dev, report, counters, card):
     """``train_torch.main`` on the card at full width, over a synthetic
     KITTI-layout dataset written here: launch counts per train and
@@ -2777,6 +2856,7 @@ def train_cli(dev, report, counters, card):
     from mdgat_tpu_torch.core.checkpoint import load_train_checkpoint
     from mdgat_tpu_torch.core.config import train_defaults
     from mdgat_tpu_torch.data.synthetic import write_synthetic_kitti
+    from mdgat_tpu_torch.native import NativeLoader
     from mdgat_tpu_torch.train import create_train_state
 
     root = os.path.join(OUT_DIR, "kitti_synthetic")
@@ -2792,21 +2872,32 @@ def train_cli(dev, report, counters, card):
     def run(loss_kernel: bool):
         out = os.path.join(OUT_DIR, f"checkpoint_loss_kernel_{loss_kernel}")
         shutil.rmtree(out, ignore_errors=True)
+        # the disk path: the keypoint files of every batch through the
+        # native loader's threads
         argv = ["--train_path", root, "--keypoints_path", kp_dir,
                 "--txt_path", os.path.join(root, "preprocess-random-full"),
                 "--model_out_path", out, "--device", str(dev),
                 "--batch_size", "64", "--max_keypoints", "512",
                 "--epoch", str(CLI_EPOCHS), "--steps_per_epoch", str(CLI_STEPS),
-                "--seed", "0", "--loss_kernel", str(loss_kernel).lower()]
+                "--seed", "0", "--loss_kernel", str(loss_kernel).lower(),
+                "--memory_is_enough", "false"]
         torch.cuda.synchronize()
         for c in counters.values():
             c.reset()
+        native = NativeLoader.batches_loaded
         with contextlib.chdir(OUT_DIR):              # ./logs lands here
             summary = train_torch.main(argv)
         torch.cuda.synchronize()
+        summary["native_batches"] = NativeLoader.batches_loaded - native
         return summary, {name: c.read() for name, c in counters.items()}
 
+    native_loader_parity(root, kp_dir)
     summary, launches = run(True)
+    require(summary["native_batches"] > 0,
+            "train_cli: no batch came through the native loader")
+    print(f"train_cli: {summary['native_batches']} batches read by the "
+          f"native loader (train, validation and the prefetch thread's "
+          f"look-ahead)")
     n_train = sum(summary["steps"])
     n_val = CLI_EPOCHS * max(1, CLI_STEPS // 4)
     print(f"train_cli, --loss_kernel true: {n_train} train steps and {n_val} "
@@ -3115,21 +3206,23 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def dp_flags(rank: int, port: int):
+def dp_flags(rank: int, port: int, world: int = DP_WORLD, seq: int = 1):
     return ["--coordinator_address", f"127.0.0.1:{port}", "--num_processes",
-            str(DP_WORLD), "--process_id", str(rank), "--dist_backend", "gloo"]
+            str(world), "--process_id", str(rank), "--dist_backend", "gloo",
+            "--seq_parallel", str(seq)]
 
 
-def start_ranks(job, label, argv=()):
-    """``job`` as DP_WORLD rank processes of this script (``--rank-worker``),
-    each writing ``chip_smoke_out/dp_<label>_rank<r>.{log,pt}``."""
+def start_ranks(job, label, argv=(), world: int = DP_WORLD, seq: int = 1):
+    """``job`` as ``world`` rank processes of this script
+    (``--rank-worker``), ``world / seq`` data rows of ``seq`` members, each
+    writing ``chip_smoke_out/dp_<label>_rank<r>.{log,pt}``."""
     port = free_port()
     procs = []
-    for r in range(DP_WORLD):
+    for r in range(world):
         log = open(os.path.join(OUT_DIR, f"dp_{label}_rank{r}.log"), "w")
         procs.append((subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--rank-worker", job,
-             label, str(r), str(port), *argv],
+             label, str(r), str(port), str(world), str(seq), *argv],
             stdout=log, stderr=subprocess.STDOUT), log))
     return label, procs
 
@@ -3157,46 +3250,53 @@ def finish_ranks(handle, timeout: float = 600.0):
                 f"data_parallel {label}: rank {r} exited {p.returncode} "
                 f"(chip_smoke_out/dp_{label}_rank{r}.log)")
     return [torch.load(os.path.join(OUT_DIR, f"dp_{label}_rank{r}.pt"),
-                       weights_only=False) for r in range(DP_WORLD)]
+                       weights_only=False) for r in range(len(procs))]
 
 
-def dp_batch(i, dev, rows=None):
-    """Global batch ``i`` of the phase (64 pairs x 512 keypoints, seeded), or
-    the rows ``rows`` of it, prepared on ``dev``."""
+def dp_batch(i, dev, rows=None, seq_block=None, n_points=512):
+    """Global batch ``i`` of the phase (64 pairs x ``n_points`` keypoints,
+    seeded), or the rows ``rows`` of it, prepared on ``dev`` (the ground
+    truth on the whole clouds), then seq member ``s``'s block of ``S`` of
+    the keypoints with ``seq_block`` ``(s, S)``."""
     from mdgat_tpu_torch.data.pipeline import (collate_pairs, model_inputs,
                                                prepare_batch)
     from mdgat_tpu_torch.data.synthetic import SyntheticDataset
     from mdgat_tpu_torch.parallel import shard_batch
-    host = collate_pairs(SyntheticDataset(n_pairs=64, n_points=512,
+    host = collate_pairs(SyntheticDataset(n_pairs=64, n_points=n_points,
                                           seed=DP_SEED + i).pairs,
-                         max_keypoints=512)
+                         max_keypoints=n_points)
     if rows is not None:
         host = shard_batch(host, rows)
-    return model_inputs(prepare_batch(host, 0.5, False, dev))
+    return shard_batch(model_inputs(prepare_batch(host, 0.5, False, dev)),
+                       seq_block=seq_block)
 
 
-def dp_steps(dev, group=None):
-    """DP_STEPS steps of the flagship model from seeded weights on the
-    phase's global batches (this rank's rows of them with ``group``), the
-    counters zeroed just before each step and read just after: per step
-    (loss, grad_norm, ms by the host clock to the synchronised end, kernel
-    launches, collectives), and the final state."""
+def dp_steps(dev, group=None, steps=DP_STEPS, train_layer=True):
+    """``steps`` steps of the flagship model (on the fused-MHA route with
+    ``train_layer`` False) from seeded weights on the phase's global
+    batches (this rank's rows of them with ``group``, and its keypoint
+    block under a seq axis), the counters zeroed just before each step and
+    read just after: per step (loss, grad_norm, ms by the host clock to the
+    synchronised end, kernel launches, collectives), and the final
+    state."""
     import torch
     from mdgat_tpu_torch.core.config import train_defaults
     from mdgat_tpu_torch.parallel import (collective_counts,
                                           process_batch_rows, replicate)
     from mdgat_tpu_torch.train import create_train_state, make_train_step
-    cfg = train_defaults()
+    cfg = train_defaults(train_layer=train_layer)
     state = create_train_state(cfg, device=dev, seed=0)
-    rows = None
+    rows, block = None, None
     if group is not None:
         replicate(state.model, group)
-        rows = process_batch_rows(cfg.batch_size)
+        rows = process_batch_rows(cfg.batch_size, group.seq)
+        if group.seq > 1:
+            block = (group.seq_index, group.seq)
     step = make_train_step(group)
     counters = make_counters()
     out = []
-    for i in range(DP_STEPS):
-        batch = dp_batch(i, dev, rows)
+    for i in range(steps):
+        batch = dp_batch(i, dev, rows, block)
         torch.cuda.synchronize()
         for c in counters.values():
             c.reset()
@@ -3213,60 +3313,78 @@ def dp_steps(dev, group=None):
 
 
 def timed_collectives(state, group, dev):
-    """One more step with every all-reduce timed by the host clock, the
-    card synchronised before and after each: (step ms, ms in the
-    all-reduces, their count)."""
+    """One more step with every all-reduce and all-gather timed by the host
+    clock, the card synchronised before and after each: (step ms, ms in the
+    all-reduces, their count, ms in the gathers, their count); a gather's
+    backward is an all-reduce."""
     import torch
     import torch.distributed as dist
     from mdgat_tpu_torch.parallel import process_batch_rows
     from mdgat_tpu_torch.train import make_train_step
-    batch = dp_batch(0, dev, process_batch_rows(64))
-    spent = []
-    untimed = dist.all_reduce
+    block = (group.seq_index, group.seq) if group.seq > 1 else None
+    batch = dp_batch(0, dev, process_batch_rows(64, group.seq), block)
+    spent = {"all_reduce": [], "all_gather": []}
+    untimed = {name: getattr(dist, name) for name in spent}
 
-    def timed(t, *args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        work = untimed(t, *args, **kw)
-        torch.cuda.synchronize()
-        spent.append(time.perf_counter() - t0)
-        return work
+    def timer(name):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            work = untimed[name](*args, **kw)
+            torch.cuda.synchronize()
+            spent[name].append(time.perf_counter() - t0)
+            return work
+        return timed
 
     torch.cuda.synchronize()
-    dist.all_reduce = timed
+    for name in spent:
+        setattr(dist, name, timer(name))
     try:
         t0 = time.perf_counter()
         make_train_step(group)(state, batch)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
     finally:
-        dist.all_reduce = untimed
-    return 1e3 * step_s, 1e3 * sum(spent), len(spent)
+        for name, fn in untimed.items():
+            setattr(dist, name, fn)
+    red, gat = spent["all_reduce"], spent["all_gather"]
+    return 1e3 * step_s, 1e3 * sum(red), len(red), 1e3 * sum(gat), len(gat)
 
 
 def rank_worker(argv) -> int:
-    """One rank of the data_parallel phase: ``job`` is ``step`` (the
-    training step on this rank's rows), or ``train`` / ``test`` /
-    ``registration`` (that entry point's ``main`` with the three
-    multi-process flags and ``--dist_backend gloo``). Writes its result to
+    """One rank of the data_parallel and seq_parallel phases, one of
+    ``world`` ranks in rows of ``seq``: ``job`` is ``step`` or ``step_mha``
+    (the training step, default or fused-MHA route, on this rank's rows and
+    keypoint block, as many steps as the next argument says), ``seq_eval`` (the eval forward on its keypoint block),
+    or ``train`` / ``test`` / ``registration`` (that entry point's ``main``
+    with the three multi-process flags, ``--seq_parallel`` and
+    ``--dist_backend gloo``). Writes its result to
     ``chip_smoke_out/dp_<label>_rank<r>.pt``."""
     import contextlib
     import torch
     job, label, rank, port = argv[0], argv[1], int(argv[2]), int(argv[3])
-    rest = list(argv[4:]) + dp_flags(rank, port)
-    if job == "step":
+    world, seq = int(argv[4]), int(argv[5])
+    rest = list(argv[6:]) + dp_flags(rank, port, world, seq)
+    if job in ("step", "step_mha", "seq_eval"):
         from mdgat_tpu_torch.parallel import (data_parallel_group,
                                               initialize_distributed,
                                               rank_device)
-        initialize_distributed(f"127.0.0.1:{port}", DP_WORLD, rank, "gloo")
+        initialize_distributed(f"127.0.0.1:{port}", world, rank, "gloo")
         dev = rank_device("cuda")
         torch.cuda.set_device(dev)
-        group = data_parallel_group(dev)
-        steps, state = dp_steps(dev, group)
+        group = data_parallel_group(dev, seq)
+    if job == "seq_eval":
+        result = seq_eval_rank(dev, group)
+    elif job == "step_mha":
+        steps, _ = dp_steps(dev, group, int(argv[6]), train_layer=False)
+        result = dict(device=str(dev), steps=steps)
+    elif job == "step":
+        steps, state = dp_steps(dev, group, int(argv[6]))
         result = dict(device=str(dev), steps=steps,
                       state={k: v.to("cpu", copy=True) for k, v in
                              state.model.state_dict().items()})
-        result.update(zip(("timed_step_ms", "collective_ms", "n_collectives"),
+        result.update(zip(("timed_step_ms", "collective_ms", "n_collectives",
+                           "gather_ms", "n_gathers"),
                           timed_collectives(state, group, dev)))
     else:
         import test_registration_metric_torch
@@ -3308,7 +3426,7 @@ def dp_training(dev, card, counters):
     one_state = {k: v.to("cpu", copy=True)
                  for k, v in state.model.state_dict().items()}
     del state
-    ranks = finish_ranks(start_ranks("step", "step"))
+    ranks = finish_ranks(start_ranks("step", "step", [str(DP_STEPS)]))
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
     model = MDGAT(train_defaults())
     bn_calls = 2 * sum(type(m).__name__ == "BatchNorm"
@@ -3381,7 +3499,7 @@ def dp_training(dev, card, counters):
     return dict(one_process=one,
                 ranks=[{k: v for k, v in rk.items() if k != "state"}
                        for rk in ranks],
-                collectives=want_coll, max_state_gap=gap)
+                collectives=want_coll, max_state_gap=gap), one_state
 
 
 def dp_train_cli(dev, report):
@@ -3435,12 +3553,25 @@ def dp_train_cli(dev, report):
                 wall_s=wall)
 
 
+def dp_eval_argv():
+    """The eval CLIs' flags of the data_parallel and seq_parallel phases
+    (the tree is written by dp_eval_clis)."""
+    root = os.path.join(OUT_DIR, "kitti_dp_eval")
+    return ["--train_path", root, "--keypoints_path",
+            os.path.join(root, "keypoints", "synthetic"), "--txt_path",
+            os.path.join(root, "preprocess-random-full"), "--batch_size", "64",
+            "--ensure_kpts_num", "true", "--seed", "0", "--resume_model",
+            os.path.join(OUT_DIR, "matching.pth")]
+
+
 def dp_eval_clis(dev, report):
     """``test_torch.py`` and ``test_registration_metric_torch.py`` as two
     ranks each (four processes at once) over 256 pairs in batches of 64,
     every cloud cut to 256 keypoints: each rank's batches are the
     one-process run's batches 1-2 or 3-4, so every pair's matches are
-    bit-equal, and rank 0's aggregate lines equal the one-process run's."""
+    bit-equal, and rank 0's aggregate lines equal the one-process run's.
+    Returns the phase's record and the one-process runs (aggregate lines
+    and pairs), which the seq_parallel phase is held against."""
     import contextlib
     import io
     import shutil
@@ -3449,14 +3580,11 @@ def dp_eval_clis(dev, report):
     from mdgat_tpu_torch.data.synthetic import write_synthetic_kitti
     root = os.path.join(OUT_DIR, "kitti_dp_eval")
     shutil.rmtree(root, ignore_errors=True)
-    kp_dir = write_synthetic_kitti(root, seqs=(10,), frames_per_seq=12,
-                                   pairs_per_seq=DP_EVAL_PAIRS, n_points=512,
-                                   seed=0)
-    argv = ["--train_path", root, "--keypoints_path", kp_dir, "--txt_path",
-            os.path.join(root, "preprocess-random-full"), "--batch_size", "64",
-            "--ensure_kpts_num", "true", "--seed", "0", "--resume_model",
-            os.path.join(OUT_DIR, "matching.pth")]
+    write_synthetic_kitti(root, seqs=(10,), frames_per_seq=12,
+                          pairs_per_seq=DP_EVAL_PAIRS, n_points=512, seed=0)
+    argv = dp_eval_argv()
     t0 = time.perf_counter()
+    ones = {}
     handles = {job: start_ranks(job, job, argv)
                for job in ("test", "registration")}
     out = {}
@@ -3490,6 +3618,7 @@ def dp_eval_clis(dev, report):
         for line in want:
             print(f"data_parallel {job}, rank 0 of 2 = one process: {line}")
         out[job] = dict(aggregates=want)
+        ones[job] = (want, one["pairs"])
     wall = time.perf_counter() - t0
     print(f"data_parallel eval: both CLIs as 2 ranks over {DP_EVAL_PAIRS} "
           f"pairs (128 a rank, 2 batches of 64 x 256 keypoints): every "
@@ -3497,7 +3626,7 @@ def dp_eval_clis(dev, report):
           f"aggregate lines equal, rank 1's none; {wall:.1f} s wall for the "
           f"four rank processes and the two one-process runs")
     out["wall_s"] = wall
-    return out
+    return out, ones
 
 
 def data_parallel(dev, report, counters, card):
@@ -3507,16 +3636,357 @@ def data_parallel(dev, report, counters, card):
     print("data_parallel: 2 ranks over gloo on the card's one device (NCCL "
           "refuses two ranks on one device); checks the cross-rank "
           "semantics, not NCCL and not scaling")
-    out = dict(training=dp_training(dev, card, counters))
+    training, one_state = dp_training(dev, card, counters)
+    out = dict(training=training)
     out["train_cli"] = dp_train_cli(dev, report)
-    out["eval_clis"] = dp_eval_clis(dev, report)
+    out["eval_clis"], eval_ones = dp_eval_clis(dev, report)
     out["wall_s"] = time.perf_counter() - t0
     print(f"data_parallel phase on {card}: {out['wall_s']:.1f} s wall")
     report["_data_parallel"] = out
+    return dict(steps=training["one_process"], state=one_state,
+                eval=eval_ones)
 
 
 # ---------------------------------------------------------------------------
-# phase 11: wide clouds (more than 1024 keypoints)
+# phase 11: context parallelism (the seq axis)
+# ---------------------------------------------------------------------------
+
+# ranks of one data row split each pair's keypoints; gloo on the one device,
+# as in the data_parallel phase
+SEQ, SEQ_EVAL_POINTS = 2, 256
+
+
+def seq_kernel_checks(rng, dev):
+    """The whole-layer train kernels against their twin at a seq member's
+    shape: 64 x 256 query rows against a 512-key cloud, ragged keys and
+    rows, first with half the batch's query blocks all padding (a seq
+    member holding the padded tail of short clouds), then with every one."""
+    import torch
+    half = ragged_mask(rng, 64, 256, 64, dev)
+    half[::2] = False
+    for label, rows in (("half the blocks", half),
+                        ("every block", torch.zeros_like(half))):
+        f, b1, g, z, gap, left, nrows = train_layer_case(
+            rng, dev, 64, 256, 512, 128, 4, 128, False, 70, torch.float32,
+            row_mask=rows)
+        name = f"seq_parallel train layer 64 x 256 x 512, k 128, {label} padding"
+        print(f"{name}: forward max err {f:.3e} (tol "
+              f"{TOL['train_layer_out']:g}), bwd1 sums {b1:.3e}, gradients "
+              f"{g:.3e} (tol {TOL['train_layer_grad']:g}), zero-bias "
+              f"gradients {z:.3e} (tol {TOL['train_layer_zero_grad']:g}), "
+              f"selection gap {gap:.3e}; rows left out {left} of {nrows}")
+        require(f <= TOL["train_layer_out"], f"{name}: forward disagrees")
+        require(b1 <= TOL["train_layer_grad"] and g <= TOL["train_layer_grad"]
+                and z <= TOL["train_layer_zero_grad"],
+                f"{name}: backward disagrees")
+        require(gap <= TOL["mha_selection_gap"], f"{name}: selection")
+
+
+def seq_collectives(model):
+    """The collectives of one seq training step on each rank."""
+    bn_calls = 2 * sum(type(m).__name__ == "BatchNorm"
+                       for enc in (model.kenc, model.denc)
+                       for m in enc.modules())
+    layers = len(model.gnn.layers)
+    return {"bn": DP_BN_REDUCTIONS * bn_calls,
+            "bn_backward": DP_BN_REDUCTIONS * bn_calls,
+            "layer_bn": 2 * layers, "layer_bn_backward": 2 * layers,
+            "gradients": 1, "loss": 1, "input_gather": 1,
+            "kv_gather": layers, "kv_gather_backward": layers,
+            "tail_gather": 1, "tail_gather_backward": 1}
+
+
+def seq_training(dev, card, one_process):
+    """The flagship step as 1 x 2 ranks (three steps) and as 2 x 2 ranks
+    (one step) against the one-process steps of the data_parallel phase,
+    on the same global batches from the same seeded weights."""
+    import torch
+    from mdgat_tpu_torch.core.config import train_defaults
+    from mdgat_tpu_torch.models.mdgat import MDGAT
+    one, one_state = one_process["steps"], one_process["state"]
+    want = seq_collectives(MDGAT(train_defaults()))
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+    out = {}
+    for world, steps in ((SEQ, DP_STEPS), (2 * SEQ, 1)):
+        layout = f"{world // SEQ}x{SEQ}"
+        t0 = time.perf_counter()
+        ranks = finish_ranks(start_ranks("step", f"seq_step_{layout}",
+                                         [str(steps)], world=world, seq=SEQ))
+        wall = time.perf_counter() - t0
+        rows = 64 // (world // SEQ)
+        for i in range(steps):
+            o = one[i]
+            for r, rk in enumerate(ranks):
+                st = rk["steps"][i]
+                print(f"seq_parallel {layout} step {i + 1}, rank {r} ({rows} "
+                      f"pairs x {512 // SEQ} of 512 keypoints): loss "
+                      f"{st['loss']:.6f} (one process {o['loss']:.6f}, rel "
+                      f"{rel(st['loss'], o['loss']):.2e}), grad_norm "
+                      f"{st['grad_norm']:.6f} ({o['grad_norm']:.6f}, rel "
+                      f"{rel(st['grad_norm'], o['grad_norm']):.2e})")
+                require(np.isfinite([st["loss"], st["grad_norm"]]).all(),
+                        "seq_parallel: non-finite loss")
+                require(rel(st["loss"], o["loss"]) <= TOL["train_loss_rel"]
+                        and rel(st["grad_norm"], o["grad_norm"])
+                        <= TOL["train_grad_norm_rel"],
+                        f"seq_parallel {layout} step {i + 1}, rank {r}: the "
+                        "seq step disagrees with the one-process step")
+                require(st["launches"] == o["launches"],
+                        f"seq_parallel {layout} step {i + 1}, rank {r}: "
+                        f"launches {st['launches']}, one process "
+                        f"{o['launches']}")
+                require(st["collectives"] == want,
+                        f"seq_parallel {layout} step {i + 1}, rank {r}: "
+                        f"collectives {st['collectives']}, not {want}")
+                require((st["loss"], st["grad_norm"]) ==
+                        (ranks[0]["steps"][i]["loss"],
+                         ranks[0]["steps"][i]["grad_norm"]),
+                        f"seq_parallel {layout}: the ranks' metrics differ")
+        a = ranks[0]["state"]
+        for rk in ranks[1:]:
+            for key in a:
+                require(torch.equal(a[key], rk["state"][key]),
+                        f"seq_parallel {layout}: {key} differs between ranks")
+        gap = None
+        if steps == DP_STEPS:
+            gap = max(float((a[k].double() - one_state[k].double()).abs().max())
+                      for k in a if a[k].is_floating_point())
+        print(f"seq_parallel {layout}: every parameter and running statistic "
+              f"torch.equal across the {world} ranks after {steps} step(s)"
+              + ("" if gap is None else
+                 f"; largest gap to the one-process state {gap:.3e}")
+              + f"; per step and rank the one-process launches, collectives "
+              f"{want}")
+        for r, rk in enumerate(ranks):
+            ms = " / ".join(f"{x['ms']:.2f}" for x in rk["steps"])
+            one_ms = " / ".join(f"{x['ms']:.2f}" for x in one)
+            print(f"seq_parallel times on {card}, {world} ranks sharing one "
+                  f"card, not a scaling figure: {layout} rank {r} step ms "
+                  f"{ms} (one process, 64 pairs x 512: {one_ms}); a timed "
+                  f"step "
+                  f"{rk['timed_step_ms']:.2f} ms, of it {rk['gather_ms']:.2f} "
+                  f"ms in {rk['n_gathers']} gathers and "
+                  f"{rk['collective_ms']:.2f} ms in {rk['n_collectives']} "
+                  f"all-reduces (gloo through the host, synchronised before "
+                  f"and after each)")
+        out[layout] = dict(ranks=[{k: v for k, v in rk.items()
+                                   if k != "state"} for rk in ranks],
+                           max_state_gap=gap, wall_s=wall)
+    out["collectives"] = want
+    out["fused_mha_1x2"] = seq_mha_step(dev, card, want)
+    return out
+
+
+def seq_mha_step(dev, card, want):
+    """One step of the fused-MHA route (``train_layer=False``: the
+    attention kernel pair, the MLP and BatchNorm plain) as 1 x 2 seq ranks
+    against the same step in this process."""
+    one, _ = dp_steps(dev, steps=1, train_layer=False)
+    ranks = finish_ranks(start_ranks("step_mha", "seq_step_mha", ["1"],
+                                     world=SEQ, seq=SEQ))
+    o = one[0]
+    layer_bn = want["layer_bn"]
+    want = {k: v for k, v in want.items() if not k.startswith("layer_bn")}
+    for k in ("bn", "bn_backward"):       # the layers' BatchNorms are plain
+        want[k] += DP_BN_REDUCTIONS * layer_bn
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+    for r, rk in enumerate(ranks):
+        st = rk["steps"][0]
+        print(f"seq_parallel 1x2 fused-MHA route, rank {r}: loss "
+              f"{st['loss']:.6f} (one process {o['loss']:.6f}, rel "
+              f"{rel(st['loss'], o['loss']):.2e}), grad_norm "
+              f"{st['grad_norm']:.6f} ({o['grad_norm']:.6f}, rel "
+              f"{rel(st['grad_norm'], o['grad_norm']):.2e}); "
+              f"{st['launches']['fused_mha_fwd']} + "
+              f"{st['launches']['fused_mha_bwd']} fused-MHA launches; step "
+              f"{st['ms']:.2f} ms on {card} (one process {o['ms']:.2f})")
+        require(rel(st["loss"], o["loss"]) <= TOL["train_loss_rel"]
+                and rel(st["grad_norm"], o["grad_norm"])
+                <= TOL["train_grad_norm_rel"],
+                f"seq_parallel fused-MHA route, rank {r}: disagrees with one "
+                "process")
+        require(st["launches"] == o["launches"]
+                and st["launches"]["fused_mha_fwd"] == 36,
+                f"seq_parallel fused-MHA route, rank {r}: launches "
+                f"{st['launches']}, one process {o['launches']}")
+        require(st["collectives"] == want,
+                f"seq_parallel fused-MHA route, rank {r}: collectives "
+                f"{st['collectives']}, not {want}")
+    return dict(ranks=[rk["steps"] for rk in ranks], one_process=one,
+                collectives=want)
+
+
+def seq_eval_model(dev):
+    from mdgat_tpu_torch.core.config import test_defaults
+    from mdgat_tpu_torch.eval.runner import eval_model
+    model, source = eval_model(test_defaults(resume_model=os.path.join(
+        OUT_DIR, "matching.pth")), dev)
+    require(source == "pth", "seq_parallel: matching.pth is missing")
+    return model
+
+
+def seq_eval_rank(dev, group):
+    """One rank of the seq eval check: the eval forward on this member's
+    keypoint block of the seeded 64 x 256 batch; the whole-cloud outputs,
+    the launches and the collectives of the forward."""
+    import torch
+    from mdgat_tpu_torch.parallel import collective_counts
+    from mdgat_tpu_torch.train import make_eval_step
+    model = seq_eval_model(dev)
+    batch = dp_batch(0, dev, None, (group.seq_index, group.seq),
+                     SEQ_EVAL_POINTS)
+    step = make_eval_step(model, group.seq_group)
+    step(batch)                                  # weights prepared
+    torch.cuda.synchronize()
+    counters = make_counters()
+    for c in counters.values():
+        c.reset()
+    collective_counts.clear()
+    out = step(batch)
+    torch.cuda.synchronize()
+    return dict(out={k: out[k].cpu() for k in (
+        "matches0", "matches1", "matching_scores0", "matching_scores1")},
+        launches=read_counts(counters), collectives=dict(collective_counts))
+
+
+def seq_eval(dev, counters):
+    """The eval forward at 64 x 256 as two seq ranks against one process."""
+    import torch
+    from mdgat_tpu_torch.train import make_eval_step
+    handle = start_ranks("seq_eval", "seq_eval", world=SEQ, seq=SEQ)
+    model = seq_eval_model(dev)
+    batch = dp_batch(0, dev, n_points=SEQ_EVAL_POINTS)
+    make_eval_step(model)(batch)
+    for c in counters.values():
+        c.reset()
+    one = make_eval_step(model)(batch)
+    torch.cuda.synchronize()
+    one_launches = read_counts(counters)
+    one = {k: v.cpu() for k, v in one.items()}
+    ranks = finish_ranks(handle)
+    out = {}
+    for r, rk in enumerate(ranks):
+        got = rk["out"]
+        agree = float((got["matches0"] == one["matches0"]).float().mean())
+        same = got["matches0"] == one["matches0"]
+        gap = float((got["matching_scores0"] - one["matching_scores0"])
+                    .abs()[same].max())
+        bit = all(torch.equal(got[k], one[k]) for k in got)
+        print(f"seq_parallel eval 64 x {SEQ_EVAL_POINTS}, rank {r} of {SEQ} "
+              f"({SEQ_EVAL_POINTS // SEQ} query rows a cloud): matches0 "
+              f"agreement {agree:.6f} with one process (min {MIN_AGREEMENT}),"
+              f" matching_scores0 max gap {gap:.3e} where they agree (tol "
+              f"1e-05); outputs bit-equal: {bit}; launches {rk['launches']}, "
+              f"collectives {rk['collectives']}")
+        require(agree >= MIN_AGREEMENT and gap <= 1e-5,
+                f"seq_parallel eval rank {r}: disagrees with one process")
+        require(rk["launches"] == one_launches,
+                f"seq_parallel eval rank {r}: launches {rk['launches']}, one "
+                f"process {one_launches}")
+        require(rk["collectives"] == {"input_gather": 1, "kv_gather": 18,
+                                      "tail_gather": 1},
+                f"seq_parallel eval rank {r}: collectives {rk['collectives']}")
+        out[f"rank{r}"] = dict(agreement=agree, score_gap=gap, bit_equal=bit)
+    return out
+
+
+def seq_clis(report, eval_ones):
+    """The three entry points with ``--seq_parallel 2`` as two ranks:
+    ``train_torch.py`` (1 epoch x 3 steps of 64 pairs, each rank 256 of the
+    512 keypoints) against the train_cli phase's first epoch, the eval CLIs
+    against the data_parallel phase's one-process runs: rank 0 prints their
+    aggregate lines and every pair's line, rank 1 neither."""
+    import shutil
+    root = os.path.join(OUT_DIR, "kitti_synthetic")
+    for r in range(SEQ):
+        shutil.rmtree(os.path.join(OUT_DIR, f"dp_seq_train_rank{r}"),
+                      ignore_errors=True)
+    train_argv = ["--train_path", root, "--keypoints_path",
+                  os.path.join(root, "keypoints", "synthetic"), "--txt_path",
+                  os.path.join(root, "preprocess-random-full"),
+                  "--batch_size", "64", "--max_keypoints", "512", "--epoch",
+                  "1", "--steps_per_epoch", str(CLI_STEPS), "--seed", "0",
+                  "--memory_is_enough", "false", "--model_out_path", "ck"]
+    t0 = time.perf_counter()
+    handles = {"train": start_ranks("train", "seq_train", train_argv,
+                                    world=SEQ, seq=SEQ)}
+    for job in ("test", "registration"):
+        handles[job] = start_ranks(job, f"seq_{job}", dp_eval_argv(),
+                                   world=SEQ, seq=SEQ)
+    r0, r1 = finish_ranks(handles["train"])
+    require(len(r0["checkpoints"]) == 1 and not r1["checkpoints"],
+            f"seq_parallel train: checkpoints {r0['checkpoints']} / "
+            f"{r1['checkpoints']}")
+    plain = report["_train_cli"]["plain_loss"]
+    want = (plain["epoch_loss"][0], plain["val_loss"][0])
+    got = (r0["epoch_loss"][0], r0["val_loss"][0])
+    require(r0["epoch_loss"] == r1["epoch_loss"]
+            and r0["val_loss"] == r1["val_loss"],
+            "seq_parallel train: the ranks log different losses")
+    print(f"seq_parallel train: train_torch.py --seq_parallel 2 as 2 ranks, "
+          f"{CLI_STEPS} steps of 64 pairs x 256 of 512 keypoints a rank: "
+          f"epoch_loss {got[0]:.6f}, val_loss {got[1]:.6f} (one process, "
+          f"train_cli phase epoch 1: {want[0]:.6f}, {want[1]:.6f}); rank 0 "
+          f"alone wrote the checkpoint")
+    for g, w in zip(got, want):
+        require(np.isfinite(g) and abs(g - w) <= TOL["train_loss_rel"] * abs(w),
+                "seq_parallel train: the seq run disagrees with one process")
+    out = dict(train=dict(epoch_loss=got[0], val_loss=got[1],
+                          one_process=want))
+    for job in ("test", "registration"):
+        ranks = finish_ranks(handles[job])
+        logs = []
+        for r in range(SEQ):
+            with open(os.path.join(OUT_DIR, f"dp_seq_{job}_rank{r}.log")) as f:
+                logs.append(f.read())
+        want_lines, one_pairs = eval_ones[job]
+        require(aggregate_lines(logs[0]) == want_lines,
+                f"seq_parallel {job}: rank 0's aggregate lines "
+                f"{aggregate_lines(logs[0])} differ from one process's")
+        require(not aggregate_lines(logs[1]) and ranks[1]["summary"] is None
+                and not ranks[1]["pairs"],
+                f"seq_parallel {job}: rank 1 recorded pairs or aggregates")
+        pairs = ranks[0]["pairs"]
+        require(len(pairs) == len(one_pairs) == DP_EVAL_PAIRS,
+                f"seq_parallel {job}: {len(pairs)} pairs")
+        agree = np.mean([np.array_equal(a["matches0"], b["matches0"])
+                         for a, b in zip(pairs, one_pairs)])
+        lines = sum(a["line"] == b["line"] for a, b in zip(pairs, one_pairs))
+        require(all(a["idx"] == b["idx"] for a, b in zip(pairs, one_pairs)),
+                f"seq_parallel {job}: pair order")
+        require(all(a["line"] == b["line"] for a, b in zip(pairs, one_pairs)
+                    if np.array_equal(a["matches0"], b["matches0"])),
+                f"seq_parallel {job}: equal matches, different lines")
+        require(agree >= MIN_AGREEMENT,
+                f"seq_parallel {job}: {agree:.4f} of the pairs match")
+        for line in want_lines:
+            print(f"seq_parallel {job}, rank 0 of 2 = one process: {line}")
+        print(f"seq_parallel {job}: rank 0 recorded all {len(pairs)} pairs "
+              f"({agree:.4f} of them with matches0 bit-equal to one process, "
+              f"{lines} equal lines), rank 1 none")
+        out[job] = dict(pair_agreement=float(agree), equal_lines=int(lines))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def seq_parallel(rng, dev, report, card, one_process):
+    """Phase 11: context parallelism, ranks of one data row splitting each
+    pair's keypoints, sharing the card over gloo."""
+    t0 = time.perf_counter()
+    print(f"seq_parallel: rows of {SEQ} ranks split each pair's keypoints "
+          "(gloo on the card's one device); checks the seq semantics, not "
+          "NCCL and not scaling")
+    seq_kernel_checks(rng, dev)
+    out = dict(training=seq_training(dev, card, one_process))
+    out["eval"] = seq_eval(dev, make_counters())
+    out["clis"] = seq_clis(report, one_process["eval"])
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"seq_parallel phase on {card}: {out['wall_s']:.1f} s wall")
+    report["_seq_parallel"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: wide clouds (more than 1024 keypoints)
 # ---------------------------------------------------------------------------
 
 # key / column counts of the wide arms' parity checks
@@ -3877,7 +4347,7 @@ def wide_clouds(rng, dev, report, counters, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the learned-descriptor modes and the FPFH variants
+# phase 13: the learned-descriptor modes and the FPFH variants
 # ---------------------------------------------------------------------------
 
 # the raw clouds' size in the KITTI files (kitti_randomsample_16384_n8)
@@ -4258,7 +4728,7 @@ def descriptor_clis(dev, counters, card, per_step):
 
 
 def descriptors(dev, report, counters, card):
-    """Phase 12: the learned-descriptor modes and the FPFH variants on
+    """Phase 13: the learned-descriptor modes and the FPFH variants on
     their entry points, at the published widths."""
     import torch
     t0 = time.perf_counter()
@@ -4431,7 +4901,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     eval_cli(dev, report, counters, card)
     torch.cuda.empty_cache()
-    data_parallel(dev, report, counters, card)
+    one_process = data_parallel(dev, report, counters, card)
+    torch.cuda.empty_cache()
+    seq_parallel(rng, dev, report, card, one_process)
+    del one_process
     torch.cuda.empty_cache()
     wide_clouds(rng, dev, report, counters, card)
     torch.cuda.empty_cache()
@@ -4444,6 +4917,12 @@ def main() -> int:
                for name in report if not name.startswith("_")]
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']}: never launched")
+    retried = {n: w for n, w in PROFILER_WINDOWS.items() if max(w) > 1}
+    print(f"profiler windows: {sum(map(len, PROFILER_WINDOWS.values()))} "
+          f"reads of {len(PROFILER_WINDOWS)} kernel names, "
+          f"{sum(x > 1 for w in PROFILER_WINDOWS.values() for x in w)} of "
+          f"them needed more than one window {retried}")
+    report["_profiler_windows"] = PROFILER_WINDOWS
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__,
                        cuda=torch.version.cuda, report=report), f, indent=1)

@@ -13,9 +13,11 @@ says where the model runs (``cuda`` unless asked otherwise), ``--use_kernels``
 (``core/config.py``). Its multi-process flags (``--coordinator_address``,
 ``--num_processes``, ``--process_id``) run the entry points as one rank a
 process (:func:`setup_distributed`), with ``--dist_backend`` naming the
-``torch.distributed`` backend. The flags that steer JAX, the TPU or one
-process over several devices are not ported; ``--help`` lists them in its
-epilog.
+``torch.distributed`` backend, and ``--seq_parallel S`` (the JAX name and
+default) lays the ranks out as ``W / S`` data rows of S seq members whose
+ranks split each pair's keypoints (context parallelism). The flags that
+steer JAX, the TPU or one process over several devices are not ported;
+``--help`` lists them in its epilog.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from mdgat_tpu_torch.core.config import (POINTNET_DESCRIPTORS, Config,
 _EPILOG = ("Flags of the JAX package that are not ported (they steer JAX, "
            "the TPU or one process over several devices; in the port one "
            "rank is one device): --platform, --data_parallel, "
-           "--seq_parallel, --shard_map, --use_pallas, --pallas_*, "
+           "--shard_map, --use_pallas, --pallas_*, "
            "--scan_gnn_pairs, --debug_nans, --trace_dir, --ship_bf16.")
 
 
@@ -130,6 +132,12 @@ def build_parser(preset: str) -> argparse.ArgumentParser:
                         "unless a torchrun environment is set")
     p.add_argument("--num_processes", type=int, default=d.num_processes)
     p.add_argument("--process_id", type=int, default=d.process_id)
+    p.add_argument("--seq_parallel", type=int, default=d.seq_parallel,
+                   help="multi-process: ranks per data row; the S members "
+                        "of a row split each pair's keypoints (context "
+                        "parallelism). S must divide the ranks and the "
+                        "keypoint count (--max_keypoints, or 128 for "
+                        "variable-size clouds)")
     p.add_argument("--dist_backend", type=str, default=None,
                    choices=["nccl", "gloo"],
                    help="torch.distributed backend of a multi-process run; "
@@ -180,6 +188,7 @@ def config_from_args(args, preset: str) -> Config:
         coordinator_address=args.coordinator_address,
         num_processes=args.num_processes,
         process_id=args.process_id,
+        seq_parallel=args.seq_parallel,
         seed=args.seed,
     )
     if cfg.net == "raw":
@@ -187,26 +196,53 @@ def config_from_args(args, preset: str) -> Config:
     return cfg
 
 
+def check_seq_layout(cfg: Config):
+    """Refuse, before the first step, a ``seq_parallel`` the keypoint axis
+    cannot take: S must divide ``max_keypoints`` (fixed-size clouds) or the
+    128 of the variable-size buckets, and ``FPFH_gloabal`` (whose encoder
+    pools over the whole cloud) takes no seq axis. The JAX package warns
+    and runs without shard_map there; the port raises ``ValueError``."""
+    s = cfg.seq_parallel
+    if s == 1:
+        return
+    grain = cfg.max_keypoints if cfg.ensure_kpts_num else 128
+    if s < 1 or grain % s:
+        what = ("--max_keypoints" if cfg.ensure_kpts_num
+                else "the 128 of the variable-size buckets")
+        raise ValueError(f"--seq_parallel {s} does not divide {what} "
+                         f"({grain}): set --max_keypoints / --seq_parallel so "
+                         "that every seq member holds an equal block")
+    if cfg.descriptor == "FPFH_gloabal":
+        raise ValueError("--descriptor FPFH_gloabal pools over the whole "
+                         "cloud: it cannot run with --seq_parallel > 1")
+
+
 def setup_distributed(cfg: Config, args):
     """Join the multi-process run the flags (or a torchrun environment)
     describe, before the first device use. Returns ``(device, group)``:
     this rank's device (``parallel/multihost.py::rank_device``) and its
-    ``parallel.DataParallelGroup``, or ``--device`` and None for one
-    process."""
+    ``parallel.DataParallelGroup`` over ``W / S`` data rows of
+    ``cfg.seq_parallel`` members, or ``--device`` and None for one
+    process. A seq layout the ranks or the keypoints cannot take raises
+    ``ValueError`` (:func:`check_seq_layout`)."""
     import torch
     from mdgat_tpu_torch.parallel import (data_parallel_group,
                                           initialize_distributed, rank_device)
+    check_seq_layout(cfg)
     backend = args.dist_backend or (
         "gloo" if torch.device(args.device).type == "cpu" else "nccl")
     if not initialize_distributed(cfg.coordinator_address, cfg.num_processes,
                                   cfg.process_id, backend):
+        data_parallel_group(args.device, cfg.seq_parallel)  # S > 1 raises
         return torch.device(args.device), None
     device = rank_device(args.device)
     if device.type == "cuda":
         torch.cuda.set_device(device)   # NCCL's communicator binds to it
-    group = data_parallel_group(device)
+    group = data_parallel_group(device, cfg.seq_parallel)
     print(f"multi-process: rank {group.rank}/{group.world}, device {device}, "
           f"backend {backend}")
+    print(f"rank {group.rank}/{group.world} (data {group.data_index}/"
+          f"{group.data}, seq {group.seq_index}/{group.seq})")
     return device, group
 
 

@@ -12,7 +12,10 @@ hand-written kernels of ``mdgat_tpu_torch/csrc``.
 The multi-process fields keep the JAX package's names and defaults:
 ``coordinator_address`` (``host:port``, empty for one process or a torchrun
 environment), ``num_processes`` and ``process_id``; each process is one rank
-with one device (``parallel/multihost.py``).
+with one device (``parallel/multihost.py``). ``seq_parallel`` (the JAX
+package's name and default) is the size S of the context-parallel ``seq``
+axis: the W ranks form W / S data rows of S ranks each, and the members of
+a row split the keypoints of the row's pairs.
 
 In eval mode that is the whole-layer kernels and the Sinkhorn forward. In
 training mode, with ``train_layer`` (the default, the counterpart of the JAX
@@ -95,6 +98,7 @@ class Config:
     coordinator_address: str = ""
     num_processes: int = 0
     process_id: int = -1
+    seq_parallel: int = 1           # ranks that split one pair's keypoints
 
     # ------------------------------------------------------------------
     @property

@@ -23,9 +23,13 @@ train policy, ``load_data.py:191-211``: every slot holds a real keypoint,
 masks all true); without it clouds are zero-padded to the batch's largest
 128-bucket with validity masks. :meth:`SparseDataset.batches` takes the
 JAX package's multi-process arguments: ``rows=`` (a training rank's rows of
-every global batch) and ``pair_range=`` (an eval rank's block of pairs). Of
-its ``SparseDataset`` the native threaded loader and the reduced-precision
-descriptor shipping are not ported.
+every global batch) and ``pair_range=`` (an eval rank's block of pairs). On
+the disk path (``memory_is_enough=False``, the eval presets' default)
+the keypoint files of a batch are read by the native threaded loader
+(``mdgat_tpu_torch/native``, C++ threads, built with ``g++`` at first use),
+as ``mdgat_tpu/data/pipeline.py:225-262`` reads them; where it cannot be
+built the numpy path runs, which gives the same bits. Of the JAX package's
+``SparseDataset`` the reduced-precision descriptor shipping is not ported.
 """
 
 from __future__ import annotations
@@ -204,11 +208,41 @@ class SparseDataset:
                                 // (kitti.KEYPOINT_ROW_FLOATS * 4))
         return _round_up(max(max(rows), 1), 128)
 
+    def _native_batch(self, idxs, bucket: Optional[int]) -> Optional[List]:
+        """The pairs ``idxs``, every keypoint file read by the native
+        loader's threads in one call and shaped as :meth:`get_pair` shapes
+        it (``bucket``: the variable-N pad target; ``max_keypoints`` under
+        ``ensure_kpts_num``); None when the loader cannot be built."""
+        from mdgat_tpu_torch.native import NativeLoader, native_available
+        if not native_available():
+            return None
+        paths, meta = [], []
+        for i in idxs:
+            r = self.pairs[int(i)]
+            s = "%02d" % r["seq"]
+            paths += [self._frame_path(s, r["anc_idx"]),
+                      self._frame_path(s, r["pos_idx"])]
+            meta.append((s, r["anc_idx"], r["pos_idx"]))
+        if self.cfg.ensure_kpts_num:
+            bucket = self.cfg.max_keypoints
+        loader = NativeLoader(bucket, self.cfg.ensure_kpts_num,
+                              self.cfg.score_min,
+                              n_threads=min(8, len(paths)))
+        kp, score, desc, counts = loader.load(paths)
+        return [self._assemble_pair(
+            s, i0, i1, kp[2 * j], score[2 * j], desc[2 * j],
+            int(counts[2 * j]), kp[2 * j + 1], score[2 * j + 1],
+            desc[2 * j + 1], int(counts[2 * j + 1]))
+            for j, (s, i0, i1) in enumerate(meta)]
+
     def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
                 drop_last: bool = True, rows: Optional[slice] = None,
-                pair_range: Optional[tuple] = None) -> Iterator[Dict]:
+                pair_range: Optional[tuple] = None,
+                use_native: bool = True) -> Iterator[Dict]:
         """Stacked numpy batches (the DataLoader equivalent): every array
         key stacked, ``sequence`` a list, ``idx0`` / ``idx1`` arrays.
+        ``use_native``: on the disk path, read through the native loader
+        (the numpy path when it cannot be built, or with False).
 
         ``rows``: one training rank's slice of every global batch
         (``parallel/multihost.py::process_batch_rows``). The shuffle order
@@ -239,7 +273,11 @@ class SparseDataset:
             tgt = (None if self.cfg.ensure_kpts_num
                    else self._batch_bucket(g_idxs))
             idxs = g_idxs if rows is None else g_idxs[rows]
-            pairs = [self.get_pair(int(i), pad_to=tgt) for i in idxs]
+            pairs = None
+            if use_native and not self.cfg.memory_is_enough:
+                pairs = self._native_batch(idxs, tgt)
+            if pairs is None:
+                pairs = [self.get_pair(int(i), pad_to=tgt) for i in idxs]
             out = {}
             for k in pairs[0]:
                 if k == "sequence":

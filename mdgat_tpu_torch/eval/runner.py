@@ -18,8 +18,12 @@ Printed metrics are unchanged; only the schedule differs. A remainder batch
 is padded to the full batch size by repeating its last pair and trimmed
 again before the yield, so that every batch of a bucket has one shape.
 ``pair_range`` restricts the pipeline to one eval rank's block of pairs
-(``parallel/multihost.py::eval_pair_range``); the one-process multi-device
-eval (the JAX package's ``shard_inputs``) is not ported.
+(``parallel/multihost.py::eval_pair_range``). Under a seq axis the members
+of a data row take the row's block, prepare each batch whole (the ground
+truth is formed on the whole clouds), and run the eval step on their own
+keypoint block (``make_shard_map_eval_step`` with ``shard_inputs`` of the
+JAX package); the outputs are the whole clouds'. The one-process
+multi-device eval is not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from mdgat_tpu_torch.data.pipeline import (SparseDataset, model_inputs,
                                            prepare_batch)
 from mdgat_tpu_torch.models.factory import build_model
 from mdgat_tpu_torch.models.mdgat import torch_dtype
+from mdgat_tpu_torch.parallel.mesh import shard_batch
 from mdgat_tpu_torch.parallel.multihost import eval_pair_range
 from mdgat_tpu_torch.train.loop import make_eval_step
 
@@ -75,14 +80,16 @@ def eval_model(cfg, device):
     return model.to(device).eval(), source
 
 
-def eval_pipeline(cfg, model, device, fetch: Sequence[str],
-                  split: bool = False, max_pairs: int = 0) -> "EvalPipeline":
+def eval_pipeline(cfg, model, device, fetch: Sequence[str], group=None,
+                  max_pairs: int = 0) -> "EvalPipeline":
     """The eval CLIs' pipeline over the test split of ``cfg``: host batches
     of ``cfg.batch_size`` pairs, ``prepare_batch`` on ``device`` (ground
     truth at float64 when the model computes in it, float32 otherwise),
     ``model``'s eval forward, ``fetch`` outputs and ``gt_matches0`` read
-    back. With ``split`` (a multi-process run) only this rank's block of
-    the first ``max_pairs`` pairs (``eval_pair_range``; 0 = all)."""
+    back. With ``group`` (a multi-process run's ``DataParallelGroup``) only
+    this rank's data row's block of the first ``max_pairs`` pairs
+    (``eval_pair_range``; 0 = all), and under a seq axis the forward on
+    this member's keypoint block."""
     compute_dtype = torch_dtype(cfg.compute_dtype)
     gt_dtype = (torch.float64 if cfg.compute_dtype == "float64"
                 else torch.float32)
@@ -92,10 +99,17 @@ def eval_pipeline(cfg, model, device, fetch: Sequence[str],
                              compute_dtype, gt_dtype)
 
     dataset = SparseDataset(cfg, "test")
-    pair_range = (eval_pair_range(len(dataset), max_pairs, cfg.batch_size)
-                  if split else None)
-    return EvalPipeline(dataset, prepare, make_eval_step(model),
-                        cfg.batch_size, fetch=fetch, pair_range=pair_range)
+    if group is None:
+        return EvalPipeline(dataset, prepare, make_eval_step(model),
+                            cfg.batch_size, fetch=fetch)
+    pair_range = eval_pair_range(len(dataset), max_pairs, cfg.batch_size,
+                                 seq=group.seq)
+    block = (group.seq_index, group.seq) if group.seq > 1 else None
+    eval_step = make_eval_step(model, group.seq_group)
+    return EvalPipeline(
+        dataset, prepare,
+        lambda inputs: eval_step(shard_batch(inputs, seq_block=block)),
+        cfg.batch_size, fetch=fetch, pair_range=pair_range)
 
 
 def timing_lines(n_pairs: int, seconds: float, first_batch_s, n_batches: int):

@@ -33,8 +33,16 @@ global batch's (``ops/mlp.py::bn_cross_replica``), and each cross-rank
 reduction is a collective: every rank must run every layer call, both
 clouds, in the same order, or the ranks wait on each other forever.
 
-The layer-pair scan, remat and the context-parallel axis have no
-counterpart: PyTorch runs eagerly.
+Context parallelism (``seq_group``, the JAX package's ``seq_axis``): the
+clouds' keypoint axes are split over the members of a seq group. Query rows
+stay local; at every layer both clouds' descriptors from before the layer
+are gathered whole over the group in one collective (``kv_gather``,
+``parallel/mesh.py::all_gather``; its backward sums the key-side cotangents
+over the members), so every route above runs B x N/S query rows against B x
+N keys, under the key masks of the whole clouds, and BatchNorm statistics
+over every rank's rows (the group of ``bn_cross_replica`` is the world).
+
+The layer-pair scan and remat have no counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from mdgat_tpu_torch.ops.cuda.layer import (LayerWeights, fused_layer,
                                             prepare_layer_weights)
 from mdgat_tpu_torch.ops.cuda.train_layer import fused_train_layer_apply
 from mdgat_tpu_torch.ops.mlp import Conv1x1, apply_mlp, mlp, reset_mlp
+from mdgat_tpu_torch.parallel.mesh import all_gather
 
 
 class MultiHeadedAttention(nn.Module):
@@ -117,13 +126,22 @@ class AttentionalGNN(nn.Module):
     def forward(self, desc0, desc1, k_schedule: Sequence[Optional[int]],
                 mask0: Optional[torch.Tensor] = None,
                 mask1: Optional[torch.Tensor] = None,
-                use_kernels: bool = True, train_layer: bool = True):
+                use_kernels: bool = True, train_layer: bool = True,
+                seq_group=None, key_masks=None):
+        """``desc0`` / ``desc1`` [B, N, D] and their row masks [B, N]. With
+        ``seq_group`` they hold this member's block of each cloud's rows,
+        and ``key_masks`` are the masks of the whole clouds."""
         kernels = use_kernels and desc0.device.type == "cuda"
+        kmask0, kmask1 = (mask0, mask1) if seq_group is None else key_masks
         for layer, name, k in zip(self.layers, self.names, k_schedule):
+            keys0, keys1 = desc0, desc1
+            if seq_group is not None:
+                keys0, keys1 = all_gather((desc0, desc1), seq_group,
+                                          "kv_gather")
             if name == "cross":
-                src0, src1, kvm0, kvm1 = desc1, desc0, mask1, mask0
+                src0, src1, kvm0, kvm1 = keys1, keys0, kmask1, kmask0
             else:
-                src0, src1, kvm0, kvm1 = desc0, desc1, mask0, mask1
+                src0, src1, kvm0, kvm1 = keys0, keys1, kmask0, kmask1
             if self.training and use_kernels and train_layer:
                 # the residual is inside the fused layer; cloud 0 first
                 desc0, desc1 = (

@@ -47,6 +47,20 @@ BatchNorm, plain or inside the whole-layer train kernels, normalises with
 the statistics of the global batch. An eval-mode forward uses the running
 statistics and issues no collective, whatever group it is given.
 
+Context parallelism (``seq_group``, ``apply(seq_axis=...)`` of the JAX
+package): the inputs hold this seq member's contiguous block of each
+cloud's keypoints (``parallel/mesh.py::shard_batch``) and the raw clouds
+whole. One gather (``input_gather``) gives the masks and the ground truth
+of the whole clouds; the encoders run on the member's rows, the GNN on its
+query rows against gathered keys (``models/gnn.py``), with the k-schedule
+read at the global keypoint count; the final descriptors are gathered
+(``tail_gather``) and the scores, the transport, the decision and the loss
+run on the whole clouds, the same on every member. Outputs are full-N. The
+training step (``parallel/smap.py``) scales the loss cotangent by 1/S so
+the replicated tail's gradients are counted once. ``FPFH_gloabal`` is
+refused under a seq axis: its encoder max-pools over the whole cloud, which
+a member's block does not hold (the JAX package pools each block alone).
+
 ``config.loss_kernel`` routes the gap loss through
 ``ops/cuda/gap_loss.py::gap_loss_kernel`` (the margin kernels on a CUDA
 tensor, their plain twins on a CPU tensor), in both modes and independently
@@ -59,6 +73,7 @@ import math
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from mdgat_tpu_torch.core.config import POINTNET_DESCRIPTORS, Config
@@ -75,6 +90,7 @@ from mdgat_tpu_torch.ops.matching import match_decision
 from mdgat_tpu_torch.ops.mlp import Conv1x1, bn_cross_replica
 from mdgat_tpu_torch.ops.transport import (assemble_full_scores,
                                            log_optimal_transport)
+from mdgat_tpu_torch.parallel.mesh import all_gather
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -128,8 +144,8 @@ class MDGAT(nn.Module):
         self.bin_score.fill_(1.0)
 
     def forward(self, data: Dict[str, torch.Tensor],
-                return_full_scores: bool = False,
-                group=None) -> Dict[str, torch.Tensor]:
+                return_full_scores: bool = False, group=None,
+                seq_group=None) -> Dict[str, torch.Tensor]:
         """``data``: keypoints0/1 [B, N, 3], scores0/1 [B, N], the FPFH
         modes' descriptors0/1 [B, N, 33] or the pointnet modes' cloud0/1
         [B, Np, 8], optional mask0/1 [B, N] bool and gt_matches0/1 [B, N]
@@ -137,14 +153,29 @@ class MDGAT(nn.Module):
         ground truth loss [B], and with ``return_full_scores`` the
         reference's [B, N+1, M+1] transport (``scores``). ``group``, a
         ``torch.distributed`` process group, makes the training-mode
-        BatchNorm statistics those of its ranks' batches together."""
+        BatchNorm statistics those of its ranks' batches together.
+        ``seq_group``, the process group of a seq axis: the keypoint-axis
+        inputs are this member's block, the outputs are whole."""
+        if seq_group is not None and self.config.descriptor == "FPFH_gloabal":
+            raise ValueError("descriptor FPFH_gloabal pools over the whole "
+                             "cloud: it cannot run with --seq_parallel > 1")
         with bn_cross_replica(group if self.training else None):
-            return self._forward(data, return_full_scores)
+            return self._forward(data, return_full_scores, seq_group)
 
-    def _forward(self, data, return_full_scores):
+    def _forward(self, data, return_full_scores, seq_group=None):
         cfg = self.config
         dt = torch_dtype(cfg.compute_dtype)
         mask0, mask1 = data.get("mask0"), data.get("mask1")
+        # the whole clouds' masks and ground truth: one gather (their values
+        # index the global columns)
+        whole = {k: data[k] for k in ("mask0", "mask1", "gt_matches0",
+                                      "gt_matches1") if k in data}
+        if seq_group is not None and whole:
+            whole = dict(zip(whole, all_gather(
+                [v.long() for v in whole.values()], seq_group,
+                "input_gather")))
+            whole.update({k: whole[k].bool() for k in ("mask0", "mask1")
+                          if k in whole})
         desc0, desc1 = (self.encode(data, side, dt, mask)
                         for side, mask in (("0", mask0), ("1", mask1)))
 
@@ -154,14 +185,26 @@ class MDGAT(nn.Module):
                 run_gnn = False
             elif cfg.train_step == 2:
                 desc0, desc1 = desc0.detach(), desc1.detach()
+        kmask0, kmask1 = whole.get("mask0"), whole.get("mask1")
         if run_gnn:
-            k_sched = cfg.layer_k_schedule(desc0.shape[1])
-            desc0, desc1 = self.gnn(desc0, desc1, k_sched, mask0, mask1,
+            # the k-schedule reads the global keypoint count (the local
+            # count is N/S under a seq axis)
+            n = desc0.shape[1] * (1 if seq_group is None
+                                  else dist.get_world_size(seq_group))
+            desc0, desc1 = self.gnn(desc0, desc1, cfg.layer_k_schedule(n),
+                                    mask0, mask1,
                                     use_kernels=cfg.use_kernels,
-                                    train_layer=cfg.train_layer)
+                                    train_layer=cfg.train_layer,
+                                    seq_group=seq_group,
+                                    key_masks=(kmask0, kmask1))
             mdesc0, mdesc1 = self.final_proj(desc0), self.final_proj(desc1)
         else:
             mdesc0, mdesc1 = desc0, desc1
+        if seq_group is not None:
+            # the tail runs on the whole clouds, the same on every member
+            mdesc0, mdesc1 = all_gather((mdesc0, mdesc1), seq_group,
+                                        "tail_gather")
+            mask0, mask1 = kmask0, kmask1
 
         ot_dtype = torch.float32 if dt == torch.bfloat16 else dt
         scores = torch.matmul(mdesc0.to(ot_dtype),
@@ -179,8 +222,8 @@ class MDGAT(nn.Module):
                "matching_scores0": res.matching_scores0,
                "matching_scores1": res.matching_scores1}
         if "gt_matches0" in data:
-            gt0 = data["gt_matches0"].long()
-            gt1 = data["gt_matches1"].long()
+            gt0 = whole["gt_matches0"].long()
+            gt1 = whole["gt_matches1"].long()
             if cfg.loss_method == "superglue":
                 out["loss"] = superglue_nll_loss(ot, gt0, gt1, mask0, mask1)
             elif cfg.loss_method == "triplet_loss":

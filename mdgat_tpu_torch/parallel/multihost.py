@@ -11,6 +11,14 @@ the pair list (:func:`eval_pair_range`), and host-side per-pair records
 are gathered in rank order (:func:`allgather_host_vector`) so rank 0 can
 print the aggregates of the whole run.
 
+The ranks form the JAX package's ``(data, seq)`` mesh, rows major
+(``mdgat_tpu/parallel/mesh.py``'s device grid, one device a rank): with a
+``seq`` axis of S ranks, rank ``r`` is data row ``d = r // S`` and seq
+member ``s = r % S`` of ``D = W / S`` rows (:func:`mesh_coords`). The rows
+split the batch rows and the eval pairs; the members of a row split the
+keypoint axis of the row's pairs into S contiguous blocks
+(:func:`seq_columns`).
+
 The process group is ``torch.distributed``'s, a process-wide state: one
 run, one group, as ``jax.distributed`` is process-wide. Host vectors travel
 over a ``gloo`` group made for them when the run joins, so they do not
@@ -93,22 +101,55 @@ def rank_device(requested: str = "cuda") -> torch.device:
     return torch.device("cuda", process_index() % count)
 
 
-def process_batch_rows(global_batch: int) -> slice:
-    """This rank's contiguous ``[lo, hi)`` block of every global batch: an
-    equal share of ``global_batch / W`` rows. A batch that W does not divide
-    raises ``ValueError`` (the JAX package falls back to its one-program
-    step there; the port has no such fallback)."""
+def mesh_coords(seq: int = 1):
+    """``(D, S, d, s)``: the data rows and seq members of the run's rank
+    layout, and this rank's row and member (``rank = d * S + s``). A seq
+    size that does not divide the ranks raises ``ValueError``."""
     world, rank = process_count(), process_index()
-    if global_batch % world:
+    if seq < 1 or world % seq:
         raise ValueError(
-            f"batch_size {global_batch} is not a multiple of the {world} "
-            "ranks: every rank needs an equal share of each global batch")
-    share = global_batch // world
-    return slice(rank * share, (rank + 1) * share)
+            f"--seq_parallel {seq} does not divide the {world} ranks: the "
+            "ranks form (W / S) data rows of S seq members")
+    return world // seq, seq, rank // seq, rank % seq
 
 
-def eval_pair_range(n_total: int, max_pairs: int = 0, batch_size: int = 1):
-    """This rank's contiguous ``[lo, hi)`` block of the eval pair list.
+def process_batch_rows(global_batch: int, seq: int = 1) -> slice:
+    """This rank's contiguous ``[lo, hi)`` block of every global batch: its
+    data row's equal share of ``global_batch / D`` rows (the seq members of
+    a row hold the same rows). A batch that D does not divide raises
+    ``ValueError`` (the JAX package falls back to its one-program step
+    there; the port has no such fallback)."""
+    rows, _, d, _ = mesh_coords(seq)
+    if global_batch % rows:
+        what = (f"{rows} ranks" if seq == 1
+                else f"{rows} data rows of the {rows * seq} ranks")
+        raise ValueError(
+            f"batch_size {global_batch} is not a multiple of the {what}: "
+            "every rank needs an equal share of each global batch")
+    share = global_batch // rows
+    return slice(d * share, (d + 1) * share)
+
+
+def seq_columns(n: int, seq: int = 1, index: Optional[int] = None) -> slice:
+    """Seq member ``index``'s (default: this rank's) contiguous block of a
+    keypoint axis of ``n`` columns: ``n / S`` of them. A count that S does
+    not divide raises ``ValueError`` (the JAX package warns and runs
+    without shard_map there; the port has no such fallback)."""
+    if seq < 1 or n % seq:
+        raise ValueError(
+            f"a keypoint axis of {n} is not a multiple of --seq_parallel "
+            f"{seq}: set --max_keypoints (or, for variable-size clouds, "
+            "--seq_parallel) so that S divides the keypoint count")
+    if index is None:
+        index = mesh_coords(seq)[3]
+    block = n // seq
+    return slice(index * block, (index + 1) * block)
+
+
+def eval_pair_range(n_total: int, max_pairs: int = 0, batch_size: int = 1,
+                    seq: int = 1):
+    """This rank's contiguous ``[lo, hi)`` block of the eval pair list:
+    its data row's block, which every seq member of the row takes.
 
     ``max_pairs`` (the CLI cap) applies to the global prefix first, rounded
     up to whole batches of ``batch_size``: the one-process loops check the
@@ -119,7 +160,7 @@ def eval_pair_range(n_total: int, max_pairs: int = 0, batch_size: int = 1):
         total = min(n_total, -(-max_pairs // batch_size) * batch_size)
     else:
         total = n_total
-    p, n = process_index(), process_count()
+    n, _, p, _ = mesh_coords(seq)
     return p * total // n, (p + 1) * total // n
 
 

@@ -96,17 +96,20 @@ def make_train_step(group=None) -> Callable[
     return step
 
 
-def make_eval_step(model: MDGAT) -> Callable[[Dict[str, torch.Tensor]],
-                                             Dict[str, torch.Tensor]]:
+def make_eval_step(model: MDGAT, seq_group=None) -> Callable[
+        [Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """Returns ``step(batch) -> outputs`` in eval mode (running-stats BN),
-    without gradients; the module's mode is put back afterwards."""
+    without gradients; the module's mode is put back afterwards. With
+    ``seq_group`` (``DataParallelGroup.seq_group``) ``batch`` is this seq
+    member's keypoint block and the outputs are those of the whole clouds:
+    the eval step of ``make_shard_map_eval_step`` on a seq axis."""
 
     def step(batch: Dict[str, torch.Tensor]):
         was_training = model.training
         model.eval()
         try:
             with torch.no_grad():
-                return model(batch)
+                return model(batch, seq_group=seq_group)
         finally:
             model.train(was_training)
 

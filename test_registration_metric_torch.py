@@ -18,7 +18,9 @@ and the ``[timing]`` lines in the formats of
 ``eval/runner.py::EvalPipeline`` as in ``test_torch.py``. As W processes
 each rank evaluates a contiguous block of the pairs; the meters' update
 histories are merged on rank 0 in rank order (bit-equal to one sequential
-pass), and rank 0 alone prints the summary.
+pass), and rank 0 alone prints the summary. With ``--seq_parallel S`` the
+S members of a data row split the keypoints of the row's pairs, and member
+0 alone records them.
 """
 
 import time
@@ -63,8 +65,10 @@ def main(argv=None):
     baned_data = 0
     n_pairs = 0
     records = []
-    pipeline = eval_pipeline(cfg, model, device, ("matches0",), split=multi,
+    pipeline = eval_pipeline(cfg, model, device, ("matches0",), group=group,
                              max_pairs=args.max_pairs)
+    # the members of a seq row compute the same matches: member 0 records
+    recording = group is None or group.seq_index == 0
     t0 = time.time()
     t_first = None  # first completed batch (start-up), reported apart
     n_batches = 0
@@ -72,6 +76,8 @@ def main(argv=None):
         if t_first is None:
             t_first = time.time()
         n_batches += 1
+        if not recording:
+            continue
         # batched host post-processing (integer count reductions and one
         # [B, 3, 3] SVD solve), then the reference's sequential meter and
         # print protocol. Empty match sets give nan rte / rre.

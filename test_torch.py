@@ -22,7 +22,10 @@ As W processes (``torchrun`` or ``--coordinator_address / --num_processes
 / --process_id``), each rank evaluates a contiguous block of the pairs on
 its own device, and the per-pair records are merged on rank 0, which alone
 prints the aggregate lines: the same lines as one process over the same
-pairs.
+pairs. With ``--seq_parallel S`` the ranks form W / S data rows; the S
+members of a row split the keypoints of the row's block of pairs, every
+member gets the whole clouds' matches, and member 0 alone records and
+prints the row's pairs.
 """
 
 import time
@@ -109,11 +112,12 @@ def main(argv=None):
              else ("matches0",))
     # several ranks: this rank's contiguous block of the pairs, the cap
     # applied to the global prefix first
-    pipeline = eval_pipeline(cfg, model, device, fetch,
-                             split=group is not None,
+    pipeline = eval_pipeline(cfg, model, device, fetch, group=group,
                              max_pairs=args.max_pairs)
     acc = TestEvalAccumulator()
     records = []
+    # the members of a seq row compute the same matches: member 0 records
+    recording = group is None or group.seq_index == 0
     t0 = time.time()
     t_first = None  # wall time of the first completed batch (start-up),
     n_batches = 0   # reported apart
@@ -121,6 +125,8 @@ def main(argv=None):
         if t_first is None:
             t_first = time.time()
         n_batches += 1
+        if not recording:
+            continue
         # batched host post-processing: integer [B]-reductions and one
         # [B, 3, 3] SVD pose solve, then the per-pair print protocol
         results = acc.update_batch(

@@ -192,8 +192,9 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _run_ranks(spec, base, world=2):
-    """The worker as ``world`` gloo ranks over ``spec``; their results."""
+def _run_ranks(spec, base, world=2, seq=1):
+    """The worker as ``world`` gloo ranks over ``spec`` (``world / seq``
+    data rows of ``seq`` members); their results."""
     spec_path, out = str(base / "spec.pt"), str(base / "out.pt")
     torch.save(spec, spec_path)
     port = _free_port()
@@ -202,7 +203,7 @@ def _run_ranks(spec, base, world=2):
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(HERE, "torch_parallel_worker.py"),
-         str(r), str(world), str(port), spec_path, out],
+         str(r), str(world), str(port), spec_path, out, str(seq)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
         for r in range(world)]
     logs = []

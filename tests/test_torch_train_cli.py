@@ -34,7 +34,7 @@ CKPT_LR, CKPT_LOSS, CKPT_EPOCH = 2e-3, 0.7, 3
 SIZE = ["--l", "2", "--max_keypoints", "64", "--batch_size", "4",
         "--steps_per_epoch", "2", "--compute_dtype", "float64"]
 # flags of the JAX parser that the port leaves out on purpose (cli.py)
-NOT_PORTED = {"data_parallel", "seq_parallel", "use_pallas",
+NOT_PORTED = {"data_parallel", "use_pallas",
               "pallas_attention", "scan_gnn_pairs", "pallas_exact_topk",
               "pallas_train_layer", "pallas_loss", "pallas_interpret",
               "shard_map", "platform", "debug_nans", "trace_dir", "ship_bf16"}

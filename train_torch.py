@@ -29,6 +29,14 @@ the checkpoints.
     python3 train_torch.py --synthetic true --train_path /tmp/kd/ \
         --device cpu --batch_size 8 --coordinator_address 127.0.0.1:29500 \
         --num_processes 2 --process_id 0      # and --process_id 1
+
+Context parallelism: with ``--seq_parallel S`` the W ranks form ``W / S``
+data rows of S members. The members of a row load the row's pairs whole
+(the ground truth is formed on the whole clouds), keep their block of
+``max_keypoints / S`` keypoints, and run the seq arm of the same step;
+validation runs on the same layout. A keypoint count S does not divide is
+refused before the first step (the JAX package warns and trains without
+shard_map instead).
 """
 
 import os
@@ -89,7 +97,7 @@ def main(argv=None):
     from mdgat_tpu_torch.data.prefetch import prefetch_batches
     from mdgat_tpu_torch.models.mdgat import torch_dtype
     from mdgat_tpu_torch.parallel import (all_reduce, process_batch_rows,
-                                          replicate)
+                                          replicate, shard_batch)
     from mdgat_tpu_torch.train import (create_train_state, make_eval_step,
                                        make_train_step)
     from mdgat_tpu_torch.utils import PhaseTimer, ScalarLogger
@@ -98,8 +106,13 @@ def main(argv=None):
     # host-side side effects (logs, checkpoints) belong to rank 0; every
     # rank holds the same state and metrics
     primary = group is None or group.rank == 0
-    # each rank's contiguous rows of every global batch; W must divide it
-    batch_rows = None if group is None else process_batch_rows(cfg.batch_size)
+    # each data row's contiguous rows of every global batch (D must divide
+    # it) and, under a seq axis, this member's block of the keypoints
+    batch_rows, seq_block, seq_group = None, None, None
+    if group is not None:
+        batch_rows = process_batch_rows(cfg.batch_size, seq=group.seq)
+        if group.seq > 1:
+            seq_block, seq_group = (group.seq_index, group.seq), group.seq_group
     cfg = maybe_generate_synthetic(cfg, args)
 
     log_path = cfg.run_dir("./logs")
@@ -129,12 +142,13 @@ def main(argv=None):
                 else torch.float32)
 
     def prepare(batch):
-        return model_inputs(prepare_batch(
+        # the ground truth of the whole clouds, then this member's block
+        return shard_batch(model_inputs(prepare_batch(
             batch, cfg.threshold, cfg.mutual_check, device, compute_dtype,
-            gt_dtype))
+            gt_dtype)), seq_block=seq_block)
 
     train_step = make_train_step(group)
-    eval_step = make_eval_step(state.model)
+    eval_step = make_eval_step(state.model, seq_group)
     timer = PhaseTimer()
     logger = ScalarLogger(log_path) if primary else None
     summary = {"epoch_loss": [], "val_loss": [], "checkpoints": [],
@@ -183,8 +197,9 @@ def main(argv=None):
                         1, args.steps_per_epoch // 4):
                     break
             if group is not None and val_losses:
-                # each rank's batches hold its rows: the mean over the ranks
-                # is the global batches' mean, and every rank takes the same
+                # each rank's batches hold its data row's rows (its seq
+                # members hold the same losses): the mean over the ranks is
+                # the global batches' mean, and every rank takes the same
                 # best-model decision on it
                 mine = torch.stack(val_losses).mean()
                 val_losses = [all_reduce(mine, group.group, "val_loss")
