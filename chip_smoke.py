@@ -208,6 +208,25 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    train step launches what the training phase's FPFH step does (plus the
    gap-loss pair), every eval forward 36 / 216 / 36 / 1 and nothing else.
    Step ms, peak memory and the phase's wall time beside the card.
+14. fast_topk: the attention kernel's fast arm (the JAX package's value
+   bisection, the kernel routes' default; every phase above pins the
+   exact arm, ``exact_topk=True`` / ``--pallas_exact_topk true``, since it
+   holds the kernels against the exact plain route). At each call site,
+   f32 and bf16: the kernel alone at 64 x 4 x 256 x 256 (k = 128, 64), at
+   512 / 513 / 1024 / 1025 keys, k above the valid count and the wide arm
+   at 2 x 4 x 1500 x 1500; the eval layer at 64 x 256 x 128; the fused-MHA
+   forward and the whole-layer train forward at 64 x 512 x 128: thr
+   ``torch.equal`` to ``ops/attention.py::fast_threshold`` on the kernel's
+   own scores (the fmaf chain replayed bit for bit), at the resolution of
+   the caller's input dtype, the output and lse within tolerance of the
+   twin on those scores; the fused-MHA and the train-layer backward checks
+   on fast residuals; both arms' ms a launch in turns, by events and in a
+   CUDA graph, at the serving (k = 128, 64) and the train shape; the
+   default serving forward (launches the exact route's, outputs checked,
+   its time beside the exact arm's) and three default training steps
+   (launches the exact route's, loss and grad_norm beside it); and
+   ``tools/torch_topk_agreement.py`` at 4 batches of 64 pairs, seeded
+   weights and the eval_cli phase's matching checkpoint.
 
 The line before the last is a JSON object with one entry per kernel (its
 time beside the plain twin's, the card's bound for the same work and, where
@@ -306,6 +325,12 @@ PEAK_BYTES_PER_S = 3.35e12
 # out of the attention and layer comparisons.
 TIE_GAP = 1e-5
 MIN_AGREEMENT = 0.999
+# The phases before fast_topk hold the kernel routes against the plain
+# route, which selects the exact top-k: they pin the kernels' exact arm
+# (Config.exact_topk, the CLIs' --pallas_exact_topk). The default route,
+# the fast arm, is the fast_topk phase's.
+EXACT = dict(exact_topk=True)
+EXACT_ARGV = ["--pallas_exact_topk", "true"]
 
 
 def require(ok: bool, what: str):
@@ -811,7 +836,7 @@ def serving(rng, dev, report, counters):
     import torch
     from mdgat_tpu_torch import Matcher
 
-    matcher = Matcher(seed=0, device=dev)
+    matcher = Matcher(seed=0, device=dev, **EXACT)
     plain = Matcher(seed=0, device=dev, use_kernels=False)
     cfg = matcher.cfg
     print(f"model: L={cfg.L} D={cfg.descriptor_dim} heads={cfg.num_heads} "
@@ -949,7 +974,7 @@ def timings(rng, dev, report, card, matcher, plain, pairs):
     # the same forward with a bfloat16 GNN (scores and transport in f32)
     from mdgat_tpu_torch import Matcher
     bf = {flag: Matcher(seed=0, device=dev, compute_dtype="bfloat16",
-                        use_kernels=flag) for flag in (True, False)}
+                        use_kernels=flag, **EXACT) for flag in (True, False)}
     with torch.inference_mode():
         times["forward_64_pairs_bf16"] = tuple(
             cuda_ms(lambda: bf[flag].model(batch), reps=5, warmup=1)
@@ -1110,7 +1135,7 @@ def _rel_err(a, b):
 
 
 def frozen_selection_gap(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv,
-                         wm, bm) -> float:
+                         wm, bm, exact=True) -> float:
     """Largest difference between the attention output of the forward
     kernel and the one the backward's rows kernel rebuilds from ``thr`` and
     ``lse``, over every row, near ties included. The two agree to rounding
@@ -1127,17 +1152,20 @@ def frozen_selection_gap(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv,
         q = gemm(x, wq, bq, out_dtype=f32, out_heads=h, rows_per_batch=n)
         k = gemm(source, wk, bk, out_dtype=f32, out_heads=h, rows_per_batch=m)
         v = gemm(source, wv, bv, out_dtype=f32, out_heads=h, rows_per_batch=m)
-        o, thr, lse = A.topk_attention(q, k, v, kv_mask, int(topk or 0), 1.0,
-                                       return_lse=True)
+        o, thr, lse = A.topk_attention(
+            q, k, v, kv_mask, int(topk or 0), 1.0, return_lse=True,
+            exact=exact, fine_iters=A.resolution(x.dtype, exact))
         o_again = M._attention_backward(q, k, v, torch.zeros_like(q), kv_mask,
                                         thr, lse)[0]
     return (o.permute(0, 2, 1, 3).reshape(b * n, d) - o_again).abs().max().item()
 
 
-def mha_case(rng, dev, b, n, m, d, heads, k, selfattn, seed):
+def mha_case(rng, dev, b, n, m, d, heads, k, selfattn, seed, exact=True):
     """One fused-MHA comparison, kernel against twin under autograd on the
     card: (worst error of out/thr/lse, worst gradient error, selection gap,
-    near-tie rows left out, rows)."""
+    near-tie rows left out, rows). ``exact=False``: both sides select with
+    the fast arm, and the rows left out are those whose kept set rests on
+    rounding (:func:`fast_tie_rows`)."""
     import torch
     from mdgat_tpu_torch.ops.cuda import mha as M
 
@@ -1156,9 +1184,18 @@ def mha_case(rng, dev, b, n, m, d, heads, k, selfattn, seed):
         q = (x @ w[0] + w[1]).reshape(b, n, heads, -1).transpose(1, 2)
         kk = (src @ w[2] + w[3]).reshape(b, m, heads, -1).transpose(1, 2)
         s = q @ kk.transpose(-1, -2)
-        tie = near_tie_rows(s, mask[:, None, None, :].expand(s.shape),
-                            k or 0).any(1)                      # [B, N]
-        del q, kk, s
+        valid = mask[:, None, None, :].expand(s.shape)
+        if exact:
+            tie = near_tie_rows(s, valid, k or 0).any(1)        # [B, N]
+        else:
+            _, thr_k, _ = M.fused_mha_forward(x, src, mask, k, heads, *w,
+                                              exact=False)
+            _, thr_t, _ = M.fused_mha_reference(
+                x, src, mask, k, heads, *w, return_residuals=True,
+                exact=False)
+            tie = fast_tie_rows(s, valid, thr_k, thr_t).any(1)
+            del thr_k, thr_t
+        del q, kk, s, valid
     g = t(b, n, d) * (~tie)[:, :, None]
 
     def run(fn, **kw):
@@ -1166,18 +1203,20 @@ def mha_case(rng, dev, b, n, m, d, heads, k, selfattn, seed):
         if not selfattn:
             leaves.append(src.clone().requires_grad_())
         ws = [p.clone().requires_grad_() for p in w]
-        out = fn(leaves[0], leaves[-1], mask, k, heads, *ws, **kw)
+        out = fn(leaves[0], leaves[-1], mask, k, heads, *ws, exact=exact, **kw)
         grads = torch.autograd.grad(out, leaves + ws, g)
         return out.detach(), grads
 
     out, grads = run(M.fused_mha)
     _, grads2 = run(M.fused_mha)
     out_ref, grads_ref = run(M.fused_mha_reference)
-    out_f, thr, lse = M.fused_mha_forward(x, src, mask, k, heads, *w)
+    out_f, thr, lse = M.fused_mha_forward(x, src, mask, k, heads, *w,
+                                          exact=exact)
     with torch.no_grad():
         _, thr_ref, lse_ref = M.fused_mha_reference(x, src, mask, k, heads, *w,
-                                                    return_residuals=True)
-    gap = frozen_selection_gap(x, src, mask, k, heads, *w)
+                                                    return_residuals=True,
+                                                    exact=exact)
+    gap = frozen_selection_gap(x, src, mask, k, heads, *w, exact=exact)
     torch.cuda.synchronize()
     keep = ~tie
     fwd_err = max((out - out_ref).abs().amax(-1)[keep].max().item(),
@@ -1633,13 +1672,15 @@ def check_sinkhorn_bwd(rng, dev, report, card):
 
 
 def train_layer_case(rng, dev, b, n, m, d, heads, k, selfattn, seed, dt,
-                     row_mask=None):
+                     row_mask=None, exact=True):
     """One whole-layer comparison, kernels against twin on the card, with
     ragged key and row masks (``row_mask`` [b, n] in place of the drawn
     one): (worst forward error, worst error of bwd1's six outputs, worst of
     the non-zero gradients, worst of those that are zero in exact
     arithmetic: the four bias gradients bk, bv, bm, b1, or bk alone when
-    no row is valid, selection gap, rows left out, rows)."""
+    no row is valid, selection gap, rows left out, rows). ``exact=False``:
+    both sides select with the fast arm, and the rows whose kept set rests
+    on rounding are left out (:func:`fast_tie_rows`)."""
     import torch
     from mdgat_tpu_torch.ops.cuda import train_layer as T
 
@@ -1658,10 +1699,12 @@ def train_layer_case(rng, dev, b, n, m, d, heads, k, selfattn, seed, dt,
                     else ragged_mask(rng, b, n, int(0.78 * n), dev))
 
     (y, mean, var, h1, thr, lse, ssum,
-     ssq) = T.fused_train_layer_forward(x, src, kv_mask, row_mask, k, heads, *w)
+     ssq) = T.fused_train_layer_forward(x, src, kv_mask, row_mask, k, heads, *w,
+                                        exact=exact)
     with torch.no_grad():
         ref = T.fused_train_layer_reference(x, src, kv_mask, row_mask, k, heads,
-                                            *w, return_residuals=True)
+                                            *w, return_residuals=True,
+                                            exact=exact)
         y_r, mean_r, var_r, h1_r, thr_r, lse_r, ssum_r, ssq_r = ref
         # Rows left out of the row-wise comparisons, and given a zero
         # cotangent: near ties at the k-th score (the two sides may select
@@ -1672,9 +1715,10 @@ def train_layer_case(rng, dev, b, n, m, d, heads, k, selfattn, seed, dt,
         q = (x.float() @ w[0] + w[1]).reshape(b, n, heads, -1).transpose(1, 2)
         kk = (src.float() @ w[2] + w[3]).reshape(b, m, heads, -1).transpose(1, 2)
         s = q @ kk.transpose(-1, -2)
-        out = near_tie_rows(s, kv_mask[:, None, None, :].expand(s.shape),
-                            k or 0).any(1)
-        del q, kk, s
+        valid = kv_mask[:, None, None, :].expand(s.shape)
+        out = (near_tie_rows(s, valid, k or 0) if exact
+               else fast_tie_rows(s, valid, thr, thr_r)).any(1)
+        del q, kk, s, valid
         if dt == torch.float32:
             inv = torch.rsqrt(var_r + 1e-5)
             bn = (h1_r - mean_r) * inv * w[12] + w[13]
@@ -1705,13 +1749,14 @@ def train_layer_case(rng, dev, b, n, m, d, heads, k, selfattn, seed, dt,
         if not selfattn:
             leaves.append(src.clone().requires_grad_())
         ws = [p.clone().requires_grad_() for p in w]
-        out_y = fn(leaves[0], leaves[-1], kv_mask, row_mask, k, heads, *ws)[0]
+        out_y = fn(leaves[0], leaves[-1], kv_mask, row_mask, k, heads, *ws,
+                   exact=exact)[0]
         return out_y.detach(), torch.autograd.grad(out_y, leaves + ws, g)
 
     y2, grads = run(T.fused_train_layer)
     _, grads2 = run(T.fused_train_layer)
     _, grads_ref = run(T.fused_train_layer_reference)
-    gap = frozen_selection_gap(x, src, kv_mask, k, heads, *w[:8])
+    gap = frozen_selection_gap(x, src, kv_mask, k, heads, *w[:8], exact=exact)
     torch.cuda.synchronize()
     require(torch.equal(y2, y), "train layer: forward differs under autograd")
     require(all(torch.equal(a, c) for a, c in zip(grads, grads2)),
@@ -2390,7 +2435,7 @@ def training(dev, report, counters):
     from mdgat_tpu_torch.data.pipeline import model_inputs, prepare_batch
     from mdgat_tpu_torch.train import create_train_state
 
-    cfg = train_defaults()
+    cfg = train_defaults(**EXACT)
     print(f"train config: L={cfg.L} D={cfg.descriptor_dim} heads={cfg.num_heads} "
           f"k={cfg.k} sinkhorn_iterations={cfg.sinkhorn_iterations} "
           f"loss={cfg.loss_method} lr={cfg.learning_rate} batch={cfg.batch_size} "
@@ -2880,7 +2925,7 @@ def train_cli(dev, report, counters, card):
                 "--batch_size", "64", "--max_keypoints", "512",
                 "--epoch", str(CLI_EPOCHS), "--steps_per_epoch", str(CLI_STEPS),
                 "--seed", "0", "--loss_kernel", str(loss_kernel).lower(),
-                "--memory_is_enough", "false"]
+                "--memory_is_enough", "false", *EXACT_ARGV]
         torch.cuda.synchronize()
         for c in counters.values():
             c.reset()
@@ -3043,7 +3088,7 @@ def eval_cli(dev, report, counters, card):
     ks = []                       # the top-k of every layer call (0: dense)
     layer = gnn.fused_layer
 
-    def spy(x, src, kv_mask, topk, w):
+    def spy(x, src, kv_mask, topk, w, exact=True):
         ks.append(int(topk or 0))
         return layer(x, src, kv_mask, topk, w)
 
@@ -3131,7 +3176,8 @@ def eval_cli(dev, report, counters, card):
               fitted, [0, 64, 128], 0.1))
     bare = report["_times_ms"]["forward_64_pairs"]["kernel"]
     for label, main, extra, want_ks, min_matches in cases:
-        kern = run(f"{label}_kernels", main, extra + ["--use_kernels", "true"])
+        kern = run(f"{label}_kernels", main,
+                   extra + ["--use_kernels", "true", *EXACT_ARGV])
         plain = run(f"{label}_plain", main, extra + ["--use_kernels", "false"])
         agree = check_pair(label, kern, plain, want_ks, min_matches)
         if label == "test_matching":
@@ -3170,7 +3216,7 @@ def eval_cli(dev, report, counters, card):
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         r = run("test_matching_profiled", test_torch.main,
-                fitted + ["--use_kernels", "true"])
+                fitted + ["--use_kernels", "true", *EXACT_ARGV])
     device_ms = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     loop_ms = 1e3 * r["result"]["seconds"]
@@ -3284,7 +3330,7 @@ def dp_steps(dev, group=None, steps=DP_STEPS, train_layer=True):
     from mdgat_tpu_torch.parallel import (collective_counts,
                                           process_batch_rows, replicate)
     from mdgat_tpu_torch.train import create_train_state, make_train_step
-    cfg = train_defaults(train_layer=train_layer)
+    cfg = train_defaults(train_layer=train_layer, **EXACT)
     state = create_train_state(cfg, device=dev, seed=0)
     rows, block = None, None
     if group is not None:
@@ -3520,7 +3566,7 @@ def dp_train_cli(dev, report):
             os.path.join(root, "preprocess-random-full"),
             "--batch_size", "64", "--max_keypoints", "512", "--epoch", "1",
             "--steps_per_epoch", str(CLI_STEPS), "--seed", "0",
-            "--model_out_path", "ck"]
+            "--model_out_path", "ck", *EXACT_ARGV]
     t0 = time.perf_counter()
     ranks = finish_ranks(start_ranks("train", "train", argv))
     wall = time.perf_counter() - t0
@@ -3561,7 +3607,7 @@ def dp_eval_argv():
             os.path.join(root, "keypoints", "synthetic"), "--txt_path",
             os.path.join(root, "preprocess-random-full"), "--batch_size", "64",
             "--ensure_kpts_num", "true", "--seed", "0", "--resume_model",
-            os.path.join(OUT_DIR, "matching.pth")]
+            os.path.join(OUT_DIR, "matching.pth"), *EXACT_ARGV]
 
 
 def dp_eval_clis(dev, report):
@@ -3820,7 +3866,7 @@ def seq_eval_model(dev):
     from mdgat_tpu_torch.core.config import test_defaults
     from mdgat_tpu_torch.eval.runner import eval_model
     model, source = eval_model(test_defaults(resume_model=os.path.join(
-        OUT_DIR, "matching.pth")), dev)
+        OUT_DIR, "matching.pth"), **EXACT), dev)
     require(source == "pth", "seq_parallel: matching.pth is missing")
     return model
 
@@ -3906,7 +3952,8 @@ def seq_clis(report, eval_ones):
                   os.path.join(root, "preprocess-random-full"),
                   "--batch_size", "64", "--max_keypoints", "512", "--epoch",
                   "1", "--steps_per_epoch", str(CLI_STEPS), "--seed", "0",
-                  "--memory_is_enough", "false", "--model_out_path", "ck"]
+                  "--memory_is_enough", "false", "--model_out_path", "ck",
+                  *EXACT_ARGV]
     t0 = time.perf_counter()
     handles = {"train": start_ranks("train", "seq_train", train_argv,
                                     world=SEQ, seq=SEQ)}
@@ -4249,7 +4296,7 @@ def wide_serving(rng, dev, counters):
     scores where both sides match alike."""
     import torch
     from mdgat_tpu_torch import Matcher
-    matcher = Matcher(seed=0, device=dev)
+    matcher = Matcher(seed=0, device=dev, **EXACT)
     plain = Matcher(seed=0, device=dev, use_kernels=False)
     pairs = make_pairs(rng, 2, 1025, 1025) + make_pairs(rng, 2, 1500, 1500)
 
@@ -4296,7 +4343,7 @@ def wide_training(dev, counters):
     import torch
     from mdgat_tpu_torch.core.config import train_defaults
     from mdgat_tpu_torch.train import create_train_state
-    cfg = train_defaults()
+    cfg = train_defaults(**EXACT)
     _, batch = train_batch(5, 2, 1500, dev)
     require(batch["keypoints0"].shape == (2, 1500, 3), "wide training batch shape")
     state = create_train_state(cfg, device=dev, seed=0)
@@ -4441,7 +4488,7 @@ def pointnet_training(dev, counters, card, per_step):
     import torch
     from mdgat_tpu_torch.core.config import train_defaults
     from mdgat_tpu_torch.train import create_train_state
-    cfg = train_defaults(descriptor="pointnet", loss_kernel=True)
+    cfg = train_defaults(descriptor="pointnet", loss_kernel=True, **EXACT)
     host, batch = train_batch(11, cfg.batch_size, cfg.max_keypoints, dev)
     batch = with_clouds(host, batch, 12, dev)
     kern = create_train_state(cfg, device=dev, seed=0)
@@ -4493,7 +4540,7 @@ def staged_training(dev, counters, card, per_step):
     out = {}
     for train_step in (1, 2, 3):
         cfg = train_defaults(descriptor="pointnetmsg", train_step=train_step,
-                             loss_kernel=True)
+                             loss_kernel=True, **EXACT)
         kern = create_train_state(cfg, device=dev, seed=0)
         torch.cuda.synchronize()
         for c in counters.values():
@@ -4626,7 +4673,7 @@ def descriptor_eval(dev, counters, card):
     host, batch = train_batch(15, 64, 256, dev)
     out = {}
     for descriptor in ("pointnetmsg", "FPFH_only", "FPFH_gloabal"):
-        cfg = test_defaults(descriptor=descriptor)
+        cfg = test_defaults(descriptor=descriptor, **EXACT)
         models = []
         for use_kernels in (True, False):
             m = build_model(cfg.replace(use_kernels=use_kernels))
@@ -4665,7 +4712,7 @@ def descriptor_clis(dev, counters, card, per_step):
     data = ["--synthetic", "true", "--train_path", root, "--keypoints_path",
             kp_dir, "--txt_path", os.path.join(root, "preprocess-random-full"),
             "--device", str(dev), "--descriptor", "pointnetmsg", "--seed",
-            "0"]
+            "0", *EXACT_ARGV]
 
     def run(main, argv):
         torch.cuda.synchronize()
@@ -4746,6 +4793,392 @@ def descriptors(dev, report, counters, card):
     out["wall_s"] = time.perf_counter() - t0
     print(f"descriptors phase on {card}: {out['wall_s']:.1f} s wall")
     report["_descriptors"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the fast top-k arm, the default of the kernel routes
+# ---------------------------------------------------------------------------
+
+def fma_f32(a, b, c):
+    """``fmaf(a, b, c)`` of float32 tensors, bit for bit: the product is
+    exact in float64 and the sum is rounded there, then to float32. That
+    double rounding errs only where the float64 sum lies halfway between two
+    float32 values while the exact sum does not; the sum's rounding error
+    (TwoSum) says which way the exact sum lies."""
+    import torch
+    p, c = a.double() * b.double(), c.double()
+    r = p + c
+    bp = r - p
+    err = (p - (r - bp)) + (c - bp)
+    f = r.float()
+    inf = torch.full_like(f, float("inf"))
+    other = torch.where(f.double() > r, torch.nextafter(f, -inf),
+                        torch.nextafter(f, inf))
+    half = (f.double() != r) & ((f.double() + other.double()) * 0.5 == r)
+    toward = torch.where(err > 0, torch.maximum(f, other),
+                         torch.minimum(f, other))
+    return torch.where(half & (err != 0), toward, f)
+
+
+def kernel_scores(q, k, scale):
+    """The attention kernel's own scores ``[B, H, N, M]`` float32: one fmaf
+    chain over the head dim, d ascending from 0 (``score_dot`` of
+    ``csrc/common.cuh``, phase A of ``csrc/attention.cu``), then times
+    ``scale``."""
+    import torch
+    q, k = q.float(), k.float()
+    acc = torch.zeros(q.shape[:-1] + (k.shape[-2],), dtype=torch.float32,
+                      device=q.device)
+    for d in range(q.shape[-1]):
+        acc = fma_f32(q[..., d, None], k[..., None, :, d], acc)
+    return acc * scale
+
+
+def fast_tie_rows(s, valid, thr_a, thr_b):
+    """[..., N] bool: rows where the fast arm's kept set rests on rounding:
+    the valid scores ``s`` kept under the two thresholds differ, or one of
+    them lies within TIE_GAP of either threshold. Where two sides sum the
+    scores in other orders a midpoint count can tip, and the two brackets
+    part."""
+    import torch
+    sv = torch.where(valid, s, torch.full_like(s, -1e30))
+    differ = ((sv >= thr_a) != (sv >= thr_b)).any(-1)
+    near = (((sv - thr_a).abs() < TIE_GAP) | ((sv - thr_b).abs() < TIE_GAP))
+    return differ | near.any(-1)
+
+
+class AttentionCalls:
+    """Within the block, every call of the attention kernel's wrapper is
+    recorded with its inputs and outputs; the wrapper's launch count goes
+    on counting."""
+
+    def __enter__(self):
+        from mdgat_tpu_torch.ops.cuda import attention as A
+        self.module, self.real, self.calls = A, A.topk_attention, []
+        real, calls = self.real, self.calls
+
+        def spy(q, k, v, kv_mask, topk, scale, return_lse=False, exact=True,
+                fine_iters=None):
+            out = real(q, k, v, kv_mask, topk, scale, return_lse, exact,
+                       fine_iters)
+            calls.append(dict(q=q, k=k, v=v, mask=kv_mask, topk=topk,
+                              scale=scale, exact=exact, out=out,
+                              fine=A.resolution(q.dtype, exact, fine_iters)))
+            return out
+
+        spy.launches = real.launches
+        A.topk_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.real.launches = self.module.topk_attention.launches
+        self.module.topk_attention = self.real
+        return False
+
+
+def check_fast_call(name, call, want_fine, tol):
+    """One fast-arm launch of the attention kernel against the twin on the
+    kernel's own scores: the resolution it ran at, thr bit-equal to
+    ``fast_threshold``'s, the output and lse within ``tol``. Returns the
+    output error."""
+    import torch
+    from mdgat_tpu_torch.ops.attention import attention_core, fast_threshold
+    q, k, v, mask, topk = call["q"], call["k"], call["v"], call["mask"], call["topk"]
+    require(not call["exact"] and call["fine"] == want_fine,
+            f"{name}: the kernel ran exact={call['exact']} at resolution "
+            f"{call['fine']}, not the fast arm at {want_fine}")
+    o, thr = call["out"][:2]
+    with torch.no_grad():
+        s = kernel_scores(q, k, call["scale"])
+        valid = (torch.ones_like(s, dtype=torch.bool) if mask is None
+                 else mask[:, None, None, :].expand(s.shape))
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        thr_twin = fast_threshold(s, valid, topk, want_fine)
+        o_twin, _, lse_twin = attention_core(s, v.float(), mask, topk,
+                                             return_lse=True,
+                                             fine_iters=want_fine)
+    torch.cuda.synchronize()
+    same = torch.equal(thr, thr_twin)
+    err = (o.float() - o_twin).abs().max().item()
+    lerr = 0.0
+    if len(call["out"]) == 3:
+        lse = call["out"][2]
+        lerr = ((lse - lse_twin).abs() / lse_twin.abs().clamp_min(1.0)).max().item()
+    extra = (thr_twin.expand(s.shape) <= s).sum(-1) - torch.clamp(
+        valid.sum(-1), max=topk)
+    print(f"{name}: fast arm at {want_fine} binary passes; thr "
+          f"{'bit-equal to' if same else 'DIFFERS from'} the twin's on the "
+          f"kernel's own scores; max|o-o_twin| {err:.3e} lse rel {lerr:.3e} "
+          f"tol {tol:g}; keys kept beyond k a row: mean "
+          f"{extra.float().mean().item():.3f}, max {int(extra.max())}")
+    require(same, f"{name}: the fast arm's thr differs from the twin's")
+    require(torch.isfinite(o.float()).all().item(), f"{name}: non-finite")
+    require(err <= tol and lerr <= TOL["attention_f32"], f"{name} disagrees")
+    return err
+
+
+def fast_attention_checks(rng, dev, report):
+    """Each call site of the fast arm against the twin on the card, at f32
+    and bf16 inputs: the attention kernel alone (#1; the serving shape at k
+    = 128 and 64, the boundaries of the ternary and the register arms, the
+    wide arm at 2 x 4 x 1500 x 1500), the eval layer (#2), the fused-MHA
+    forward (#4) and the whole-layer train forward (#6), each launch's
+    resolution keyed on the dtype of its caller's input."""
+    import torch
+    from mdgat_tpu_torch.ops.attention import fast_iters
+    from mdgat_tpu_torch.ops.cuda import attention as A
+    from mdgat_tpu_torch.ops.cuda import layer as Lk
+    from mdgat_tpu_torch.ops.cuda import mha as M
+    from mdgat_tpu_torch.ops.cuda import train_layer as T
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def t(*shape, dt=f32):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dt)
+
+    worst = 0.0
+    cases = [(64, 4, 256, 256, kk, dt) for kk in (128, 64) for dt in (f32, bf16)]
+    cases += [(2, 2, 64, m, 64, f32) for m in (512, 513, 1024, 1025)]
+    cases += [(2, 2, 50, 120, 119, f32), (2, 4, 1500, 1500, 128, f32),
+              (2, 4, 1500, 1500, 128, bf16)]
+    for b, h, n, m, kk, dt in cases:
+        q, k, v = t(b, h, n, 32, dt=dt), t(b, h, m, 32, dt=dt), t(b, h, m, 32, dt=dt)
+        mask = ragged_mask(rng, b, m, int(0.78 * m), dev)
+        with AttentionCalls() as spy:
+            A.topk_attention(q, k, v, mask, kk, 32 ** -0.5, exact=False)
+        name = f"fast attention {b}x{h}x{n}x{m} k{kk} {str(dt)[6:]}"
+        err = check_fast_call(name, spy.calls[0], fast_iters(dt),
+                              TOL["attention_f32" if dt == f32 else "attention_bf16"])
+        if dt == f32 and m == 256:
+            worst = max(worst, err)
+    report["topk_attention_fast"]["max_abs_err"] = worst
+
+    layer = _random_layer(7, dev)
+    w = layer.kernel_weights()
+    mask = ragged_mask(rng, 64, 256, 200, dev)
+    for dt in (f32, bf16):
+        x, src = t(64, 256, 128, dt=dt), t(64, 256, 128, dt=dt)
+        for kk in (128, 64):
+            with AttentionCalls() as spy:
+                y = Lk.fused_layer(x, src, mask, kk, w, exact=False)
+            require(torch.isfinite(y.float()).all().item(), "fast layer: non-finite")
+            check_fast_call(f"fast eval layer 64x256x128 k{kk} {str(dt)[6:]}",
+                            spy.calls[0], fast_iters(dt), TOL["attention_f32"])
+    wa = _random_attn(21, dev, 128, 4)
+    tl = _random_layer(41, dev, 128, 4)
+    with torch.no_grad():
+        wt = [p.clone() for p in T.train_layer_weights(tl)]
+    mask = ragged_mask(rng, 64, 512, 400, dev)
+    for dt in (f32, bf16):
+        x = t(64, 512, 128, dt=dt)
+        with AttentionCalls() as spy:
+            M.fused_mha_forward(x, x, mask, 128, 4, *wa, exact=False)
+            T.fused_train_layer_forward(x, x, mask, mask, 128, 4, *wt,
+                                        exact=False)
+        for label, call in zip(("fused-MHA forward", "train-layer fwd1"),
+                               spy.calls):
+            check_fast_call(f"fast {label} 64x512x128 k128 {str(dt)[6:]}",
+                            call, fast_iters(dt), TOL["attention_f32"])
+
+
+def fast_kernel_times(rng, dev, report, card):
+    """The attention kernel's two arms, in turns, by events and in a CUDA
+    graph, at the serving shape (k = 128, 64) and the train shape (k =
+    128), f32 as the routes give it; its twin's fast arm by events; the
+    bound of the fast arm's work at the serving shape, k = 128."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda import attention as A
+    out = {}
+    for n, kk in ((256, 128), (256, 64), (512, 128)):
+        b, h, dh = 64, 4, 32
+        q, k, v = (torch.from_numpy(rng.normal(size=(b, h, n, dh))
+                                    .astype(np.float32)).to(dev) for _ in range(3))
+        mask = ragged_mask(rng, b, n, int(0.78 * n), dev)
+        arms = [lambda: A.topk_attention(q, k, v, mask, kk, dh ** -0.5),
+                lambda: A.topk_attention(q, k, v, mask, kk, dh ** -0.5,
+                                         exact=False)]
+        ev = turns_ms(arms, reps=20)
+        graph = [[], []]
+        with torch.no_grad():
+            for i in (0, 1, 1, 0):
+                graph[i].append(graph_ms(arms[i]))
+        twin = cuda_ms(lambda: A.topk_attention_reference(
+            q, k, v, mask, kk, dh ** -0.5, exact=False), reps=5)
+        key = f"{b}x{h}x{n}x{n}x{dh}_k{kk}"
+        out[key] = dict(exact_events=ev[0], fast_events=ev[1],
+                        exact_graph=min(graph[0]), fast_graph=min(graph[1]),
+                        twin_fast_events=twin)
+        print(f"attention arms on {card}, {key} (ms a launch; exact / fast): "
+              f"events {ev[0]:.4f} / {ev[1]:.4f}, CUDA graph "
+              f"{min(graph[0]):.4f} / {min(graph[1]):.4f}; the fast twin "
+              f"{twin:.4f} by events")
+        if (n, kk) == (256, 128):
+            with torch.no_grad():
+                _, thr = arms[1]()
+                s = kernel_scores(q, k, dh ** -0.5)
+                valid = mask[:, None, None, :].expand(s.shape)
+                kept = ((s >= thr) & valid).sum().item()
+            keys = mask.sum().item()
+            flops = 2.0 * h * n * dh * keys + 2.0 * kept * dh
+            nbytes = 4 * 4.0 * b * h * n * dh + b * n + 4.0 * b * h * n
+            ms, by = bound(nbytes, flops)
+            report["topk_attention_fast"].update(
+                ms=ev[1], plain_ms=twin, bound_ms=ms, bound_by=by,
+                library_ms=None)
+            out[key].update(bound_ms=ms, bound_by=by, kept=kept)
+    report["_fast_topk_times_ms"] = out
+
+
+def fast_serving(rng, dev, report, counters, card):
+    """The default serving forward (the fast arm) behind ``Matcher``: three
+    ``match_batch`` calls of 64 pairs, the counters zeroed just before and
+    read just after: the exact route's 36 / 216 / 36 / 1 a forward; then the
+    forward's time beside the exact arm's."""
+    import torch
+    from mdgat_tpu_torch import Matcher
+    matcher = Matcher(seed=0, device=dev)
+    require(matcher.cfg.exact_topk is False, "the default is not the fast arm")
+    requests = [make_pairs(rng, 64) for _ in range(3)]
+    matcher.match_batch(requests[0][:2])
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    outs = [matcher.match_batch(r) for r in requests]
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    want = {name: 0 for name in counters}
+    want.update(topk_attention=36 * 3, eval_layer=36 * 3, gemm=216 * 3,
+                sinkhorn=3)
+    print(f"fast_topk serving: 3 default forwards of 64 pairs; launches "
+          f"{launches}")
+    require(launches == want, f"fast_topk serving: launches {launches}, "
+            f"not {want}")
+    for r, o in zip(requests, outs):
+        check_outputs(o, r)
+    report["topk_attention_fast"]["launches"] = launches["topk_attention"]
+    # the whole forward on one prepared batch, the exact arm and the fast
+    # one in turns (exact, fast, fast, exact)
+    exact = Matcher(seed=0, device=dev, **EXACT)
+    batch, _ = matcher.prepare_batch(requests[0])
+    with torch.inference_mode():
+        ms = turns_ms([lambda: exact.model(batch), lambda: matcher.model(batch)],
+                      reps=5)
+    print(f"fast_topk serving on {card}: forward of 64 pairs {ms[1]:.3f} ms "
+          f"(exact arm {ms[0]:.3f}) by events")
+    report["_fast_topk_serving_ms"] = dict(exact=ms[0], fast=ms[1])
+
+
+def fast_training(dev, report, counters):
+    """Three default training steps (whole-layer kernels, the fast arm) on
+    the training phase's batch: the exact route's launches, loss and
+    grad-norm relative differences against it printed."""
+    import torch
+    from mdgat_tpu_torch.core.config import train_defaults
+    from mdgat_tpu_torch.train import create_train_state
+    cfg = train_defaults()
+    _, batch = train_batch(1, cfg.batch_size, cfg.max_keypoints, dev)
+    state = create_train_state(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    metrics = run_steps(state, batch, TRAIN_STEPS)
+    launches = read_counts(counters)
+    exact = report["_training"]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-12)
+    for i, ((lf, gf), (le, ge)) in enumerate(zip(metrics, exact["train_layer"])):
+        print(f"fast_topk training step {i + 1}: loss {lf:.6f} (exact arm "
+              f"{le:.6f}, rel {rel(lf, le):.2e}), grad_norm {gf:.6f} ({ge:.6f}, "
+              f"rel {rel(gf, ge):.2e})")
+        require(np.isfinite([lf, gf]).all(), "fast_topk training: non-finite")
+    require(launches == exact["launches"],
+            f"fast_topk training: launches {launches}, the exact route's "
+            f"{exact['launches']}")
+    require(metrics[-1][0] < metrics[0][0], "fast_topk training: the loss "
+            "did not fall")
+    for p in state.model.parameters():
+        require(torch.isfinite(p).all().item(),
+                "fast_topk training: non-finite parameter")
+    report["_fast_topk_training"] = dict(steps=metrics, launches=launches)
+
+
+# The JAX package's measured score-noise floors, match slots flipped by the
+# score computation alone (its exact kernel against XLA's top_k on the same
+# inputs, 256 pairs, 65536 slots; mdgat_tpu/ops/pallas/attention.py:38-77),
+# as a share of the slots: the noise its fast arm was chosen to sit under.
+JAX_FLOOR_RATE = {"bfloat16": 129 / 65536, "float32": 52 / 65536}
+
+
+def fast_agreement(report):
+    """``tools/torch_topk_agreement.py`` at 4 batches of 64 pairs, f32 and
+    bf16, with the seeded weights and with the eval_cli phase's matching
+    checkpoint (a model whose matches are mostly right). The JAX package's
+    rule: the fast arm's flips against the exact
+    arm sit at or under the score-noise floor, the exact arm's flips
+    against the plain route on the same pairs. Where the port's floor is
+    below the JAX package's own (at f32 the port's exact kernel and plain
+    route agree on every slot), the fast arm is held to the JAX package's
+    floor as a share of the slots instead; the rule's verdict on the port's
+    floor is printed either way. At most 0.5% of the slots in any case."""
+    from tools.torch_topk_agreement import describe, measure
+    rows = []
+    for checkpoint in (None, os.path.join(OUT_DIR, "matching.pth")):
+        rows += measure(("float32", "bfloat16"), (0,), batches=4, batch=64,
+                        checkpoint=checkpoint)
+    for row in rows:
+        floor = row["flips_exact_plain"]
+        jax_floor = JAX_FLOOR_RATE[row["dtype"]] * row["slots"]
+        row["floor_rule_port"] = row["flips_fast_exact"] <= floor
+        row["jax_floor_flips"] = jax_floor
+        print(f"fast_topk agreement, {describe(row)}; the floor rule on the "
+              f"port's floor: {'holds' if row['floor_rule_port'] else 'FAILS'}"
+              f" ({row['flips_fast_exact']} flips, floor {floor}); the JAX "
+              f"package's floor at this dtype: {jax_floor:.1f} flips")
+        require(row["flips_fast_exact"] <= max(floor, jax_floor)
+                and row["flips_fast_exact"] <= 0.005 * row["slots"],
+                f"fast_topk agreement, {row['dtype']}, {row['weights']}: the "
+                f"fast arm flips "
+                f"{row['flips_fast_exact']} slots, above the floor {floor} "
+                f"(the JAX package's {jax_floor:.1f}) or 0.5% of "
+                f"{row['slots']}")
+    report["_fast_topk_agreement"] = rows
+
+
+def fast_topk(rng, dev, report, counters, card):
+    """The kernel routes' default selection, the fast arm (phase 14)."""
+    import torch
+    t0 = time.perf_counter()
+    fast_attention_checks(rng, dev, report)
+    torch.cuda.empty_cache()
+    f, g, gap, ties, rows = mha_case(rng, dev, 64, 512, 512, 128, 4, 128,
+                                     True, 20, exact=False)
+    print(f"fast fused_mha b64 n512 k128 self: out/thr/lse max err {f:.3e}, "
+          f"ten gradients max rel err {g:.3e}, forward vs rebuilt attention "
+          f"output {gap:.3e}; backward bit-equal over two runs; rows whose "
+          f"kept set rests on rounding left out {ties} of {rows}")
+    require(f <= TOL["mha_out"] and g <= TOL["mha_grad"]
+            and gap <= TOL["mha_selection_gap"],
+            "fast fused_mha: kernels disagree with the twin")
+    torch.cuda.empty_cache()
+    f, b1, g, z, gap, left, rows = train_layer_case(
+        rng, dev, 64, 512, 512, 128, 4, 128, False, 40, torch.float32,
+        exact=False)
+    print(f"fast train_layer b64 n512 k128 cross: forward max err {f:.3e}, "
+          f"bwd1 {b1:.3e}, gradients {g:.3e}, zero bias gradients {z:.3e}, "
+          f"forward vs rebuilt attention output {gap:.3e}; backward "
+          f"bit-equal over two runs; rows left out {left} of {rows}")
+    require(f <= TOL["train_layer_out"] and b1 <= TOL["train_layer_grad"]
+            and g <= TOL["train_layer_grad"]
+            and z <= TOL["train_layer_zero_grad"]
+            and gap <= TOL["mha_selection_gap"],
+            "fast train_layer: kernels disagree with the twin")
+    torch.cuda.empty_cache()
+    fast_kernel_times(rng, dev, report, card)
+    torch.cuda.empty_cache()
+    fast_serving(rng, dev, report, counters, card)
+    torch.cuda.empty_cache()
+    fast_training(dev, report, counters)
+    torch.cuda.empty_cache()
+    fast_agreement(report)
+    print(f"fast_topk phase: {time.perf_counter() - t0:.1f} s")
 
 
 def make_counters():
@@ -4859,6 +5292,10 @@ def main() -> int:
                              replaces="mdgat_tpu/ops/pallas/sinkhorn.py:281"),
         "topk_attention": dict(route="cuda", source="mdgat_tpu_torch/csrc/attention.cu",
                                replaces="mdgat_tpu/ops/pallas/attention.py:524"),
+        # the same kernel with its fast arm: _stacked_prob's value bisection
+        "topk_attention_fast": dict(
+            route="cuda", source="mdgat_tpu_torch/csrc/attention.cu",
+            replaces="mdgat_tpu/ops/pallas/attention.py:435"),
         "eval_layer": dict(route="cuda", source="mdgat_tpu_torch/csrc/gemm.cu",
                            replaces="mdgat_tpu/ops/pallas/attention.py:577"),
         "gemm": dict(route="cuda", source="mdgat_tpu_torch/csrc/gemm.cu",
@@ -4909,6 +5346,8 @@ def main() -> int:
     wide_clouds(rng, dev, report, counters, card)
     torch.cuda.empty_cache()
     descriptors(dev, report, counters, card)
+    torch.cuda.empty_cache()
+    fast_topk(rng, dev, report, counters, card)
 
     kernels = [dict(name=name, **{k: report[name][k] for k in
                                   ("route", "source", "replaces", "launches",

@@ -46,13 +46,25 @@ class Matcher:
     / ``"FPFH_gloabal"``. The Matcher takes keypoints and FPFH descriptors,
     no raw cloud, so the learned-descriptor modes (``pointnet``,
     ``pointnetmsg``) raise ``ValueError``: their pairs go through the eval
-    CLIs' pipeline (``eval/runner.py``).
+    CLIs' pipeline (``eval/runner.py``). ``exact_topk=True`` selects the
+    exact top-k on the kernel routes (the default is the attention kernel's
+    value bisection; a CPU Matcher is exact either way).
+    ``seq_parallel`` other than 1 raises ``ValueError``: the seq axis runs
+    in the multi-process CLIs.
     """
 
     def __init__(self, checkpoint: Optional[str] = None, *, device,
                  params=None, bn_state=None, seed: Optional[int] = None,
                  **overrides):
         self.cfg: Config = test_defaults().replace(**overrides)
+        if self.cfg.seq_parallel != 1:
+            raise ValueError(
+                f"Matcher(seq_parallel={self.cfg.seq_parallel}): a Matcher "
+                "runs in one process on one device; one-process serving over "
+                "several devices is not ported yet. The seq axis runs in the "
+                "multi-process CLIs (test_torch.py, "
+                "test_registration_metric_torch.py, train_torch.py with "
+                "--seq_parallel S and one rank a process)")
         if self.cfg.descriptor in POINTNET_DESCRIPTORS:
             raise ValueError(
                 f"Matcher(descriptor={self.cfg.descriptor!r}): the Matcher "

@@ -10,7 +10,8 @@ None]``).
 The JAX package's accelerator flags collapse as its config did: ``--device``
 says where the model runs (``cuda`` unless asked otherwise), ``--use_kernels``
 / ``--train_layer`` / ``--loss_kernel`` choose the hand-written kernel routes
-(``core/config.py``). Its multi-process flags (``--coordinator_address``,
+(``core/config.py``); ``--pallas_exact_topk`` keeps its JAX name, type and
+default and picks the attention kernel's selection arm. Its multi-process flags (``--coordinator_address``,
 ``--num_processes``, ``--process_id``) run the entry points as one rank a
 process (:func:`setup_distributed`), with ``--dist_backend`` naming the
 ``torch.distributed`` backend, and ``--seq_parallel S`` (the JAX name and
@@ -32,7 +33,8 @@ from mdgat_tpu_torch.core.config import (POINTNET_DESCRIPTORS, Config,
 _EPILOG = ("Flags of the JAX package that are not ported (they steer JAX, "
            "the TPU or one process over several devices; in the port one "
            "rank is one device): --platform, --data_parallel, "
-           "--shard_map, --use_pallas, --pallas_*, "
+           "--shard_map, --use_pallas, --pallas_attention, "
+           "--pallas_train_layer, --pallas_loss, --pallas_interpret, "
            "--scan_gnn_pairs, --debug_nans, --trace_dir, --ship_bf16.")
 
 
@@ -112,6 +114,12 @@ def build_parser(preset: str) -> argparse.ArgumentParser:
                    help="train: each GNN layer (MHA + MLP + batch-stat BN + "
                         "residual) through the whole-layer train kernels; "
                         "false = fused-MHA kernels + plain MLP / BN")
+    p.add_argument("--pallas_exact_topk", type=_parse_bool,
+                   default=d.exact_topk,
+                   help="kernel routes: bit-exact top-k selection in the "
+                        "attention kernel; false = its value bisection, "
+                        "which keeps the top k and possibly near ties (the "
+                        "plain route is exact either way)")
     p.add_argument("--loss_kernel", type=_parse_bool, default=d.loss_kernel,
                    help="gap loss through the margin kernels (forward and "
                         "backward); off by default")
@@ -184,6 +192,7 @@ def config_from_args(args, preset: str) -> Config:
         use_kernels=args.use_kernels,
         train_layer=args.train_layer,
         loss_kernel=args.loss_kernel,
+        exact_topk=args.pallas_exact_topk,
         prefetch=args.prefetch,
         coordinator_address=args.coordinator_address,
         num_processes=args.num_processes,

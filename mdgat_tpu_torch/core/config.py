@@ -28,6 +28,17 @@ fused-MHA forward / backward pair) and the layer's MLP and BatchNorm are
 plain PyTorch under autograd. The encoders and the score product stay plain
 PyTorch on either route.
 
+``exact_topk`` (off by default, the JAX package's ``pallas_exact_topk``)
+picks the arm of the attention kernel's top-k selection on the kernel
+routes: the exact k-th value, or by default the fast value bisection, whose
+kept set can hold a few near-tie keys more than the top k. As in the JAX
+package it acts on the kernel routes only; the plain route selects the
+exact top-k whatever it says. ``kernel_twins`` (no CLI flag, the
+counterpart of the JAX package's ``pallas_interpret``) sends a CPU model
+down the kernel routes, where every wrapper takes its plain twin: the
+tests hold the fast arm against the JAX package's kernels run in interpret
+mode with it.
+
 ``loss_kernel`` (off by default, the counterpart of the JAX package's
 ``pallas_loss``) sends the gap loss through the margin kernels of
 ``ops/cuda/gap_loss.py``, forward and backward, in train and eval mode and
@@ -91,6 +102,8 @@ class Config:
     use_kernels: bool = True        # CUDA tensors run the csrc/ kernels
     train_layer: bool = True        # training: whole-layer kernels (else fused MHA + plain MLP)
     loss_kernel: bool = False       # gap loss through the margin kernels
+    exact_topk: bool = False        # kernel routes: exact top-k (else value bisection)
+    kernel_twins: bool = False      # CPU tensors take the kernel routes' twins
     prefetch: int = 2
     seed: int = 0
 

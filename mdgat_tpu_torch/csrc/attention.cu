@@ -2,14 +2,22 @@
 //
 // Replaces the TPU kernel mdgat_tpu/ops/pallas/attention.py::_attn_kernel
 // (reached from pallas_topk_attention) and its selection core
-// _stacked_prob, EXACT arm: the k-th largest valid score of each query row
-// is found exactly over order-preserving int32 keys (_monotone_key /
-// _key_to_float), so the threshold equals the k-th value bit for bit and
-// every tie at it is kept. The softmax subtracts the row max taken before
+// _stacked_prob, both arms. The EXACT arm finds the k-th largest valid
+// score of each query row exactly over order-preserving int32 keys
+// (_monotone_key / _key_to_float), so the threshold equals the k-th value
+// bit for bit and every tie at it is kept. The FAST arm (fast_passes > 0,
+// the TPU kernel's default) is its value bisection: lo starts at the
+// smallest valid score, hi at the row max, and each of fast_passes passes
+// counts s >= lo + c_j * (hi - lo) at fast_mids midpoints (c = 1/3, 2/3, or
+// 1/2) and moves [lo, hi] to the bracket of the largest midpoint whose
+// count reaches topk; the threshold is lo and the kept set s >= lo holds the
+// true top-k (and possibly near ties below the k-th value). Every midpoint
+// is a rounded multiply and a rounded add (__fmul_rn / __fadd_rn: no FMA
+// contraction), as ops/attention.py::fast_threshold forms it, so thr is the
+// twin's bits. The softmax subtracts the row max taken before
 // the search; masked and dropped entries weigh exactly 0; the denominator
 // is floored at 1e-30, so an all-masked row gives zeros and no NaN (its
-// thr is +1e30, its lse -1e30). The fast value-bisection arm of the TPU
-// kernel is not ported. With a non-null `lse` the kernel also writes the
+// thr is +1e30, its lse -1e30). With a non-null `lse` the kernel also writes the
 // per-row logsumexp over the kept entries, max + log(max(denom, 1e-30)):
 // the second residual of the fused-MHA forward (_mha_fwd_kernel).
 //
@@ -44,6 +52,9 @@
 //     pivot sequence ends at the same key, so the result is the 32-step
 //     key bisection's, bit for bit, in about five steps on random scores
 //     (ops/cuda/attention.py::selection_mirror repeats it on the CPU).
+//     The fast arm keeps the keys in the same registers and runs its passes
+//     over them: two compares a key a pass, one __reduce_add_sync a
+//     midpoint, no candidate ranking.
 //  C. PV, as a second register-tiled product over the weights left in the
 //     slab (dropped entries are zeros): V streams through the tile buffer
 //     (its first tile in flight during phase B), a thread owns TR rows x 4
@@ -97,6 +108,38 @@ __device__ __forceinline__ int ceil_avg(int a, int b) {
   return fa + ((a ^ b) & 1);
 }
 
+// A midpoint of the fast arm: lo + c * (hi - lo), each operation rounded on
+// its own, as the twin (ops/attention.py::fast_threshold) and the TPU
+// kernel's source spell it.
+__device__ __forceinline__ float fast_mid(float lo, float hi, float c) {
+  return __fadd_rn(lo, __fmul_rn(c, __fsub_rn(hi, lo)));
+}
+
+// One pass's bracket update of the fast arm from the counts c0 >= c1 of
+// its midpoints m0 < m1 (m1 unused when mids is 1): the bracket above the
+// largest midpoint whose count reaches topk, else [lo, m0].
+__device__ __forceinline__ void fast_update(float& lo, float& hi, float m0,
+                                            float m1, int c0, int c1,
+                                            int mids, int topk) {
+  float nlo = lo, nhi = m0;
+  if (c0 >= topk) {
+    nlo = m0;
+    nhi = mids == 2 ? m1 : hi;
+  }
+  if (mids == 2 && c1 >= topk) {
+    nlo = m1;
+    nhi = hi;
+  }
+  lo = nlo;
+  hi = nhi;
+}
+
+// the midpoints' fractions: (j + 1) / (mids + 1) rounded to f32
+__device__ __forceinline__ float fast_c0(int mids) {
+  return mids == 2 ? 1.f / 3.f : 0.5f;
+}
+constexpr float kFastC1 = 2.f / 3.f;
+
 // rows of a warp that go through phase B together: at most 32 keys a lane
 __host__ __device__ constexpr int rows_in_flight(int TR, int C) {
   return TR * C <= 32 ? TR : 32 / C;
@@ -111,8 +154,9 @@ __host__ __device__ constexpr int rows_in_flight(int TR, int C) {
 // and lse; a dead row (past N) does nothing.
 __device__ __forceinline__ void select_wide_row(
     float* Sr, const uint8_t* __restrict__ mb, bool live, int M, int nc,
-    int topk, int lane, int* cand, float& inv, size_t row,
-    float* __restrict__ thr, float* __restrict__ lse) {
+    int topk, int fast_mids, int fast_passes, int lane, int* cand,
+    float& inv, size_t row, float* __restrict__ thr,
+    float* __restrict__ lse) {
   if (!live) return;                     // warp-uniform
   int nv = 0, hi = INT_MIN, lo = monotone_key(-kBigNeg);
   for (int j = lane; j < M; j += 32) {
@@ -127,7 +171,23 @@ __device__ __forceinline__ void select_wide_row(
   hi = __reduce_max_sync(kFull, hi);     // pre-search row max
   lo = __reduce_min_sync(kFull, lo);     // smallest valid (+1e30 if none)
   const float mx = key_to_float(hi);
-  if (topk > 0) {
+  float flo = key_to_float(lo);          // the fast arm's threshold
+  if (topk > 0 && fast_passes > 0) {
+    const float ca = fast_c0(fast_mids);
+    float fhi = mx;
+    for (int p = 0; p < fast_passes; ++p) {
+      const float m0 = fast_mid(flo, fhi, ca), m1 = fast_mid(flo, fhi, kFastC1);
+      int c0 = 0, c1 = 0;
+      for (int j = lane; j < M; j += 32) {
+        const float s = Sr[j];           // masked keys hold the sentinel
+        c0 += s >= m0;
+        c1 += s >= m1;
+      }
+      c0 = __reduce_add_sync(kFull, c0);
+      c1 = __reduce_add_sync(kFull, c1);
+      fast_update(flo, fhi, m0, m1, c0, c1, fast_mids, topk);
+    }
+  } else if (topk > 0) {
     int c_lo = nv, c_hi = 0;
     bool act = topk < nv && lo < hi && nv > kCandidates;
     for (int it = 0; act; ++it) {
@@ -165,7 +225,8 @@ __device__ __forceinline__ void select_wide_row(
   float sum = 0.f;
   for (int j = lane; j < nc * 32; j += 32) {
     const float s = Sr[j];
-    const bool keep = j < M && mb[j] != 0 && (topk == 0 || monotone_key(s) >= lo);
+    const bool keep = j < M && mb[j] != 0 &&
+                      (topk == 0 || (fast_passes > 0 ? s >= flo : monotone_key(s) >= lo));
     const float e = keep ? expf(s - mx) : 0.f;
     sum += e;
     Sr[j] = e;
@@ -173,7 +234,7 @@ __device__ __forceinline__ void select_wide_row(
   sum = warp_sum(sum);
   if (lane == 0) {
     inv = 1.f / fmaxf(sum, 1e-30f);
-    thr[row] = topk > 0 ? key_to_float(lo) : kBigNeg;
+    thr[row] = topk > 0 ? (fast_passes > 0 ? flo : key_to_float(lo)) : kBigNeg;
     if (lse != nullptr) lse[row] = mx + logf(fmaxf(sum, 1e-30f));
   }
 }
@@ -184,7 +245,8 @@ topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const uint8_t* __restrict__ mask,
                       T* __restrict__ o, float* __restrict__ thr,
                       float* __restrict__ lse, float* __restrict__ slab, int H,
-                      int N, int M, int topk, float scale) {
+                      int N, int M, int topk, int fast_mids, int fast_passes,
+                      float scale) {
   constexpr int BR = 8 * TR, LD = DH + 4, DG = DH / 4;
   constexpr int RW = rows_in_flight(TR, C);
   constexpr bool kWide = C == 0;
@@ -278,8 +340,8 @@ topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // ---- phase B: selection and softmax, one warp per row ------------------
   if constexpr (kWide) {
-    select_wide_row(S + warp * LDS, mb, row0 + warp < N, M, nc, topk, lane,
-                    cand[warp][0], row_inv[warp],
+    select_wide_row(S + warp * LDS, mb, row0 + warp < N, M, nc, topk,
+                    fast_mids, fast_passes, lane, cand[warp][0], row_inv[warp],
                     static_cast<size_t>(bh) * N + row0 + warp, thr, lse);
   } else {
   unsigned valid_bits = 0;
@@ -329,11 +391,46 @@ topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       hi[u] = __reduce_max_sync(kFull, hi[u]);  // pre-search row max
       lo[u] = __reduce_min_sync(kFull, lo[u]);  // smallest valid (+1e30 if none)
     }
-    float mx[RW];
+    float mx[RW], flo[RW];               // flo: the fast arm's threshold
 #pragma unroll
-    for (int u = 0; u < RW; ++u) mx[u] = key_to_float(hi[u]);
+    for (int u = 0; u < RW; ++u) {
+      mx[u] = key_to_float(hi[u]);
+      flo[u] = key_to_float(lo[u]);
+    }
 
-    if (topk > 0) {
+    if (topk > 0 && fast_passes > 0) {
+      // the fast arm: every row runs the same passes, the RW rows together
+      const float ca = fast_c0(fast_mids);
+      float fhi[RW];
+#pragma unroll
+      for (int u = 0; u < RW; ++u) fhi[u] = mx[u];
+      for (int p = 0; p < fast_passes; ++p) {
+        float m0[RW], m1[RW];
+        int c0[RW], c1[RW];
+#pragma unroll
+        for (int u = 0; u < RW; ++u) {
+          m0[u] = fast_mid(flo[u], fhi[u], ca);
+          m1[u] = fast_mid(flo[u], fhi[u], kFastC1);
+          c0[u] = 0;
+          c1[u] = 0;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float s = key_to_float(key[u][c]);
+            c0[u] += s >= m0[u];
+            c1[u] += s >= m1[u];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < RW; ++u) {
+          c0[u] = __reduce_add_sync(kFull, c0[u]);
+          c1[u] = __reduce_add_sync(kFull, c1[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < RW; ++u)
+          fast_update(flo[u], fhi[u], m0[u], m1[u], c0[u], c1[u], fast_mids,
+                      topk);
+      }
+    } else if (topk > 0) {
       // The k-th largest key is the largest t with count(key >= t) >= topk.
       // With topk >= nvalid that is lo as it stands. Otherwise
       // count(key >= lo) >= topk > count(key > hi) holds throughout.
@@ -422,7 +519,9 @@ topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         keep_bits = 0;
 #pragma unroll
         for (int c = 0; c < C; ++c)
-          if (key[u][c] >= lo[u]) keep_bits |= 1u << c;
+          if (fast_passes > 0 ? key_to_float(key[u][c]) >= flo[u]
+                              : key[u][c] >= lo[u])
+            keep_bits |= 1u << c;
         keep_bits &= vbits[u];           // all-masked rows keep nothing
       }
       sum[u] = 0.f;
@@ -445,7 +544,8 @@ topk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (lane == 0 && live[u]) {
         const size_t row = static_cast<size_t>(bh) * N + row0 + r0 + u;
         row_inv[r0 + u] = 1.f / fmaxf(sum[u], 1e-30f);
-        thr[row] = topk > 0 ? key_to_float(lo[u]) : kBigNeg;
+        thr[row] = topk > 0 ? (fast_passes > 0 ? flo[u] : key_to_float(lo[u]))
+                            : kBigNeg;
         if (lse != nullptr) lse[row] = mx[u] + logf(fmaxf(sum[u], 1e-30f));
       }
     }
@@ -514,7 +614,8 @@ template <typename T, int DH, int TR, int C>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* mask, void* o, float* thr, float* lse,
                    float* slab, long long slab_floats, int B, int H, int N,
-                   int M, int topk, float scale, cudaStream_t stream) {
+                   int M, int topk, int fast_mids, int fast_passes,
+                   float scale, cudaStream_t stream) {
   constexpr int BR = 8 * TR;
   const size_t rest = tile_floats(DH, BR) + BR * (DH + 4);
   const size_t slab_smem = static_cast<size_t>(BR) * slab_stride(M);
@@ -536,7 +637,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(o), thr, lse, slab, H, N,
-      M, topk, scale);
+      M, topk, fast_mids, fast_passes, scale);
   return cudaGetLastError();
 }
 
@@ -551,11 +652,12 @@ template <typename T, int DH>
 cudaError_t dispatch_rows(const void* q, const void* k, const void* v,
                           const uint8_t* mask, void* o, float* thr, float* lse,
                           float* slab, long long slab_floats, int B, int H,
-                          int N, int M, int topk, float scale,
-                          cudaStream_t stream) {
+                          int N, int M, int topk, int fast_mids,
+                          int fast_passes, float scale, cudaStream_t stream) {
 #define MDGAT_ATTN(TR, C)                                                     \
   return launch<T, DH, TR, C>(q, k, v, mask, o, thr, lse, slab, slab_floats,  \
-                              B, H, N, M, topk, scale, stream)
+                              B, H, N, M, topk, fast_mids, fast_passes,      \
+                              scale, stream)
   if (M <= 256) MDGAT_ATTN(4, 8);
   if (M <= 512) MDGAT_ATTN(4, 16);
   if (M <= 1024) MDGAT_ATTN(2, 32);
@@ -567,15 +669,16 @@ template <typename T>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
                         const uint8_t* mask, void* o, float* thr, float* lse,
                         float* slab, long long slab_floats, int B, int H, int N,
-                        int M, int Dh, int topk, float scale,
-                        cudaStream_t stream) {
+                        int M, int Dh, int topk, int fast_mids,
+                        int fast_passes, float scale, cudaStream_t stream) {
   if (!aligned_to(q, 4 * sizeof(T)) || !aligned_to(k, 4 * sizeof(T)) ||
       !aligned_to(v, 4 * sizeof(T)) || !aligned_to(o, 4 * sizeof(T)))
     return cudaErrorInvalidValue;
 #define MDGAT_DH(DH)                                                          \
   case DH:                                                                    \
     return dispatch_rows<T, DH>(q, k, v, mask, o, thr, lse, slab,            \
-                                slab_floats, B, H, N, M, topk, scale, stream);
+                                slab_floats, B, H, N, M, topk, fast_mids,    \
+                                fast_passes, scale, stream);
   switch (Dh) {
     MDGAT_DH(8)
     MDGAT_DH(16)
@@ -591,25 +694,30 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
 
 // q [B,H,N,Dh], k/v [B,H,M,Dh] (f32 or bf16, contiguous), mask [B,M] uint8,
 // o [B,H,N,Dh] (input dtype), thr [B,H,N] f32, lse [B,H,N] f32 or null.
-// topk 0 = dense. slab: f32 scratch of slab_floats floats for the wide
-// arm's score slab where it does not fit in shared memory, else null.
+// topk 0 = dense. fast_passes 0 selects with the exact arm; a positive count
+// with the fast arm, fast_mids (1 or 2) midpoints a pass. slab: f32 scratch
+// of slab_floats floats for the wide arm's score slab where it does not fit
+// in shared memory, else null.
 extern "C" cudaError_t mdgat_topk_attention(
     const void* q, const void* k, const void* v, const void* mask, void* o,
     void* thr, void* lse, void* slab, long long slab_floats, int B, int H,
-    int N, int M, int Dh, int topk, float scale, int io_dtype,
-    cudaStream_t stream) {
+    int N, int M, int Dh, int topk, int fast_mids, int fast_passes,
+    float scale, int io_dtype, cudaStream_t stream) {
   using namespace mdgat;
-  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || topk < 0) return cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || topk < 0 || fast_passes < 0 ||
+      (fast_passes > 0 && fast_mids != 1 && fast_mids != 2))
+    return cudaErrorInvalidValue;
   const auto* m = static_cast<const uint8_t*>(mask);
   auto* t = static_cast<float*>(thr);
   auto* l = static_cast<float*>(lse);
   auto* sl = static_cast<float*>(slab);
   if (io_dtype == kF32)
     return dispatch_dh<float>(q, k, v, m, o, t, l, sl, slab_floats, B, H, N, M,
-                              Dh, topk, scale, stream);
+                              Dh, topk, fast_mids, fast_passes, scale, stream);
   if (io_dtype == kBF16)
     return dispatch_dh<__nv_bfloat16>(q, k, v, m, o, t, l, sl, slab_floats, B,
-                                      H, N, M, Dh, topk, scale, stream);
+                                      H, N, M, Dh, topk, fast_mids,
+                                      fast_passes, scale, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -12,6 +12,12 @@ whole-layer kernels (``ops/cuda/layer.py``) on weights prepared once per
 model (cached here until a parameter or buffer changes); otherwise the
 plain path.
 
+The kernel routes below select the top-k with the attention kernel's fast
+arm unless ``exact_topk`` (the JAX package's ``pallas_exact_topk``); the
+plain path is exact either way, as the JAX package's XLA path is. With
+``kernel_twins`` a CPU tensor takes the kernel routes too, on the wrappers'
+plain twins (the JAX package's ``pallas_interpret``).
+
 Training mode (``module.train()``): a layer is applied to cloud 0, then to
 cloud 1, both from the descriptors before the layer, so its BatchNorm sees
 per-cloud batch statistics and its running stats move twice per layer
@@ -86,14 +92,17 @@ class AttentionalPropagation(nn.Module):
     def forward(self, x, source, topk: Optional[int],
                 kv_mask: Optional[torch.Tensor] = None,
                 valid_mask: Optional[torch.Tensor] = None,
-                use_kernels: bool = False) -> torch.Tensor:
+                use_kernels: bool = False, exact: bool = True,
+                kernel_twins: bool = False) -> torch.Tensor:
         """The residual update ``MLP(cat(x, MHA(x, source)))`` (concat-free
         first conv). ``valid_mask`` marks the valid points of ``x`` for the
         training-mode BN statistics; ``use_kernels`` routes the attention
-        of a CUDA tensor to the fused-MHA kernel pair."""
+        of a CUDA tensor (any tensor with ``kernel_twins``) to the fused-MHA
+        kernel pair, whose selection is exact or the fast arm."""
         message = multi_head_attention(self.attn, x, source, topk,
                                        self.num_heads, kv_mask=kv_mask,
-                                       use_kernels=use_kernels)
+                                       use_kernels=use_kernels, exact=exact,
+                                       kernel_twins=kernel_twins)
         return apply_mlp(self.mlp, (x, message), valid_mask)
 
     def kernel_weights(self) -> LayerWeights:
@@ -127,11 +136,13 @@ class AttentionalGNN(nn.Module):
                 mask0: Optional[torch.Tensor] = None,
                 mask1: Optional[torch.Tensor] = None,
                 use_kernels: bool = True, train_layer: bool = True,
-                seq_group=None, key_masks=None):
+                seq_group=None, key_masks=None, exact_topk: bool = False,
+                kernel_twins: bool = False):
         """``desc0`` / ``desc1`` [B, N, D] and their row masks [B, N]. With
         ``seq_group`` they hold this member's block of each cloud's rows,
         and ``key_masks`` are the masks of the whole clouds."""
-        kernels = use_kernels and desc0.device.type == "cuda"
+        kernels = use_kernels and (desc0.device.type == "cuda" or kernel_twins)
+        exact = exact_topk or not kernels    # the plain path is exact
         kmask0, kmask1 = (mask0, mask1) if seq_group is None else key_masks
         for layer, name, k in zip(self.layers, self.names, k_schedule):
             keys0, keys1 = desc0, desc1
@@ -145,17 +156,21 @@ class AttentionalGNN(nn.Module):
             if self.training and use_kernels and train_layer:
                 # the residual is inside the fused layer; cloud 0 first
                 desc0, desc1 = (
-                    fused_train_layer_apply(layer, desc0, src0, k, kvm0, mask0),
-                    fused_train_layer_apply(layer, desc1, src1, k, kvm1, mask1))
+                    fused_train_layer_apply(layer, desc0, src0, k, kvm0, mask0,
+                                            exact),
+                    fused_train_layer_apply(layer, desc1, src1, k, kvm1, mask1,
+                                            exact))
             elif self.training:
                 # cloud 0 first: the BN running stats move in that order
-                delta0 = layer(desc0, src0, k, kvm0, mask0, use_kernels)
-                delta1 = layer(desc1, src1, k, kvm1, mask1, use_kernels)
+                delta0 = layer(desc0, src0, k, kvm0, mask0, use_kernels,
+                               exact, kernel_twins)
+                delta1 = layer(desc1, src1, k, kvm1, mask1, use_kernels,
+                               exact, kernel_twins)
                 desc0, desc1 = desc0 + delta0, desc1 + delta1
             elif kernels:
                 w = layer.kernel_weights()
-                desc0, desc1 = (fused_layer(desc0, src0, kvm0, k, w),
-                                fused_layer(desc1, src1, kvm1, k, w))
+                desc0, desc1 = (fused_layer(desc0, src0, kvm0, k, w, exact),
+                                fused_layer(desc1, src1, kvm1, k, w, exact))
             else:
                 desc0, desc1 = (desc0 + layer(desc0, src0, k, kvm0),
                                 desc1 + layer(desc1, src1, k, kvm1))

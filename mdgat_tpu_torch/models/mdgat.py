@@ -61,6 +61,12 @@ the replicated tail's gradients are counted once. ``FPFH_gloabal`` is
 refused under a seq axis: its encoder max-pools over the whole cloud, which
 a member's block does not hold (the JAX package pools each block alone).
 
+``config.exact_topk`` picks the attention kernel's selection arm on the
+kernel routes (the fast value bisection by default, as the JAX package's
+``pallas_exact_topk=False``); the plain route is exact. ``config.
+kernel_twins`` sends a CPU model down the kernel routes, onto the
+wrappers' plain twins (the JAX package's ``pallas_interpret``).
+
 ``config.loss_kernel`` routes the gap loss through
 ``ops/cuda/gap_loss.py::gap_loss_kernel`` (the margin kernels on a CUDA
 tensor, their plain twins on a CPU tensor), in both modes and independently
@@ -196,7 +202,9 @@ class MDGAT(nn.Module):
                                     use_kernels=cfg.use_kernels,
                                     train_layer=cfg.train_layer,
                                     seq_group=seq_group,
-                                    key_masks=(kmask0, kmask1))
+                                    key_masks=(kmask0, kmask1),
+                                    exact_topk=cfg.exact_topk,
+                                    kernel_twins=cfg.kernel_twins)
             mdesc0, mdesc1 = self.final_proj(desc0), self.final_proj(desc1)
         else:
             mdesc0, mdesc1 = desc0, desc1
@@ -212,7 +220,8 @@ class MDGAT(nn.Module):
         scores = scores / math.sqrt(cfg.descriptor_dim)
         alpha = self.bin_score.to(ot_dtype)
         transport = (log_optimal_transport_kernel
-                     if cfg.use_kernels and scores.device.type == "cuda"
+                     if cfg.use_kernels and (scores.device.type == "cuda"
+                                             or cfg.kernel_twins)
                      else log_optimal_transport)
         ot = transport(scores, alpha, cfg.sinkhorn_iterations, mask0, mask1)
         with torch.no_grad():

@@ -42,7 +42,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, mask, o, thr, lse, slab, slab_floats, B, H, N, M, Dh, topk,
     # scale, io_dtype, stream
-    "mdgat_topk_attention": [_P] * 8 + [_L] + [_I] * 6 + [_F, _I, _P],
+    "mdgat_topk_attention": [_P] * 8 + [_L] + [_I] * 8 + [_F, _I, _P],
     # a1, a1_dtype, a1_heads, a2, K1, K2, w, bias, res, out, out_dtype,
     # out_heads, rows_per_batch, R, C, relu, w_trans, stream
     "mdgat_gemm": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -1,7 +1,7 @@
 """Top-k / dense attention kernel (``csrc/attention.cu``) and its plain twin.
 
 Replaces ``mdgat_tpu/ops/pallas/attention.py::pallas_topk_attention`` /
-``_attn_kernel`` and the exact arm of its selection core ``_stacked_prob``.
+``_attn_kernel`` and both arms of its selection core ``_stacked_prob``.
 See the source note in ``csrc/attention.cu`` for the design and what bounds
 it on the H100.
 
@@ -10,7 +10,12 @@ it on the H100.
 returns the output ``[B, H, N, Dh]`` in the input dtype and the per-row
 threshold ``[B, H, N, 1]`` in float32; with ``return_lse`` also the per-row
 logsumexp over the kept entries ``[B, H, N, 1]``, the residual from which
-the fused-MHA backward (``ops/cuda/mha.py``) rebuilds the probabilities. A
+the fused-MHA backward (``ops/cuda/mha.py``) rebuilds the probabilities.
+``exact`` picks the arm: the exact k-th value, or (``exact=False``) the JAX
+package's default value bisection at the resolution ``fine_iters``, which
+defaults to :func:`~mdgat_tpu_torch.ops.attention.fast_iters` of q's dtype;
+the routes that feed the kernel float32 projections of a narrower input
+pass the resolution of that input. A
 CUDA tensor launches the kernel; a CPU tensor takes
 :func:`topk_attention_reference`. Nothing falls back:
 a CUDA call the kernel cannot take raises.
@@ -31,7 +36,9 @@ from typing import Optional
 
 import torch
 
-from mdgat_tpu_torch.ops.attention import BIG_NEG, acc_dtype, attention_core
+from mdgat_tpu_torch.ops.attention import (BIG_NEG, acc_dtype,
+                                           attention_core, fast_iters,
+                                           fast_plan)
 from mdgat_tpu_torch.ops.cuda._build import (DTYPE_CODES, _ptr,
                                              device_scratch, library)
 
@@ -138,24 +145,38 @@ def selection_mirror(s: torch.Tensor, valid: torch.Tensor,
     return _key_to_float(lo).reshape(*shape, 1)
 
 
+def resolution(dtype: torch.dtype, exact: bool,
+               fine_iters: Optional[int] = None) -> int:
+    """The ``fine_iters`` that :func:`~mdgat_tpu_torch.ops.attention.
+    attention_core` takes: 0 for the exact arm, else ``fine_iters`` or the
+    fast arm's resolution for an input of ``dtype``."""
+    if exact:
+        return 0
+    return int(fine_iters) if fine_iters else fast_iters(dtype)
+
+
 def topk_attention_reference(q, k, v, kv_mask: Optional[torch.Tensor],
                              topk: int, scale: float,
-                             return_lse: bool = False):
+                             return_lse: bool = False, exact: bool = True,
+                             fine_iters: Optional[int] = None):
     """Plain PyTorch twin of the kernel: the same selection and softmax
     (``ops/attention.py``), f32 internals for f32/bf16 inputs."""
     acc = acc_dtype(q.dtype)
     s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
-    out, thr, lse = attention_core(s, v, kv_mask, topk, return_lse=True)
+    out, thr, lse = attention_core(s, v, kv_mask, topk, return_lse=True,
+                                   fine_iters=resolution(q.dtype, exact,
+                                                         fine_iters))
     if return_lse:
         return out.to(q.dtype), thr.to(torch.float32), lse.to(torch.float32)
     return out.to(q.dtype), thr.to(torch.float32)
 
 
 def topk_attention(q, k, v, kv_mask: Optional[torch.Tensor], topk: int,
-                   scale: float, return_lse: bool = False):
+                   scale: float, return_lse: bool = False, exact: bool = True,
+                   fine_iters: Optional[int] = None):
     if q.device.type == "cpu":
         return topk_attention_reference(q, k, v, kv_mask, topk, scale,
-                                        return_lse)
+                                        return_lse, exact, fine_iters)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     b, h, n, dh = q.shape
@@ -175,6 +196,8 @@ def topk_attention(q, k, v, kv_mask: Optional[torch.Tensor], topk: int,
     out = torch.empty_like(q)
     thr = torch.empty((b, h, n, 1), dtype=torch.float32, device=q.device)
     lse = torch.empty_like(thr) if return_lse else None
+    fine = resolution(q.dtype, exact, fine_iters)
+    mids, passes = fast_plan(m, fine) if fine and topk else (0, 0)
     floats = slab_floats(b, h, n, m, dh)
     slab = device_scratch(floats, q.device, f"attention kernel ({m} keys)")
     with torch.cuda.device(q.device):
@@ -183,7 +206,7 @@ def topk_attention(q, k, v, kv_mask: Optional[torch.Tensor], topk: int,
                        v.data_ptr(), mask.data_ptr(), out.data_ptr(),
                        thr.data_ptr(),
                        _ptr(lse), _ptr(slab), floats,
-                       b, h, n, m, dh, int(topk), float(scale),
+                       b, h, n, m, dh, int(topk), mids, passes, float(scale),
                        DTYPE_CODES[q.dtype], stream)
     topk_attention.launches += 1
     return (out, thr, lse) if return_lse else (out, thr)

@@ -19,6 +19,11 @@ head-blocked order ``h*Dh + d`` (``_blocked_proj``), the ``1/sqrt(Dh)``
 score scale folded into wq / bq, the merge rows permuted the same way
 (``_blocked_merge``), and eval BN folded into the first MLP conv.
 
+``exact=False`` selects with the attention kernel's fast arm (the JAX
+package's default) at the resolution of the layer input's dtype, as
+``_layer_kernel`` keys it on ``x``, not on the float32 projections the
+attention kernel is given.
+
 Activations may be float32 or bfloat16; internals are float32 and the
 output has the input dtype (the mixed-precision policy of
 ``models/mdgat.py:230-239`` in the JAX package). The query axis may have
@@ -99,7 +104,8 @@ def _split_blocked(t: torch.Tensor, h: int) -> torch.Tensor:
 
 
 def fused_layer_reference(x, src, kv_mask: Optional[torch.Tensor],
-                          topk: Optional[int], w: LayerWeights):
+                          topk: Optional[int], w: LayerWeights,
+                          exact: bool = True):
     """Plain PyTorch twin of :func:`fused_layer`: the same prepared
     weights and order of operations, with the attention twin."""
     acc = acc_dtype(x.dtype)
@@ -110,8 +116,9 @@ def fused_layer_reference(x, src, kv_mask: Optional[torch.Tensor],
     q = _split_blocked(xf @ cast(w.wq) + cast(w.bq), h)
     k = _split_blocked(sf @ cast(w.wk) + cast(w.bk), h)
     v = _split_blocked(sf @ cast(w.wv) + cast(w.bv), h)
-    o, _ = attn_kernel.topk_attention_reference(q, k, v, kv_mask,
-                                                int(topk or 0), 1.0)
+    o, _ = attn_kernel.topk_attention_reference(
+        q, k, v, kv_mask, int(topk or 0), 1.0,
+        fine_iters=attn_kernel.resolution(x.dtype, exact), exact=exact)
     merged = o.permute(0, 2, 1, 3).reshape(x.shape) @ cast(w.wm) + cast(w.bm)
     w1 = cast(w.w1)
     u = torch.relu(xf @ w1[:d] + merged @ w1[d:] + cast(w.b1))
@@ -237,11 +244,12 @@ gemm_tn.launches = 0
 
 
 def fused_layer(x, src, kv_mask: Optional[torch.Tensor],
-                topk: Optional[int], w: LayerWeights):
-    """One eval layer ``x [B, N, D]`` attending to ``src [B, M, D]``. A
-    CUDA tensor runs the kernels; a CPU tensor the plain twin."""
+                topk: Optional[int], w: LayerWeights, exact: bool = True):
+    """One eval layer ``x [B, N, D]`` attending to ``src [B, M, D]``, the
+    top-k by the exact arm or (``exact=False``) the fast one. A CUDA tensor
+    runs the kernels; a CPU tensor the plain twin."""
     if x.device.type == "cpu":
-        return fused_layer_reference(x, src, kv_mask, topk, w)
+        return fused_layer_reference(x, src, kv_mask, topk, w, exact)
     if x.device.type != "cuda":
         raise ValueError(f"no layer kernel for device {x.device}")
     b, n, d = x.shape
@@ -255,7 +263,9 @@ def fused_layer(x, src, kv_mask: Optional[torch.Tensor],
     q = gemm(x, w.wq, w.bq, out_dtype=f32, out_heads=h, rows_per_batch=n)
     k = gemm(src, w.wk, w.bk, out_dtype=f32, out_heads=h, rows_per_batch=m)
     v = gemm(src, w.wv, w.bv, out_dtype=f32, out_heads=h, rows_per_batch=m)
-    o, _ = attn_kernel.topk_attention(q, k, v, kv_mask, int(topk or 0), 1.0)
+    o, _ = attn_kernel.topk_attention(
+        q, k, v, kv_mask, int(topk or 0), 1.0, exact=exact,
+        fine_iters=attn_kernel.resolution(x.dtype, exact))
     merged = gemm(o, w.wm, w.bm, a1_heads=h, rows_per_batch=n)
     u = gemm(x, w.w1, w.b1, a2=merged, relu=True, out_dtype=f32)
     y = gemm(u, w.w2, w.b2, res=x, out_dtype=x.dtype)

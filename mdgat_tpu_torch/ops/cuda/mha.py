@@ -15,7 +15,11 @@ undoes the permutation and applies the fold's factor.
 Forward (five launches): the q, k, v projections on ``csrc/gemm.cu`` with
 the head-split epilogue, ``csrc/attention.cu`` with its ``lse`` output, and
 the merge GEMM. The residuals are the inputs plus the per-row threshold
-``thr`` and logsumexp ``lse`` ``[B, H, N, 1]``, as on the TPU.
+``thr`` and logsumexp ``lse`` ``[B, H, N, 1]``, as on the TPU. With
+``exact=False`` the attention kernel selects with its fast arm at the
+resolution of ``x``'s dtype (``_fast_iters(x_ref.dtype)`` of
+``_mha_fwd_kernel``); the backward needs no arm of its own, since it
+rebuilds the kept set as ``s >= thr`` from the forward's ``thr``.
 
 Backward (fifteen launches): q, k, v again by the same GEMM kernel (so the
 recomputed scores carry the forward's bits and ``s >= thr`` keeps the same
@@ -81,7 +85,8 @@ def _split_blocked(t: torch.Tensor, h: int) -> torch.Tensor:
 def fused_mha_reference(x, source, kv_mask: Optional[torch.Tensor],
                         topk: Optional[int], num_heads: int, wq, bq, wk, bk,
                         wv, bv, wm, bm, return_residuals: bool = False,
-                        out_dtype: Optional[torch.dtype] = None):
+                        out_dtype: Optional[torch.dtype] = None,
+                        exact: bool = True):
     """Plain PyTorch twin of :func:`fused_mha` on the same blocked weights:
     the same order of operations, differentiable by autograd with the
     selection frozen (see ``ops/attention.py::attention_core``). Returns
@@ -94,7 +99,9 @@ def fused_mha_reference(x, source, kv_mask: Optional[torch.Tensor],
     k = _split_blocked(sf @ cast(wk) + cast(bk), num_heads)
     v = _split_blocked(sf @ cast(wv) + cast(bv), num_heads)
     s = torch.matmul(q, k.transpose(-1, -2))          # scale folded into wq
-    o, thr, lse = attention_core(s, v, kv_mask, topk, return_lse=True)
+    o, thr, lse = attention_core(
+        s, v, kv_mask, topk, return_lse=True,
+        fine_iters=attn_kernel.resolution(x.dtype, exact))
     out = (o.permute(0, 2, 1, 3).reshape(x.shape) @ cast(wm)
            + cast(bm)).to(out_dtype or x.dtype)
     if return_residuals:
@@ -122,25 +129,29 @@ def _check_inputs(x, source, kv_mask, num_heads, weights):
                              "[D, D] / [D] on the input's device")
 
 
-def _project_attend(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv):
+def _project_attend(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv,
+                    exact=True):
     """The q, k, v projections and the attention kernel with its ``lse``
-    output: (o [B, H, N, Dh] f32, thr, lse [B, H, N, 1]). Shared with the
-    whole-layer train kernels (``ops/cuda/train_layer.py``), so it counts
-    nothing: each caller counts its own launches."""
+    output: (o [B, H, N, Dh] f32, thr, lse [B, H, N, 1]), the fast arm keyed
+    on ``x``'s dtype unless ``exact``. Shared with the whole-layer train
+    kernels (``ops/cuda/train_layer.py``), so it counts nothing: each caller
+    counts its own launches."""
     n, m = x.shape[1], source.shape[1]
     f32 = torch.float32
     q = gemm(x, wq, bq, out_dtype=f32, out_heads=h, rows_per_batch=n)
     k = gemm(source, wk, bk, out_dtype=f32, out_heads=h, rows_per_batch=m)
     v = gemm(source, wv, bv, out_dtype=f32, out_heads=h, rows_per_batch=m)
-    return attn_kernel.topk_attention(q, k, v, kv_mask, int(topk or 0), 1.0,
-                                      return_lse=True)
+    return attn_kernel.topk_attention(
+        q, k, v, kv_mask, int(topk or 0), 1.0, return_lse=True, exact=exact,
+        fine_iters=attn_kernel.resolution(x.dtype, exact))
 
 
-def _mha_forward(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv, wm, bm):
+def _mha_forward(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv, wm, bm,
+                 exact=True):
     """The forward launches: (out [B, N, D], thr, lse [B, H, N, 1])."""
     b, n, d = x.shape
     o, thr, lse = _project_attend(x, source, kv_mask, topk, h, wq, bq, wk,
-                                  bk, wv, bv)
+                                  bk, wv, bv, exact)
     fused_mha.forward_launches += 1
     out = gemm(o, wm, bm, a1_heads=h, rows_per_batch=n, out_dtype=x.dtype)
     return out.reshape(b, n, d), thr, lse
@@ -263,9 +274,9 @@ def _mha_backward(x, source, kv_mask, thr, lse, g, h, wq, bq, wk, bk, wv, bv,
 
 class _FusedMHA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, source, kv_mask, topk, num_heads, *weights):
+    def forward(ctx, x, source, kv_mask, topk, num_heads, exact, *weights):
         out, thr, lse = _mha_forward(x, source, kv_mask, topk, num_heads,
-                                     *weights)
+                                     *weights, exact)
         ctx.save_for_backward(x, source, thr, lse, *weights[:7])
         ctx.kv_mask, ctx.num_heads = kv_mask, num_heads
         return out
@@ -275,38 +286,41 @@ class _FusedMHA(torch.autograd.Function):
         x, source, thr, lse, *weights = ctx.saved_tensors
         grads = _mha_backward(x, source, ctx.kv_mask, thr, lse,
                               g.contiguous(), ctx.num_heads, *weights)
-        return (grads[0], grads[1], None, None, None) + grads[2:]
+        return (grads[0], grads[1], None, None, None, None) + grads[2:]
 
 
 def fused_mha(x, source, kv_mask: Optional[torch.Tensor],
               topk: Optional[int], num_heads: int, wq, bq, wk, bk, wv, bv,
-              wm, bm):
+              wm, bm, exact: bool = True):
     """``merge(MHA(x, source))`` ``[B, N, D]`` for ``x [B, N, D]`` attending
     to ``source [B, M, D]`` under the key mask ``[B, M]``, on the blocked
-    weights of :func:`blocked_weights`; ``topk`` None or 0 is dense.
-    Differentiable in x, source and the weights."""
+    weights of :func:`blocked_weights`; ``topk`` None or 0 is dense, chosen
+    by the exact arm or (``exact=False``) the fast one. Differentiable in x,
+    source and the weights."""
     if x.device.type == "cpu":
         return fused_mha_reference(x, source, kv_mask, topk, num_heads, wq,
-                                   bq, wk, bk, wv, bv, wm, bm)
+                                   bq, wk, bk, wv, bv, wm, bm, exact=exact)
     weights = tuple(w.contiguous() for w in (wq, bq, wk, bk, wv, bv, wm, bm))
     _check_inputs(x, source, kv_mask, num_heads, weights)
     return _FusedMHA.apply(x.contiguous(), source.contiguous(), kv_mask,
-                           topk, num_heads, *weights)
+                           topk, num_heads, exact, *weights)
 
 
-def fused_mha_forward(x, source, kv_mask, topk, num_heads, *weights):
+def fused_mha_forward(x, source, kv_mask, topk, num_heads, *weights,
+                      exact: bool = True):
     """``(out, thr, lse)`` of the forward alone, no autograd
     (``_mha_fwd_call`` of the JAX package): the output and the residuals
     the backward is given."""
     if x.device.type == "cpu":
         with torch.no_grad():
             return fused_mha_reference(x, source, kv_mask, topk, num_heads,
-                                       *weights, return_residuals=True)
+                                       *weights, return_residuals=True,
+                                       exact=exact)
     weights = tuple(w.detach().contiguous() for w in weights)
     _check_inputs(x, source, kv_mask, num_heads, weights)
     with torch.no_grad():
         return _mha_forward(x.contiguous(), source.contiguous(), kv_mask,
-                            topk, num_heads, *weights)
+                            topk, num_heads, *weights, exact)
 
 
 # counted where fused_mha's own forward and backward string their launches

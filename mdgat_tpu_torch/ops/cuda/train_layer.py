@@ -12,8 +12,10 @@ What each TPU kernel becomes (``csrc/train_layer.cu`` has the new device
 code; the attention and the plain products are the kernels the fused-MHA
 pair already runs):
 
-* fwd1, eight launches: q, k, v, attention (with ``thr`` / ``lse``) and the
-  merge, exactly as ``ops/cuda/mha.py`` launches them, then
+* fwd1, eight launches: q, k, v, attention (with ``thr`` / ``lse``; the
+  fast arm keyed on ``x``'s dtype with ``exact=False``, as
+  ``_tl_fwd1_kernel`` keys it) and the merge, exactly as
+  ``ops/cuda/mha.py`` launches them, then
   :func:`h1_stats`: ``h1 = cat(x, msg) @ w1 + b1`` with the masked
   per-channel sum and sum of squares taken from the float32 accumulator in
   the epilogue (per-block partials under the row plan :func:`h1_plan`,
@@ -143,7 +145,8 @@ def fused_train_layer_reference(x, source, kv_mask: Optional[torch.Tensor],
                                 topk: Optional[int], num_heads: int,
                                 wq, bq, wk, bk, wv, bv, wm, bm, w1, b1, w2,
                                 b2, bn_scale, bn_bias,
-                                return_residuals: bool = False):
+                                return_residuals: bool = False,
+                                exact: bool = True):
     """Plain PyTorch twin of :func:`fused_train_layer` on the same operands:
     ``(y, batch_mean, batch_var)``, or with ``return_residuals`` ``(y, mean,
     var, h1, thr, lse, ssum, ssq)``. Differentiable by autograd with the
@@ -153,19 +156,21 @@ def fused_train_layer_reference(x, source, kv_mask: Optional[torch.Tensor],
     kernels' backward formula does. ``ssum`` and ``ssq`` are this rank's
     sums; the statistics are the group's under ``bn_cross_replica``."""
     out = _reference(x, source, kv_mask, valid_mask, topk, num_heads, wq, bq,
-                     wk, bk, wv, bv, wm, bm, w1, b1, w2, b2, bn_scale, bn_bias)
+                     wk, bk, wv, bv, wm, bm, w1, b1, w2, b2, bn_scale, bn_bias,
+                     exact)
     return out[:3] + out[4:] if return_residuals else out[:3]
 
 
 def _reference(x, source, kv_mask, valid_mask, topk, num_heads, wq, bq, wk,
-               bk, wv, bv, wm, bm, w1, b1, w2, b2, bn_scale, bn_bias):
+               bk, wv, bv, wm, bm, w1, b1, w2, b2, bn_scale, bn_bias,
+               exact=True):
     """The twin's ``(y, mean, var, cnt, h1, thr, lse, ssum, ssq)``, ``cnt``
     the (global) row count floored at 1."""
     acc = acc_dtype(x.dtype)
     cast = lambda t: t.to(acc)
     msg, thr, lse = mha.fused_mha_reference(
         x, source, kv_mask, topk, num_heads, wq, bq, wk, bk, wv, bv, wm, bm,
-        return_residuals=True, out_dtype=acc)
+        return_residuals=True, out_dtype=acc, exact=exact)
     h1, sums = h1_stats_reference(x, msg, w1, b1, valid_mask)
     h1 = h1.reshape(*x.shape[:2], -1)
     (ssum, ssq), cnt = _global_sums(sums, _row_count(x, valid_mask, acc),
@@ -495,13 +500,13 @@ dh1_kernel.launches = 0
 # ---------------------------------------------------------------------------
 
 def _tl_fwd1(x, source, kv_mask, valid_mask, topk, h, wq, bq, wk, bk, wv, bv,
-             wm, bm, w1, b1):
+             wm, bm, w1, b1, exact=True):
     """The launches that stand for ``_tl_fwd1_kernel``: ``(h1 [B*N, 2D],
     thr, lse, sums [2, 2D])``, sums = the masked ``ssum`` and ``ssq``."""
     # the launches of the fused-MHA forward, by the same kernels: thr and
     # lse carry its bits
     o, thr, lse = mha._project_attend(x, source, kv_mask, topk, h, wq, bq, wk,
-                                      bk, wv, bv)
+                                      bk, wv, bv, exact)
     msg = gemm(o, wm, bm, a1_heads=h, rows_per_batch=x.shape[1],
                out_dtype=torch.float32)
     h1, sums = h1_stats(x, msg, w1, b1, _row_mask(valid_mask))
@@ -509,12 +514,13 @@ def _tl_fwd1(x, source, kv_mask, valid_mask, topk, h, wq, bq, wk, bk, wv, bv,
 
 
 def _tl_forward(x, source, kv_mask, valid_mask, topk, h, wq, bq, wk, bk, wv,
-                bv, wm, bm, w1, b1, w2, b2, bn_scale, bn_bias, group=None):
+                bv, wm, bm, w1, b1, w2, b2, bn_scale, bn_bias, group=None,
+                exact=True):
     """The forward launches: ``(y, mean, var, cnt, h1, thr, lse, sums)``;
     ``sums`` are this rank's, the statistics and ``cnt`` those of the ranks
     of ``group`` (this rank alone when it is None)."""
     h1, thr, lse, sums = _tl_fwd1(x, source, kv_mask, valid_mask, topk, h, wq,
-                                  bq, wk, bk, wv, bv, wm, bm, w1, b1)
+                                  bq, wk, bk, wv, bv, wm, bm, w1, b1, exact)
     (ssum, ssq), cnt = _global_sums(
         sums, _row_count(x, valid_mask, torch.float32), group)
     mean, var = _batch_stats(ssum, ssq, cnt)
@@ -579,14 +585,14 @@ def _tl_backward(x, source, kv_mask, valid_mask, thr, lse, h1, mean, var, cnt,
 
 class _FusedTrainLayer(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, source, kv_mask, valid_mask, topk, num_heads,
+    def forward(ctx, x, source, kv_mask, valid_mask, topk, num_heads, exact,
                 *weights):
         # the group of this forward, kept for the backward: autograd runs it
         # on its own thread, outside the forward's bn_cross_replica context
         ctx.group = bn_group()
         y, mean, var, cnt, h1, thr, lse, _ = _tl_forward(
             x, source, kv_mask, valid_mask, topk, num_heads, *weights,
-            group=ctx.group)
+            group=ctx.group, exact=exact)
         wq, bq, wk, bk, wv, bv, wm, bm, w1, _, w2, _, scale, bias = weights
         ctx.save_for_backward(x, source, thr, lse, h1, mean, var, cnt, wq, bq,
                               wk, bk, wv, bv, wm, bm, w1, w2, scale, bias)
@@ -599,7 +605,7 @@ class _FusedTrainLayer(torch.autograd.Function):
         x, source, thr, lse, h1, mean, var, cnt, *weights = ctx.saved_tensors
         grads = _tl_backward(x, source, *ctx.masks, thr, lse, h1, mean, var,
                              cnt, g, ctx.num_heads, *weights, group=ctx.group)
-        return (grads[0], grads[1], None, None, None, None) + grads[2:]
+        return (grads[0], grads[1], None, None, None, None, None) + grads[2:]
 
 
 def _check_inputs(x, source, kv_mask, valid_mask, num_heads, weights):
@@ -618,34 +624,37 @@ def _check_inputs(x, source, kv_mask, valid_mask, num_heads, weights):
 
 def fused_train_layer(x, source, kv_mask: Optional[torch.Tensor],
                       valid_mask: Optional[torch.Tensor],
-                      topk: Optional[int], num_heads: int, *weights):
+                      topk: Optional[int], num_heads: int, *weights,
+                      exact: bool = True):
     """``(y, batch_mean, batch_var)`` of one training layer: ``x [B, N, D]``
     attending to ``source [B, M, D]`` under the key mask ``[B, M]``, the
     batch statistics over the rows ``valid_mask [B, N]`` marks, on the
-    operands of :func:`train_layer_weights`; ``topk`` None or 0 is dense.
+    operands of :func:`train_layer_weights`; ``topk`` None or 0 is dense,
+    chosen by the exact arm or (``exact=False``) the fast one.
     ``y`` includes the residual and is differentiable in x, source and the
     fourteen operands; the mean and the biased variance ``[2D]`` feed the
     running statistics and carry no gradient. Under ``bn_cross_replica``
     the statistics are the group's."""
     return _train_layer(x, source, kv_mask, valid_mask, topk, num_heads,
-                        *weights)[:3]
+                        *weights, exact=exact)[:3]
 
 
-def _train_layer(x, source, kv_mask, valid_mask, topk, num_heads, *weights):
+def _train_layer(x, source, kv_mask, valid_mask, topk, num_heads, *weights,
+                 exact=True):
     """:func:`fused_train_layer`'s outputs and the row count of the
     statistics, floored at 1."""
     if x.device.type == "cpu":
         return _reference(x, source, kv_mask, valid_mask, topk, num_heads,
-                          *weights)[:4]
+                          *weights, exact=exact)[:4]
     weights = tuple(w.contiguous() for w in weights)
     _check_inputs(x, source, kv_mask, valid_mask, num_heads, weights)
     return _FusedTrainLayer.apply(x.contiguous(), source.contiguous(),
-                                  kv_mask, valid_mask, topk, num_heads,
+                                  kv_mask, valid_mask, topk, num_heads, exact,
                                   *weights)
 
 
 def fused_train_layer_forward(x, source, kv_mask, valid_mask, topk, num_heads,
-                              *weights):
+                              *weights, exact: bool = True):
     """``(y, mean, var, h1, thr, lse, ssum, ssq)`` of the forward alone, no
     autograd (``_tl_fwd_calls`` of the JAX package): the outputs and what
     the backward is given."""
@@ -653,13 +662,13 @@ def fused_train_layer_forward(x, source, kv_mask, valid_mask, topk, num_heads,
         with torch.no_grad():
             return fused_train_layer_reference(
                 x, source, kv_mask, valid_mask, topk, num_heads, *weights,
-                return_residuals=True)
+                return_residuals=True, exact=exact)
     weights = tuple(w.detach().contiguous() for w in weights)
     _check_inputs(x, source, kv_mask, valid_mask, num_heads, weights)
     with torch.no_grad():
         y, mean, var, _, h1, thr, lse, sums = _tl_forward(
             x.contiguous(), source.contiguous(), kv_mask, valid_mask, topk,
-            num_heads, *weights)
+            num_heads, *weights, exact=exact)
     return (y, mean, var, h1.reshape(*x.shape[:2], -1), thr, lse, sums[0],
             sums[1])
 
@@ -673,7 +682,8 @@ fused_train_layer.backward_launches = 0
 
 def fused_train_layer_apply(layer, x, source, topk: Optional[int],
                             kv_mask: Optional[torch.Tensor] = None,
-                            valid_mask: Optional[torch.Tensor] = None):
+                            valid_mask: Optional[torch.Tensor] = None,
+                            exact: bool = True):
     """Training-mode entry for an ``AttentionalPropagation``: ``y = x +
     delta`` from :func:`fused_train_layer`, and the layer's BatchNorm
     running statistics moved in place (momentum ``BN_MOMENTUM``, the
@@ -682,7 +692,7 @@ def fused_train_layer_apply(layer, x, source, topk: Optional[int],
     ``bn_cross_replica``."""
     y, mean, var, cnt = _train_layer(x, source, kv_mask, valid_mask, topk,
                                      layer.num_heads,
-                                     *train_layer_weights(layer))
+                                     *train_layer_weights(layer), exact=exact)
     bn = layer.mlp[1]
     with torch.no_grad():
         cnt = cnt.to(mean.dtype)

@@ -44,7 +44,7 @@ from mdgat_tpu.train.loop import TrainState as JaxTrainState
 import test_registration_metric_torch
 import test_torch
 import train_torch
-from mdgat_tpu_torch import cli
+from mdgat_tpu_torch import Matcher, cli
 from mdgat_tpu_torch.core.checkpoint import (load_pth_state_dict,
                                              state_dict_from_numpy)
 from mdgat_tpu_torch.core.config import test_defaults as eval_defaults
@@ -432,3 +432,53 @@ def test_seq_train_cli_equals_one_process(tmp_path):
     for key, w in want.items():
         np.testing.assert_allclose(got[key].numpy(), w.numpy(), rtol=1e-9,
                                    atol=1e-9, err_msg=key)
+
+
+def test_pointnet_seq_step_equals_jax(tmp_path):
+    """``descriptor="pointnet"`` under a seq axis: each member encodes its
+    keypoint block against the whole raw clouds, and its encoder's
+    BatchNorm statistics are the world's. Two plain-path steps as 1 x 2 seq
+    ranks, float64: the loss of the first against the JAX package's
+    shard_map step on a 1 x 2 mesh of the virtual CPU devices, and both
+    steps, every parameter and running statistic against the port's
+    one-process step, to 1e-9. The JAX step is held by its loss alone:
+    compiled on the CPU, the JAX package's pointnet encoder gradients
+    disagree with its own eager ones, one process or two seq members alike
+    (``tests/test_torch_descriptor_modes.py`` runs its pointnet step
+    eagerly for that reason; eagerly, a shard_map step takes minutes).
+    The one-process step the ranks are held to is the one those tests hold
+    against the JAX package."""
+    from test_torch_parallel import _pointnet_case
+    config, _, batches = _pointnet_case()
+    config = dict(config, loss_method="gap_loss", use_kernels=False)
+    jcfg = {k: v for k, v in config.items() if k != "use_kernels"}
+    model = JaxMDGAT(jax_train_defaults(**jcfg))
+    params, bn_state = (jax.tree.map(np.asarray, t)
+                        for t in model.init(jax.random.PRNGKey(9)))
+    weights = state_dict_from_numpy(params, bn_state, train_defaults(**config))
+    got = _run_ranks({"pointnet": dict(config=config, state_dict=weights,
+                                       lr=LR, batches=batches)},
+                     tmp_path, world=2, seq=2)
+    _same_step(got[0]["pointnet"], _one_process(config, weights, batches),
+               "plain")
+    assert got[1]["pointnet"]["metrics"] == got[0]["pointnet"]["metrics"]
+    tx = optax.adam(LR)
+    jp = jax.tree.map(jnp.asarray, params)
+    state = JaxTrainState(jp, jax.tree.map(jnp.asarray, bn_state),
+                          tx.init(jp), jnp.zeros((), jnp.int32))
+    mesh = make_mesh(data=1, seq=2, devices=jax.devices()[:2])
+    step = make_shard_map_train_step(model, tx, mesh, donate=False)
+    _, m = step(jax_replicate(state, mesh), jax_shard_batch(
+        {k: v.numpy() for k, v in batches[0].items()}, mesh, shard_seq=True))
+    np.testing.assert_allclose(got[0]["pointnet"]["metrics"][0]["loss"],
+                               float(m["loss"]), rtol=1e-9, atol=0)
+
+
+def test_matcher_refuses_a_seq_axis():
+    """One process serves on one device: ``Matcher(seq_parallel=S)`` with
+    S > 1 raises and names the multi-process CLIs that run the axis."""
+    with pytest.raises(ValueError, match="test_torch.py") as err:
+        Matcher(seed=0, device="cpu", seq_parallel=2)
+    assert "not ported yet" in str(err.value)
+    assert Matcher(seed=0, device="cpu", seq_parallel=1,
+                   L=1).cfg.seq_parallel == 1
