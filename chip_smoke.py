@@ -227,6 +227,22 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    (launches the exact route's, loss and grad_norm beside it); and
    ``tools/torch_topk_agreement.py`` at 4 batches of 64 pairs, seeded
    weights and the eval_cli phase's matching checkpoint.
+15. matcher_mesh: one process serving over a grid of replicas, one thread
+   and one stream a replica (``Matcher(data_parallel=N, seq_parallel=M)``,
+   ``parallel/smap.py::make_eval_runtime``): the flagship model with seeded
+   weights and the default (fast) arm, as 2 x 1, 1 x 2 and 2 x 2 grids
+   whose cells share the card (``devices=[cuda:0] * N * M``), and 2 x 1 on
+   two cards where the machine has them. On 64 and 63 pairs of 200-256
+   keypoints (the second fills a row): every output ``np.array_equal`` to
+   one device's ``Matcher`` on the same weights; counters zeroed just
+   before and read just after each call: N * M times one forward's
+   launches (36 / 216 / 36 / 1) and nothing else, and under a seq axis
+   exactly N * M input gathers, 18 N * M key gathers and N * M tail gathers
+   (none without one); a seq member made to raise fails the call at once,
+   well inside the barrier's timeout, and leaves no thread; then
+   ``match_batch`` of 64 pairs by CUDA events, one device and each grid in
+   turns, and the 2 x 1 grid's two forwards enqueued in turn from one
+   thread (no gain is claimed: the cells share one card).
 
 The line before the last is a JSON object with one entry per kernel (its
 time beside the plain twin's, the card's bound for the same work and, where
@@ -5181,6 +5197,139 @@ def fast_topk(rng, dev, report, counters, card):
     print(f"fast_topk phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: one process over a grid of replicas
+# ---------------------------------------------------------------------------
+
+MESH_GRIDS = ((2, 1), (1, 2), (2, 2))
+
+
+def mesh_call(label, matcher, pairs, want, counters):
+    """One ``match_batch`` of a grid Matcher, counters zeroed just before
+    and read just after: outputs equal to ``want`` (one device's), N * M
+    forwards' launches, the gathers of a seq axis."""
+    import torch
+    from mdgat_tpu_torch.parallel import collective_counts
+    n, m = matcher.cfg.data_parallel, matcher.cfg.seq_parallel
+    cells = n * m
+    for c in counters.values():
+        c.reset()
+    collective_counts.clear()
+    got = matcher.match_batch(pairs)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    gathers = dict(collective_counts)
+    need = {name: 0 for name in counters}
+    need.update(topk_attention=36 * cells, eval_layer=36 * cells,
+                gemm=216 * cells, sinkhorn=cells)
+    need_gathers = ({} if m == 1 else dict(
+        input_gather=cells, kv_gather=18 * cells, tail_gather=cells))
+    ran = {k: v for k, v in launches.items() if v}
+    print(f"matcher_mesh {label}, {len(pairs)} pairs: launches {ran}; "
+          f"gathers {gathers}")
+    require(launches == need, f"matcher_mesh {label}: launches {launches}, "
+            f"not {need}")
+    require(gathers == need_gathers, f"matcher_mesh {label}: gathers "
+            f"{gathers}, not {need_gathers}")
+    check_outputs(got, pairs)
+    require(len(got) == len(want), f"matcher_mesh {label}: pair count")
+    flips = sum(int((g[k] != w[k]).sum()) for g, w in zip(got, want)
+                for k in ("matches0", "matches1"))
+    gap = max(float(np.abs(g[k] - w[k]).max()) for g, w in zip(got, want)
+              for k in ("matching_scores0", "matching_scores1"))
+    require(flips == 0 and gap == 0.0, f"matcher_mesh {label}: outputs "
+            f"differ from one device's ({flips} matches, scores by {gap})")
+    return ran
+
+
+def mesh_failure(matcher):
+    """A seq member that raises after the GNN (at its tail gather the other
+    member waits): the call raises that exception, far inside the
+    barrier's timeout, and no grid thread is left."""
+    import threading
+    from mdgat_tpu_torch.parallel.local import GATHER_TIMEOUT_S
+    proj = matcher._step.replicas[0][1].final_proj
+
+    def fail(*args):
+        raise RuntimeError("planted member failure")
+    proj.forward = fail
+    t0 = time.perf_counter()
+    try:
+        matcher.match_batch(make_pairs(np.random.default_rng(5), 8))
+        raised = None
+    except RuntimeError as e:
+        raised = e
+    seconds = time.perf_counter() - t0
+    del proj.forward
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith("mdgat-eval")]
+    print(f"matcher_mesh failing member: raised {raised!r} after "
+          f"{seconds:.3f} s (barrier timeout {GATHER_TIMEOUT_S} s); grid "
+          f"threads left {left}")
+    require(raised is not None and "planted" in str(raised),
+            "matcher_mesh: a failing member did not fail the call")
+    require(seconds < GATHER_TIMEOUT_S / 10 and not left,
+            "matcher_mesh: a failing member held the call or left threads")
+    return seconds
+
+
+def data_rows_in_turn(matcher, pairs):
+    """A data-only grid's forwards enqueued in turn from this thread, no
+    grid thread: what the grid's threads replace (timed beside them)."""
+    import torch
+    from mdgat_tpu_torch.ops.cuda.sinkhorn import plan_as
+    from mdgat_tpu_torch.parallel import shard_batch
+    batch, _ = matcher._host_batch(pairs, True)
+    replicas = [row[0] for row in matcher._step.replicas]
+    rows = len(pairs) // len(replicas)
+    with torch.inference_mode(), plan_as(len(pairs)):
+        outs = [r({k: v.to(matcher.devices[d])
+                   for k, v in shard_batch(batch, rows=slice(
+                       d * rows, (d + 1) * rows)).items()})
+                for d, r in enumerate(replicas)]
+        return [{k: v.cpu() for k, v in o.items()} for o in outs]
+
+
+def matcher_mesh(rng, dev, report, counters, card):
+    """One process over a grid of replicas (phase 15)."""
+    import torch
+    from mdgat_tpu_torch import Matcher
+    t0 = time.perf_counter()
+    single = Matcher(seed=0, device=dev)
+    requests = [make_pairs(rng, 64), make_pairs(rng, 63)]
+    want = [single.match_batch(r) for r in requests]
+    grids = {f"{n}x{m}": Matcher(seed=0, device=dev, data_parallel=n,
+                                 seq_parallel=m, devices=[dev] * (n * m))
+             for n, m in MESH_GRIDS}
+    if torch.cuda.device_count() > 1:
+        grids["2x1 on two cards"] = Matcher(
+            seed=0, device=dev, data_parallel=2,
+            devices=["cuda:0", "cuda:1"])
+    result = {}
+    for label, matcher in grids.items():
+        matcher.match_batch(requests[0][:2])    # first use: kernel weights
+        torch.cuda.synchronize()
+        result[label] = [mesh_call(label, matcher, r, w, counters)
+                         for r, w in zip(requests, want)]
+    failure_s = mesh_failure(grids["2x2"])
+    mesh_call("2x2 after the failure", grids["2x2"], requests[0], want[0],
+              counters)
+    labels = ["1x1"] + list(grids) + ["2x1 in turn from one thread"]
+    fns = [lambda: single.match_batch(requests[0])] + [
+        (lambda m: lambda: m.match_batch(requests[0]))(m)
+        for m in grids.values()] + [
+        lambda: data_rows_in_turn(grids["2x1"], requests[0])]
+    ms = turns_ms(fns, reps=3)
+    print(f"matcher_mesh on {card}: match_batch of 64 pairs by events, in "
+          f"turns: " + ", ".join(f"{lab} {t:.3f} ms"
+                                 for lab, t in zip(labels, ms)))
+    seconds = time.perf_counter() - t0
+    print(f"matcher_mesh phase: {seconds:.1f} s")
+    report["_matcher_mesh"] = dict(
+        launches=result, match_batch_ms=dict(zip(labels, ms)),
+        failure_s=failure_s, phase_s=seconds)
+
+
 def make_counters():
     """Every kernel wrapper's launch count, by name."""
     from mdgat_tpu_torch.ops.cuda import attention as A
@@ -5348,6 +5497,8 @@ def main() -> int:
     descriptors(dev, report, counters, card)
     torch.cuda.empty_cache()
     fast_topk(rng, dev, report, counters, card)
+    torch.cuda.empty_cache()
+    matcher_mesh(rng, dev, report, counters, card)
 
     kernels = [dict(name=name, **{k: report[name][k] for k in
                                   ("route", "source", "replaces", "launches",

@@ -3,27 +3,32 @@
 Port of ``mdgat_tpu/api.py::Matcher``. Pairs are padded to 128-keypoint
 buckets with validity masks (padded results equal unpadded), descriptors
 are L2-normalised on the host as the reference data layer does
-(``load_data.py:290-292``), a batch runs as one forward on ``device``, and
-``register`` adds the reference's one-step SVD pose fit
-(``utils/utils_test.py:73-110``).
+(``load_data.py:290-292``), a batch runs as one forward on ``device`` or
+over a grid of devices (``data_parallel`` x ``seq_parallel``, one thread a
+device, ``parallel/smap.py::make_eval_runtime``), and ``register`` adds the
+reference's one-step SVD pose fit (``utils/utils_test.py:73-110``).
 
     >>> m = Matcher("model.npz", device="cuda")          # doctest: +SKIP
     >>> out = m.match_batch(pairs)                       # doctest: +SKIP
+    >>> grid = Matcher("model.npz", device="cuda",
+    ...                data_parallel=2)                  # doctest: +SKIP
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from mdgat_tpu_torch.core.checkpoint import (load_npz, load_pth_state_dict,
                                              state_dict_from_numpy)
+from mdgat_tpu_torch.cli import check_seq_layout
 from mdgat_tpu_torch.core.config import (POINTNET_DESCRIPTORS, Config,
                                          test_defaults)
 from mdgat_tpu_torch.eval.metrics import np_kabsch
 from mdgat_tpu_torch.models.mdgat import MDGAT
+from mdgat_tpu_torch.parallel.smap import make_eval_runtime
 
 _BUCKET = 128
 
@@ -49,29 +54,36 @@ class Matcher:
     CLIs' pipeline (``eval/runner.py``). ``exact_topk=True`` selects the
     exact top-k on the kernel routes (the default is the attention kernel's
     value bisection; a CPU Matcher is exact either way).
-    ``seq_parallel`` other than 1 raises ``ValueError``: the seq axis runs
-    in the multi-process CLIs.
+
+    Multi-device serving, as the JAX ``Matcher``: ``data_parallel=N`` and
+    ``seq_parallel=M`` serve ``match_batch`` over an N x M grid of model
+    replicas in this process, one thread and one device a replica (the
+    batch's rows split over the N data replicas, each pair's keypoints over
+    a row's M seq members, which gather keys from each other);
+    ``shard_map=False`` keeps one forward on one device. ``devices`` names
+    the N x M devices, data-major, and may repeat one; by default a CUDA
+    ``device`` gives ``cuda:0`` ... ``cuda:N*M-1`` (``ValueError`` when
+    fewer are visible) and ``"cpu"`` N x M copies of the CPU. A batch is
+    padded to a multiple of N with copies of its last pair, trimmed from
+    the results, so the results equal one device's. Refused with
+    ``ValueError`` before any forward: an M that does not divide the 128 of
+    the keypoint buckets, ``descriptor="FPFH_gloabal"`` with M > 1 (its
+    encoder pools over the whole cloud), N < 1, ``devices`` of another
+    length than N x M.
     """
 
     def __init__(self, checkpoint: Optional[str] = None, *, device,
-                 params=None, bn_state=None, seed: Optional[int] = None,
-                 **overrides):
+                 devices: Optional[Sequence] = None, params=None,
+                 bn_state=None, seed: Optional[int] = None, **overrides):
         self.cfg: Config = test_defaults().replace(**overrides)
-        if self.cfg.seq_parallel != 1:
-            raise ValueError(
-                f"Matcher(seq_parallel={self.cfg.seq_parallel}): a Matcher "
-                "runs in one process on one device; one-process serving over "
-                "several devices is not ported yet. The seq axis runs in the "
-                "multi-process CLIs (test_torch.py, "
-                "test_registration_metric_torch.py, train_torch.py with "
-                "--seq_parallel S and one rank a process)")
         if self.cfg.descriptor in POINTNET_DESCRIPTORS:
             raise ValueError(
                 f"Matcher(descriptor={self.cfg.descriptor!r}): the Matcher "
                 "takes keypoints and FPFH descriptors, not the raw clouds "
                 "this mode encodes; evaluate it with test_torch.py")
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
+        check_seq_layout(self.cfg)
+        self.devices = self._grid_devices(torch.device(device), devices)
+        if any(d.type == "cuda" for d in self.devices):
             if not torch.cuda.is_available():
                 raise RuntimeError("Matcher(device='cuda'): no CUDA device")
             # full-precision f32 products on the card (TF32 keeps ~3 digits)
@@ -96,7 +108,24 @@ class Matcher:
         else:
             raise ValueError("pass a checkpoint path, params and bn_state, "
                              "or a seed")
-        self.model.to(self.device).eval()
+        self._step = make_eval_runtime(self.model, self.cfg, self.devices)
+        self.device = self.devices[0]
+        self.model = self._step.replicas[0][0]   # on self.device
+
+    def _grid_devices(self, device: torch.device, devices):
+        """The N x M devices of the grid, data-major."""
+        n = self.cfg.data_parallel * self.cfg.seq_parallel
+        if devices is not None:
+            return [torch.device(d) for d in devices]
+        if n <= 1 or device.type != "cuda":
+            return [device] * max(n, 1)
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if visible < n:
+            raise ValueError(f"Matcher: a {self.cfg.data_parallel} x "
+                             f"{self.cfg.seq_parallel} grid takes {n} CUDA "
+                             f"devices and {visible} are visible; pass "
+                             "devices=[...] to repeat one")
+        return [torch.device("cuda", i) for i in range(n)]
 
     # ------------------------------------------------------------------
     def _pad_cloud(self, kp, desc, score, dt):
@@ -127,6 +156,11 @@ class Matcher:
         """(batch dict of tensors on ``device``, per-pair true sizes):
         each cloud zero-padded to the batch's largest 128-bucket, with
         masks, descriptors L2-normalised."""
+        batch, sizes = self._host_batch(pairs, normalize)
+        return {k: v.to(self.device) for k, v in batch.items()}, sizes
+
+    def _host_batch(self, pairs, normalize: bool):
+        """:meth:`prepare_batch` with the tensors on the host."""
         dt = np.dtype(self.cfg.compute_dtype if self.cfg.compute_dtype
                       != "bfloat16" else "float32")
         padded = []
@@ -147,7 +181,7 @@ class Matcher:
                            padded[0][i].dtype)
             for b, x in enumerate(padded):
                 out[b, : x[i].shape[0]] = x[i]
-            return torch.from_numpy(out).to(self.device)
+            return torch.from_numpy(out)
 
         names = ("keypoints0", "descriptors0", "scores0", "mask0",
                  "keypoints1", "descriptors1", "scores1", "mask1")
@@ -155,15 +189,19 @@ class Matcher:
         return {name: stack(i) for i, name in enumerate(names)}, sizes
 
     def match_batch(self, pairs, normalize: bool = True):
-        """Match many pairs in one forward (the serving path). ``pairs``:
+        """Match many pairs in one forward (the serving path), one forward a
+        grid cell under ``data_parallel`` / ``seq_parallel``. ``pairs``:
         dicts with ``kp0, desc0, kp1, desc1`` and optional ``score0,
         score1``. Returns one :meth:`match` dict per pair."""
         pairs = list(pairs)
         if not pairs:
             return []
-        batch, sizes = self.prepare_batch(pairs, normalize)
-        with torch.inference_mode():
-            out = self.model(batch)
+        n_real = len(pairs)
+        # the data replicas take equal blocks of rows: fill with copies of
+        # the last pair, trimmed below
+        pairs += [pairs[-1]] * (-n_real % self.cfg.data_parallel)
+        batch, sizes = self._host_batch(pairs, normalize)
+        out = self._step(batch, rows=n_real)
         ma0 = out["matches0"].cpu().numpy()
         ma1 = out["matches1"].cpu().numpy()
         msc0 = out["matching_scores0"].float().cpu().numpy()
@@ -173,7 +211,7 @@ class Matcher:
             "matches1": ma1[b, :n1].copy(),
             "matching_scores0": msc0[b, :n0].copy(),
             "matching_scores1": msc1[b, :n1].copy(),
-        } for b, (n0, n1) in enumerate(sizes)]
+        } for b, (n0, n1) in enumerate(sizes[:n_real])]
 
     def register(self, kp0, desc0, kp1, desc1, score0=None, score1=None,
                  normalize: bool = True, min_matches: int = 4,

@@ -11,20 +11,27 @@ The JAX package's accelerator flags collapse as its config did: ``--device``
 says where the model runs (``cuda`` unless asked otherwise), ``--use_kernels``
 / ``--train_layer`` / ``--loss_kernel`` choose the hand-written kernel routes
 (``core/config.py``); ``--pallas_exact_topk`` keeps its JAX name, type and
-default and picks the attention kernel's selection arm. Its multi-process flags (``--coordinator_address``,
+default and picks the attention kernel's selection arm. ``--trace_dir``
+and ``--debug_nans`` keep their JAX names, types and defaults: a
+``torch.profiler`` trace of the run, and autograd's anomaly mode with a
+finiteness check of every step and forward (:func:`debugging`). Its
+multi-process flags (``--coordinator_address``,
 ``--num_processes``, ``--process_id``) run the entry points as one rank a
 process (:func:`setup_distributed`), with ``--dist_backend`` naming the
 ``torch.distributed`` backend, and ``--seq_parallel S`` (the JAX name and
 default) lays the ranks out as ``W / S`` data rows of S seq members whose
 ranks split each pair's keypoints (context parallelism). The flags that
 steer JAX, the TPU or one process over several devices are not ported;
-``--help`` lists them in its epilog.
+``--help`` lists them in its epilog. One process over several devices is
+``Matcher(data_parallel=N, seq_parallel=M)``'s (``api.py``); the CLIs keep
+one device a rank, and torchrun starts the ranks.
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 import os
 
 from mdgat_tpu_torch.core.config import (POINTNET_DESCRIPTORS, Config,
@@ -35,7 +42,7 @@ _EPILOG = ("Flags of the JAX package that are not ported (they steer JAX, "
            "rank is one device): --platform, --data_parallel, "
            "--shard_map, --use_pallas, --pallas_attention, "
            "--pallas_train_layer, --pallas_loss, --pallas_interpret, "
-           "--scan_gnn_pairs, --debug_nans, --trace_dir, --ship_bf16.")
+           "--scan_gnn_pairs, --ship_bf16.")
 
 
 def _parse_k(s: str):
@@ -151,6 +158,15 @@ def build_parser(preset: str) -> argparse.ArgumentParser:
                    help="torch.distributed backend of a multi-process run; "
                         "default nccl on a CUDA device, gloo on the CPU")
     p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--debug_nans", type=_parse_bool, default=False,
+                   help="autograd anomaly detection (NaN provenance) and a "
+                        "finiteness check of every train step's loss and "
+                        "grad_norm and every forward's scores: a non-finite "
+                        "value raises FloatingPointError (slow: each check "
+                        "reads a value back)")
+    p.add_argument("--trace_dir", type=str, default="",
+                   help="write a torch.profiler trace of the run here "
+                        "(Chrome format, one file a rank)")
     p.add_argument("--steps_per_epoch", type=int, default=0,
                    help="0 = full epoch; >0 truncates (smoke runs)")
     p.add_argument("--max_pairs", type=int, default=0,
@@ -253,6 +269,68 @@ def setup_distributed(cfg: Config, args):
     print(f"rank {group.rank}/{group.world} (data {group.data_index}/"
           f"{group.data}, seq {group.seq_index}/{group.seq})")
     return device, group
+
+
+@contextlib.contextmanager
+def debugging(args):
+    """``--debug_nans`` and ``--trace_dir`` around an entry point's run,
+    where the JAX package's ``setup_jax`` turns on ``jax_debug_nans`` and
+    starts a ``jax.profiler`` trace. ``--trace_dir DIR``: a
+    ``torch.profiler`` window (the CPU, and CUDA where the machine has it)
+    from before the first step to the run's end, written to
+    ``DIR/trace_rank{r}.json`` (Chrome trace format, ``r`` this process's
+    rank) when the run returns or raises; the JAX package stops its trace
+    at exit, the port at the end of ``main``, so that an in-process caller
+    finds its file. ``--debug_nans``: autograd's anomaly mode for the run
+    (the backward's NaNs name the function that made them); the entry
+    points add :func:`nan_guard` and :func:`require_finite`. Both are put
+    back as they were when the run ends."""
+    import torch
+    anomaly = torch.is_anomaly_enabled()
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    profiler = None
+    if args.trace_dir:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+    try:
+        yield
+    finally:
+        if profiler is not None:
+            from mdgat_tpu_torch.parallel.multihost import process_index
+            profiler.stop()
+            os.makedirs(args.trace_dir, exist_ok=True)
+            profiler.export_chrome_trace(os.path.join(
+                args.trace_dir, f"trace_rank{process_index()}.json"))
+        torch.autograd.set_detect_anomaly(anomaly)
+
+
+# the forward outputs --debug_nans holds finite
+CHECKED_OUTPUTS = ("scores", "matching_scores0", "matching_scores1", "loss")
+
+
+def require_finite(values, what: str):
+    """Raise ``FloatingPointError`` (what ``jax_debug_nans`` raises) when a
+    floating-point tensor among ``values`` (a dict) holds a NaN or an
+    infinity. Reads the values back: ``--debug_nans`` only."""
+    import torch
+    for name, v in values.items():
+        if (isinstance(v, torch.Tensor) and v.is_floating_point()
+                and not bool(torch.isfinite(v).all())):
+            raise FloatingPointError(f"--debug_nans: {what}: {name} is not "
+                                     "finite")
+
+
+def nan_guard(model):
+    """Hold every forward of ``model`` to :func:`require_finite` over its
+    scores, matching scores and loss (a forward hook)."""
+    def hook(module, inputs, out):
+        require_finite({k: out[k] for k in CHECKED_OUTPUTS if k in out},
+                       "forward")
+    model.register_forward_hook(hook)
 
 
 def maybe_generate_synthetic(cfg: Config, args) -> Config:

@@ -17,6 +17,13 @@ package's name and default) is the size S of the context-parallel ``seq``
 axis: the W ranks form W / S data rows of S ranks each, and the members of
 a row split the keypoints of the row's pairs.
 
+``data_parallel`` and ``shard_map`` (the JAX package's names and defaults)
+are ``Matcher``'s: one process serves a batch over a ``data_parallel`` x
+``seq_parallel`` grid of model replicas, one thread and one device a cell
+(``parallel/smap.py::make_eval_runtime``); ``resolve_shard_map`` says
+whether the grid runs. The CLIs leave both at their defaults: there one
+rank is one device.
+
 In eval mode that is the whole-layer kernels and the Sinkhorn forward. In
 training mode, with ``train_layer`` (the default, the counterpart of the JAX
 package's ``pallas_train_layer``), every GNN layer runs the whole-layer
@@ -112,6 +119,9 @@ class Config:
     num_processes: int = 0
     process_id: int = -1
     seq_parallel: int = 1           # ranks that split one pair's keypoints
+    # --- one process over several devices (parallel/smap.py) ---
+    data_parallel: int = 1          # model replicas the rows are split over
+    shard_map: Optional[bool] = None  # None = auto (resolve_shard_map)
 
     # ------------------------------------------------------------------
     @property
@@ -143,6 +153,20 @@ class Config:
             else:
                 ks.append(None)
         return ks
+
+    def resolve_shard_map(self, n_data: int) -> bool:
+        """Whether ``Matcher`` serves over an ``n_data`` x ``seq_parallel``
+        grid of replicas (``parallel/smap.py::make_eval_runtime``), or runs
+        one forward on one device. An explicit ``shard_map`` wins; auto
+        (None) turns the grid on when it has more than one cell and a kernel
+        route is on (``use_kernels`` in the role of the JAX package's
+        ``use_pallas`` / ``pallas_attention``, ``loss_kernel`` in that of
+        ``pallas_loss``), as ``mdgat_tpu/core/config.py::resolve_shard_map``
+        does."""
+        multi = n_data > 1 or self.seq_parallel > 1
+        if self.shard_map is not None:
+            return self.shard_map and multi
+        return multi and (self.use_kernels or self.loss_kernel)
 
     def model_name(self) -> str:
         """Run-name scheme of the reference (``train.py:130-136``)."""

@@ -10,6 +10,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <mutex>
 
 namespace mdgat {
 
@@ -162,10 +163,14 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // The same for a kernel launched hundreds of times a step: the launch site
 // keeps one SmemCap per kernel instantiation (a function-local static),
 // which remembers the largest cap set on each device, so that a steady
-// launch makes no call into the CUDA runtime for it.
+// launch makes no call into the CUDA runtime for it. Host threads that
+// launch the kernel at once (one a device, or several on one device) set
+// the cap under one mutex, and the cap only grows: a thread that asked for
+// less never lowers the cap another thread has recorded.
 struct SmemCap {
   static constexpr int kDevices = 64;
   std::atomic<size_t> set[kDevices] = {};
+  std::mutex lock;
 };
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes, SmemCap& cap) {
@@ -174,9 +179,11 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, SmemCap& cap) {
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= SmemCap::kDevices) return allow_smem(kernel, bytes);
+  if (bytes <= cap.set[device].load(std::memory_order_acquire)) return cudaSuccess;
+  std::lock_guard<std::mutex> guard(cap.lock);
   if (bytes <= cap.set[device].load(std::memory_order_relaxed)) return cudaSuccess;
   err = allow_smem(kernel, bytes);
-  if (err == cudaSuccess) cap.set[device].store(bytes, std::memory_order_relaxed);
+  if (err == cudaSuccess) cap.set[device].store(bytes, std::memory_order_release);
   return err;
 }
 

@@ -22,8 +22,9 @@ again before the yield, so that every batch of a bucket has one shape.
 of a data row take the row's block, prepare each batch whole (the ground
 truth is formed on the whole clouds), and run the eval step on their own
 keypoint block (``make_shard_map_eval_step`` with ``shard_inputs`` of the
-JAX package); the outputs are the whole clouds'. The one-process
-multi-device eval is not ported.
+JAX package); the outputs are the whole clouds'. The eval CLIs run one
+device a rank; one process over several devices is ``Matcher``'s
+(``parallel/smap.py::make_eval_runtime``).
 """
 
 from __future__ import annotations

@@ -79,7 +79,6 @@ import math
 from typing import Dict
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from mdgat_tpu_torch.core.config import POINTNET_DESCRIPTORS, Config
@@ -96,7 +95,7 @@ from mdgat_tpu_torch.ops.matching import match_decision
 from mdgat_tpu_torch.ops.mlp import Conv1x1, bn_cross_replica
 from mdgat_tpu_torch.ops.transport import (assemble_full_scores,
                                            log_optimal_transport)
-from mdgat_tpu_torch.parallel.mesh import all_gather
+from mdgat_tpu_torch.parallel.mesh import all_gather, group_size
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -160,7 +159,8 @@ class MDGAT(nn.Module):
         reference's [B, N+1, M+1] transport (``scores``). ``group``, a
         ``torch.distributed`` process group, makes the training-mode
         BatchNorm statistics those of its ranks' batches together.
-        ``seq_group``, the process group of a seq axis: the keypoint-axis
+        ``seq_group``, the group of a seq axis (a process group, or a
+        ``parallel.LocalGroup`` of threads in one process): the keypoint-axis
         inputs are this member's block, the outputs are whole."""
         if seq_group is not None and self.config.descriptor == "FPFH_gloabal":
             raise ValueError("descriptor FPFH_gloabal pools over the whole "
@@ -196,7 +196,7 @@ class MDGAT(nn.Module):
             # the k-schedule reads the global keypoint count (the local
             # count is N/S under a seq axis)
             n = desc0.shape[1] * (1 if seq_group is None
-                                  else dist.get_world_size(seq_group))
+                                  else group_size(seq_group))
             desc0, desc1 = self.gnn(desc0, desc1, cfg.layer_k_schedule(n),
                                     mask0, mask1,
                                     use_kernels=cfg.use_kernels,

@@ -41,6 +41,7 @@ from mdgat_tpu_torch.ops.attention import (BIG_NEG, acc_dtype,
                                            fast_plan)
 from mdgat_tpu_torch.ops.cuda._build import (DTYPE_CODES, _ptr,
                                              device_scratch, library)
+from mdgat_tpu_torch.utils.counting import tick
 
 HEAD_DIMS = (8, 16, 32, 64)
 REGISTER_KEYS = 1024    # keys the register arms hold; the wide arm beyond
@@ -208,7 +209,7 @@ def topk_attention(q, k, v, kv_mask: Optional[torch.Tensor], topk: int,
                        _ptr(lse), _ptr(slab), floats,
                        b, h, n, m, dh, int(topk), mids, passes, float(scale),
                        DTYPE_CODES[q.dtype], stream)
-    topk_attention.launches += 1
+    tick(topk_attention)
     return (out, thr, lse) if return_lse else (out, thr)
 
 

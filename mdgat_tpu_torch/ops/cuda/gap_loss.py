@@ -39,6 +39,7 @@ from mdgat_tpu_torch.ops.cuda.layer import NUM_SMS
 from mdgat_tpu_torch.ops.cuda.train_layer import _launch
 from mdgat_tpu_torch.ops.losses import _masks, _mean_over
 from mdgat_tpu_torch.ops.transport import BIG_NEG, OTScores
+from mdgat_tpu_torch.utils.counting import tick
 
 PIECE = 1024         # rows of a band a CTA stages at a time (kGapPiece)
 MAX_CLUSTER = 16     # CTAs a pair; above 8 non-portable
@@ -224,7 +225,7 @@ def _margins_forward(dense, bin_row, bin_col, gt0, gt1, rm, cm, gamma,
             bin_col.data_ptr(), gt0.data_ptr(), gt1.data_ptr(), _ptr(rm),
             _ptr(cm), s0.data_ptr(), s1.data_ptr(), cnt0.data_ptr(),
             cnt1.data_ptr(), b, n, m, cluster, band, gamma)
-    fused_gap_margins.forward_launches += 1
+    tick(fused_gap_margins, "forward_launches")
     return s0, s1, cnt0, cnt1
 
 
@@ -248,7 +249,7 @@ def _margins_backward(dense, bin_row, bin_col, gt0, gt1, rm, cm, gamma, cnt0,
             _ptr(cm), cnt0.data_ptr(), cnt1.data_ptr(), ds0.data_ptr(),
             ds1.data_ptr(), dd.data_ptr(), dbin_row.data_ptr(),
             dbin_col.data_ptr(), b, n, m, cluster, band, gamma)
-    fused_gap_margins.backward_launches += 1
+    tick(fused_gap_margins, "backward_launches")
     return dd, dbin_row, dbin_col
 
 

@@ -40,6 +40,7 @@ import torch
 from mdgat_tpu_torch.ops.attention import acc_dtype
 from mdgat_tpu_torch.ops.cuda import attention as attn_kernel
 from mdgat_tpu_torch.ops.cuda._build import DTYPE_CODES, library
+from mdgat_tpu_torch.utils.counting import tick
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,8 +172,9 @@ def gemm(a1, w, bias, *, a2=None, relu=False, res=None, out_dtype=None,
                        ptr(bias), ptr(res), out.data_ptr(),
                        DTYPE_CODES[out_dtype], out_heads, rows_per_batch, r,
                        c, int(relu), int(w_trans), stream)
-    gemm.launches += 1
-    gemm.wt_launches += bool(w_trans)
+    tick(gemm)
+    if w_trans:
+        tick(gemm, "wt_launches")
     return out
 
 
@@ -236,7 +238,7 @@ def _gemm_tn_launch(a, b, rows_per_split: int, splits: int):
         library().call("mdgat_gemm_tn", a.data_ptr(), b.data_ptr(),
                        partial.data_ptr(), partial.numel(), dw.data_ptr(),
                        db.data_ptr(), r, k1, c, rows_per_split, splits, stream)
-    gemm_tn.launches += 1
+    tick(gemm_tn)
     return dw, db
 
 
@@ -269,7 +271,7 @@ def fused_layer(x, src, kv_mask: Optional[torch.Tensor],
     merged = gemm(o, w.wm, w.bm, a1_heads=h, rows_per_batch=n)
     u = gemm(x, w.w1, w.b1, a2=merged, relu=True, out_dtype=f32)
     y = gemm(u, w.w2, w.b2, res=x, out_dtype=x.dtype)
-    fused_layer.launches += 1
+    tick(fused_layer)
     return y.reshape(b, n, d)
 
 

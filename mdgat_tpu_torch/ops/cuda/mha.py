@@ -49,6 +49,7 @@ from mdgat_tpu_torch.ops.cuda import attention as attn_kernel
 from mdgat_tpu_torch.ops.cuda._build import (DTYPE_CODES, _ptr,
                                              device_scratch, library)
 from mdgat_tpu_torch.ops.cuda.layer import gemm, gemm_tn
+from mdgat_tpu_torch.utils.counting import tick
 
 
 def blocked_weights(attn, num_heads: int):
@@ -152,7 +153,7 @@ def _mha_forward(x, source, kv_mask, topk, h, wq, bq, wk, bk, wv, bv, wm, bm,
     b, n, d = x.shape
     o, thr, lse = _project_attend(x, source, kv_mask, topk, h, wq, bq, wk,
                                   bk, wv, bv, exact)
-    fused_mha.forward_launches += 1
+    tick(fused_mha, "forward_launches")
     out = gemm(o, wm, bm, a1_heads=h, rows_per_batch=n, out_dtype=x.dtype)
     return out.reshape(b, n, d), thr, lse
 
@@ -222,7 +223,7 @@ def _attention_backward(q, k, v, do, kv_mask, thr, lse, key_tile: int = 0):
                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                        delta.data_ptr(), _ptr(slab), floats, b, h, n, m, dh,
                        int(key_tile), stream)
-    _attention_backward.launches += 1
+    tick(_attention_backward)
     return o_full, dq, dk, dv
 
 
@@ -268,7 +269,7 @@ def _mha_backward(x, source, kv_mask, thr, lse, g, h, wq, bq, wk, bk, wv, bv,
     ten gradients."""
     grads = _mha_backward_launches(x, source, kv_mask, thr, lse, g, h, wq, bq,
                                    wk, bk, wv, bv, wm)
-    fused_mha.backward_launches += 1
+    tick(fused_mha, "backward_launches")
     return grads[:10]
 
 

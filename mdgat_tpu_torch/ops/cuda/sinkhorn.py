@@ -14,7 +14,10 @@ scores from the marginals. See the source notes in ``csrc/``
 for the designs and what bounds them on the H100.
 
 Both kernels run a pair on a thread-block cluster of CTAs, each owning a
-band of rows. The forward's cluster size comes from :func:`sinkhorn_plan`;
+band of rows. The forward's cluster size comes from :func:`sinkhorn_plan`
+(for the call's pairs, or for those :func:`plan_as` names: the cluster
+size sets the order of the column sums, so a batch's rows come out
+bit-equal only under one plan);
 the band stays in shared memory wherever it fits (:func:`fwd_smem_bytes`
 mirrors the kernel's layout). Above 1024 columns (or where a band's
 vectors do not fit in shared memory) both kernels take their wide arm,
@@ -32,6 +35,8 @@ takes every iteration count.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 from typing import Optional
 
@@ -42,6 +47,7 @@ from mdgat_tpu_torch.ops.cuda.layer import NUM_SMS
 from mdgat_tpu_torch.ops.transport import (BIG_NEG, OTScores,
                                            log_optimal_transport,
                                            transport_marginals)
+from mdgat_tpu_torch.utils.counting import tick
 
 REGISTER_COLS = 1024      # columns the register arms take (kMaxCols)
 MAX_CLUSTER = 16          # CTAs a pair; above 8 the size is non-portable
@@ -178,13 +184,33 @@ def bwd_plan(b: int, n: int, m: int):
     return g, bwd_scratch_floats(b, n, m, g)
 
 
+# the pair count the forward plans for (None: the call's own)
+_PLAN_PAIRS = contextvars.ContextVar("mdgat_sinkhorn_plan_pairs",
+                                     default=None)
+
+
+@contextlib.contextmanager
+def plan_as(pairs: int):
+    """Inside the block the forward takes the cluster size
+    :func:`sinkhorn_plan` gives ``pairs`` pairs, whatever the pair count of
+    a call (per thread). The one-process grid
+    (``parallel/smap.py::make_eval_runtime``) runs each data replica's
+    block of rows under the plan of the whole batch, so that its rows come
+    out as one device computes them."""
+    token = _PLAN_PAIRS.set(int(pairs))
+    try:
+        yield
+    finally:
+        _PLAN_PAIRS.reset(token)
+
+
 def _forward(scores, scalars, log_mu, log_nu, iters: int,
              cluster: int = 0) -> OTScores:
     """One launch of the forward. ``cluster`` 0 takes
-    :func:`sinkhorn_plan`'s cluster size; 1-16 asks for that many CTAs a
-    pair (the smoke's sweep)."""
+    :func:`sinkhorn_plan`'s cluster size (for the pairs of :func:`plan_as`
+    inside one); 1-16 asks for that many CTAs a pair (the smoke's sweep)."""
     b, n, m = scores.shape
-    cluster = cluster or sinkhorn_plan(b, n, m)[0]
+    cluster = cluster or sinkhorn_plan(_PLAN_PAIRS.get() or b, n, m)[0]
     if not 1 <= cluster <= MAX_CLUSTER:
         raise ValueError(f"Sinkhorn kernel: {cluster} CTAs a pair "
                          f"(1-{MAX_CLUSTER})")
@@ -202,7 +228,7 @@ def _forward(scores, scalars, log_mu, log_nu, iters: int,
                        bin_row.data_ptr(), bin_col.data_ptr(),
                        corner.data_ptr(), _ptr(scratch), floats, b, n, m,
                        int(iters), int(cluster), stream)
-    log_optimal_transport_kernel.launches += 1
+    tick(log_optimal_transport_kernel)
     return OTScores(dense, bin_row, bin_col, corner)
 
 
@@ -268,7 +294,7 @@ def _backward(scores, scalars, log_mu, log_nu, cot, iters: int,
                        dz.data_ptr(), dalpha.data_ptr(), hist.data_ptr(),
                        _ptr(scratch), floats, b, n, m, int(iters),
                        int(cluster), stream)
-    log_optimal_transport_kernel.backward_launches += 1
+    tick(log_optimal_transport_kernel, "backward_launches")
     return dz, dalpha
 
 

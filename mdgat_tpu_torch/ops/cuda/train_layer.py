@@ -89,6 +89,7 @@ from mdgat_tpu_torch.ops.cuda.layer import (NUM_SMS, TN_STAGE_ROWS, gemm,
                                            gemm_tn, tn_plan)
 from mdgat_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM, bn_group
 from mdgat_tpu_torch.parallel.mesh import all_reduce
+from mdgat_tpu_torch.utils.counting import tick
 
 # row tiles of the csrc/train_layer.cu launches that take a row plan (the
 # dw2 launch's are the A^T product's ring stages, layer.TN_STAGE_ROWS)
@@ -377,7 +378,7 @@ def h1_stats(x, msg, w1, b1, row_mask):
             b1.data_ptr(), _ptr(row_mask), h1.data_ptr(), partial.data_ptr(),
             partial.numel(), sums.data_ptr(), d, r, rows, blocks,
             DTYPE_CODES[x.dtype])
-    h1_stats.launches += 1
+    tick(h1_stats)
     return h1, sums
 
 
@@ -403,7 +404,7 @@ def bn_relu_conv2(x, h1, a, c, w2, b2):
     _launch("mdgat_tl_fwd2", x, x.data_ptr(), h1.data_ptr(), a.data_ptr(),
             c.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(), d, r,
             rows, blocks, DTYPE_CODES[x.dtype])
-    bn_relu_conv2.launches += 1
+    tick(bn_relu_conv2)
     return y
 
 
@@ -437,7 +438,7 @@ def bn_backward_sums(g, h1, w2, vec4):
             w2.data_ptr(), vec4.data_ptr(), partial.data_ptr(),
             partial.numel(), sums.data_ptr(), d, r, rows, blocks,
             DTYPE_CODES[g.dtype])
-    bn_backward_sums.launches += 1
+    tick(bn_backward_sums)
     return sums
 
 
@@ -465,7 +466,7 @@ def dw2_db2(g, h1, vec4):
     _launch("mdgat_tl_dw2", g, h1.data_ptr(), vec4.data_ptr(), g.data_ptr(),
             partial.data_ptr(), partial.numel(), out.data_ptr(), d, r, rows,
             splits, DTYPE_CODES[g.dtype])
-    dw2_db2.launches += 1
+    tick(dw2_db2)
     return out[:2 * d], out[2 * d]
 
 
@@ -488,7 +489,7 @@ def dh1_kernel(g, h1, w2, vec6, row_mask):
     _launch("mdgat_tl_dh1", g, g.data_ptr(), h1.data_ptr(), w2.data_ptr(),
             vec6.data_ptr(), _ptr(row_mask), dh1.data_ptr(), d, r, rows,
             blocks, DTYPE_CODES[g.dtype])
-    dh1_kernel.launches += 1
+    tick(dh1_kernel)
     return dh1
 
 
@@ -527,7 +528,7 @@ def _tl_forward(x, source, kv_mask, valid_mask, topk, h, wq, bq, wk, bk, wv,
     var = var.clamp_min(0.0)
     a = bn_scale * torch.rsqrt(var + BN_EPS)
     y = bn_relu_conv2(x, h1, a, bn_bias - mean * a, w2, b2)
-    fused_train_layer.forward_launches += 1
+    tick(fused_train_layer, "forward_launches")
     return y, mean, var, cnt, h1, thr, lse, sums
 
 
@@ -579,7 +580,7 @@ def _tl_backward(x, source, kv_mask, valid_mask, thr, lse, h1, mean, var, cnt,
     vec6 = torch.cat([vec4, sg_sgh / cnt])
     grads = _tl_bwd2(x, source, kv_mask, valid_mask, thr, lse, h1, g, vec6, h,
                      wq, bq, wk, bk, wv, bv, wm, bm, w1, w2)
-    fused_train_layer.backward_launches += 1
+    tick(fused_train_layer, "backward_launches")
     return grads + (dw2, db2, sums[2], sums[3])
 
 

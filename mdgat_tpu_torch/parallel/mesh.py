@@ -36,6 +36,8 @@ import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
 
 from mdgat_tpu_torch.parallel import multihost
+from mdgat_tpu_torch.parallel.local import LocalGroup
+from mdgat_tpu_torch.utils.counting import tick_kind
 
 # cross-rank reductions by kind, since the last reset (``.clear()``)
 collective_counts: collections.Counter = collections.Counter()
@@ -86,25 +88,38 @@ def all_reduce(t: torch.Tensor, group, kind: str,
     cotangents over the ranks (``torch.distributed.nn.functional``), as the
     transpose of a ``psum`` does; that backward reduction is counted under
     ``kind + "_backward"`` when autograd reaches it."""
-    collective_counts[kind] += 1
+    tick_kind(collective_counts, kind)
     if not differentiable:
         dist.all_reduce(t, group=group)
         return t
     out = dist_nn.all_reduce(t, group=group)
     if out.requires_grad:
         out.register_hook(
-            lambda g: collective_counts.update([kind + "_backward"]))
+            lambda g: tick_kind(collective_counts, kind + "_backward"))
     return out
+
+
+def group_size(group) -> int:
+    """The members of a seq group: a process group's ranks or a
+    :class:`~mdgat_tpu_torch.parallel.local.LocalGroup`'s threads."""
+    if isinstance(group, LocalGroup):
+        return group.size
+    return dist.get_world_size(group)
 
 
 def _gather_blocks(tensors, group, kind, dim):
     """Every member's blocks of ``tensors`` along ``dim``, member order,
-    through one ``all_gather`` of the tensors packed along ``dim``."""
+    through one ``all_gather`` of the tensors packed along ``dim`` (the
+    process group's, or the in-process group's)."""
     widths = [t.shape[dim] for t in tensors]
     packed = torch.cat(tensors, dim).contiguous()
-    parts = [torch.empty_like(packed) for _ in range(dist.get_world_size(group))]
-    collective_counts[kind] += 1
-    dist.all_gather(parts, packed, group=group)
+    tick_kind(collective_counts, kind)
+    if isinstance(group, LocalGroup):
+        parts = group.all_gather(packed)
+    else:
+        parts = [torch.empty_like(packed)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, packed, group=group)
     out, off = [], 0
     for w in widths:
         out.append(torch.cat([p.narrow(dim, off, w) for p in parts], dim))
@@ -126,12 +141,18 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        if isinstance(ctx.group, LocalGroup):
+            raise RuntimeError(
+                f"all_gather ({ctx.kind}) over an in-process LocalGroup has "
+                "no backward: the one-process multi-device runtime serves "
+                "eval forwards only; train over a seq axis with one rank a "
+                "process (--seq_parallel S)")
         dim, widths = ctx.dim, ctx.widths
         summed = torch.stack([
             torch.cat([g.narrow(dim, m * w, w) for g, w in zip(grads, widths)],
                       dim)
             for m in range(dist.get_world_size(ctx.group))])
-        collective_counts[ctx.kind + "_backward"] += 1
+        tick_kind(collective_counts, ctx.kind + "_backward")
         dist.all_reduce(summed, group=ctx.group)
         mine = summed[dist.get_rank(ctx.group)].split(widths, dim)
         return (None, None, None) + tuple(mine)
@@ -140,11 +161,13 @@ class _AllGather(torch.autograd.Function):
 def all_gather(tensors: Union[torch.Tensor, Sequence[torch.Tensor]], group,
                kind: str, dim: int = 1):
     """Each tensor whole along ``dim``: the blocks every member of ``group``
-    holds, in member order, through ONE collective counted under ``kind``
+    (a process group or a ``LocalGroup``) holds, in member order, through
+    ONE collective counted under ``kind``
     (the tensors are packed along ``dim``: their dtypes and every other
     dimension must agree). A tensor or a sequence in, the same out.
 
-    Differentiable in the floating-point tensors: the backward sums the
+    Differentiable in the floating-point tensors over a process group (a
+    ``LocalGroup``'s backward raises): the backward sums the
     cotangents over the members and keeps this member's block (the
     transpose of ``jax.lax.all_gather(tiled=True)``), one all-reduce
     counted under ``kind + "_backward"``. Boolean tensors travel as uint8."""

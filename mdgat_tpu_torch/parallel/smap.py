@@ -42,17 +42,27 @@ collectives the backward issues itself.
 
 Eval (``train/loop.py::make_eval_step(model, seq_group)``) uses the
 running statistics: BatchNorm issues no collective, and under a seq axis
-only the gathers run. The one-process multi-device eval runtime is not
-ported.
+only the gathers run.
+
+:func:`make_eval_runtime` is the one-process multi-device eval of the JAX
+package's ``make_eval_runtime`` (``Matcher(data_parallel=N,
+seq_parallel=M)``): N x M model replicas in one process, one thread and one
+device a replica, the seq members of a data row joined by a
+``parallel/local.py::LocalGroup``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import contextlib
+import copy
+import threading
+from typing import Callable, Dict, Sequence
 
 import torch
 
-from mdgat_tpu_torch.parallel.mesh import DataParallelGroup, all_reduce
+from mdgat_tpu_torch.parallel.local import GATHER_TIMEOUT_S, LocalGroup
+from mdgat_tpu_torch.parallel.mesh import (DataParallelGroup, all_reduce,
+                                           shard_batch)
 
 
 def average_gradients(params, group: DataParallelGroup):
@@ -93,4 +103,122 @@ def make_data_parallel_train_step(group: DataParallelGroup) -> Callable:
         state.step += 1
         return state, {"loss": loss / group.world, "grad_norm": grad_norm}
 
+    return step
+
+
+def _on(batch: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _rows(batch: Dict[str, torch.Tensor]) -> int:
+    return next(iter(batch.values())).shape[0]
+
+
+def make_eval_runtime(model, cfg, devices: Sequence) -> Callable:
+    """``step(batch) -> outputs`` of the eval forward over a ``(data, seq)``
+    grid of ``cfg.data_parallel`` x ``cfg.seq_parallel`` cells in one
+    process: the one-process branch of the JAX package's
+    ``make_eval_runtime``.
+
+    ``devices`` (N x M of them, a device may repeat) are laid out data-major,
+    cell ``(d, s)`` on ``devices[d * M + s]``, as the JAX package's
+    ``make_mesh`` reshapes its devices. Each cell holds an eval-mode replica
+    of ``model`` on its device with the same weights. ``step(batch, rows)``
+    takes a batch of tensors whose row count N divides, on any device, of
+    which the first ``rows`` (default all) are real and the rest fill; data
+    row ``d`` takes its contiguous block of rows and, under a seq axis,
+    member ``s`` its block of each cloud's keypoints (``mesh.shard_batch``).
+    The kernels compute a row the same at any row count but for the
+    Sinkhorn forward's cluster plan, which every cell takes for ``rows``
+    pairs (``ops/cuda/sinkhorn.py::plan_as``): one device's plan for the
+    real pairs, so that the grid's outputs are one device's, bit for bit.
+    Every cell runs its forward on its own thread (on the card on its own
+    stream, without gradients); the members of a row gather over a
+    :class:`~mdgat_tpu_torch.parallel.local.LocalGroup`, and each returns
+    the whole clouds' outputs, of which member 0's are kept. The rows'
+    outputs come back on the host, concatenated in row order. The first
+    exception of a cell is re-raised once every thread has ended (a failed
+    member breaks its row's barriers, whose waits give up after
+    ``GATHER_TIMEOUT_S``); a thread still running that long after the
+    others raises ``TimeoutError``.
+
+    A 1 x 1 grid, or a config whose ``resolve_shard_map`` is false, is one
+    forward of ``model`` on ``devices[0]`` (outputs on that device; its
+    plan the batch's own), as the JAX package falls back to its plain
+    step. ``step.replicas`` holds the grid's modules, ``[d][s]``."""
+    n_data, n_seq = cfg.data_parallel, cfg.seq_parallel
+    devices = [torch.device(d) for d in devices]
+    if n_data < 1 or n_seq < 1:
+        raise ValueError(f"a {n_data} x {n_seq} grid: each axis takes at "
+                         "least 1")
+    if len(devices) != n_data * n_seq:
+        raise ValueError(f"a {n_data} x {n_seq} grid needs {n_data * n_seq} "
+                         f"devices, got {len(devices)}")
+    from mdgat_tpu_torch.ops.cuda.sinkhorn import plan_as
+    first = model.to(devices[0]).eval()
+    if n_data * n_seq == 1 or not cfg.resolve_shard_map(n_data):
+        def single(batch, rows=None):
+            with torch.inference_mode(), plan_as(rows or _rows(batch)):
+                return first(_on(batch, devices[0]))
+        single.replicas = [[first]]
+        return single
+
+    replicas = [[first if d == s == 0 else
+                 copy.deepcopy(first).to(devices[d * n_seq + s]).eval()
+                 for s in range(n_seq)] for d in range(n_data)]
+
+    def cell(d, s, batch, rows, real, group, kept, errors, lock):
+        device = devices[d * n_seq + s]
+        try:
+            shard = shard_batch(batch, rows=slice(d * rows, (d + 1) * rows),
+                                seq_block=(s, n_seq) if n_seq > 1 else None)
+            with contextlib.ExitStack() as stack:
+                # grad mode, the current device and stream and the plan are
+                # per thread
+                stack.enter_context(torch.inference_mode())
+                stack.enter_context(plan_as(real))
+                if device.type == "cuda":
+                    stack.enter_context(torch.cuda.device(device))
+                    stack.enter_context(
+                        torch.cuda.stream(torch.cuda.Stream(device)))
+                if group is not None:
+                    stack.enter_context(group.member(s))
+                out = replicas[d][s](_on(shard, device), seq_group=group)
+                if s == 0:
+                    kept[d] = {k: v.cpu() for k, v in out.items()}
+                elif device.type == "cuda":
+                    torch.cuda.current_stream(device).synchronize()
+        except BaseException as e:  # noqa: BLE001 — re-raised by step
+            with lock:
+                errors.append(e)
+            if group is not None:
+                group.abort()
+
+    def step(batch, rows=None):
+        b = _rows(batch)
+        if b % n_data:
+            raise ValueError(f"{b} rows do not split over {n_data} data "
+                             "replicas (pad the batch to a multiple)")
+        kept, errors, lock = [None] * n_data, [], threading.Lock()
+        threads = []
+        for d in range(n_data):
+            group = (LocalGroup(devices[d * n_seq:(d + 1) * n_seq])
+                     if n_seq > 1 else None)
+            threads += [threading.Thread(
+                target=cell, args=(d, s, batch, b // n_data, rows or b,
+                                   group, kept, errors, lock),
+                name=f"mdgat-eval-{d}-{s}", daemon=True)
+                for s in range(n_seq)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(GATHER_TIMEOUT_S)
+        if errors:
+            raise errors[0]
+        if any(t.is_alive() for t in threads):
+            raise TimeoutError(f"an eval replica ran over {GATHER_TIMEOUT_S} "
+                               "s")
+        return {k: torch.cat([out[k] for out in kept]) for k in kept[0]}
+
+    step.replicas = replicas
     return step

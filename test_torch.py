@@ -85,10 +85,16 @@ def main(argv=None):
     record a pair: ``idx``, ``status``, the printed ``line`` or None,
     ``mm``, ``pm`` and the pair's valid ``matches0``), ``n_pairs``,
     ``n_batches``, ``seconds`` and ``first_batch_s``."""
-    from mdgat_tpu_torch.cli import (build_parser, config_from_args,
-                                     maybe_generate_synthetic,
-                                     setup_distributed)
+    from mdgat_tpu_torch.cli import build_parser, debugging
     args = build_parser("test").parse_args(argv)
+    with debugging(args):
+        return _run(args)
+
+
+def _run(args):
+    from mdgat_tpu_torch.cli import (config_from_args,
+                                     maybe_generate_synthetic, nan_guard,
+                                     setup_distributed)
     cfg = config_from_args(args, "test")
 
     from mdgat_tpu_torch.eval import TestEvalAccumulator
@@ -99,6 +105,8 @@ def main(argv=None):
     device, group = setup_distributed(cfg, args)
     cfg = maybe_generate_synthetic(cfg, args)
     model, source = eval_model(cfg, device)
+    if args.debug_nans:
+        nan_guard(model)
     if source == "missing":
         print(f"[warn] checkpoint not found ({cfg.resume_model}); using "
               "random init — metrics will be near-chance")

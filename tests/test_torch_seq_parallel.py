@@ -475,10 +475,29 @@ def test_pointnet_seq_step_equals_jax(tmp_path):
 
 
 def test_matcher_refuses_a_seq_axis():
-    """One process serves on one device: ``Matcher(seq_parallel=S)`` with
-    S > 1 raises and names the multi-process CLIs that run the axis."""
-    with pytest.raises(ValueError, match="test_torch.py") as err:
-        Matcher(seed=0, device="cpu", seq_parallel=2)
-    assert "not ported yet" in str(err.value)
-    assert Matcher(seed=0, device="cpu", seq_parallel=1,
-                   L=1).cfg.seq_parallel == 1
+    """One process serves over a seq axis: ``Matcher(seq_parallel=2)``
+    (two seq members as threads on the CPU) returns the matches of
+    ``seq_parallel=1``, and its scores to float32 rounding, on a batch of
+    two pairs whose clouds fill different buckets. A seq axis the keypoint buckets cannot take (3 does
+    not divide 128) is refused before any forward, as the CLIs refuse
+    it."""
+    with pytest.raises(ValueError, match="does not divide"):
+        Matcher(seed=0, device="cpu", seq_parallel=3)
+    rng = np.random.default_rng(4)
+    pairs = [dict(kp0=rng.normal(size=(n, 3)) * 10,
+                  desc0=np.abs(rng.normal(size=(n, 33))),
+                  kp1=rng.normal(size=(n + 30, 3)) * 10,
+                  desc1=np.abs(rng.normal(size=(n + 30, 33))))
+             for n in (60, 140)]
+    one = Matcher(seed=0, device="cpu").match_batch(pairs)
+    port_mesh.collective_counts.clear()
+    two = Matcher(seed=0, device="cpu", seq_parallel=2).match_batch(pairs)
+    assert dict(port_mesh.collective_counts) == {
+        "input_gather": 2, "kv_gather": 36, "tail_gather": 2}
+    for a, b in zip(one, two):
+        for key in ("matches0", "matches1"):
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+        for key in ("matching_scores0", "matching_scores1"):
+            # float32: a member's products run on fewer rows
+            np.testing.assert_allclose(a[key], b[key], rtol=1e-5, atol=1e-6,
+                                       err_msg=key)

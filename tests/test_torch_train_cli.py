@@ -37,7 +37,7 @@ SIZE = ["--l", "2", "--max_keypoints", "64", "--batch_size", "4",
 NOT_PORTED = {"data_parallel", "use_pallas",
               "pallas_attention", "scan_gnn_pairs",
               "pallas_train_layer", "pallas_loss", "pallas_interpret",
-              "shard_map", "platform", "debug_nans", "trace_dir", "ship_bf16"}
+              "shard_map", "platform", "ship_bf16"}
 PORT_ONLY = {"device", "use_kernels", "train_layer", "loss_kernel",
              "dist_backend"}
 
@@ -142,6 +142,73 @@ def test_cuda_device_that_is_absent_raises(tmp_path, monkeypatch):
         train_torch.main(["--synthetic", "true", "--train_path",
                           str(tmp_path / "kd"), "--max_keypoints", "64",
                           "--model_out_path", str(tmp_path / "ck")])
+
+
+# ---------------------------------------------------------------------------
+# --trace_dir and --debug_nans
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def small_tree(tmp_path_factory):
+    """A small synthetic tree and the flags of a one-step CPU run on it."""
+    root = str(tmp_path_factory.mktemp("flags") / "kd")
+    kp_dir = write_synthetic_kitti(root, seqs=(0, 2, 3, 4, 5, 6, 7, 9, 10),
+                                   frames_per_seq=3, pairs_per_seq=2,
+                                   n_points=80, seed=4)
+    return ["--train_path", root, "--keypoints_path", kp_dir, "--txt_path",
+            os.path.join(root, "preprocess-random-full"), "--device", "cpu",
+            "--l", "1", "--max_keypoints", "64", "--batch_size", "2",
+            "--epoch", "1", "--steps_per_epoch", "1", "--max_pairs", "2"]
+
+
+def test_trace_dir_writes_a_trace(small_tree, tmp_path, monkeypatch):
+    """``--trace_dir`` on a one-step CPU run of ``train_torch.main``: the
+    profiler's Chrome trace of the run, named by rank, is in the directory
+    when ``main`` returns, and the profiler is off again."""
+    monkeypatch.chdir(tmp_path)
+    trace = tmp_path / "trace"
+    summary = train_torch.main(small_tree + [
+        "--model_out_path", str(tmp_path / "ck"), "--trace_dir", str(trace)])
+    assert summary["steps"] == [1]
+    assert os.listdir(trace) == ["trace_rank0.json"]
+    with open(trace / "trace_rank0.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
+    assert not torch.autograd._profiler_enabled()
+
+
+def _plant_nan(monkeypatch):
+    """Every prepared batch gets a NaN in its first pair's descriptors."""
+    from mdgat_tpu_torch.data import pipeline
+    from mdgat_tpu_torch.eval import runner
+    prepare = pipeline.prepare_batch
+
+    def planted(*args, **kw):
+        out = prepare(*args, **kw)
+        out["descriptors0"][0, 0, 0] = float("nan")
+        return out
+    monkeypatch.setattr(pipeline, "prepare_batch", planted)
+    monkeypatch.setattr(runner, "prepare_batch", planted)
+
+
+@pytest.mark.parametrize("entry", ["train_torch", "test_torch",
+                                   "test_registration_metric_torch"])
+def test_debug_nans_raises_on_a_planted_nan(entry, small_tree, tmp_path,
+                                            monkeypatch):
+    """A NaN planted in a batch's descriptors: with ``--debug_nans true``
+    the entry point raises ``FloatingPointError`` (what ``jax_debug_nans``
+    raises), and anomaly mode is off again afterwards; without the flag
+    the same run goes through."""
+    import importlib
+    main = importlib.import_module(entry).main
+    monkeypatch.chdir(tmp_path)
+    _plant_nan(monkeypatch)
+    argv = small_tree + ["--model_out_path", str(tmp_path / "ck")]
+    with pytest.raises(FloatingPointError, match="debug_nans"):
+        main(argv + ["--debug_nans", "true"])
+    assert not torch.is_anomaly_enabled()
+    main(argv)
 
 
 # ---------------------------------------------------------------------------

@@ -84,10 +84,16 @@ def main(argv=None):
     losses, checkpoint paths, steps and the wall time of each epoch's train
     loop (synchronised at the epoch end), the phase timer's summary and the
     final ``TrainState``."""
-    from mdgat_tpu_torch.cli import (build_parser, config_from_args,
-                                     maybe_generate_synthetic,
-                                     setup_distributed)
+    from mdgat_tpu_torch.cli import build_parser, debugging
     args = build_parser("train").parse_args(argv)
+    with debugging(args):
+        return _run(args)
+
+
+def _run(args):
+    from mdgat_tpu_torch.cli import (config_from_args,
+                                     maybe_generate_synthetic, nan_guard,
+                                     require_finite, setup_distributed)
     cfg = config_from_args(args, "train")
 
     import torch
@@ -134,6 +140,8 @@ def main(argv=None):
         state = create_train_state(cfg, device=device, seed=cfg.seed)
     if group is not None:
         replicate(state.model, group)
+    if args.debug_nans:
+        nan_guard(state.model)      # every forward: train and validation
 
     train_set = SparseDataset(cfg, "train")
     val_set = SparseDataset(cfg, "val")
@@ -177,6 +185,8 @@ def main(argv=None):
                     # losses stay on the device until the epoch ends: no
                     # per-step readback
                     state, metrics = train_step(state, prepared)
+                    if args.debug_nans:
+                        require_finite(metrics, "train step")
                 step_losses.append(metrics["loss"])
                 if (args.steps_per_epoch
                         and len(step_losses) >= args.steps_per_epoch):
