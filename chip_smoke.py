@@ -243,6 +243,30 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    ``match_batch`` of 64 pairs by CUDA events, one device and each grid in
    turns, and the 2 x 1 grid's two forwards enqueued in turn from one
    thread (no gain is claimed: the cells share one card).
+16. cuda_graphs: the JAX package's compiled programs, as CUDA graphs
+   captured once per shape bucket and replayed (``utils/graphs.py``).
+   Every phase above runs eagerly (``graphs.disabled()``, also in the rank
+   subprocesses): they count launches per call and time eager calls. The
+   flagship model at its defaults (the fast arm): three train steps of 64
+   pairs x 512 keypoints on three batches, f32 and then bfloat16, eagerly
+   and through the graph cache from one seed, both with the capturable
+   Adam: loss, grad_norm, every parameter, gradient, BN buffer and Adam
+   moment ``torch.equal``; the graph arm's launches one eager step's at its
+   warm-up and at its capture, none at its replay; step ms in turns and
+   peak bytes, at f32 also device ms and busy share by torch.profiler; the
+   same checks, untimed, with ``loss_kernel=True`` (the gap-loss pair) and
+   on the fused-MHA route at the exact arm, so that every kernel of the
+   slice runs inside a graph. The captured eval step after replayed
+   updates equal to the eager one (the weights folded inside the graph).
+   ``Matcher`` with graphs against ``cuda_graphs=False``, one device and a
+   2 x 1 grid sharing the card, 64 and 63 pairs three times each:
+   ``np.array_equal``, launches at warm-up and capture only;
+   ``match_batch`` and forward ms in turns, busy shares.
+   ``train_torch.main`` (2 epochs x 3 steps) and both eval CLIs (200
+   pairs) with graphs and eagerly: equal losses and per-pair results, ms a
+   step and ms a batch after the first. ``python3 chip_smoke.py --only
+   cuda_graphs`` runs this phase alone (it writes the trees it needs) and
+   prints no result line.
 
 The line before the last is a JSON object with one entry per kernel (its
 time beside the plain twin's, the card's bound for the same work and, where
@@ -5330,6 +5354,384 @@ def matcher_mesh(rng, dev, report, counters, card):
         failure_s=failure_s, phase_s=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 3
+
+
+def busy(fn, reps: int):
+    """(host window ms, device ms) of ``reps`` calls of ``fn`` by
+    torch.profiler, a call each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3 / reps
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    return window, device / 1e3 / reps
+
+
+def busy_line(label, window, device):
+    share = f"{device / window:.3f}" if device > 0 else "not measured"
+    dev = f"{device:.3f} ms" if device > 0 else "not measured"
+    return (f"{label}: window {window:.3f} ms a call, device {dev}, busy "
+            f"share {share}")
+
+
+def states_equal(label, a, b):
+    """Every parameter, gradient, buffer and Adam moment of two train
+    states ``torch.equal``."""
+    import torch
+    for (name, pa), pb in zip(a.model.named_parameters(),
+                              b.model.parameters()):
+        require(torch.equal(pa, pb), f"{label}: parameter {name} differs")
+        require(torch.equal(pa.grad, pb.grad),
+                f"{label}: gradient of {name} differs")
+        sa, sb = a.optimizer.state[pa], b.optimizer.state[pb]
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            require(torch.equal(sa[k], sb[k]),
+                    f"{label}: Adam's {k} of {name} differs")
+    for (name, ba), bb in zip(a.model.named_buffers(), b.model.buffers()):
+        require(torch.equal(ba, bb), f"{label}: buffer {name} differs")
+
+
+def graph_train(dev, counters, card, label, timed=True, profiled=True,
+                **over):
+    """Three train steps of ``train_defaults(**over)`` eager and through
+    the graph cache from one seed on three batches: metrics and state
+    ``torch.equal``, the captured arm's launches one eager step's at its
+    warm-up and at its capture and none at its replay; with ``timed``
+    then step ms in turns and peak bytes, with ``profiled`` also device ms
+    and busy share. Returns the two states, a batch and the numbers."""
+    import torch
+    from mdgat_tpu_torch.core.config import train_defaults
+    from mdgat_tpu_torch.train import create_train_state, make_train_step
+    cfg = train_defaults(**over)
+    batches = [train_batch(seed, cfg.batch_size, cfg.max_keypoints, dev)[1]
+               for seed in (1, 2, 3)]
+    eager = create_train_state(cfg.replace(cuda_graphs=False), device=dev,
+                               seed=0)
+    graph = create_train_state(cfg, device=dev, seed=0)
+    step = make_train_step()
+    label = f"cuda_graphs train, {label}"
+    per_step = None
+    peak = {}
+    for i, batch in enumerate(batches):
+        got = {}
+        for arm, state in (("eager", eager), ("graph", graph)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.reset()
+            _, m = step(state, batch)
+            torch.cuda.synchronize()
+            peak[arm] = max(peak.get(arm, 0),
+                            torch.cuda.max_memory_allocated() - base)
+            got[arm] = (m, read_counts(counters))
+        (me, le), (mg, lg) = got["eager"], got["graph"]
+        per_step = per_step or le
+        want = {k: 0 for k in le} if i == 2 else le
+        print(f"{label} step {i + 1} ({['warm-up', 'capture', 'replay'][i]}):"
+              f" loss {me['loss'].item():.6f} / {mg['loss'].item():.6f}, "
+              f"grad_norm {me['grad_norm'].item():.6f} / "
+              f"{mg['grad_norm'].item():.6f}; graph arm's launches "
+              f"{ {k: v for k, v in lg.items() if v} }")
+        require(le == per_step, f"{label}: eager launches changed")
+        require(lg == want, f"{label} step {i + 1}: graph arm launched "
+                f"{lg}, not {want}")
+        for k in ("loss", "grad_norm"):
+            require(torch.equal(me[k], mg[k]),
+                    f"{label} step {i + 1}: {k} differs from the eager step")
+    cache = graph.graphs
+    require((cache.warm_ups, cache.captures, cache.replays)
+            == (1, 1, GRAPH_STEPS - 1),
+            f"{label}: cache {cache.warm_ups} / {cache.captures} / "
+            f"{cache.replays}")
+    states_equal(label, eager, graph)
+    print(f"{label}: {GRAPH_STEPS} steps bit-equal (loss, grad_norm, every "
+          f"parameter, gradient, BN buffer and Adam moment); per eager "
+          f"step and at capture {sum(per_step.values())} counted launches, "
+          f"at replay none")
+    batch = batches[0]
+    if not timed:
+        return eager, graph, batch, dict(launches_per_step=per_step)
+    ms = turns_ms([lambda: step(eager, batch), lambda: step(graph, batch)],
+                  reps=3)
+    windows = {arm: busy(lambda s=s: step(s, batch), 1) if profiled
+               else (0.0, 0.0)
+               for arm, s in (("eager", eager), ("graph", graph))}
+    print(f"{label} on {card}: step {ms[0]:.3f} ms eager, {ms[1]:.3f} ms "
+          f"replayed by events in turns; peak bytes above the states "
+          f"{peak['eager']} eager, {peak['graph']} graph")
+    for arm, (w, d) in windows.items():
+        if profiled:
+            print("  " + busy_line(f"{arm} step", w, d))
+    return eager, graph, batch, dict(
+        launches_per_step=per_step, step_ms=dict(eager=ms[0], graph=ms[1]),
+        window_ms={a: w for a, (w, _) in windows.items()},
+        device_ms={a: d for a, (_, d) in windows.items()}, peak_bytes=peak)
+
+
+def graph_validation(graph, eager, batch, counters):
+    """The captured eval step across captured train replays: after the
+    weights moved, its loss and matches equal an eager eval step's on the
+    same model (the eval layers fold their weights inside the graph), and
+    the eager arm's."""
+    import torch
+    from mdgat_tpu_torch.train import make_eval_step, make_train_step
+    from mdgat_tpu_torch.utils import graphs
+    ev = make_eval_step(graph.model)
+    ev(batch)
+    ev(batch)                                  # captured
+    step = make_train_step()
+    step(graph, batch)                         # replays move the weights
+    step(eager, batch)
+    got = ev(batch)
+    with graphs.disabled():
+        want = ev(batch)
+    other = make_eval_step(eager.model)(batch)
+    cache = ev.graphs
+    require((cache.warm_ups, cache.captures, cache.replays) == (1, 1, 2),
+            "cuda_graphs validation: the eval step did not replay")
+    for k in ("loss", "matches0", "matches1", "matching_scores0"):
+        require(torch.equal(got[k], want[k]) and torch.equal(got[k], other[k]),
+                f"cuda_graphs validation after updates: {k} differs from "
+                f"the eager eval step")
+    print(f"cuda_graphs validation after {GRAPH_STEPS + 1} updates: replayed "
+          f"eval loss {got['loss'].mean().item():.6f} equals the eager eval "
+          f"step's on the same and on the eager arm's weights")
+
+
+def graph_serving(rng, dev, counters, card):
+    """``Matcher`` with graphs against ``cuda_graphs=False``, one device
+    and a 2 x 1 grid on the card: 64 and 63 pairs, three times each,
+    ``np.array_equal``; launches at warm-up and capture, none at replay;
+    match_batch and forward ms in turns, busy shares."""
+    import torch
+    from mdgat_tpu_torch import Matcher
+    requests = [make_pairs(rng, 64), make_pairs(rng, 63)]
+    one = dict(eager=Matcher(seed=0, device=dev, cuda_graphs=False),
+               graph=Matcher(seed=0, device=dev))
+    grid = dict(eager=Matcher(seed=0, device=dev, data_parallel=2,
+                              devices=[dev, dev], cuda_graphs=False),
+                graph=Matcher(seed=0, device=dev, data_parallel=2,
+                              devices=[dev, dev]))
+    per = {"topk_attention": 36, "eval_layer": 36, "gemm": 216,
+           "sinkhorn": 1}
+    for label, arms, cells in (("1x1", one, 1), ("2x1", grid, 2)):
+        for rep in range(3):
+            for r, req in enumerate(requests):
+                want = one["eager"].match_batch(req)
+                for c in counters.values():
+                    c.reset()
+                got = arms["graph"].match_batch(req)
+                torch.cuda.synchronize()
+                launches = read_counts(counters)
+                need = {k: (per.get(k, 0) * cells if rep < 2 else 0)
+                        for k in launches}
+                require(launches == need, f"cuda_graphs serving {label}, "
+                        f"{len(req)} pairs, call {rep + 1}: launches "
+                        f"{launches}, not {need}")
+                if label == "2x1":
+                    grid_eager = arms["eager"].match_batch(req)
+                    check_outputs(grid_eager, req)
+                for g, w in zip(got, want):
+                    for key in g:
+                        require(np.array_equal(g[key], w[key]),
+                                f"cuda_graphs serving {label}, {len(req)} "
+                                f"pairs, call {rep + 1}: {key} differs from "
+                                "one eager device's")
+        caches = arms["graph"]._step.graphs
+        require(all((c.warm_ups, c.captures, c.replays) == (2, 2, 4)
+                    for c in caches),
+                f"cuda_graphs serving {label}: caches "
+                f"{[(c.warm_ups, c.captures, c.replays) for c in caches]}")
+    print("cuda_graphs serving: 1x1 and 2x1 (cells sharing the card) "
+          "np.array_equal to one eager device on 64 and 63 pairs, three "
+          "calls each; launches at warm-up and capture, none at replay")
+    fns = [lambda m=m: m.match_batch(requests[0])
+           for m in (one["eager"], one["graph"], grid["eager"], grid["graph"])]
+    ms = turns_ms(fns, reps=5)
+    batch = one["graph"].prepare_batch(requests[0])[0]
+    fwd = turns_ms([lambda: one["eager"]._step(batch),
+                    lambda: one["graph"]._step(batch)], reps=10)
+    out = dict(match_batch_ms=dict(zip(
+        ("1x1 eager", "1x1 graph", "2x1 eager", "2x1 graph"), ms)),
+        forward_ms=dict(eager=fwd[0], graph=fwd[1]))
+    print(f"cuda_graphs serving on {card}, 64 pairs by events in turns: "
+          f"match_batch 1x1 {ms[0]:.3f} ms eager / {ms[1]:.3f} ms graph, 2x1 "
+          f"{ms[2]:.3f} / {ms[3]:.3f} ms; forward {fwd[0]:.3f} ms eager / "
+          f"{fwd[1]:.3f} ms graph")
+    for arm in ("eager", "graph"):
+        w, d = busy(lambda m=one[arm]: m._step(batch), 5)
+        out[f"forward_{arm}"] = dict(window_ms=w, device_ms=d)
+        print("  " + busy_line(f"forward, {arm}", w, d))
+        w, d = busy(lambda m=one[arm]: m.match_batch(requests[0]), 5)
+        out[f"match_batch_{arm}"] = dict(window_ms=w, device_ms=d)
+        print("  " + busy_line(f"match_batch, {arm}", w, d))
+    return out
+
+
+def graph_clis(dev, counters, card):
+    """``train_torch.main`` (2 epochs x 3 steps) and the two eval CLIs
+    (200 pairs in batches of 64) with graphs and eagerly: the same losses
+    and per-pair results, graphs captured once and replayed, ms a step and
+    ms a batch after the first."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    import test_registration_metric_torch
+    import test_torch
+    import train_torch
+    from mdgat_tpu_torch.data.synthetic import write_synthetic_kitti
+    from mdgat_tpu_torch.utils import graphs
+
+    def tree(name, **kw):
+        """The train_cli / eval_cli phase's tree (written here under
+        ``--only cuda_graphs``): its root and its keypoint directory."""
+        root = os.path.join(OUT_DIR, name)
+        if not os.path.isdir(root):
+            return root, write_synthetic_kitti(root, n_points=512, seed=0,
+                                               frames_per_seq=12, **kw)
+        return root, os.path.join(root, "keypoints", "synthetic")
+
+    root, kp_dir = tree("kitti_synthetic", seqs=(0, 2, 3, 4, 5, 6, 7, 9, 10),
+                        pairs_per_seq=64)
+    eval_root, eval_kp = tree("kitti_eval", seqs=(10,),
+                              pairs_per_seq=EVAL_PAIRS)
+    matching = matching_checkpoint(os.path.join(OUT_DIR, "matching.pth"))
+
+    def run(main, argv, eager):
+        for c in counters.values():
+            c.reset()
+        buf = io.StringIO()
+        with contextlib.ExitStack() as stack:
+            if eager:
+                stack.enter_context(graphs.disabled())
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            stack.enter_context(contextlib.chdir(OUT_DIR))
+            result = main(argv)
+        torch.cuda.synchronize()
+        return result, read_counts(counters)
+
+    out = {}
+    train_argv = lambda arm: [
+        "--train_path", root, "--keypoints_path", kp_dir,
+        "--txt_path", os.path.join(root, "preprocess-random-full"),
+        "--model_out_path", os.path.join(OUT_DIR, f"checkpoint_graphs_{arm}"),
+        "--device", str(dev), "--batch_size", "64", "--max_keypoints", "512",
+        "--epoch", str(CLI_EPOCHS), "--steps_per_epoch", str(CLI_STEPS),
+        "--seed", "0"]
+    runs = {}
+    for arm in ("eager", "graph", "graph", "eager"):
+        shutil.rmtree(os.path.join(OUT_DIR, f"checkpoint_graphs_{arm}"),
+                      ignore_errors=True)
+        summary, launches = run(train_torch.main, train_argv(arm),
+                                arm == "eager")
+        runs.setdefault(arm, []).append((summary, launches))
+    (se, le), (sg, lg) = runs["eager"][0], runs["graph"][0]
+    n_train = CLI_EPOCHS * CLI_STEPS
+    require(se["epoch_loss"] == sg["epoch_loss"]
+            and se["val_loss"] == sg["val_loss"],
+            f"cuda_graphs train_torch: losses {sg['epoch_loss']} / "
+            f"{sg['val_loss']} with graphs, {se['epoch_loss']} / "
+            f"{se['val_loss']} eager")
+    cache = sg["state"].graphs
+    require((cache.warm_ups, cache.captures, cache.replays)
+            == (1, 1, n_train - 1),
+            "cuda_graphs train_torch: the train step was not replayed")
+    require(lg["train_layer_fwd"] == 2 * 36 and le["train_layer_fwd"]
+            == n_train * 36, f"cuda_graphs train_torch: whole-layer "
+            f"launches {lg['train_layer_fwd']} with graphs (warm-up and "
+            f"capture), {le['train_layer_fwd']} eager")
+    loop = {}
+    for arm in ("eager", "graph"):
+        loop[arm] = [min(1e3 * s["train_loop_s"][e] / s["steps"][e]
+                         for s, _ in runs[arm]) for e in range(CLI_EPOCHS)]
+    print(f"cuda_graphs train_torch on {card}: equal epoch and validation "
+          f"losses {sg['epoch_loss']} / {sg['val_loss']}; loop ms a step "
+          f"(epochs 1 / 2, better of two runs) eager "
+          f"{' / '.join(f'{x:.2f}' for x in loop['eager'])}, graph "
+          f"{' / '.join(f'{x:.2f}' for x in loop['graph'])}")
+    out["train_torch_ms_per_step"] = loop
+    base = ["--train_path", eval_root, "--keypoints_path", eval_kp,
+            "--txt_path", os.path.join(eval_root, "preprocess-random-full"),
+            "--device", str(dev), "--batch_size", str(EVAL_BATCH),
+            "--ensure_kpts_num", "true", "--seed", "0",
+            "--resume_model", matching]
+    n_batches = -(-EVAL_PAIRS // EVAL_BATCH)
+    for label, main in (("test", test_torch.main),
+                        ("registration", test_registration_metric_torch.main)):
+        got = {}
+        for arm in ("eager", "graph", "graph", "eager"):
+            result, launches = run(main, base, arm == "eager")
+            steady = (1e3 * (result["seconds"] - result["first_batch_s"])
+                      / (result["n_batches"] - 1))
+            prev = got.get(arm)
+            got[arm] = (result, launches,
+                        min(steady, prev[2]) if prev else steady)
+        (re_, le_, me), (rg, lg_, mg) = got["eager"], got["graph"]
+        for a, b in zip(re_["pairs"], rg["pairs"]):
+            require(a["idx"] == b["idx"] and a["line"] == b["line"]
+                    and np.array_equal(a["matches0"], b["matches0"]),
+                    f"cuda_graphs {label} CLI: pair {a['idx']} differs")
+        require(lg_["eval_layer"] == 36 * 2 and le_["eval_layer"]
+                == 36 * n_batches, f"cuda_graphs {label} CLI: layer launches "
+                f"{lg_['eval_layer']} with graphs, {le_['eval_layer']} eager")
+        print(f"cuda_graphs {label} CLI on {card}: {EVAL_PAIRS} pairs equal "
+              f"with graphs and eagerly; ms a batch of 64 after the first "
+              f"(better of two runs) eager {me:.2f}, graph {mg:.2f}")
+        out[f"{label}_cli_ms_per_batch"] = dict(eager=me, graph=mg)
+    return out
+
+
+def cuda_graphs_phase(rng, dev, report, counters, card):
+    """The train step, the eval forward, ``Matcher`` and the CLIs captured
+    as CUDA graphs, against the same eagerly (phase 16)."""
+    import torch
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.empty_cache()
+        parts[name] = time.perf_counter() - t
+        return out
+
+    eager, graph, batch, train = part("train f32", graph_train, dev,
+                                      counters, card, "f32")
+    part("validation", graph_validation, graph, eager, batch, counters)
+    del eager, graph, batch
+    bf16 = part("train bf16", graph_train, dev, counters, card, "bf16",
+                profiled=False, compute_dtype="bfloat16")[3]
+    # the other kernels of the slice inside a graph: the gap-loss pair
+    # (#11, #12) and the fused-MHA pair (#4, #5) on the exact arm
+    for label, over in (("loss_kernel", dict(loss_kernel=True)),
+                        ("fused-MHA route, exact arm",
+                         dict(train_layer=False, exact_topk=True))):
+        part(label, graph_train, dev, counters, card, label, timed=False,
+             **over)
+    serving_out = part("serving", graph_serving, rng, dev, counters, card)
+    clis = part("CLIs", graph_clis, dev, counters, card)
+    seconds = time.perf_counter() - t0
+    print(f"cuda_graphs phase: {seconds:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    report["_cuda_graphs"] = dict(train_f32=train, train_bf16=bf16,
+                                  serving=serving_out, clis=clis,
+                                  phase_s=seconds, parts_s=parts)
+
+
 def make_counters():
     """Every kernel wrapper's launch count, by name."""
     from mdgat_tpu_torch.ops.cuda import attention as A
@@ -5360,6 +5762,57 @@ def make_counters():
         "gap_loss_bwd": Counter(G.fused_gap_margins, "backward_launches")}
 
 
+def earlier_phases(rng, dev, report, counters, card):
+    """Phases 3 to 15, in order."""
+    import torch
+    check_attention(rng, dev, report)
+    check_attention_edges(rng, dev)
+    check_layer(rng, dev, report)
+    check_sinkhorn(rng, dev, report)
+    sinkhorn_fwd_sweep(rng, dev, report, card)
+    check_ragged(rng, dev)
+    matcher, plain, pairs = serving(rng, dev, report, counters)
+    timings(rng, dev, report, card, matcher, plain, pairs)
+    report["_graph_times_ms"] = graph_times(rng, dev, card)
+    report["_serving_profile"] = profile(matcher, pairs, card)
+    del matcher, plain
+    torch.cuda.empty_cache()
+    check_gemm_modes(rng, dev, report, card)
+    check_fused_mha(rng, dev, report)
+    check_attention_backward(rng, dev, report, card)
+    check_sinkhorn_bwd(rng, dev, report, card)
+    check_train_layer(rng, dev, report)
+    check_dh2(rng, dev, report, card)
+    check_h1_dw2(rng, dev, report, card)
+    check_fwd2(rng, dev, report)
+    train_layer_kernel_rows(rng, dev, report, card)
+    check_gap_loss(rng, dev, report, card)
+    gc.collect()                     # the earlier phases' garbage, before
+                                     # the arms' peak memory is read
+    torch.cuda.empty_cache()
+    state, mha_state, plain_state, batch = training(dev, report, counters)
+    profile_train(state, batch, card, report)
+    train_timings(rng, dev, report, card, state, mha_state, plain_state, batch)
+    del state, mha_state, plain_state, batch
+    torch.cuda.empty_cache()
+    train_cli(dev, report, counters, card)
+    torch.cuda.empty_cache()
+    eval_cli(dev, report, counters, card)
+    torch.cuda.empty_cache()
+    one_process = data_parallel(dev, report, counters, card)
+    torch.cuda.empty_cache()
+    seq_parallel(rng, dev, report, card, one_process)
+    del one_process
+    torch.cuda.empty_cache()
+    wide_clouds(rng, dev, report, counters, card)
+    torch.cuda.empty_cache()
+    descriptors(dev, report, counters, card)
+    torch.cuda.empty_cache()
+    fast_topk(rng, dev, report, counters, card)
+    torch.cuda.empty_cache()
+    matcher_mesh(rng, dev, report, counters, card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5369,6 +5822,7 @@ def main() -> int:
     from mdgat_tpu_torch.ops.cuda import layer as Lk
     from mdgat_tpu_torch.ops.cuda import sinkhorn as S
     from mdgat_tpu_torch.ops.cuda._build import library
+    from mdgat_tpu_torch.utils import graphs
 
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5453,52 +5907,15 @@ def main() -> int:
                          replaces="mdgat_tpu/ops/pallas/sinkhorn.py:55"),
     }
     rng = np.random.default_rng(0)
-    check_attention(rng, dev, report)
-    check_attention_edges(rng, dev)
-    check_layer(rng, dev, report)
-    check_sinkhorn(rng, dev, report)
-    sinkhorn_fwd_sweep(rng, dev, report, card)
-    check_ragged(rng, dev)
-    matcher, plain, pairs = serving(rng, dev, report, counters)
-    timings(rng, dev, report, card, matcher, plain, pairs)
-    report["_graph_times_ms"] = graph_times(rng, dev, card)
-    report["_serving_profile"] = profile(matcher, pairs, card)
-    del matcher, plain
-    torch.cuda.empty_cache()
-    check_gemm_modes(rng, dev, report, card)
-    check_fused_mha(rng, dev, report)
-    check_attention_backward(rng, dev, report, card)
-    check_sinkhorn_bwd(rng, dev, report, card)
-    check_train_layer(rng, dev, report)
-    check_dh2(rng, dev, report, card)
-    check_h1_dw2(rng, dev, report, card)
-    check_fwd2(rng, dev, report)
-    train_layer_kernel_rows(rng, dev, report, card)
-    check_gap_loss(rng, dev, report, card)
-    gc.collect()                     # the earlier phases' garbage, before
-                                     # the arms' peak memory is read
-    torch.cuda.empty_cache()
-    state, mha_state, plain_state, batch = training(dev, report, counters)
-    profile_train(state, batch, card, report)
-    train_timings(rng, dev, report, card, state, mha_state, plain_state, batch)
-    del state, mha_state, plain_state, batch
-    torch.cuda.empty_cache()
-    train_cli(dev, report, counters, card)
-    torch.cuda.empty_cache()
-    eval_cli(dev, report, counters, card)
-    torch.cuda.empty_cache()
-    one_process = data_parallel(dev, report, counters, card)
-    torch.cuda.empty_cache()
-    seq_parallel(rng, dev, report, card, one_process)
-    del one_process
-    torch.cuda.empty_cache()
-    wide_clouds(rng, dev, report, counters, card)
-    torch.cuda.empty_cache()
-    descriptors(dev, report, counters, card)
-    torch.cuda.empty_cache()
-    fast_topk(rng, dev, report, counters, card)
-    torch.cuda.empty_cache()
-    matcher_mesh(rng, dev, report, counters, card)
+    only = sys.argv[1:] == ["--only", "cuda_graphs"]
+    # the phases before cuda_graphs count launches per call and time eager
+    # calls: every step and forward in them runs eagerly
+    with graphs.disabled():
+        if not only:
+            earlier_phases(rng, dev, report, counters, card)
+    cuda_graphs_phase(rng, dev, report, counters, card)
+    if only:
+        return 0
 
     kernels = [dict(name=name, **{k: report[name][k] for k in
                                   ("route", "source", "replaces", "launches",
@@ -5525,5 +5942,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
-        sys.exit(rank_worker(sys.argv[2:]))
+        # the ranks belong to phases 10 and 11: eager, as in this process
+        from mdgat_tpu_torch.utils.graphs import disabled
+        with disabled():
+            sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main())

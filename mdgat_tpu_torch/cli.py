@@ -215,6 +215,8 @@ def config_from_args(args, preset: str) -> Config:
         process_id=args.process_id,
         seq_parallel=args.seq_parallel,
         seed=args.seed,
+        # --debug_nans reads values back in every forward and step: eager
+        cuda_graphs=not args.debug_nans,
     )
     if cfg.net == "raw":
         cfg = cfg.replace(k=None, L=9)  # train.py:130-132

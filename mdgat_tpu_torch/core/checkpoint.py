@@ -186,13 +186,25 @@ def load_pth_state_dict(path: str) -> Dict[str, torch.Tensor]:
             for k, v in sd.items()}
 
 
+def _on_cpu(tree):
+    """A state dict's tensors moved to the host, its other leaves as
+    they are."""
+    if isinstance(tree, dict):
+        return {k: _on_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_cpu(v) for v in tree)
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
 def save_train_checkpoint(path: str, state, epoch: int = 0,
                           loss: float = 0.0) -> None:
-    """Write ``state`` (a ``TrainState``) as a reference-layout ``.pth``."""
+    """Write ``state`` (a ``TrainState``) as a reference-layout ``.pth``,
+    every tensor on the host (a capturable Adam keeps its moments and its
+    step counts on the card)."""
     lr = float(state.optimizer.param_groups[0]["lr"])
     net = {f"module.{k}": v.detach().cpu()
            for k, v in state.model.state_dict().items()}
-    torch.save({"net": net, "optimizer": state.optimizer.state_dict(),
+    torch.save({"net": net, "optimizer": _on_cpu(state.optimizer.state_dict()),
                 "epoch": int(epoch), "lr_schedule": lr, "loss": float(loss)},
                path)
 
@@ -203,17 +215,34 @@ def load_train_checkpoint(path: str, state, fresh_optimizer: bool = False
     ``{epoch, lr_schedule, loss}``. By default the optimizer state is
     restored too (moments and step counts; a reference checkpoint carries
     them as well). ``fresh_optimizer`` reproduces the reference's resume
-    instead: a new Adam at the checkpointed learning rate."""
+    instead: a new Adam at the checkpointed learning rate. Either way the
+    optimizer is ``train/loop.py::make_optimizer``'s for the model's device
+    (capturable on the card, whatever device wrote the file), and the
+    state's captured steps, which hold the old optimizer's tensors, are
+    dropped."""
+    from mdgat_tpu_torch.train.loop import make_optimizer
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(
         {(k[len("module."):] if k.startswith("module.") else k): v
          for k, v in ckpt["net"].items()}, strict=True)
+    if state.graphs is not None:
+        state.graphs.clear()
     lr = float(ckpt.get("lr_schedule", 0.0))
+    state.optimizer = make_optimizer(state.model, lr,
+                                     state.model.bin_score.device)
     if fresh_optimizer or not ckpt["optimizer"].get("state"):
-        state.optimizer = torch.optim.Adam(state.model.parameters(), lr=lr)
         state.step = 0
     else:
+        own = {k: state.optimizer.defaults[k] for k in ("capturable",
+                                                        "foreach")}
         state.optimizer.load_state_dict(ckpt["optimizer"])
+        for group in state.optimizer.param_groups:
+            group.update(own)           # this device's options, not the file's
+        for p, st in state.optimizer.state.items():
+            # a capturable Adam counts on the parameter's device, the
+            # default one on the host
+            st["step"] = st["step"].to(
+                p.device if own["capturable"] else "cpu", torch.float32)
         steps = [int(s["step"]) for s in state.optimizer.state.values()]
         state.step = max(steps, default=0)
     return {"epoch": int(ckpt.get("epoch", 0)), "lr_schedule": lr,

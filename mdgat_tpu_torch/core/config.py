@@ -46,6 +46,14 @@ down the kernel routes, where every wrapper takes its plain twin: the
 tests hold the fast arm against the JAX package's kernels run in interpret
 mode with it.
 
+``cuda_graphs`` (on by default, no CLI flag) captures a train step and an
+eval forward on the card as CUDA graphs, once per shape bucket, and
+replays them (``utils/graphs.py``): the counterpart of the JAX package's
+``jax.jit``, and off where JAX's ``disable_jit`` would be. The CPU, the
+plain route (``use_kernels=False``), data- and seq-parallel steps,
+``--debug_nans`` and clouds of more than 1024 keypoints stay eager
+(``utils/graphs.py::use_graphs``).
+
 ``loss_kernel`` (off by default, the counterpart of the JAX package's
 ``pallas_loss``) sends the gap loss through the margin kernels of
 ``ops/cuda/gap_loss.py``, forward and backward, in train and eval mode and
@@ -111,6 +119,7 @@ class Config:
     loss_kernel: bool = False       # gap loss through the margin kernels
     exact_topk: bool = False        # kernel routes: exact top-k (else value bisection)
     kernel_twins: bool = False      # CPU tensors take the kernel routes' twins
+    cuda_graphs: bool = True        # capture steps as CUDA graphs (utils/graphs.py)
     prefetch: int = 2
     seed: int = 0
 

@@ -10,7 +10,9 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <map>
 #include <mutex>
+#include <tuple>
 
 namespace mdgat {
 
@@ -185,6 +187,41 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, SmemCap& cap) {
   err = allow_smem(kernel, bytes);
   if (err == cudaSuccess) cap.set[device].store(bytes, std::memory_order_release);
   return err;
+}
+
+// The same for launch sites that pick their kernel at run time (so that no
+// function-local static stands for one kernel), and for the non-portable
+// cluster size: each (kernel, device, attribute) is set once, at the first
+// launch, in a registry under one mutex, and a value only grows. A steady
+// launch, and so a launch that a CUDA graph captures after an eager first
+// call of the same shape, makes no attribute call into the CUDA runtime.
+inline cudaError_t set_attribute_once(const void* kernel, cudaFuncAttribute attr,
+                                      int value) {
+  static std::mutex lock;
+  static std::map<std::tuple<const void*, int, int>, int> set;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(kernel, device, static_cast<int>(attr));
+  std::lock_guard<std::mutex> guard(lock);
+  const auto it = set.find(key);
+  if (it != set.end() && it->second >= value) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, attr, value);
+  if (err == cudaSuccess) set[key] = value;
+  return err;
+}
+template <typename Kernel>
+inline cudaError_t allow_smem_once(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return set_attribute_once(reinterpret_cast<const void*>(kernel),
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            static_cast<int>(bytes));
+}
+// clusters of more than 8 CTAs
+template <typename Kernel>
+inline cudaError_t allow_wide_cluster(Kernel kernel) {
+  return set_attribute_once(reinterpret_cast<const void*>(kernel),
+                            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
 constexpr size_t kMaxSmem = 227 * 1024;

@@ -722,8 +722,7 @@ template <typename K>
 cudaError_t gap_config(K kernel, int B, int G, cudaStream_t stream,
                        cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1]) {
   if (G > 8) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    const cudaError_t err = allow_wide_cluster(kernel);
     if (err != cudaSuccess) return err;
   }
   attr[0].id = cudaLaunchAttributeClusterDimension;

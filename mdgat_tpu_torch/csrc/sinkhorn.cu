@@ -501,14 +501,13 @@ bool valid_args(int N, int M, int G) {
 }
 
 // the launch configuration of a pair a cluster of G CTAs; sets the kernel's
-// shared-memory cap (and the non-portable cluster size above 8)
+// shared-memory cap (and the non-portable cluster size above 8) once
 template <typename K>
 cudaError_t configure(K kernel, int B, int G, size_t smem, cudaStream_t stream,
                       cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1]) {
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err == cudaSuccess && G > 8)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaError_t err = allow_smem_once(kernel, smem);
+  if (err == cudaSuccess && G > 8) err = allow_wide_cluster(kernel);
   if (err != cudaSuccess) return err;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = G;

@@ -859,9 +859,8 @@ cudaError_t launch(const float* Z, const float* log_mu, const float* log_nu,
   if (smem > kMaxSmem || (R > 0 && band > threads_for(R) / 32 * R))
     return cudaErrorInvalidValue;
   auto kernel = sinkhorn_bwd_kernel<C, R>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err == cudaSuccess && G > 8)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaError_t err = allow_smem_once(kernel, smem);
+  if (err == cudaSuccess && G > 8) err = allow_wide_cluster(kernel);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -920,8 +919,7 @@ cudaError_t launch_wide(const float* Z, const float* log_mu, const float* log_nu
     return cudaErrorInvalidValue;
   auto kernel = sinkhorn_bwd_wide_kernel;
   if (G > 8) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    const cudaError_t err = allow_wide_cluster(kernel);
     if (err != cudaSuccess) return err;
   }
   cudaLaunchAttribute attr[1];

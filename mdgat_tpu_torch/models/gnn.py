@@ -48,7 +48,8 @@ over the members), so every route above runs B x N/S query rows against B x
 N keys, under the key masks of the whole clouds, and BatchNorm statistics
 over every rank's rows (the group of ``bn_cross_replica`` is the world).
 
-The layer-pair scan and remat have no counterpart: PyTorch runs eagerly.
+The layer-pair scan and remat have no counterpart; where the JAX package
+jits, the port captures the whole step as a CUDA graph (``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -107,7 +108,14 @@ class AttentionalPropagation(nn.Module):
 
     def kernel_weights(self) -> LayerWeights:
         """Kernel operands, prepared on first use and again only after a
-        parameter or buffer changed (moved, loaded or edited in place)."""
+        parameter or buffer changed (moved, loaded or edited in place).
+        While a CUDA graph is being captured they are prepared inside it
+        and not cached: every replay folds them anew from the live
+        parameters and running statistics, which a captured train step
+        updates in place without a version bump."""
+        if (self.attn.merge.weight.is_cuda
+                and torch.cuda.is_current_stream_capturing()):
+            return prepare_layer_weights(self, torch.float32)
         key = tuple((t.data_ptr(), t._version)
                     for t in list(self.parameters()) + list(self.buffers()))
         if self._kernel_key != key:
@@ -131,6 +139,12 @@ class AttentionalGNN(nn.Module):
             AttentionalPropagation(feature_dim, num_heads, dtype=dtype,
                                    device=device)
             for _ in self.names])
+
+    def forget_kernel_weights(self):
+        """Drop every layer's cached kernel weights (after a replayed train
+        step changed the parameters behind the cache's back)."""
+        for layer in self.layers:
+            layer._kernel_weights = layer._kernel_key = None
 
     def forward(self, desc0, desc1, k_schedule: Sequence[Optional[int]],
                 mask0: Optional[torch.Tensor] = None,

@@ -91,9 +91,16 @@ def device_scratch(floats: int, device, what: str):
     kernel's wide arm, None for none. Refused with a ``ValueError`` that
     names the plain route when the card's free memory (and what PyTorch's
     allocator holds unused) cannot take it: device memory is the only limit
-    of those arms."""
+    of those arms. The free-memory query cannot run inside a CUDA graph
+    capture: a wide arm there raises (``utils/graphs.py::use_graphs``
+    keeps clouds of more than 1024 keypoints eager)."""
     if not floats:
         return None
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what}: the wide arm's scratch is sized from "
+                           "the card's free memory, which a CUDA graph "
+                           "capture cannot query; run this shape eagerly "
+                           "(cuda_graphs=False)")
     need = 4 * int(floats)
     free, _ = torch.cuda.mem_get_info(device)
     free += (torch.cuda.memory_reserved(device)

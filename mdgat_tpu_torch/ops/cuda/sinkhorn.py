@@ -204,6 +204,13 @@ def plan_as(pairs: int):
         _PLAN_PAIRS.reset(token)
 
 
+def planned_pairs() -> Optional[int]:
+    """The pair count of the enclosing :func:`plan_as` block (this
+    thread's), None outside one: a CUDA graph bakes the cluster size in,
+    so ``utils/graphs.py::Captured`` keys its graphs on it."""
+    return _PLAN_PAIRS.get()
+
+
 def _forward(scores, scalars, log_mu, log_nu, iters: int,
              cluster: int = 0) -> OTScores:
     """One launch of the forward. ``cluster`` 0 takes

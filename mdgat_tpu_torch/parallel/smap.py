@@ -63,6 +63,7 @@ import torch
 from mdgat_tpu_torch.parallel.local import GATHER_TIMEOUT_S, LocalGroup
 from mdgat_tpu_torch.parallel.mesh import (DataParallelGroup, all_reduce,
                                            shard_batch)
+from mdgat_tpu_torch.utils.graphs import Captured, use_graphs
 
 
 def average_gradients(params, group: DataParallelGroup):
@@ -145,7 +146,15 @@ def make_eval_runtime(model, cfg, devices: Sequence) -> Callable:
     A 1 x 1 grid, or a config whose ``resolve_shard_map`` is false, is one
     forward of ``model`` on ``devices[0]`` (outputs on that device; its
     plan the batch's own), as the JAX package falls back to its plain
-    step. ``step.replicas`` holds the grid's modules, ``[d][s]``."""
+    step. ``step.replicas`` holds the grid's modules, ``[d][s]``.
+
+    Where ``utils/graphs.py::use_graphs`` says so, the one-device forward
+    and each cell of a data-only grid (M = 1) run through a
+    :class:`~mdgat_tpu_torch.utils.graphs.Captured` of their own
+    (``step.graphs``, ``[d]``): one CUDA graph a cell and shape bucket,
+    keyed on the plan's pair count, captured on the cell's thread and
+    replayed on its stream. A seq row stays eager: its members' barriers
+    and copies sit between the layers."""
     n_data, n_seq = cfg.data_parallel, cfg.seq_parallel
     devices = [torch.device(d) for d in devices]
     if n_data < 1 or n_seq < 1:
@@ -157,15 +166,19 @@ def make_eval_runtime(model, cfg, devices: Sequence) -> Callable:
     from mdgat_tpu_torch.ops.cuda.sinkhorn import plan_as
     first = model.to(devices[0]).eval()
     if n_data * n_seq == 1 or not cfg.resolve_shard_map(n_data):
+        graphs = Captured(first)
+
         def single(batch, rows=None):
-            with torch.inference_mode(), plan_as(rows or _rows(batch)):
-                return first(_on(batch, devices[0]))
-        single.replicas = [[first]]
+            rows = rows or _rows(batch)
+            with torch.inference_mode(), plan_as(rows):
+                return _forward(first, graphs, _on(batch, devices[0]), rows)
+        single.replicas, single.graphs = [[first]], [graphs]
         return single
 
     replicas = [[first if d == s == 0 else
                  copy.deepcopy(first).to(devices[d * n_seq + s]).eval()
                  for s in range(n_seq)] for d in range(n_data)]
+    graphs = [Captured(row[0]) for row in replicas] if n_seq == 1 else []
 
     def cell(d, s, batch, rows, real, group, kept, errors, lock):
         device = devices[d * n_seq + s]
@@ -183,7 +196,10 @@ def make_eval_runtime(model, cfg, devices: Sequence) -> Callable:
                         torch.cuda.stream(torch.cuda.Stream(device)))
                 if group is not None:
                     stack.enter_context(group.member(s))
-                out = replicas[d][s](_on(shard, device), seq_group=group)
+                    out = replicas[d][s](_on(shard, device), seq_group=group)
+                else:
+                    out = _forward(replicas[d][0], graphs[d],
+                                   _on(shard, device), real)
                 if s == 0:
                     kept[d] = {k: v.cpu() for k, v in out.items()}
                 elif device.type == "cuda":
@@ -220,5 +236,14 @@ def make_eval_runtime(model, cfg, devices: Sequence) -> Callable:
                                "s")
         return {k: torch.cat([out[k] for out in kept]) for k in kept[0]}
 
-    step.replicas = replicas
+    step.replicas, step.graphs = replicas, graphs
     return step
+
+
+def _forward(model, graphs, batch, rows):
+    """``model``'s eval forward of ``batch`` on one device, through
+    ``graphs`` where ``use_graphs`` says so (keyed on the plan's ``rows``),
+    else eagerly."""
+    if use_graphs(model.config, model.bin_score.device, batch):
+        return graphs(batch, key=("eval", rows, model.config.exact_topk))
+    return model(batch)

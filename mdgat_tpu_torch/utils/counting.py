@@ -6,6 +6,9 @@ The kernel wrappers count their launches in integer attributes
 (``parallel/smap.py::make_eval_runtime``) runs a forward on each of several
 threads. A read-modify-write of an attribute or of a ``Counter`` entry is
 not atomic under the interpreter lock, so every increment takes one lock.
+A ``utils/graphs.py::Captured`` counts its warm-ups, captures and replays
+the same way. A wrapper's count ticks where its Python runs: at an eager
+call and at a capture, never at a graph's replay.
 """
 
 from __future__ import annotations

@@ -15,7 +15,8 @@ and the ``[timing]`` lines in the formats of
         --batch_size 8 --max_pairs 16
 
 ``--device`` defaults to ``cuda`` (absent: an error); batches run through
-``eval/runner.py::EvalPipeline`` as in ``test_torch.py``. As W processes
+``eval/runner.py::EvalPipeline`` as in ``test_torch.py``, the forward a
+CUDA graph replayed per batch shape on the card. As W processes
 each rank evaluates a contiguous block of the pairs; the meters' update
 histories are merged on rank 0 in rank order (bit-equal to one sequential
 pass), and rank 0 alone prints the summary. With ``--seq_parallel S`` the

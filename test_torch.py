@@ -17,6 +17,9 @@ absent is an error). Pairs are evaluated in batches of ``--batch_size``
 through ``eval/runner.py::EvalPipeline`` (host batches on a thread, one
 readback a batch, one batch behind); the metrics are host numpy at float64
 (``eval/metrics.py``), computed from the host keypoints of each batch.
+On the card the forward is a CUDA graph (``mdgat_tpu_torch/utils/
+graphs.py``): the first batch of a shape runs eagerly, the second
+captures, the rest replay; the padded last batch has its bucket's shape.
 
 As W processes (``torchrun`` or ``--coordinator_address / --num_processes
 / --process_id``), each rank evaluates a contiguous block of the pairs on

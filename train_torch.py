@@ -30,6 +30,13 @@ the checkpoints.
         --device cpu --batch_size 8 --coordinator_address 127.0.0.1:29500 \
         --num_processes 2 --process_id 0      # and --process_id 1
 
+On the card the train step and the validation forward are CUDA graphs
+(``mdgat_tpu_torch/utils/graphs.py``, the port's counterpart of the JAX
+package's ``jax.jit``): the first step of a batch shape runs eagerly, the
+second captures the step, and the rest replay it; the same for the
+validation batches. Data-parallel steps, a seq axis and ``--debug_nans``
+stay eager.
+
 Context parallelism: with ``--seq_parallel S`` the W ranks form ``W / S``
 data rows of S members. The members of a row load the row's pairs whole
 (the ground truth is formed on the whole clouds), keep their block of
