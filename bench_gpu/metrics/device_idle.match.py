@@ -1,0 +1,9 @@
+"""device_idle.match: the share of the traced serving or eval window in
+which no kernel, copy or set ran on the card (the union of their
+intervals)."""
+
+from bench_gpu.harness.readers import idle_pct
+
+
+def read(r):
+    return idle_pct(r)
