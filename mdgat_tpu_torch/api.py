@@ -29,6 +29,7 @@ from mdgat_tpu_torch.core.config import (POINTNET_DESCRIPTORS, Config,
 from mdgat_tpu_torch.eval.metrics import np_kabsch
 from mdgat_tpu_torch.models.mdgat import MDGAT
 from mdgat_tpu_torch.parallel.smap import make_eval_runtime
+from mdgat_tpu_torch.utils.profiling import span
 
 _BUCKET = 128
 
@@ -109,6 +110,7 @@ class Matcher:
             raise ValueError("pass a checkpoint path, params and bn_state, "
                              "or a seed")
         self._step = make_eval_runtime(self.model, self.cfg, self.devices)
+        self._calls = 0         # match_batch calls: the spans' identifier
         self.device = self.devices[0]
         self.model = self._step.replicas[0][0]   # on self.device
 
@@ -200,18 +202,23 @@ class Matcher:
         # the data replicas take equal blocks of rows: fill with copies of
         # the last pair, trimmed below
         pairs += [pairs[-1]] * (-n_real % self.cfg.data_parallel)
-        batch, sizes = self._host_batch(pairs, normalize)
-        out = self._step(batch, rows=n_real)
-        ma0 = out["matches0"].cpu().numpy()
-        ma1 = out["matches1"].cpu().numpy()
-        msc0 = out["matching_scores0"].float().cpu().numpy()
-        msc1 = out["matching_scores1"].float().cpu().numpy()
-        return [{
-            "matches0": ma0[b, :n0].copy(),
-            "matches1": ma1[b, :n1].copy(),
-            "matching_scores0": msc0[b, :n0].copy(),
-            "matching_scores1": msc1[b, :n1].copy(),
-        } for b, (n0, n1) in enumerate(sizes[:n_real])]
+        self._calls += 1
+        with span("mdgat.entry.match_batch", self._calls):
+            with span("mdgat.data.host_batch"):
+                batch, sizes = self._host_batch(pairs, normalize)
+            out = self._step(batch, rows=n_real)
+            with span("mdgat.data.readback"):
+                ma0 = out["matches0"].cpu().numpy()
+                ma1 = out["matches1"].cpu().numpy()
+                msc0 = out["matching_scores0"].float().cpu().numpy()
+                msc1 = out["matching_scores1"].float().cpu().numpy()
+            with span("mdgat.data.unpack"):
+                return [{
+                    "matches0": ma0[b, :n0].copy(),
+                    "matches1": ma1[b, :n1].copy(),
+                    "matching_scores0": msc0[b, :n0].copy(),
+                    "matching_scores1": msc1[b, :n1].copy(),
+                } for b, (n0, n1) in enumerate(sizes[:n_real])]
 
     def register(self, kp0, desc0, kp1, desc1, score0=None, score1=None,
                  normalize: bool = True, min_matches: int = 4,

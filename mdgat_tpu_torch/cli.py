@@ -283,10 +283,24 @@ def debugging(args):
     ``DIR/trace_rank{r}.json`` (Chrome trace format, ``r`` this process's
     rank) when the run returns or raises; the JAX package stops its trace
     at exit, the port at the end of ``main``, so that an in-process caller
-    finds its file. ``--debug_nans``: autograd's anomaly mode for the run
-    (the backward's NaNs name the function that made them); the entry
-    points add :func:`nan_guard` and :func:`require_finite`. Both are put
-    back as they were when the run ends."""
+    finds its file. Beside the operators, kernels and copies the file holds
+    the program's spans (``utils/profiling.py::span``, ``user_annotation``
+    events on the main thread; shapes are recorded so that an entry span
+    carries its call's identifier in ``Concrete Inputs``, and the spans of
+    one call lie inside its entry span): ``mdgat.entry.train_step`` (a
+    train step, by the state's step), ``mdgat.entry.eval_batch`` (an eval
+    pipeline iteration, by batch index) and ``mdgat.entry.eval_step`` (its
+    forward); ``mdgat.data.wait`` (waiting on the loader thread),
+    ``mdgat.data.prepare`` (a batch's device preprocessing) with
+    ``mdgat.data.pin`` (pinned staging and the enqueued copies) and
+    ``mdgat.data.ground_truth``, ``mdgat.data.readback`` (answers read
+    back to the host); ``mdgat.graphs.warm_up`` / ``capture`` / ``replay``
+    (a step's eager first call, its CUDA-graph capture, each replay with
+    its input copies and output clones). ``--debug_nans``: autograd's
+    anomaly mode for the run (the backward's NaNs name the function that
+    made them); the entry points add :func:`nan_guard` and
+    :func:`require_finite`. Both are put back as they were when the run
+    ends."""
     import torch
     anomaly = torch.is_anomaly_enabled()
     if args.debug_nans:
@@ -296,7 +310,8 @@ def debugging(args):
         activities = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(activities=activities)
+        profiler = torch.profiler.profile(activities=activities,
+                                          record_shapes=True)
         profiler.start()
     try:
         yield

@@ -43,6 +43,7 @@ import torch
 from mdgat_tpu_torch.core.config import POINTNET_DESCRIPTORS, Config
 from mdgat_tpu_torch.data import kitti
 from mdgat_tpu_torch.ops.geometry import gt_correspondences
+from mdgat_tpu_torch.utils.profiling import span
 
 MODEL_KEYS = ("keypoints0", "keypoints1", "scores0", "scores1",
               "descriptors0", "descriptors1", "gt_matches0", "gt_matches1",
@@ -347,24 +348,30 @@ def prepare_batch(batch: Dict[str, np.ndarray], threshold: float,
             return t.pin_memory().to(dev, non_blocking=True)
         return t.to(dev)
 
-    t = {k: upload(v) for k, v in batch.items() if k not in HOST_KEYS}
-    out = {}
-    for side in ("0", "1"):
-        de = t["descriptors" + side]
-        if de.dtype in (torch.float16, torch.bfloat16):
-            de = de.float()
-        nrm = torch.linalg.vector_norm(de, dim=-1, keepdim=True)
-        out["descriptors" + side] = (de / nrm.clamp_min(1e-30)).to(compute_dtype)
-        out["keypoints" + side] = t["keypoints" + side].to(compute_dtype)
-        out["scores" + side] = t["scores" + side].to(compute_dtype)
-        out["mask" + side] = t["mask" + side]
-    gt = gt_correspondences(t["kpts0_world"].to(gt_dtype),
-                            t["kpts1_world"].to(gt_dtype), threshold,
-                            mutual_check, t["mask0"], t["mask1"])
-    out.update(gt_matches0=gt.matches0, gt_matches1=gt.matches1, rep=gt.rep)
-    out.update({k: t[k] for k in CLOUD_KEYS if k in t})
-    out.update({k: batch[k] for k in HOST_KEYS if k in batch})
-    return out
+    with span("mdgat.data.prepare"):
+        with span("mdgat.data.pin"):
+            t = {k: upload(v) for k, v in batch.items()
+                 if k not in HOST_KEYS}
+        out = {}
+        for side in ("0", "1"):
+            de = t["descriptors" + side]
+            if de.dtype in (torch.float16, torch.bfloat16):
+                de = de.float()
+            nrm = torch.linalg.vector_norm(de, dim=-1, keepdim=True)
+            out["descriptors" + side] = (
+                de / nrm.clamp_min(1e-30)).to(compute_dtype)
+            out["keypoints" + side] = t["keypoints" + side].to(compute_dtype)
+            out["scores" + side] = t["scores" + side].to(compute_dtype)
+            out["mask" + side] = t["mask" + side]
+        with span("mdgat.data.ground_truth"):
+            gt = gt_correspondences(t["kpts0_world"].to(gt_dtype),
+                                    t["kpts1_world"].to(gt_dtype), threshold,
+                                    mutual_check, t["mask0"], t["mask1"])
+        out.update(gt_matches0=gt.matches0, gt_matches1=gt.matches1,
+                   rep=gt.rep)
+        out.update({k: t[k] for k in CLOUD_KEYS if k in t})
+        out.update({k: batch[k] for k in HOST_KEYS if k in batch})
+        return out
 
 
 def model_inputs(batch: Dict) -> Dict:

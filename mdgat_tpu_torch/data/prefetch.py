@@ -10,7 +10,8 @@ the main thread keeps the device queue full with prepare / train-step
 launches (CUDA launches are asynchronous, so the main thread returns to
 ``q.get`` as soon as a step is enqueued).
 
-A copy of ``mdgat_tpu/data/prefetch.py`` (pure Python). Producer exceptions
+A copy of ``mdgat_tpu/data/prefetch.py`` (pure Python; the consumer's wait
+is the span ``mdgat.data.wait``). Producer exceptions
 propagate to the consumer: a mid-dataset IO error surfaces instead of
 silently truncating the epoch. Training needs no per-step readback (losses
 stay on the device until the epoch ends), so prefetching the host batches
@@ -22,6 +23,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Callable, Iterable, Iterator
+
+from mdgat_tpu_torch.utils.profiling import span
 
 _SENTINEL = object()
 
@@ -73,7 +76,8 @@ class BatchPrefetcher:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("mdgat.data.wait"):
+                    item = q.get()
                 if item is _SENTINEL:
                     break
                 if isinstance(item, BaseException):

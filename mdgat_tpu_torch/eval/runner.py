@@ -29,6 +29,7 @@ device a rank; one process over several devices is ``Matcher``'s
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
@@ -46,6 +47,7 @@ from mdgat_tpu_torch.models.mdgat import torch_dtype
 from mdgat_tpu_torch.parallel.mesh import shard_batch
 from mdgat_tpu_torch.parallel.multihost import eval_pair_range
 from mdgat_tpu_torch.train.loop import make_eval_step
+from mdgat_tpu_torch.utils.profiling import span
 
 
 def eval_model(cfg, device):
@@ -202,7 +204,8 @@ class EvalPipeline:
 
         def emit(item):
             batch, small = item
-            got = {k: v.cpu().numpy() for k, v in small.items()}
+            with span("mdgat.data.readback"):
+                got = {k: v.cpu().numpy() for k, v in small.items()}
             n_real = batch.pop("__n_real__", None)
             if n_real is not None:
                 batch = {k: v[:n_real] for k, v in batch.items()}
@@ -211,23 +214,28 @@ class EvalPipeline:
 
         pending = None
         try:
-            while True:
-                batch = q.get()
-                if batch is None:
-                    break
-                if isinstance(batch, BaseException):
-                    raise batch
-                n_real = batch.pop("__n_real__", None)
-                prepared = self.prepare(batch)
-                if n_real is not None:
-                    batch["__n_real__"] = n_real
-                out = self.eval_step(model_inputs(prepared))
-                small = {k: out[k] for k in self.fetch}
-                small["gt_matches0"] = prepared["gt_matches0"]
-                # batch i+1 is enqueued on the device: read batch i back
-                if pending is not None:
-                    yield emit(pending)
-                pending = (batch, small)
+            for index in itertools.count():
+                ready = None
+                with span("mdgat.entry.eval_batch", index):
+                    with span("mdgat.data.wait"):
+                        batch = q.get()
+                    if batch is None:
+                        break
+                    if isinstance(batch, BaseException):
+                        raise batch
+                    n_real = batch.pop("__n_real__", None)
+                    prepared = self.prepare(batch)
+                    if n_real is not None:
+                        batch["__n_real__"] = n_real
+                    out = self.eval_step(model_inputs(prepared))
+                    small = {k: out[k] for k in self.fetch}
+                    small["gt_matches0"] = prepared["gt_matches0"]
+                    # batch i+1 is enqueued on the device: read batch i back
+                    if pending is not None:
+                        ready = emit(pending)
+                    pending = (batch, small)
+                if ready is not None:
+                    yield ready
             if pending is not None:
                 yield emit(pending)
         finally:

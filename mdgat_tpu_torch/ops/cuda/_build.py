@@ -119,14 +119,16 @@ def _ptr(t):
 
 class KernelLibrary:
     """The loaded ``.so`` plus what its build cost (``build_seconds`` is 0
-    when an existing build was reused) and the compiler's resource report
-    (``ptxas_log``: registers, shared memory and spills per kernel)."""
+    when an existing build was reused; ``built``, the build's start and end
+    on ``time.perf_counter``'s clock, None then) and the compiler's
+    resource report (``ptxas_log``: registers, shared memory and spills per
+    kernel)."""
 
-    def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float,
-                 ptxas_log: str):
+    def __init__(self, lib: ctypes.CDLL, path: Path, built, ptxas_log: str):
         self.lib = lib
         self.path = path
-        self.build_seconds = build_seconds
+        self.built = built
+        self.build_seconds = 0.0 if built is None else built[1] - built[0]
         self.ptxas_log = ptxas_log
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -178,7 +180,7 @@ def _build_and_load() -> KernelLibrary:
     tag = h.hexdigest()[:16]
     out = BUILD_DIR / f"libmdgat_kernels_{tag}.so"
     log_path = BUILD_DIR / f"libmdgat_kernels_{tag}.log"
-    seconds = 0.0
+    built = None
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         cu = [p for p in srcs if p.suffix == ".cu"]
@@ -204,6 +206,6 @@ def _build_and_load() -> KernelLibrary:
             if link.returncode != 0:
                 raise RuntimeError("nvcc link failed:\n" + link.stderr[-8000:])
             os.replace(tmp, out)
-        seconds = time.perf_counter() - t0
+        built = (t0, time.perf_counter())
     log = log_path.read_text() if log_path.exists() else ""
-    return KernelLibrary(ctypes.CDLL(str(out)), out, seconds, log)
+    return KernelLibrary(ctypes.CDLL(str(out)), out, built, log)

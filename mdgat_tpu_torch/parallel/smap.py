@@ -64,6 +64,7 @@ from mdgat_tpu_torch.parallel.local import GATHER_TIMEOUT_S, LocalGroup
 from mdgat_tpu_torch.parallel.mesh import (DataParallelGroup, all_reduce,
                                            shard_batch)
 from mdgat_tpu_torch.utils.graphs import Captured, use_graphs
+from mdgat_tpu_torch.utils.profiling import span
 
 
 def average_gradients(params, group: DataParallelGroup):
@@ -108,7 +109,8 @@ def make_data_parallel_train_step(group: DataParallelGroup) -> Callable:
 
 
 def _on(batch: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
-    return {k: v.to(device) for k, v in batch.items()}
+    with span("mdgat.data.upload"):
+        return {k: v.to(device) for k, v in batch.items()}
 
 
 def _rows(batch: Dict[str, torch.Tensor]) -> int:

@@ -45,6 +45,7 @@ from mdgat_tpu_torch.core.config import Config
 from mdgat_tpu_torch.models.mdgat import MDGAT
 from mdgat_tpu_torch.ops.cuda.sinkhorn import planned_pairs
 from mdgat_tpu_torch.utils.graphs import Captured, use_graphs
+from mdgat_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -115,19 +116,20 @@ def make_train_step(group=None) -> Callable[
         return make_data_parallel_train_step(group)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        model = state.model
-        model.train()
-        if use_graphs(model.config, model.bin_score.device, batch):
-            if state.graphs is None:
-                state.graphs = Captured(lambda b: _train_step(state, b))
-            metrics = state.graphs(batch, key=(
-                "train", id(model), id(state.optimizer), planned_pairs(),
-                model.config.exact_topk))
-            # a replay updated the parameters without bumping their
-            # versions: the eval layers' cached kernel weights are stale
-            model.gnn.forget_kernel_weights()
-        else:
-            metrics = _train_step(state, batch)
+        with span("mdgat.entry.train_step", state.step):
+            model = state.model
+            model.train()
+            if use_graphs(model.config, model.bin_score.device, batch):
+                if state.graphs is None:
+                    state.graphs = Captured(lambda b: _train_step(state, b))
+                metrics = state.graphs(batch, key=(
+                    "train", id(model), id(state.optimizer), planned_pairs(),
+                    model.config.exact_topk))
+                # a replay updated the parameters without bumping their
+                # versions: the eval layers' cached kernel weights are stale
+                model.gnn.forget_kernel_weights()
+            else:
+                metrics = _train_step(state, batch)
         state.step += 1
         return state, metrics
 
@@ -167,16 +169,17 @@ def make_eval_step(model: MDGAT, seq_group=None) -> Callable[
     captured = Captured(forward)
 
     def step(batch: Dict[str, torch.Tensor]):
-        was_training = model.training
-        model.eval()
-        try:
-            if seq_group is None and use_graphs(
-                    model.config, model.bin_score.device, batch):
-                return captured(batch, key=("eval", planned_pairs(),
-                                            model.config.exact_topk))
-            return forward(batch)
-        finally:
-            model.train(was_training)
+        with span("mdgat.entry.eval_step"):
+            was_training = model.training
+            model.eval()
+            try:
+                if seq_group is None and use_graphs(
+                        model.config, model.bin_score.device, batch):
+                    return captured(batch, key=("eval", planned_pairs(),
+                                                model.config.exact_topk))
+                return forward(batch)
+            finally:
+                model.train(was_training)
 
     step.graphs = captured
     return step

@@ -1,2 +1,2 @@
 from mdgat_tpu_torch.utils.logging import ScalarLogger
-from mdgat_tpu_torch.utils.profiling import PhaseTimer, trace_annotation
+from mdgat_tpu_torch.utils.profiling import PhaseTimer, span

@@ -31,8 +31,17 @@ arm):
 At most ``max_graphs`` keys are kept, the least recently used dropped first;
 each graph owns a private memory pool. The kernel wrappers' launch counters
 tick where their Python runs, at the warm-up and at the capture, never at a
-replay; a :class:`Captured` counts its own ``warm_ups``, ``captures`` and
-``replays`` under the counters' lock (``utils/counting.py``).
+replay. A :class:`Captured` counts its own ``warm_ups``, ``captures`` and
+``replays`` under the counters' lock (``utils/counting.py``). The process's
+graph runtime keeps one account, :data:`TOTALS`, which the benchmark's
+``graph_setup_s`` and ``graph_pool_gib`` read: the host seconds of the warm-ups and captures (``warm_up_s``, ``capture_s``; less
+the kernel library's build, which ``ops/cuda/_build.py`` times), and
+``pool_bytes``, for each live graph the caching allocator's reserve after
+its capture less before it (its private pool; 0 on a backend that
+captures nothing), taken off when the graph is dropped, with the most the
+live pools held at once (``pool_bytes_peak``). A replay counts only its
+``replays``. The warm-up, the capture and the replay each open a span
+(``utils/profiling.py``).
 
 Nothing falls back: a capture or a replay that fails raises, and nothing
 re-runs the call eagerly. Where a step cannot be captured it is eager by
@@ -49,11 +58,15 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
+import time
+import weakref
 from typing import Callable, Dict, Optional
 
 import torch
 
+from mdgat_tpu_torch.ops.cuda import _build
 from mdgat_tpu_torch.utils.counting import tick
+from mdgat_tpu_torch.utils.profiling import span
 
 MAX_GRAPHS = 8
 # clouds above this many keypoints take the kernels' wide arms, which size
@@ -139,6 +152,7 @@ class CudaGraphs:
         graph = torch.cuda.CUDAGraph()
         stream.wait_stream(torch.cuda.current_stream(stream.device))
         with _CAPTURE_LOCK, torch.cuda.stream(stream):
+            reserved = torch.cuda.memory_reserved(stream.device)
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 out = fn(static)
@@ -149,6 +163,9 @@ class CudaGraphs:
                     pass        # the capture was already invalidated
                 raise
             graph.capture_end()
+            # the graph's private pool: what the capture added to the reserve
+            ctx["pool_bytes"] = (torch.cuda.memory_reserved(stream.device)
+                                 - reserved)
 
         def replay():
             graph.replay()
@@ -176,13 +193,49 @@ class CudaGraphs:
 BACKEND = CudaGraphs()
 
 
+class Totals:
+    """The graph runtime's account of the process (module docstring): one
+    a process, as the caching allocator keeps one, so a reader needs no
+    handle on the caches, which the steps and ``Matcher`` hold inside
+    them."""
+
+    def __init__(self):
+        self.warm_up_s = self.capture_s = 0.0
+        self.pool_bytes = self.pool_bytes_peak = 0
+
+
+TOTALS = Totals()
+
+
+def _host_seconds(t0: float) -> float:
+    """Seconds since ``t0`` (``time.perf_counter``) less those in which the
+    kernel library was being built: a first use's build, or the wait on
+    another thread's."""
+    t1 = time.perf_counter()
+    lib = _build._LIBRARY
+    if lib is None or lib.built is None:
+        return t1 - t0
+    b0, b1 = lib.built
+    return t1 - t0 - max(0.0, min(t1, b1) - max(t0, b0))
+
+
+def _add_pool(n: int):
+    tick(TOTALS, "pool_bytes", n, peak="pool_bytes_peak")
+
+
+def _forget_pools(entries):
+    """A dropped :class:`Captured`'s live pools leave :data:`TOTALS`."""
+    _add_pool(-sum(e.pool_bytes for e in entries.values()))
+
+
 class _Entry:
-    __slots__ = ("ctx", "static", "replay")
+    __slots__ = ("ctx", "static", "replay", "pool_bytes")
 
     def __init__(self, ctx):
         self.ctx = ctx
         self.static = None      # the graph's input buffers, after capture
         self.replay = None      # launches the graph, returns its outputs
+        self.pool_bytes = 0     # its private pool, after capture
 
 
 class Captured:
@@ -199,6 +252,7 @@ class Captured:
         self._entries: "collections.OrderedDict" = collections.OrderedDict()
         self._lock = threading.Lock()
         self.warm_ups = self.captures = self.replays = 0
+        weakref.finalize(self, _forget_pools, self._entries).atexit = False
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -208,7 +262,7 @@ class Captured:
         loaded optimizer's new moment tensors, say)."""
         with self._lock:
             while self._entries:
-                BACKEND.release(self._entries.popitem(last=False)[1].ctx)
+                self._drop()
 
     def signature(self, batch: Dict, key=()):
         """The cache key of a call: ``key`` and each input's name, shape,
@@ -227,28 +281,43 @@ class Captured:
             entry = self._entries.pop(sig, None)
             if entry is None:
                 entry = _Entry(BACKEND.context(device))
-                out = BACKEND.warm_up(self.fn, batch, entry.ctx)
+                t = time.perf_counter()
+                with span("mdgat.graphs.warm_up"):
+                    out = BACKEND.warm_up(self.fn, batch, entry.ctx)
+                tick(TOTALS, "warm_up_s", _host_seconds(t))
                 self._keep(sig, entry)
                 tick(self, "warm_ups")
                 return out
             if entry.replay is None:
-                entry.static = {k: torch.empty_like(v)
-                                if isinstance(v, torch.Tensor) else v
-                                for k, v in batch.items()}
-                entry.replay = BACKEND.capture(self.fn, entry.static,
-                                               entry.ctx)
+                t = time.perf_counter()
+                with span("mdgat.graphs.capture"):
+                    entry.static = {k: torch.empty_like(v)
+                                    if isinstance(v, torch.Tensor) else v
+                                    for k, v in batch.items()}
+                    entry.replay = BACKEND.capture(self.fn, entry.static,
+                                                   entry.ctx)
+                tick(TOTALS, "capture_s", _host_seconds(t))
+                entry.pool_bytes = entry.ctx.get("pool_bytes", 0)
+                _add_pool(entry.pool_bytes)
                 tick(self, "captures")
             self._entries[sig] = entry          # now the most recent
-            BACKEND.before_replay(entry.ctx, device)
-            for k, v in batch.items():
-                if isinstance(v, torch.Tensor):
-                    entry.static[k].copy_(v)
-            out = _map(torch.clone, entry.replay())
-            BACKEND.after_replay(entry.ctx, device)
+            with span("mdgat.graphs.replay"):
+                BACKEND.before_replay(entry.ctx, device)
+                for k, v in batch.items():
+                    if isinstance(v, torch.Tensor):
+                        entry.static[k].copy_(v)
+                out = _map(torch.clone, entry.replay())
+                BACKEND.after_replay(entry.ctx, device)
             tick(self, "replays")
             return out
 
     def _keep(self, sig, entry):
         self._entries[sig] = entry
         while len(self._entries) > self.max_graphs:
-            BACKEND.release(self._entries.popitem(last=False)[1].ctx)
+            self._drop()
+
+    def _drop(self):
+        """Release the least recently used graph and take its pool off."""
+        entry = self._entries.popitem(last=False)[1]
+        BACKEND.release(entry.ctx)
+        _add_pool(-entry.pool_bytes)

@@ -164,7 +164,8 @@ def small_tree(tmp_path_factory):
 def test_trace_dir_writes_a_trace(small_tree, tmp_path, monkeypatch):
     """``--trace_dir`` on a one-step CPU run of ``train_torch.main``: the
     profiler's Chrome trace of the run, named by rank, is in the directory
-    when ``main`` returns, and the profiler is off again."""
+    when ``main`` returns, holds the program's entry and data spans, and
+    the profiler is off again."""
     monkeypatch.chdir(tmp_path)
     trace = tmp_path / "trace"
     summary = train_torch.main(small_tree + [
@@ -175,6 +176,8 @@ def test_trace_dir_writes_a_trace(small_tree, tmp_path, monkeypatch):
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
+    assert {"mdgat.entry.train_step", "mdgat.data.wait", "mdgat.data.prepare",
+            "mdgat.data.pin", "mdgat.data.ground_truth"} <= names
     assert not torch.autograd._profiler_enabled()
 
 
