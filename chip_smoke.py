@@ -5303,13 +5303,14 @@ def data_rows_in_turn(matcher, pairs):
     import torch
     from mdgat_tpu_torch.ops.cuda.sinkhorn import plan_as
     from mdgat_tpu_torch.parallel import shard_batch
+    from mdgat_tpu_torch.parallel.smap import upload
     batch, _ = matcher._host_batch(pairs, True)
     replicas = [row[0] for row in matcher._step.replicas]
     rows = len(pairs) // len(replicas)
     with torch.inference_mode(), plan_as(len(pairs)):
-        outs = [r({k: v.to(matcher.devices[d])
-                   for k, v in shard_batch(batch, rows=slice(
-                       d * rows, (d + 1) * rows)).items()})
+        outs = [r(upload(shard_batch(batch, rows=slice(d * rows,
+                                                       (d + 1) * rows)),
+                         matcher.devices[d], normalize=True))
                 for d, r in enumerate(replicas)]
         return [{k: v.cpu() for k, v in o.items()} for o in outs]
 

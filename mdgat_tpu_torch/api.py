@@ -2,10 +2,11 @@
 
 Port of ``mdgat_tpu/api.py::Matcher``. Pairs are padded to 128-keypoint
 buckets with validity masks (padded results equal unpadded), descriptors
-are L2-normalised on the host as the reference data layer does
-(``load_data.py:290-292``), a batch runs as one forward on ``device`` or
-over a grid of devices (``data_parallel`` x ``seq_parallel``, one thread a
-device, ``parallel/smap.py::make_eval_runtime``), and ``register`` adds the
+are L2-normalised as the reference data layer does
+(``load_data.py:290-292``) on the batch's device after the upload, a batch
+runs as one forward on ``device`` or over a grid of devices
+(``data_parallel`` x ``seq_parallel``, one thread a device,
+``parallel/smap.py::make_eval_runtime``), and ``register`` adds the
 reference's one-step SVD pose fit (``utils/utils_test.py:73-110``).
 
     >>> m = Matcher("model.npz", device="cuda")          # doctest: +SKIP
@@ -28,7 +29,7 @@ from mdgat_tpu_torch.core.config import (POINTNET_DESCRIPTORS, Config,
                                          test_defaults)
 from mdgat_tpu_torch.eval.metrics import np_kabsch
 from mdgat_tpu_torch.models.mdgat import MDGAT
-from mdgat_tpu_torch.parallel.smap import make_eval_runtime
+from mdgat_tpu_torch.parallel.smap import make_eval_runtime, upload
 from mdgat_tpu_torch.utils.profiling import span
 
 _BUCKET = 128
@@ -130,20 +131,6 @@ class Matcher:
         return [torch.device("cuda", i) for i in range(n)]
 
     # ------------------------------------------------------------------
-    def _pad_cloud(self, kp, desc, score, dt):
-        kp = np.asarray(kp, dt)
-        desc = np.asarray(desc, dt)
-        n = len(kp)
-        score = (np.full((n,), 20.0, dt) if score is None
-                 else np.asarray(score, dt))
-        tgt = max(_round_up(n, _BUCKET), _BUCKET)
-        out_kp = np.zeros((tgt, 3), dt)
-        out_ds = np.zeros((tgt, desc.shape[1]), dt)
-        out_sc = np.zeros((tgt,), dt)
-        mask = np.zeros((tgt,), bool)
-        out_kp[:n], out_ds[:n], out_sc[:n], mask[:n] = kp, desc, score, True
-        return out_kp, out_ds, out_sc, mask, n
-
     def match(self, kp0, desc0, kp1, desc1, score0=None, score1=None,
               normalize: bool = True) -> Dict[str, np.ndarray]:
         """Match one pair: ``kp*`` [n, 3], ``desc*`` [n, 33] FPFH,
@@ -157,38 +144,37 @@ class Matcher:
     def prepare_batch(self, pairs, normalize: bool = True):
         """(batch dict of tensors on ``device``, per-pair true sizes):
         each cloud zero-padded to the batch's largest 128-bucket, with
-        masks, descriptors L2-normalised."""
+        masks, descriptors L2-normalised on ``device`` (``normalize``)."""
         batch, sizes = self._host_batch(pairs, normalize)
-        return {k: v.to(self.device) for k, v in batch.items()}, sizes
+        return upload(batch, self.device, normalize), sizes
 
     def _host_batch(self, pairs, normalize: bool):
-        """:meth:`prepare_batch` with the tensors on the host."""
+        """The batch of :meth:`prepare_batch` on the host, descriptors raw:
+        every side's fields allocated once at the batch's bucket and each
+        pair written into its rows, cast in that copy; a missing score is
+        20.0. The upload applies ``normalize`` on the batch's device
+        (``parallel/smap.py::upload``)."""
         dt = np.dtype(self.cfg.compute_dtype if self.cfg.compute_dtype
                       != "bfloat16" else "float32")
-        padded = []
-        for p in pairs:
-            k0, d0, s0, m0, n0 = self._pad_cloud(
-                p["kp0"], p["desc0"], p.get("score0"), dt)
-            k1, d1, s1, m1, n1 = self._pad_cloud(
-                p["kp1"], p["desc1"], p.get("score1"), dt)
-            if normalize:
-                for d, n in ((d0, n0), (d1, n1)):
-                    nrm = np.linalg.norm(d[:n], axis=1, keepdims=True)
-                    d[:n] /= np.maximum(nrm, 1e-12)
-            padded.append((k0, d0, s0, m0, k1, d1, s1, m1))
-
-        def stack(i):
-            tgt = max(x[i].shape[0] for x in padded)
-            out = np.zeros((len(padded), tgt) + padded[0][i].shape[1:],
-                           padded[0][i].dtype)
-            for b, x in enumerate(padded):
-                out[b, : x[i].shape[0]] = x[i]
-            return torch.from_numpy(out)
-
-        names = ("keypoints0", "descriptors0", "scores0", "mask0",
-                 "keypoints1", "descriptors1", "scores1", "mask1")
+        b = len(pairs)
         sizes = [(len(p["kp0"]), len(p["kp1"])) for p in pairs]
-        return {name: stack(i) for i, name in enumerate(names)}, sizes
+        batch = {}
+        for side, n in zip("01", np.array(sizes).T):
+            t = max(_round_up(int(n.max()), _BUCKET), _BUCKET)
+            kp = np.zeros((b, t, 3), dt)
+            de = np.zeros((b, t, np.shape(pairs[0]["desc" + side])[1]), dt)
+            sc = np.zeros((b, t), dt)
+            for i, p in enumerate(pairs):
+                kp[i, :n[i]] = p["kp" + side]
+                de[i, :n[i]] = p["desc" + side]
+                score = p.get("score" + side)
+                sc[i, :n[i]] = 20.0 if score is None else score
+            batch.update({
+                "keypoints" + side: torch.from_numpy(kp),
+                "descriptors" + side: torch.from_numpy(de),
+                "scores" + side: torch.from_numpy(sc),
+                "mask" + side: torch.from_numpy(np.arange(t) < n[:, None])})
+        return batch, sizes
 
     def match_batch(self, pairs, normalize: bool = True):
         """Match many pairs in one forward (the serving path), one forward a
@@ -206,7 +192,7 @@ class Matcher:
         with span("mdgat.entry.match_batch", self._calls):
             with span("mdgat.data.host_batch"):
                 batch, sizes = self._host_batch(pairs, normalize)
-            out = self._step(batch, rows=n_real)
+            out = self._step(batch, rows=n_real, normalize=normalize)
             with span("mdgat.data.readback"):
                 ma0 = out["matches0"].cpu().numpy()
                 ma1 = out["matches1"].cpu().numpy()

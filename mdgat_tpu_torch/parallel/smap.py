@@ -108,9 +108,22 @@ def make_data_parallel_train_step(group: DataParallelGroup) -> Callable:
     return step
 
 
-def _on(batch: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
+def upload(batch: Dict[str, torch.Tensor], device,
+           normalize: bool = False) -> Dict[str, torch.Tensor]:
+    """``batch`` on ``device``; with ``normalize`` its ``descriptors0`` /
+    ``descriptors1`` L2-normalised there, in place and in their dtype, each
+    row divided by its norm floored at 1e-12 (padded rows stay zero): the
+    Matcher's normalisation, over the whole padded batch or a grid cell's
+    block of it (a norm is one keypoint's)."""
     with span("mdgat.data.upload"):
-        return {k: v.to(device) for k, v in batch.items()}
+        batch = {k: v.to(device) for k, v in batch.items()}
+    if normalize:
+        with span("mdgat.data.normalize"):
+            for key in ("descriptors0", "descriptors1"):
+                d = batch[key]
+                d.div_(torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+                       .clamp_min_(1e-12))
+    return batch
 
 
 def _rows(batch: Dict[str, torch.Tensor]) -> int:
@@ -128,7 +141,9 @@ def make_eval_runtime(model, cfg, devices: Sequence) -> Callable:
     ``make_mesh`` reshapes its devices. Each cell holds an eval-mode replica
     of ``model`` on its device with the same weights. ``step(batch, rows)``
     takes a batch of tensors whose row count N divides, on any device, of
-    which the first ``rows`` (default all) are real and the rest fill; data
+    which the first ``rows`` (default all) are real and the rest fill; each
+    cell uploads its block with :func:`upload`, which L2-normalises its
+    descriptors there under ``step(..., normalize=True)``; data
     row ``d`` takes its contiguous block of rows and, under a seq axis,
     member ``s`` its block of each cloud's keypoints (``mesh.shard_batch``).
     The kernels compute a row the same at any row count but for the
@@ -170,10 +185,11 @@ def make_eval_runtime(model, cfg, devices: Sequence) -> Callable:
     if n_data * n_seq == 1 or not cfg.resolve_shard_map(n_data):
         graphs = Captured(first)
 
-        def single(batch, rows=None):
+        def single(batch, rows=None, normalize=False):
             rows = rows or _rows(batch)
             with torch.inference_mode(), plan_as(rows):
-                return _forward(first, graphs, _on(batch, devices[0]), rows)
+                return _forward(first, graphs,
+                                upload(batch, devices[0], normalize), rows)
         single.replicas, single.graphs = [[first]], [graphs]
         return single
 
@@ -182,7 +198,7 @@ def make_eval_runtime(model, cfg, devices: Sequence) -> Callable:
                  for s in range(n_seq)] for d in range(n_data)]
     graphs = [Captured(row[0]) for row in replicas] if n_seq == 1 else []
 
-    def cell(d, s, batch, rows, real, group, kept, errors, lock):
+    def cell(d, s, batch, rows, real, normalize, group, kept, errors, lock):
         device = devices[d * n_seq + s]
         try:
             shard = shard_batch(batch, rows=slice(d * rows, (d + 1) * rows),
@@ -196,12 +212,12 @@ def make_eval_runtime(model, cfg, devices: Sequence) -> Callable:
                     stack.enter_context(torch.cuda.device(device))
                     stack.enter_context(
                         torch.cuda.stream(torch.cuda.Stream(device)))
+                shard = upload(shard, device, normalize)
                 if group is not None:
                     stack.enter_context(group.member(s))
-                    out = replicas[d][s](_on(shard, device), seq_group=group)
+                    out = replicas[d][s](shard, seq_group=group)
                 else:
-                    out = _forward(replicas[d][0], graphs[d],
-                                   _on(shard, device), real)
+                    out = _forward(replicas[d][0], graphs[d], shard, real)
                 if s == 0:
                     kept[d] = {k: v.cpu() for k, v in out.items()}
                 elif device.type == "cuda":
@@ -212,7 +228,7 @@ def make_eval_runtime(model, cfg, devices: Sequence) -> Callable:
             if group is not None:
                 group.abort()
 
-    def step(batch, rows=None):
+    def step(batch, rows=None, normalize=False):
         b = _rows(batch)
         if b % n_data:
             raise ValueError(f"{b} rows do not split over {n_data} data "
@@ -224,7 +240,7 @@ def make_eval_runtime(model, cfg, devices: Sequence) -> Callable:
                      if n_seq > 1 else None)
             threads += [threading.Thread(
                 target=cell, args=(d, s, batch, b // n_data, rows or b,
-                                   group, kept, errors, lock),
+                                   normalize, group, kept, errors, lock),
                 name=f"mdgat-eval-{d}-{s}", daemon=True)
                 for s in range(n_seq)]
         for t in threads:

@@ -15,9 +15,11 @@ name is ``mdgat.<layer>.<what>``:
   ``mdgat.entry.train_step`` (``train/loop.py::make_train_step``),
   ``mdgat.entry.eval_step`` (``make_eval_step``), ``mdgat.entry.eval_batch``
   (one ``eval/runner.py::EvalPipeline`` iteration);
-* data path: ``mdgat.data.host_batch`` (``Matcher._host_batch``: padding,
-  normalisation, stacking), ``mdgat.data.upload`` (``parallel/smap.py::
-  _on``, the Matcher's host-to-device copies), ``mdgat.data.readback`` (the
+* data path: ``mdgat.data.host_batch`` (``Matcher._host_batch``: padding
+  and stacking), ``mdgat.data.upload`` (``parallel/smap.py::upload``, the
+  Matcher's host-to-device copies), ``mdgat.data.normalize`` (after it, in
+  ``upload``: the descriptors' L2 normalisation on the batch's device, once
+  a batch or grid cell the Matcher normalises), ``mdgat.data.readback`` (the
   ``.cpu()`` reads of ``match_batch`` and of ``EvalPipeline``),
   ``mdgat.data.unpack`` (``match_batch``'s per-pair dicts),
   ``mdgat.data.prepare`` (``data/pipeline.py::prepare_batch``) and in it

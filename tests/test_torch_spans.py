@@ -85,7 +85,12 @@ def test_span_off_records_nothing_and_is_shared():
         assert got is None
 
 
-def test_matcher_spans_nest_inside_the_call_with_its_number(tmp_path):
+@pytest.mark.parametrize("normalize", [True, False], ids=["norm", "raw"])
+def test_matcher_spans_nest_inside_the_call_with_its_number(tmp_path,
+                                                             normalize):
+    """The data spans in the call's order; ``mdgat.data.normalize`` (the
+    descriptors' normalisation on the batch's device) once, between the
+    upload and the readback, and not at all under ``normalize=False``."""
     rng = np.random.default_rng(0)
 
     def pair(n):
@@ -95,22 +100,27 @@ def test_matcher_spans_nest_inside_the_call_with_its_number(tmp_path):
                     desc1=rng.normal(size=(n + 10, 33)))
     m = Matcher(device="cpu", seed=0, **TINY)
     pairs = [pair(20), pair(30)]
-    want = m.match_batch(pairs)
+    want = m.match_batch(pairs, normalize)
     got = []
-    spans = _spans(_trace(tmp_path, lambda: got.append(m.match_batch(pairs))))
+    spans = _spans(_trace(tmp_path, lambda: got.append(
+        m.match_batch(pairs, normalize))))
     for g, w in zip(got[0], want):
         np.testing.assert_array_equal(g["matches0"], w["matches0"])
     by = {e["name"]: e for e in spans}
     entry = by["mdgat.entry.match_batch"]
     assert _ident(entry) == "2"
-    for name in ("host_batch", "upload", "readback", "unpack"):
+    names = ["host_batch", "upload", "normalize", "readback", "unpack"]
+    if not normalize:
+        names.remove("normalize")
+    assert sorted(e["name"] for e in spans
+                  if e["name"].startswith("mdgat.data.")) == sorted(
+        "mdgat.data." + n for n in names)      # each once
+    for name in names:
         e = by["mdgat.data." + name]
         assert _inside(e, entry), name
         assert _ident(e) is None, name      # grouped by time, not by args
-    order = sorted(by[f"mdgat.data.{n}"]["ts"]
-                   for n in ("host_batch", "upload", "readback", "unpack"))
-    assert order == [by[f"mdgat.data.{n}"]["ts"] for n in
-                     ("host_batch", "upload", "readback", "unpack")]
+    order = sorted(by[f"mdgat.data.{n}"]["ts"] for n in names)
+    assert order == [by[f"mdgat.data.{n}"]["ts"] for n in names]
 
 
 class _Batches:
