@@ -45,12 +45,11 @@ def control_readings(run, out, dev):
     values, matched = [], []
     for b in mat["sample"]:
         host = mat["hosts"][b]
-        (dense, br, bc), (r0, _, _, _), (mk0, mk1), gt = \
-            cells.match_reference(run, host, dev, reference.REFERENCE,
-                                  mat["floor"], mat["weights"])
-        _, (c0, c1, s0, s1), _, cgt = cells.match_reference(
+        transport, (r0, _, _, _), masks, gt = cells.match_reference(
+            run, host, dev, reference.REFERENCE, mat["floor"], mat["weights"])
+        _, answers, _, cgt = cells.match_reference(
             run, host, dev, reference.CONTROL, mat["floor"], mat["weights"])
-        r = checks.match_readings(c0, c1, s0, s1, mk0, mk1, dense, br, bc)
+        r = run.arch.match_readings(run.sizes, answers, masks, transport)
         if gt is not None:
             keep = gt["clear_pair"]
             r["gt_mismatch"] = float(((cgt["gt0"] != gt["gt0"])
@@ -58,8 +57,9 @@ def control_readings(run, out, dev):
             r["loss_gap"] = checks.loss_gap(cgt["loss"][keep],
                                             gt["loss"][keep])
         values.append(r)
-        matched.append(float(((r0 >= 0) & mk0).sum()) / float(mk0.sum()))
-        del dense, br, bc
+        matched.append(float(((r0 >= 0) & masks[0]).sum())
+                       / float(masks[0].sum()))
+        del transport
         torch.cuda.empty_cache() if dev.type == "cuda" else None
     out["matched_share"] = matched
     return checks.merge_max(values), None

@@ -17,21 +17,26 @@ Every cell warms up and captures its own shape bucket in set-up, measures
 for ``--seconds`` (end-to-end metrics) or traces ``trace_iters``
 iterations (``--trace 1``, per-layer metrics), then, with the program's
 state freed, holds what the timed path produced to the plain reference
-(``checks.py``).
+(``checks.py``). What belongs to the model's design (its sizes, weights,
+reference, readings and work counts) comes from the configuration's
+architecture module (``architectures/__init__.py``); the loops read none
+of its keys.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import math
 import time
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from bench_gpu.harness import checks, reference, traffic, work
+from bench_gpu.harness import checks, common, reference, traffic, work
 from bench_gpu.harness.common import Readings, Spans
 from bench_gpu.harness.devtrace import Profiled
 from bench_gpu.harness.weights import make_weights
@@ -42,10 +47,11 @@ import mdgat_tpu_torch.data.prefetch as prefetch
 import mdgat_tpu_torch.eval.runner as runner
 import mdgat_tpu_torch.train.loop as loop
 from mdgat_tpu_torch.core.config import test_defaults, train_defaults
-from mdgat_tpu_torch.models.mdgat import MDGAT, torch_dtype
+from mdgat_tpu_torch.models.factory import build_model
+from mdgat_tpu_torch.models.mdgat import torch_dtype
 
-FETCH = ("matches0", "matches1", "matching_scores0", "matching_scores1",
-         "loss")
+ANSWERS = ("matches0", "matches1", "matching_scores0", "matching_scores1")
+FETCH = ANSWERS + ("loss",)
 GIB = float(2 ** 30)
 # set-up's calls of a serving cell: the eager first call, the capture, a
 # replay (a training cell's three steps do the same)
@@ -65,28 +71,29 @@ class Run:
     # Config fields on top of the configuration's (the CPU tests send the
     # model down the kernel routes' twins with kernel_twins)
     overrides: Dict = dataclasses.field(default_factory=dict)
+    # where the configuration's architecture file is found
+    folder: Path = common.PKG
 
     @property
     def traffic(self) -> Dict:
         return self.workload["traffic"]
 
-    @property
-    def model(self) -> Dict:
-        return reference.model_sizes(self.config)
+    @functools.cached_property
+    def arch(self):
+        return common.architecture(self.config, self.folder)
 
     @property
-    def fine_iters(self) -> int:
-        return self.config["reference"]["topk_bisection_iters"]
+    def sizes(self) -> Dict:
+        return self.arch.sizes(self.config)
+
+    def weights(self, dev) -> Dict[str, torch.Tensor]:
+        return make_weights(self.config, self.seed, dev, self.arch)
 
 
 def config_fields(run: Run) -> Dict:
-    """The program's ``Config`` fields the configuration file states (tuples
-    where ``Config`` keeps tuples), with the run's overrides."""
-    fields = dict(run.config["model"])
-    for key in ("k", "keypoint_encoder", "descriptor_encoder"):
-        if fields.get(key) is not None:
-            fields[key] = tuple(fields[key])
-    return {**fields, **run.overrides}
+    """The program's ``Config`` fields the architecture reads from the
+    configuration file, with the run's overrides."""
+    return {**run.arch.program_fields(run.config), **run.overrides}
 
 
 def program_config(run: Run, kind: str):
@@ -147,7 +154,7 @@ def _readings(run: Run, order: List[int], hosts: List[Dict], train: bool,
               spans: Spans, trace, extra=None) -> Readings:
     """The per-layer readers' view of a window that ran the pool batches
     ``order`` names."""
-    summaries = [work.summary(run.model, h, train) for h in hosts]
+    summaries = [run.arch.work(run.sizes, h, train) for h in hosts]
     return Readings(trace=trace, spans=dict(spans.seconds),
                     work=work.per_iteration(summaries, order), extra=extra)
 
@@ -157,7 +164,7 @@ def ref_inputs(run: Run, host: Dict, dev, dtype, floor: float = 1e-30):
     if "kpts0_world" in x:
         x["gt0"], x["gt1"], x["clear0"], x["clear1"] = \
             reference.ground_truth(x["kpts0_world"], x["kpts1_world"],
-                                   run.model["threshold"], x["mask0"],
+                                   run.sizes["threshold"], x["mask0"],
                                    x["mask1"])
     return x
 
@@ -178,11 +185,10 @@ def train_reference(run: Run, hosts: List[Dict], prec, dev,
     """The reference's three steps on the first three pool batches, from
     the seed's weights: (its results in ``checks.train_readings``' form,
     the starting weights)."""
-    start = make_weights(run.config, run.seed, dev)
+    start = run.weights(dev)
     xs = [ref_inputs(run, h, dev, prec.dtype) for h in hosts[:3]]
-    losses, grads, after = reference.train(
-        start, run.model, xs, run.fine_iters, prec,
-        run.model["learning_rate"], loss_rows)
+    losses, grads, after = run.arch.reference_train(
+        start, run.sizes, xs, prec, run.sizes["learning_rate"], loss_rows)
     return ({"losses": losses, "grads": grads, "after": after,
              "gt": [(x["gt0"], x["gt1"]) for x in xs],
              "clear": [(x["clear0"], x["clear1"]) for x in xs]}, start)
@@ -192,7 +198,7 @@ def run_train(run: Run) -> Dict:
     dev = run.device
     cfg = program_config(run, "train")
     hosts = train_hosts(run)
-    weights = make_weights(run.config, run.seed, dev)
+    weights = run.weights(dev)
     state = loop.create_train_state(cfg, device=dev, state_dict=weights)
     del weights
     step = loop.make_train_step()
@@ -234,7 +240,7 @@ def run_train(run: Run) -> Dict:
 
     spans.reset()
     order.clear()
-    with Profiled(run.trace) as prof:
+    with Profiled(run.trace, dev) as prof:
         sync(dev)
         with prof.window():
             t0 = time.perf_counter()
@@ -310,8 +316,7 @@ def match_reference(run: Run, host: Dict, dev, prec, floor: float,
     ``clear1``, ``clear_pair``: the pairs with no point float32 may decide
     either way) and per-pair gap ``loss``, over a stacked host batch in
     blocks of ``reference_block`` pairs."""
-    weights = weights if weights is not None else make_weights(
-        run.config, run.seed, dev)
+    weights = weights if weights is not None else run.weights(dev)
     block = run.workload["reference_block"]
     b = host["mask0"].shape[0]
     parts = []
@@ -320,8 +325,8 @@ def match_reference(run: Run, host: Dict, dev, prec, floor: float,
                if isinstance(v, np.ndarray) and v.ndim >= 1
                and v.shape[0] == b}
         x = ref_inputs(run, sub, dev, prec.dtype, floor)
-        (dense, br, bc), dec = reference.match(weights, run.model, x,
-                                               run.fine_iters, prec)
+        (dense, br, bc), dec = run.arch.reference_match(weights, run.sizes,
+                                                        x, prec)
         parts.append(((dense, br, bc), dec, x))
     cat = lambda i, j: torch.cat([p[i][j] for p in parts])   # noqa: E731
     transport = tuple(cat(0, j) for j in range(3))
@@ -330,9 +335,8 @@ def match_reference(run: Run, host: Dict, dev, prec, floor: float,
              torch.cat([p[2]["mask1"] for p in parts]))
     gt = None
     if "gt0" in parts[0][2]:
-        loss = torch.cat([reference.gap_loss(
-            *p[0], p[2]["gt0"], p[2]["gt1"], run.model["triplet_loss_gamma"],
-            p[2]["mask0"], p[2]["mask1"]) for p in parts])
+        loss = torch.cat([run.arch.reference_loss(run.sizes, p[0], p[2])
+                          for p in parts])
         gt = {k: torch.cat([p[2][k] for p in parts])
               for k in ("gt0", "gt1", "clear0", "clear1")}
         gt["loss"] = loss
@@ -345,8 +349,7 @@ def run_match(run: Run) -> Dict:
     tr = run.traffic
     pools = traffic.pool_pairs(tr, run.seed)
     matcher = api.Matcher(device=dev, seed=0, **config_fields(run))
-    matcher.model.load_state_dict(make_weights(run.config, run.seed, dev),
-                                  strict=True)
+    matcher.model.load_state_dict(run.weights(dev), strict=True)
     spans = Spans(run.trace)
     if run.trace:
         matcher._host_batch = spans.wrap("host_batch", matcher._host_batch)
@@ -360,7 +363,7 @@ def run_match(run: Run) -> Dict:
     sampler = Sampler(traffic.rng_for(run.seed, 3), tr["sample_calls"],
                       int(np.argmax(totals)))
     lat, order = [], []
-    with Profiled(run.trace) as prof:
+    with Profiled(run.trace, dev) as prof:
         with prof.window():
             t0 = time.perf_counter()
             n = 0
@@ -382,16 +385,16 @@ def run_match(run: Run) -> Dict:
 
     hosts = [pad_pairs(p) for p in pools]
     readings = _readings(run, order, hosts, False, spans, prof.trace)
-    weights = make_weights(run.config, run.seed, dev)
+    weights = run.weights(dev)
     values, sample = [], []
     for b, outs in sampler.sample():
         host = hosts[b]
-        (dense, br, bc), _, (mk0, mk1), _ = match_reference(
+        transport, _, masks, _ = match_reference(
             run, host, dev, reference.REFERENCE, 1e-12, weights)
-        m0, m1, s0, s1 = _answers_from_pairs(outs, mk0.shape[1],
-                                             mk1.shape[1], dev)
-        values.append(checks.match_readings(m0, m1, s0, s1, mk0, mk1, dense,
-                                            br, bc))
+        answers = _answers_from_pairs(outs, masks[0].shape[1],
+                                      masks[1].shape[1], dev)
+        values.append(run.arch.match_readings(run.sizes, answers, masks,
+                                              transport))
         sample.append(b)
     batch = tr["batch"]
     return {"attempted": n, "failed": 0, "peak_bytes": peak,
@@ -434,8 +437,8 @@ def run_eval(run: Run) -> Dict:
     tr = run.traffic
     cfg = program_config(run, "eval")
     hosts = eval_hosts(run)
-    model = MDGAT(cfg)
-    model.load_state_dict(make_weights(run.config, run.seed, dev), strict=True)
+    model = build_model(cfg)
+    model.load_state_dict(run.weights(dev), strict=True)
     model.to(dev)
     eval_step = loop.make_eval_step(model)
     spans = Spans(run.trace)
@@ -464,7 +467,7 @@ def run_eval(run: Run) -> Dict:
     totals = [int(h["mask0"].sum() + h["mask1"].sum()) for h in hosts]
     sampler = Sampler(traffic.rng_for(run.seed, 3), tr["sample_calls"],
                       int(np.argmax(totals)))
-    with Profiled(run.trace) as prof:
+    with Profiled(run.trace, dev) as prof:
         with prof.window():
             t0 = time.perf_counter()
             n = 0
@@ -480,9 +483,9 @@ def run_eval(run: Run) -> Dict:
     peak = peak_bytes(dev)
     extra = {}
     if run.trace:
-        extra["encoder_ms"] = encoder_ms(
-            model, pipeline.prepare_batch(hosts[0], cfg.threshold,
-                                          cfg.mutual_check, dev, cdt, gdt),
+        extra = run.arch.eval_readings(
+            model, pipeline.model_inputs(pipeline.prepare_batch(
+                hosts[0], cfg.threshold, cfg.mutual_check, dev, cdt, gdt)),
             cdt, dev)
     it.close()
     del model, eval_step, pipe
@@ -490,16 +493,14 @@ def run_eval(run: Run) -> Dict:
 
     readings = _readings(run, list(order), hosts, False, spans, prof.trace,
                          extra)
-    weights = make_weights(run.config, run.seed, dev)
+    weights = run.weights(dev)
     values, sample = [], []
     for b, got in sampler.sample():
-        (dense, br, bc), _, (mk0, mk1), gt = match_reference(
+        transport, _, masks, gt = match_reference(
             run, hosts[b], dev, reference.REFERENCE, 1e-30, weights)
         t = {k: torch.as_tensor(v).to(dev) for k, v in got.items()}
-        r = checks.match_readings(t["matches0"], t["matches1"],
-                                  t["matching_scores0"],
-                                  t["matching_scores1"], mk0, mk1, dense, br,
-                                  bc)
+        r = run.arch.match_readings(
+            run.sizes, tuple(t[k] for k in ANSWERS), masks, transport)
         r["gt_mismatch"] = float(((t["gt_matches0"].long() != gt["gt0"])
                                   & gt["clear0"]).sum())
         r["loss_gap"] = checks.loss_gap(t["loss"][gt["clear_pair"]],
@@ -514,33 +515,6 @@ def run_eval(run: Run) -> Dict:
             "values": checks.merge_max(values),
             "materials": {"hosts": hosts, "sample": sample,
                           "weights": weights, "floor": 1e-30}}
-
-
-def encoder_ms(model, prepared: Dict, cdt, dev, reps: int = 3) -> Optional[float]:
-    """Device ms of ``MDGAT.encode`` over both clouds of one batch, by CUDA
-    events after a warm-up call."""
-    if dev.type != "cuda":
-        return None
-    x = pipeline.model_inputs(prepared)
-    was = model.training
-    model.eval()
-    try:
-        with torch.no_grad():
-            def both():
-                model.encode(x, "0", cdt, x.get("mask0"))
-                model.encode(x, "1", cdt, x.get("mask1"))
-            both()
-            torch.cuda.synchronize(dev)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                both()
-            end.record()
-            torch.cuda.synchronize(dev)
-            return start.elapsed_time(end) / reps
-    finally:
-        model.train(was)
 
 
 KINDS = {"train": run_train, "match": run_match, "eval": run_eval}

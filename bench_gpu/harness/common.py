@@ -2,10 +2,14 @@
 line, and the guard against JAX in the process.
 
 The harness is driven by files, found by name: ``BENCHMARK.json`` at the
-checkout's root, ``configs/<config>.json``, ``workloads/<cell>.json`` and
-``metrics/<name>.py`` under this package. A per-layer metric's file holds
-one function, ``read(readings) -> float | None``; None leaves the metric
-out of the result line.
+checkout's root, ``configs/<config>.json``, ``workloads/<cell>.json``,
+``metrics/<name>.py`` and ``architectures/<architecture>.py`` under a
+folder that is this package unless a caller (a test) gives another. A
+per-layer metric's file holds one function, ``read(readings) -> float |
+None``; None leaves the metric out of the result line. An architecture's
+file holds the contract of ``architectures/__init__.py``; a configuration
+names it with ``"architecture"``, and without that key it is
+``"mdgat"``.
 """
 
 from __future__ import annotations
@@ -54,31 +58,52 @@ def fix_malloc() -> bool:
                 and mallopt(M_MMAP_THRESHOLD, 1 << 28))
 
 
+DEFAULT_ARCHITECTURE = "mdgat"
+
+
 def load_json(path: Path) -> Dict:
     with open(path) as f:
         return json.load(f)
 
 
-def benchmark() -> Dict:
-    return load_json(ROOT / "BENCHMARK.json")
+def _found(path: Path) -> Path:
+    if not path.is_file():
+        raise FileNotFoundError(f"no such benchmark file: {path}")
+    return path
 
 
-def workload(name: str) -> Dict:
-    return load_json(PKG / "workloads" / f"{name}.json")
-
-
-def config(name: str) -> Dict:
-    return load_json(PKG / "configs" / f"{name}.json")
-
-
-def metric_reader(name: str):
-    """The ``read`` function of ``metrics/<name>.py``."""
-    path = PKG / "metrics" / f"{name}.py"
+def _load_module(path: Path, prefix: str, name: str):
     spec = importlib.util.spec_from_file_location(
-        "bench_gpu_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        prefix + name.replace(".", "_").replace("-", "_"), _found(path))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def benchmark(root: Path = ROOT) -> Dict:
+    return load_json(_found(root / "BENCHMARK.json"))
+
+
+def workload(name: str, folder: Path = PKG) -> Dict:
+    return load_json(_found(folder / "workloads" / f"{name}.json"))
+
+
+def config(name: str, folder: Path = PKG) -> Dict:
+    return load_json(_found(folder / "configs" / f"{name}.json"))
+
+
+def metric_reader(name: str, folder: Path = PKG):
+    """The ``read`` function of ``metrics/<name>.py``."""
+    return _load_module(folder / "metrics" / f"{name}.py",
+                        "bench_gpu_metric_", name).read
+
+
+def architecture(config: Dict, folder: Path = PKG):
+    """The module ``architectures/<architecture>.py`` that the configuration
+    file's contents ``config`` name."""
+    name = config.get("architecture", DEFAULT_ARCHITECTURE)
+    return _load_module(folder / "architectures" / f"{name}.py",
+                        "bench_gpu_architecture_", name)
 
 
 def per_layer_for(cell: str, bench: Dict) -> List[Dict]:

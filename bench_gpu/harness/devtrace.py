@@ -10,6 +10,13 @@ a copy on another stream under a kernel is counted once (a sum of each
 operation's device time counts overlaps twice). An idle gap is a stretch of
 the window in which no device interval runs; it is labelled with the
 innermost harness span open on the host at its midpoint.
+
+The program's own spans (``mdgat.*``, ``utils/profiling.py::span``) in the
+window are kept too, with their thread, for the metric files that read
+them (``Trace.program_spans``); the labels, the top operations and the
+idle gaps read only the harness's spans. Without the card (the CPU tests)
+the profiler records the host alone: the trace holds the spans and no
+device operation, and the device's readers read nothing from it.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 WINDOW_SPAN = "bench.window"
+PROGRAM_PREFIX = "mdgat."
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -33,6 +41,14 @@ class Trace:
     ops: List[Tuple[str, float, float]]       # (name, start s, end s)
     spans: List[Tuple[str, float, float]]     # host spans in the window
     gaps: List[Tuple[float, float]] = field(default_factory=list)
+    # the program's spans in the window: (name, start s, end s, thread)
+    program: List[Tuple[str, float, float, int]] = field(
+        default_factory=list)
+
+    def program_spans(self, name: str) -> List[Tuple[float, float, int]]:
+        """(start s, end s, thread) of each program span ``name`` (the
+        whole name, ``mdgat.data.host_batch``) in the window."""
+        return [(s, e, tid) for n, s, e, tid in self.program if n == name]
 
     def seconds(self, pattern: str) -> float:
         """Device seconds of the operations whose name matches
@@ -89,14 +105,14 @@ def union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
 
 def read_events(events: List[Dict]) -> Optional[Trace]:
     """A :class:`Trace` from Chrome trace events (``ts`` / ``dur`` in
-    microseconds); None without the window span or any device event."""
+    microseconds); None without the window span."""
     window = [e for e in events if e.get("name") == WINDOW_SPAN
               and e.get("ph") == "X" and e.get("cat") == "user_annotation"]
     if not window:
         return None
     w0 = float(window[0]["ts"]) * 1e-6
     w1 = w0 + float(window[0]["dur"]) * 1e-6
-    ops, spans = [], []
+    ops, spans, program = [], [], []
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
             continue
@@ -106,12 +122,12 @@ def read_events(events: List[Dict]) -> Optional[Trace]:
             s, t = max(s, w0), min(t, w1)
             if t > s:
                 ops.append((e.get("name", "?"), s, t))
-        elif (e.get("cat") == "user_annotation"
-              and e.get("name", "").startswith("bench.")
-              and e.get("name") != WINDOW_SPAN and t > w0 and s < w1):
-            spans.append((e["name"], s, t))
-    if not ops:
-        return None
+        elif e.get("cat") == "user_annotation" and t > w0 and s < w1:
+            name = e.get("name", "")
+            if name.startswith("bench.") and name != WINDOW_SPAN:
+                spans.append((name, s, t))
+            elif name.startswith(PROGRAM_PREFIX):
+                program.append((name, s, t, e.get("tid")))
     busy = union([(s, t) for _, s, t in ops])
     gaps, prev = [], w0
     for s, t in busy:
@@ -121,26 +137,32 @@ def read_events(events: List[Dict]) -> Optional[Trace]:
     if w1 > prev:
         gaps.append((prev, w1))
     return Trace(window_s=w1 - w0, busy_s=sum(t - s for s, t in busy),
-                 ops=ops, spans=spans, gaps=gaps)
+                 ops=ops, spans=spans, gaps=gaps, program=program)
 
 
 class Profiled:
-    """``with Profiled(on) as p:`` around a window; ``p.window()`` wraps the
-    loop inside it, ``p.trace`` holds the :class:`Trace` afterwards (None
-    when off, or when the profiler saw no device operation)."""
+    """``with Profiled(on, device) as p:`` around a window; ``p.window()``
+    wraps the loop inside it, ``p.trace`` holds the :class:`Trace`
+    afterwards (None when off). Off the card it records the host alone."""
 
-    def __init__(self, on: bool):
+    def __init__(self, on: bool, device):
         self.on = on
+        self.cuda = device.type == "cuda"
         self.trace: Optional[Trace] = None
         self._prof = None
 
+    def _sync(self):
+        if self.cuda:
+            import torch
+            torch.cuda.synchronize()
+
     def __enter__(self):
         if self.on:
-            import torch
             from torch.profiler import ProfilerActivity, profile
-            torch.cuda.synchronize()
-            self._prof = profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA])
+            self._sync()
+            self._prof = profile(activities=[ProfilerActivity.CPU]
+                                 + ([ProfilerActivity.CUDA] if self.cuda
+                                    else []))
             self._prof.__enter__()
         return self
 
@@ -153,8 +175,7 @@ class Profiled:
     def __exit__(self, *exc):
         if self._prof is None:
             return False
-        import torch
-        torch.cuda.synchronize()
+        self._sync()
         self._prof.__exit__(*exc)
         if exc[0] is not None:
             return False

@@ -10,9 +10,15 @@ from typing import Optional
 from bench_gpu.harness.work import PEAK_F32_FLOPS
 
 
+def _on_card(r) -> bool:
+    """The run holds a device trace: a window in which the card ran
+    something (a trace of the host alone has no device operation)."""
+    return r.trace is not None and bool(r.trace.ops) and r.trace.window_s > 0
+
+
 def idle_pct(r) -> Optional[float]:
     """The traced window's share in which no device operation ran."""
-    if r.trace is None or r.trace.window_s <= 0:
+    if not _on_card(r):
         return None
     return 100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)
 
@@ -20,7 +26,7 @@ def idle_pct(r) -> Optional[float]:
 def mfu_pct(r) -> Optional[float]:
     """The model operations of the window's iterations over what the card
     could do in the window at its float32 peak."""
-    if r.trace is None or not r.work or r.trace.window_s <= 0:
+    if not _on_card(r) or not r.work:
         return None
     return 100.0 * r.work["flops"] / (r.trace.window_s * PEAK_F32_FLOPS)
 
@@ -29,7 +35,7 @@ def roofline_pct(r, kernels: str, bound_key: str) -> Optional[float]:
     """The least time the window's work of one kind needs over the device
     time of the kernels (``kernels``, a regular expression on their names)
     that do it."""
-    if r.trace is None or not r.work or not r.work.get(bound_key):
+    if not _on_card(r) or not r.work or not r.work.get(bound_key):
         return None
     seconds = r.trace.seconds(kernels)
     if seconds <= 0:
@@ -43,6 +49,17 @@ def span_ms(r, name: str) -> Optional[float]:
     if not times:
         return None
     return 1e3 * sum(times) / len(times)
+
+
+def program_span_ms(r, name: str) -> Optional[float]:
+    """Mean host ms of the program's span ``name`` (its whole name,
+    ``mdgat.data.host_batch``) in the traced window."""
+    if r.trace is None:
+        return None
+    spans = r.trace.program_spans(name)
+    if not spans:
+        return None
+    return 1e3 * sum(e - s for s, e, _ in spans) / len(spans)
 
 
 def kernel_pattern(*names: str) -> str:

@@ -19,7 +19,8 @@ runs as a long-lived one's does.
 
 It needs the card: with no CUDA device, or fewer than the cell asks for, it
 prints no result and exits 2. It exits 3 with no result when JAX or the JAX
-package is loaded in the process once the window has closed.
+package is loaded in the process once the window has closed and the
+metric files have read.
 """
 
 from __future__ import annotations
@@ -49,25 +50,27 @@ def parse(argv=None):
 
 
 def execute(cell: str, seed: int, seconds: float, trace: bool, device,
-            workload=None, overrides=None, t_start: float = T_START):
+            workload=None, overrides=None, t_start: float = T_START,
+            folder=None):
     """Everything after the look for the card: (exit code, result line or
     None). ``workload`` replaces the cell's file and ``overrides`` adds
-    Config fields (the CPU tests run a cell small, on the kernel twins)."""
+    Config fields (the CPU tests run a cell small, on the kernel twins).
+    ``folder`` holds the configurations, workloads, metrics and
+    architectures in place of this package, and ``BENCHMARK.json`` is in
+    its parent (a test's temporary checkout)."""
     import torch
     from bench_gpu.harness import common
     from bench_gpu.harness.cells import Run, run_cell
 
-    bench = common.benchmark()
-    wl = workload or common.workload(cell)
-    run = Run(cell=cell, workload=wl, config=common.config(wl["config"]),
-              seed=seed, seconds=seconds, trace=bool(trace),
+    folder = folder or common.PKG
+    bench = common.benchmark(folder.parent)
+    wl = workload or common.workload(cell, folder)
+    run = Run(cell=cell, workload=wl,
+              config=common.config(wl["config"], folder), seed=seed,
+              seconds=seconds, trace=bool(trace),
               device=torch.device(device), t_start=t_start,
-              overrides=dict(overrides or {}))
+              overrides=dict(overrides or {}), folder=folder)
     out = run_cell(run)
-    found = common.forbidden_modules()
-    if found:
-        print("forbidden modules loaded: " + ", ".join(found), file=sys.stderr)
-        return 3, None
     dev = run.device
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     device_info = {"platform": "gpu" if dev.type == "cuda" else "cpu",
@@ -78,16 +81,17 @@ def execute(cell: str, seed: int, seconds: float, trace: bool, device,
     metrics = {}
     if trace:
         t = out["trace"]
-        if t is None and dev.type == "cuda":
+        on_card = t is not None and bool(t.ops)
+        if not on_card and dev.type == "cuda":
             print("the profiler recorded no device operation in the window",
                   file=sys.stderr)
             return 4, None
-        if t is not None:
+        if on_card:
             device_info.update(busy_s=t.busy_s, window_s=t.window_s)
             result["breakdown"] = {"device_ops": t.top_ops(10),
                                    "idle_gaps": t.idle_gaps(10)}
         for m in common.per_layer_for(cell, bench):
-            value = common.metric_reader(m["name"])(out["readings"])
+            value = common.metric_reader(m["name"], folder)(out["readings"])
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
@@ -98,6 +102,11 @@ def execute(cell: str, seed: int, seconds: float, trace: bool, device,
     result["device"] = device_info
     if dev.type == "cuda":
         print("card: " + common.card_line(), file=sys.stderr)
+    # last, once every metric file has been loaded and has read
+    found = common.forbidden_modules()
+    if found:
+        print("forbidden modules loaded: " + ", ".join(found), file=sys.stderr)
+        return 3, None
     return 0, (result, out["checks"])
 
 

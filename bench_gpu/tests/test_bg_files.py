@@ -45,11 +45,15 @@ def test_cell_files(cell):
     assert wl["config"] == entry["config"]
     assert wl["kind"] in ("train", "match", "eval")
     assert any(c["name"] == wl["config"] for c in BENCH["configs"])
-    common.config(wl["config"])
+    cfg = common.config(wl["config"])
     assert wl["limits"]
-    assert set(wl["limits"]) <= {"loss_gap", "grad_gap", "change_gap",
-                                 "grad_med", "change_med", "gt_mismatch",
-                                 "match_gap", "score_err"}
+    assert all(NAME.match(k) and v >= 0 for k, v in wl["limits"].items())
+    # the numbers MDGAT's readings give; another architecture's readings
+    # are its own module's
+    if cfg.get("architecture", common.DEFAULT_ARCHITECTURE) == "mdgat":
+        assert set(wl["limits"]) <= {"loss_gap", "grad_gap", "change_gap",
+                                     "grad_med", "change_med", "gt_mismatch",
+                                     "match_gap", "score_err"}
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -116,10 +120,11 @@ def test_weights_load_into_the_program(name):
     from mdgat_tpu_torch.core.config import Config
     from mdgat_tpu_torch.models.mdgat import MDGAT
     cfg = common.config(name)
+    arch = common.architecture(cfg)
     model = MDGAT(Config(descriptor=cfg["model"]["descriptor"]))
-    w = make_weights(cfg, 2 ** 31 + 5, "cpu")
+    w = make_weights(cfg, 2 ** 31 + 5, "cpu", arch)
     model.load_state_dict(w, strict=True)
-    again = make_weights(cfg, 2 ** 31 + 5, "cpu")
+    again = make_weights(cfg, 2 ** 31 + 5, "cpu", arch)
     assert all(torch.equal(w[k], again[k]) for k in w)
-    other = make_weights(cfg, 2 ** 31 + 6, "cpu")
+    other = make_weights(cfg, 2 ** 31 + 6, "cpu", arch)
     assert not torch.equal(w["final_proj.weight"], other["final_proj.weight"])

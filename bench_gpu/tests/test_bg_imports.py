@@ -41,8 +41,9 @@ def test_whole_name_comparison(monkeypatch):
 
 
 def test_a_run_process_loads_none():
-    """Every module a run imports, the program's included, in a fresh
-    process: none of them pulls in a forbidden one."""
+    """Every module a run imports, the program's and each configuration's
+    architecture included, in a fresh process: none of them pulls in a
+    forbidden one."""
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "import bench_gpu.run, bench_gpu.calibrate\n"
@@ -50,6 +51,8 @@ def test_a_run_process_loads_none():
         "from bench_gpu.harness import common\n"
         "for m in common.benchmark()['per_layer']:\n"
         "    common.metric_reader(m['name'])\n"
+        "for c in common.benchmark()['configs']:\n"
+        "    common.architecture(common.config(c['name']))\n"
         "import json; print(json.dumps(common.forbidden_modules()))\n"
         % str(common.ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

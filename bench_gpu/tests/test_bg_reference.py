@@ -11,7 +11,6 @@ import pytest
 import torch
 
 from bench_gpu.harness import cells, common, reference
-from bench_gpu.harness.weights import make_weights
 
 F64_BISECTION = 14     # the value bisection's resolution for float64
 
@@ -36,7 +35,7 @@ def program(run, train, **fields):
     cfg = cells.program_config(run, "train" if train else "eval").replace(
         compute_dtype="float64", param_dtype="float64", **fields)
     model = MDGAT(cfg)
-    w = reference.cast_weights(make_weights(run.config, run.seed, "cpu"),
+    w = reference.cast_weights(run.weights("cpu"),
                                torch.float64)
     model.load_state_dict(w, strict=True)
     return model.train(train), cfg
@@ -76,10 +75,10 @@ def test_eval_transport(config, fields, fine):
     with torch.no_grad():
         out = model(prepared(host, cfg), return_full_scores=True)
     x = cells.ref_inputs(run, host, "cpu", torch.float64)
-    P = reference.cast_weights(make_weights(run.config, run.seed, "cpu"),
+    P = reference.cast_weights(run.weights("cpu"),
                                torch.float64)
     dense, bin_row, bin_col = reference.transport(
-        P, run.model, x, False, fine, reference.REFERENCE)
+        P, run.sizes, x, False, fine, reference.REFERENCE)
     full = out["scores"]
     m0, m1 = x["mask0"], x["mask1"]
     both = m0[:, :, None] & m1[:, None, :]
@@ -108,7 +107,7 @@ def test_train_loss_and_gradients(cell, fields, fine):
     assert torch.equal(batch["gt_matches0"].long(), x["gt0"])
     assert torch.equal(batch["gt_matches1"].long(), x["gt1"])
     losses, grads, _ = reference.train(
-        make_weights(run.config, run.seed, "cpu"), run.model, [x], fine,
+        run.weights("cpu"), run.sizes, [x], fine,
         reference.REFERENCE, 1e-4)
     assert losses[0] == pytest.approx(float(loss.detach()), rel=TRAIN_REL)
     named = dict(model.named_parameters())

@@ -37,7 +37,16 @@ def test_union_and_gaps():
 
 def test_no_window_or_no_device_work():
     assert devtrace.read_events(events()[1:]) is None
-    assert devtrace.read_events([events()[0], events()[4]]) is None
+    # a trace of the host alone: spans, and nothing the device's readers
+    # can read
+    t = devtrace.read_events([events()[0], events()[4]])
+    assert t.ops == [] and t.busy_s == 0
+    assert t.spans == [("bench.prepare", pytest.approx(40e-6),
+                        pytest.approx(70e-6))]
+    r = Readings(trace=t, work={"flops": 1.0, "attention_bound_s": 1.0})
+    assert readers.idle_pct(r) is None and readers.mfu_pct(r) is None
+    assert readers.roofline_pct(r, readers.kernel_pattern("k1"),
+                                "attention_bound_s") is None
 
 
 def test_readers_leave_out_what_they_cannot_read():
