@@ -267,6 +267,19 @@ Phases, each of which fails the run (exit code != 0) when it fails:
    step and ms a batch after the first. ``python3 chip_smoke.py --only
    cuda_graphs`` runs this phase alone (it writes the trees it needs) and
    prints no result line.
+17. LightGlue (``models/lightglue.py``, ``csrc/lightglue.cu``) at its
+   serving cell's shapes (16 pairs, 4 heads of 64, 2048 x 1900 keypoints,
+   75-100% valid): the self-attention, the two-way cross-attention (m0 and
+   m1), LayerNorm + GELU and the assignment-and-decision kernels, each
+   against its float64 twin on the same inputs (``TOL["lg_*"]``) and
+   bit-equal from run to run, each timed beside its plain twin, SDPA or
+   ``F.layer_norm`` + ``F.gelu`` and its bound; then ``Matcher(net=
+   "lightglue")`` on the benchmark's seeded weights: one eager call with
+   the counters zeroed just before (each kernel's launches a forward,
+   every other kernel none), the captured graph at 2048 keypoints (its
+   replays launch nothing and equal the eager call), the plain route's
+   matches, ms a call. ``python3 chip_smoke.py --only lightglue`` runs
+   this phase alone and prints no result line.
 
 The line before the last is a JSON object with one entry per kernel (its
 time beside the plain twin's, the card's bound for the same work and, where
@@ -354,7 +367,21 @@ TOL = {"attention_f32": 1e-4, "attention_bf16": 2e-2, "layer_f32": 1e-3,
        # eval forwards, kernel route against plain: the largest difference
        # of the [B, N+1, M+1] transport as probabilities (exp of the log
        # transport), as the wide serving check holds the matching scores
-       "transport_prob": 1e-3}
+       "transport_prob": 1e-3,
+       # LightGlue's attention kernels against their float64 twin on the
+       # same float32 inputs, relative to the largest entry: f32 sums over
+       # up to 2048 keys (and the online softmax's rescaling) in another
+       # order; the f32 twin itself reads about 2e-6 there
+       "lg_attention": 1e-5,
+       # LayerNorm + GELU: a 512-wide mean and variance in f32, relative
+       "lg_ln_gelu": 1e-6,
+       # the assignment, read as the benchmark reads the program's answers
+       # (architectures/lightglue.py::match_readings) against the float64
+       # twin's inner block: an answered entry's gap to the best of its row
+       # and column, an answered score's error (a probability), and how
+       # clear the twin's decision was where the two disagree on matched
+       # or not (only a near tie may differ)
+       "lg_match_gap": 1e-5, "lg_score": 1e-5, "lg_decide": 1e-4}
 # published peaks of one H100 SXM (dense, no sparsity): f32 outside the
 # tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -4968,6 +4995,7 @@ def fast_attention_checks(rng, dev, report):
     from mdgat_tpu_torch.ops.attention import fast_iters
     from mdgat_tpu_torch.ops.cuda import attention as A
     from mdgat_tpu_torch.ops.cuda import layer as Lk
+    from mdgat_tpu_torch.ops.cuda import lightglue as LG
     from mdgat_tpu_torch.ops.cuda import mha as M
     from mdgat_tpu_torch.ops.cuda import train_layer as T
     f32, bf16 = torch.float32, torch.bfloat16
@@ -5733,11 +5761,281 @@ def cuda_graphs_phase(rng, dev, report, counters, card):
                                   phase_s=seconds, parts_s=parts)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: LightGlue's kernels and its serving path
+# ---------------------------------------------------------------------------
+# the serving cell's bucket (lightglue-match-b16n2048): 16 pairs, 4 heads of
+# 64, 2048 rows on side 0 and 1900 on side 1, 75-100% of each valid
+LG_B, LG_H, LG_N, LG_M, LG_DH = 16, 4, 2048, 1900, 64
+LG_CELL = "lightglue-match-b16n2048"
+LG_SRC = "mdgat_tpu_torch/csrc/lightglue.cu"
+
+
+def _lg_rel(a, b):
+    """(largest absolute error, the same relative to the largest entry of
+    ``b``) of ``a`` against ``b`` (float64)."""
+    err = float((a.double() - b.double()).abs().max())
+    return err, err / max(float(b.double().abs().max()), 1e-30)
+
+
+def lg_kernels(dev, report):
+    """Each LightGlue kernel against its float64 twin on the same float32
+    inputs at the cell's shapes, bit-equal from run to run, then timed by
+    CUDA events beside its plain twin, the one PyTorch call that computes
+    the same function (SDPA, ``F.layer_norm`` + ``F.gelu``; f32, TF32 off;
+    used nowhere in the port) and its bound, counted as the benchmark
+    counts it (``bench_gpu/architectures/lightglue.py``)."""
+    import torch
+    import torch.nn.functional as F
+    from bench_gpu.architectures import lightglue as work
+    from mdgat_tpu_torch.ops.cuda import lightglue as lgk
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, h, n, m, dh = LG_B, LG_H, LG_N, LG_M, LG_DH
+    d = h * dh
+    n0 = torch.randint(n * 3 // 4, n + 1, (b,), generator=g, device=dev)
+    n1 = torch.randint(m * 3 // 4, m + 1, (b,), generator=g, device=dev)
+    n0[0], n1[0] = n, m                             # one full pair
+    mask0 = torch.arange(n, device=dev)[None] < n0[:, None]
+    mask1 = torch.arange(m, device=dev)[None] < n1[:, None]
+    v0, v1 = n0.double().cpu().numpy(), n1.double().cpu().numpy()
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    def times(kernel, plain, library=None, reps=10):
+        """(kernel, plain twin, library) ms a call; kernel and library in
+        turns."""
+        if library is None:
+            k, lib = cuda_ms(kernel, reps), None
+        else:
+            k, lib = turns_ms([kernel, library], reps)
+        return k, cuda_ms(plain, reps=2, warmup=1), lib
+
+    out = {}
+    # (a) self-attention: q, k, v as the Wqkv product writes them
+    qkv = rnd(b, 3 * h, n, dh, scale=2.0)
+    ang = rnd(b, n, dh // 2, scale=2.0)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    got = lgk.self_attention(qkv, cos, sin, mask0)
+    require(torch.equal(got, lgk.self_attention(qkv, cos, sin, mask0)),
+            "lg_self_attention differs from run to run")
+    want = lgk.self_attention_reference(qkv.double(), cos.double(),
+                                        sin.double(), mask0)
+    err, rel = _lg_rel(got, want)
+    q, k = (lgk._rotate(t, cos, sin).contiguous()
+            for t in (qkv[:, :h], qkv[:, h:2 * h]))
+    v = qkv[:, 2 * h:].contiguous()
+    keys = mask0[:, None, None, :]
+
+    def sdpa_self():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=keys)
+    lib_err = _lg_rel(sdpa_self(), want)[1]
+    ms = times(lambda: lgk.self_attention(qkv, cos, sin, mask0),
+               lambda: lgk.self_attention_reference(qkv, cos, sin, mask0),
+               sdpa_self)
+    out["lg_self_attention"] = dict(
+        rel_err=rel, max_abs_err=err, library_rel_err=lib_err, ms=ms,
+        bound=bound(*work._self_call(v0, d, dh)))
+    require(rel <= TOL["lg_attention"], f"lg_self_attention disagrees: {rel}")
+    del qkv, got, want, q, k, v
+
+    # (b) two-way cross-attention: qk heads, then v heads, of each cloud
+    qkv0 = rnd(b, 2 * h, n, dh, scale=2.0)
+    qkv1 = rnd(b, 2 * h, m, dh, scale=2.0)
+    a0, a1 = lgk.cross_attention(qkv0, qkv1, mask0, mask1)
+    again = lgk.cross_attention(qkv0, qkv1, mask0, mask1)
+    require(torch.equal(a0, again[0]) and torch.equal(a1, again[1]),
+            "lg_cross_attention differs from run to run")
+    w0, w1 = lgk.cross_attention_reference(qkv0.double(), qkv1.double(),
+                                           mask0, mask1)
+    (e0, r0), (e1, r1) = _lg_rel(a0, w0), _lg_rel(a1, w1)
+    qk0, v0t = qkv0[:, :h].contiguous(), qkv0[:, h:].contiguous()
+    qk1, v1t = qkv1[:, :h].contiguous(), qkv1[:, h:].contiguous()
+
+    def sdpa_cross():               # upstream's flash path: sim twice
+        return (F.scaled_dot_product_attention(
+                    qk0, qk1, v1t, attn_mask=mask1[:, None, None, :]),
+                F.scaled_dot_product_attention(
+                    qk1, qk0, v0t, attn_mask=mask0[:, None, None, :]))
+    lib = sdpa_cross()
+    lib_err = max(_lg_rel(lib[0], w0)[1], _lg_rel(lib[1], w1)[1])
+    ms = times(lambda: lgk.cross_attention(qkv0, qkv1, mask0, mask1),
+               lambda: lgk.cross_attention_reference(qkv0, qkv1, mask0,
+                                                     mask1), sdpa_cross)
+    out["lg_cross_attention"] = dict(
+        rel_err=max(r0, r1), rel_err_m0=r0, rel_err_m1=r1,
+        max_abs_err=max(e0, e1), library_rel_err=lib_err, ms=ms,
+        bound=bound(*work._cross_call(v0, v1, d)))
+    require(max(r0, r1) <= TOL["lg_attention"],
+            f"lg_cross_attention disagrees: m0 {r0}, m1 {r1}")
+    del qkv0, qkv1, a0, a1, again, w0, w1, lib, qk0, qk1, v0t, v1t
+
+    # (c) LayerNorm + GELU over the valid rows of one FFN (C = 2D)
+    rows = int(n0.sum())
+    x = rnd(rows, 2 * d, scale=3.0) + 1.0
+    lw, lb = rnd(2 * d) * 0.1 + 1.0, rnd(2 * d) * 0.1
+    got = lgk.layer_norm_gelu(x, lw, lb, 1e-5)
+    require(torch.equal(got, lgk.layer_norm_gelu(x, lw, lb, 1e-5)),
+            "lg_ln_gelu differs from run to run")
+    want = lgk.layer_norm_gelu_reference(x.double(), lw.double(),
+                                         lb.double(), 1e-5)
+    err, rel = _lg_rel(got, want)
+
+    def library_ln():               # the twin is this very call
+        return F.gelu(F.layer_norm(x, (2 * d,), lw, lb, 1e-5))
+    lib_err = _lg_rel(library_ln(), want)[1]
+    k_ms, lib_ms = turns_ms([lambda: lgk.layer_norm_gelu(x, lw, lb, 1e-5),
+                             library_ln], 20)
+    out["lg_ln_gelu"] = dict(
+        rel_err=rel, max_abs_err=err, library_rel_err=lib_err,
+        ms=(k_ms, lib_ms, lib_ms),
+        bound=bound(4.0 * (2 * rows * 2 * d + 2 * 2 * d), 0.0))
+    require(rel <= TOL["lg_ln_gelu"], f"lg_ln_gelu disagrees: {rel}")
+    del x, got, want
+
+    # (d) assignment and decision over final projections whose first 70%
+    # of rows pair up, read as the benchmark reads the program's answers
+    md0 = rnd(b, n, d + lgk.ASSIGN_PAD, scale=0.6)
+    md1 = rnd(b, m, d + lgk.ASSIGN_PAD, scale=0.6)
+    kk = min(n, m) * 7 // 10
+    md1[:, :kk, :d] = md0[:, :kk, :d] + 0.1 * rnd(b, kk, d)
+    got = lgk.assign(md0, md1, mask0, mask1, d, 0.1)
+    again = lgk.assign(md0, md1, mask0, mask1, d, 0.1)
+    require(all(torch.equal(x, y) for x, y in zip(got, again)),
+            "lg_assign differs from run to run")
+    twin = lgk.assign_reference(md0.double(), md1.double(), mask0, mask1, d,
+                                0.1, return_block=True)
+    readings = work.match_readings({"match_threshold": 0.1}, got,
+                                   (mask0, mask1), (twin[4],))
+    agree = [float(((x == y) | ~mk).float().mean())
+             for x, y, mk in ((got[0], twin[0], mask0),
+                              (got[1], twin[1], mask1))]
+    share = float(((got[0] >= 0) & mask0).sum() / mask0.sum())
+    ms = times(lambda: lgk.assign(md0, md1, mask0, mask1, d, 0.1),
+               lambda: lgk.assign_reference(md0, md1, mask0, mask1, d, 0.1))
+    out["lg_assign"] = dict(
+        readings=readings, matches_agree=agree, matched_share=share,
+        max_abs_err=readings["score_err"], ms=ms,
+        bound=bound(*work._assign_call(v0, v1, d)))
+    require(readings["match_gap"] <= TOL["lg_match_gap"]
+            and readings["score_err"] <= TOL["lg_score"]
+            and readings["decide_gap"] <= TOL["lg_decide"],
+            f"lg_assign disagrees with its twin: {readings}")
+    require(0.3 < share < 0.9, f"lg_assign matched {share:.3f} of the rows "
+                               "(the planted 70% expected)")
+    del md0, md1, got, again, twin
+
+    for name, r in out.items():
+        kms, pms, lms = r["ms"]
+        (bms, by) = r["bound"]
+        print(f"  {name}: {kms:.4f} ms ({100 * bms / kms:.1f}% of its bound "
+              f"{bms:.4f} ms, {by}), twin {pms:.4f} ms, library "
+              f"{'-' if lms is None else f'{lms:.4f}'} ms; error "
+              f"{r['max_abs_err']:.3g}")
+        report[name] = dict(route="cuda", source=LG_SRC, replaces=None,
+                            launches=0, max_abs_err=r["max_abs_err"],
+                            ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                            library_ms=lms)
+    return out
+
+
+def lg_serving(dev, counters):
+    """``Matcher(net="lightglue")`` on the benchmark's seeded weights at the
+    cell's traffic: one eager call with every counter zeroed just before
+    (each kernel's launches a forward, every other kernel none), then the
+    captured route at the 2048 bucket (one warm-up, one capture, replays
+    launching nothing, answers equal to the eager call's), the plain route
+    (matches agree), and ms a call of each."""
+    import torch
+    from bench_gpu.harness import common, traffic, weights
+    from mdgat_tpu_torch import Matcher
+    conf = common.config("lightglue-fpfh")
+    arch = common.architecture(conf)
+    fields = arch.program_fields(conf)
+    seed = 3100007920
+    state = weights.make_weights(conf, seed, dev, arch)
+    pools = traffic.pool_pairs(common.workload(LG_CELL)["traffic"], seed)[:2]
+
+    def make(**kw):
+        mt = Matcher(device=dev, seed=0, **fields, **kw)
+        mt.model.load_state_dict(state, strict=True)
+        return mt
+    layers = conf["model"]["L"]
+    per = {"lg_self_attention": 2 * layers, "lg_cross_attention": layers,
+           "lg_ln_gelu": 4 * layers, "lg_assign": 1,
+           "gemm": 16 * layers + 4}
+    eager = make(cuda_graphs=False)
+    for c in counters.values():
+        c.reset()
+    first = eager.match_batch(pools[0])
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    require_launches("lightglue eager forward", launches, per, 1)
+    captured = make()
+    got = [captured.match_batch(pools[i % 2]) for i in range(2)]
+    for c in counters.values():
+        c.reset()
+    got += [captured.match_batch(pools[i % 2]) for i in range(2)]
+    torch.cuda.synchronize()
+    require_launches("lightglue replays", read_counts(counters), per, 0)
+    cap = captured._step.graphs[0]
+    require((cap.warm_ups, cap.captures, cap.replays) == (1, 1, 3),
+            f"lightglue graph at 2048: {(cap.warm_ups, cap.captures, cap.replays)}"
+            " (warm-ups, captures, replays), not (1, 1, 3)")
+    keys = ("matches0", "matches1", "matching_scores0", "matching_scores1")
+    require(all(np.array_equal(x[k], y[k]) for x, y in zip(first, got[2])
+                for k in keys), "lightglue replay differs from the eager call")
+    plain = make(use_kernels=False)
+    ref = plain.match_batch(pools[0])
+    agree = float(np.mean([np.mean(x["matches0"] == y["matches0"])
+                           for x, y in zip(first, ref)]))
+    require(agree >= MIN_AGREEMENT, f"lightglue kernel route agrees with "
+                                    f"the plain route on {agree:.5f}")
+    out = dict(launches=launches, graph=(cap.warm_ups, cap.captures,
+                                         cap.replays),
+               kernel_vs_plain_agree=agree,
+               matched_share=float(np.mean([np.mean(x["matches0"] >= 0)
+                                            for x in first])))
+    for name, mt in (("captured", captured), ("eager", eager),
+                     ("plain", plain)):
+        mt.match_batch(pools[1])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(3):
+            mt.match_batch(pools[i % 2])
+        out[name + "_ms_a_call"] = 1e3 * (time.perf_counter() - t) / 3
+    print(f"  lightglue Matcher: launches {launches}, graph {out['graph']}, "
+          f"agree {agree:.5f}, ms a call captured "
+          f"{out['captured_ms_a_call']:.1f} / eager {out['eager_ms_a_call']:.1f}"
+          f" / plain {out['plain_ms_a_call']:.1f}")
+    return out
+
+
+def lightglue_phase(dev, report, counters, card):
+    """Phase 17: LightGlue's kernels at the serving cell's shapes, then its
+    serving path. ``python3 chip_smoke.py --only lightglue`` runs this
+    phase alone, writes ``chip_smoke_out/lightglue.json`` and prints no
+    result line."""
+    import torch
+    print(f"phase 17: LightGlue ({card})")
+    kern = lg_kernels(dev, report)
+    torch.cuda.empty_cache()
+    serving = lg_serving(dev, counters)
+    for name in kern:
+        report[name]["launches"] = serving["launches"][name]
+    report["_lightglue"] = dict(kernels=kern, serving=serving)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "lightglue.json"), "w") as f:
+        json.dump(dict(card=card, kernels=kern, serving=serving), f, indent=1)
+    torch.cuda.empty_cache()
+
+
 def make_counters():
     """Every kernel wrapper's launch count, by name."""
     from mdgat_tpu_torch.ops.cuda import attention as A
     from mdgat_tpu_torch.ops.cuda import gap_loss as G
     from mdgat_tpu_torch.ops.cuda import layer as Lk
+    from mdgat_tpu_torch.ops.cuda import lightglue as LG
     from mdgat_tpu_torch.ops.cuda import mha as M
     from mdgat_tpu_torch.ops.cuda import sinkhorn as S
     from mdgat_tpu_torch.ops.cuda import train_layer as T
@@ -5760,7 +6058,11 @@ def make_counters():
         "train_layer_bwd1_dw2": Counter(T.dw2_db2),
         "train_layer_bwd2": Counter(T.dh1_kernel),
         "gap_loss_fwd": Counter(G.fused_gap_margins, "forward_launches"),
-        "gap_loss_bwd": Counter(G.fused_gap_margins, "backward_launches")}
+        "gap_loss_bwd": Counter(G.fused_gap_margins, "backward_launches"),
+        "lg_self_attention": Counter(LG.self_attention),
+        "lg_cross_attention": Counter(LG.cross_attention),
+        "lg_ln_gelu": Counter(LG.layer_norm_gelu),
+        "lg_assign": Counter(LG.assign)}
 
 
 def earlier_phases(rng, dev, report, counters, card):
@@ -5908,13 +6210,18 @@ def main() -> int:
                          replaces="mdgat_tpu/ops/pallas/sinkhorn.py:55"),
     }
     rng = np.random.default_rng(0)
-    only = sys.argv[1:] == ["--only", "cuda_graphs"]
+    only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
+    require(only in (None, "cuda_graphs", "lightglue") and len(sys.argv) in
+            (1, 3), "usage: chip_smoke.py [--only cuda_graphs|lightglue]")
     # the phases before cuda_graphs count launches per call and time eager
     # calls: every step and forward in them runs eagerly
     with graphs.disabled():
-        if not only:
+        if only is None:
             earlier_phases(rng, dev, report, counters, card)
-    cuda_graphs_phase(rng, dev, report, counters, card)
+    if only in (None, "cuda_graphs"):
+        cuda_graphs_phase(rng, dev, report, counters, card)
+    if only in (None, "lightglue"):
+        lightglue_phase(dev, report, counters, card)
     if only:
         return 0
 

@@ -28,7 +28,7 @@ from mdgat_tpu_torch.cli import check_seq_layout
 from mdgat_tpu_torch.core.config import (POINTNET_DESCRIPTORS, Config,
                                          test_defaults)
 from mdgat_tpu_torch.eval.metrics import np_kabsch
-from mdgat_tpu_torch.models.mdgat import MDGAT
+from mdgat_tpu_torch.models.factory import build_model
 from mdgat_tpu_torch.parallel.smap import make_eval_runtime, upload
 from mdgat_tpu_torch.utils.profiling import span
 
@@ -40,7 +40,10 @@ def _round_up(n: int, m: int) -> int:
 
 
 class Matcher:
-    """MDGAT matcher for library use.
+    """MDGAT matcher for library use; ``net="lightglue"`` serves LightGlue
+    (``models/lightglue.py``) through the same batch, upload, runtime and
+    graphs, without a seq axis (``seq_parallel > 1`` raises
+    ``ValueError``).
 
     Weights, one of: ``checkpoint`` (a native ``.npz`` of the JAX package
     or a reference ``.pth``); ``params=`` and ``bn_state=`` trees of numpy
@@ -83,6 +86,10 @@ class Matcher:
                 f"Matcher(descriptor={self.cfg.descriptor!r}): the Matcher "
                 "takes keypoints and FPFH descriptors, not the raw clouds "
                 "this mode encodes; evaluate it with test_torch.py")
+        if self.cfg.net == "lightglue" and self.cfg.seq_parallel > 1:
+            raise ValueError(
+                f"Matcher(net='lightglue', seq_parallel="
+                f"{self.cfg.seq_parallel}): net lightglue takes no seq axis")
         check_seq_layout(self.cfg)
         self.devices = self._grid_devices(torch.device(device), devices)
         if any(d.type == "cuda" for d in self.devices):
@@ -102,7 +109,7 @@ class Matcher:
             if params is None or bn_state is None:
                 raise ValueError("pass BOTH params and bn_state")
             state_dict = state_dict_from_numpy(params, bn_state, self.cfg)
-        self.model = MDGAT(self.cfg)
+        self.model = build_model(self.cfg)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         elif seed is not None:

@@ -77,7 +77,7 @@ def build_parser(preset: str) -> argparse.ArgumentParser:
                         "--device places the model")
     p.add_argument("--resume", type=_parse_bool, default=False)
     p.add_argument("--net", type=str, default=d.net,
-                   choices=["mdgat", "superglue", "raw"])
+                   choices=["mdgat", "superglue", "raw", "lightglue"])
     p.add_argument("--loss_method", type=str, default=d.loss_method,
                    choices=["superglue", "triplet_loss", "gap_loss"])
     p.add_argument("--mutual_check", type=_parse_bool, default=d.mutual_check)
@@ -218,6 +218,9 @@ def config_from_args(args, preset: str) -> Config:
         # --debug_nans reads values back in every forward and step: eager
         cuda_graphs=not args.debug_nans,
     )
+    if cfg.net == "lightglue":
+        raise ValueError("--net lightglue: no LightGlue loss or eval pipeline "
+                         "is ported; serve it with Matcher(net='lightglue')")
     if cfg.net == "raw":
         cfg = cfg.replace(k=None, L=9)  # train.py:130-132
     return cfg

@@ -51,8 +51,16 @@ eval forward on the card as CUDA graphs, once per shape bucket, and
 replays them (``utils/graphs.py``): the counterpart of the JAX package's
 ``jax.jit``, and off where JAX's ``disable_jit`` would be. The CPU, the
 plain route (``use_kernels=False``), data- and seq-parallel steps,
-``--debug_nans`` and clouds of more than 1024 keypoints stay eager
-(``utils/graphs.py::use_graphs``).
+``--debug_nans`` and MDGAT's clouds of more than 1024 keypoints stay eager
+(``utils/graphs.py::use_graphs``; LightGlue captures at any size).
+
+``net="lightglue"`` builds LightGlue (``models/lightglue.py``, Lindenberger
+et al., ICCV 2023) on the serving path: it reads ``descriptor_dim``,
+``num_heads``, ``L`` (its ``n_layers``) and ``match_threshold`` (its
+``filter_threshold``), and one field of its own, ``keypoint_scale`` (the
+metres a keypoint coordinate is divided by, upstream's
+``normalize_keypoints`` carried to 3-d). Adaptive depth and width are not
+ported. No LightGlue loss exists: training refuses the net.
 
 ``loss_kernel`` (off by default, the counterpart of the JAX package's
 ``pallas_loss``) sends the gap loss through the margin kernels of
@@ -82,7 +90,7 @@ class Config:
     num_heads: int = 4
     L: int = 9                      # GNN has 2*L alternating self/cross layers
     k: Optional[Tuple[Optional[int], ...]] = DEFAULT_K
-    net: str = "mdgat"              # mdgat | superglue | raw
+    net: str = "mdgat"              # mdgat | superglue | raw | lightglue
     descriptor: str = "FPFH"        # FPFH | FPFH_gloabal | FPFH_only | pointnet | pointnetmsg
     sinkhorn_iterations: int = 20   # CLI default (train.py:21); model default was 100
     match_threshold: float = 0.2
@@ -90,6 +98,8 @@ class Config:
     triplet_loss_gamma: float = 0.5
     mutual_check: bool = False
     train_step: int = 3             # staged training for pointnet descriptors
+    # --- LightGlue (net="lightglue", models/lightglue.py) ---
+    keypoint_scale: float = 30.0    # metres a keypoint coordinate is divided by
 
     # --- data pipeline (reference load_data.py) ---
     dataset: str = "kitti"

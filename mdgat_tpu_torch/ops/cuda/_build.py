@@ -83,6 +83,16 @@ _SIGNATURES = {
     # dense, bin_row, bin_col, gt0, gt1, rm, cm, cnt0, cnt1, ds0, ds1, dd,
     # dbin_row, dbin_col, B, N, M, cluster, band, gamma, stream
     "mdgat_gap_bwd": [_P] * 14 + [_I] * 5 + [_F, _P],
+    # qkv, cos, sin, mask, out, B, H, N, dh, stream
+    "mdgat_lg_self_attention": [_P] * 5 + [_I] * 4 + [_P],
+    # qkv0, qkv1, mask0, mask1, m0, m1, part, part_floats, B, H, N, M, dh,
+    # stream
+    "mdgat_lg_cross_attention": [_P] * 7 + [_L] + [_I] * 5 + [_P],
+    # x, w, b, out, R, C, eps, stream
+    "mdgat_lg_ln_gelu": [_P] * 4 + [_I] * 2 + [_F, _P],
+    # md0, md1, mask0, mask1, scratch, scratch_floats, m0, m1, s0, s1, B, N,
+    # M, D, ld, th, stream
+    "mdgat_lg_assign": [_P] * 5 + [_L] + [_P] * 4 + [_I] * 5 + [_F, _P],
 }
 
 

@@ -12,11 +12,17 @@ Port of ``mdgat_tpu/ops/matching.py`` (reference ``models/mdgat.py:
 Padded keypoints (masks False) always yield -1. The reference's quirk is
 kept: when no keypoint of the whole batch has a valid match, every score
 is zeroed.
+
+:func:`filter_matches` is LightGlue's decision (``models/lightglue.py``,
+upstream ``lightglue.py::filter_matches``) over its assignment's inner
+block, which has no dustbin competing.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
+
+import math
 
 import torch
 
@@ -92,3 +98,28 @@ def match_decision(ot: OTScores, loss_method: str, match_threshold: float,
                        torch.where(valid1, idx1, -1),
                        torch.where(rm, mscores0, 0.0),
                        torch.where(cm, mscores1, 0.0))
+
+
+def filter_matches(inner: torch.Tensor, th: float, mask0: torch.Tensor,
+                   mask1: torch.Tensor):
+    """Upstream LightGlue's ``filter_matches`` over the valid block of the
+    inner assignment ``inner`` [B, N, M]: a mutual argmax (the first
+    maximal index wins a tie), a match where ``exp(score) > th``;
+    (matches0, matches1 with -1 unmatched, mscores0, mscores1), ``mscores``
+    the exponential of a mutual row's best also where it is under ``th``,
+    padded rows and columns unmatched with score 0."""
+    valid = mask0[:, :, None] & mask1[:, None, :]
+    inner = inner.masked_fill(~valid, -math.inf)
+    max0, max1 = inner.max(2), inner.max(1)
+    m0, m1 = max0.indices, max1.indices
+    i0 = torch.arange(m0.shape[1], device=m0.device)[None]
+    i1 = torch.arange(m1.shape[1], device=m1.device)[None]
+    mutual0 = (m1.gather(1, m0) == i0) & mask0
+    mutual1 = (m0.gather(1, m1) == i1) & mask1
+    zero = inner.new_tensor(0)
+    ms0 = torch.where(mutual0, max0.values.exp(), zero)
+    ms1 = torch.where(mutual1, ms0.gather(1, m1), zero)
+    valid0 = mutual0 & (ms0 > th)
+    valid1 = mutual1 & valid0.gather(1, m1)
+    return (torch.where(valid0, m0, -1), torch.where(valid1, m1, -1),
+            ms0, ms1)

@@ -262,6 +262,7 @@ def _forward(model, graphs, batch, rows):
     """``model``'s eval forward of ``batch`` on one device, through
     ``graphs`` where ``use_graphs`` says so (keyed on the plan's ``rows``),
     else eagerly."""
-    if use_graphs(model.config, model.bin_score.device, batch):
+    if use_graphs(model.config, next(model.parameters()).device, batch,
+                  getattr(model, "captures_any_size", False)):
         return graphs(batch, key=("eval", rows, model.config.exact_topk))
     return model(batch)

@@ -42,6 +42,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from mdgat_tpu_torch.core.config import Config
+from mdgat_tpu_torch.models.factory import build_model
 from mdgat_tpu_torch.models.mdgat import MDGAT
 from mdgat_tpu_torch.ops.cuda.sinkhorn import planned_pairs
 from mdgat_tpu_torch.utils.graphs import Captured, use_graphs
@@ -79,7 +80,12 @@ def create_train_state(config: Config, *, device, seed: Optional[int] = None,
                        ) -> TrainState:
     """A model on ``device`` ("cpu", "cuda", ...) with seeded weights
     (``seed``) or loaded ones (``state_dict``, upstream key names), and
-    Adam at ``learning_rate`` (default ``config.learning_rate``)."""
+    Adam at ``learning_rate`` (default ``config.learning_rate``). The
+    model comes from ``models/factory.py::build_model``; ``net="lightglue"``
+    raises ``ValueError`` (no LightGlue loss is ported)."""
+    if config.net == "lightglue":
+        raise ValueError("net lightglue has no loss here: it serves through "
+                         "Matcher(net='lightglue') and cannot be trained")
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -88,7 +94,7 @@ def create_train_state(config: Config, *, device, seed: Optional[int] = None,
         # full-precision f32 products on the card (TF32 keeps ~3 digits)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    model = MDGAT(config)
+    model = build_model(config)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     elif seed is not None:

@@ -69,8 +69,8 @@ from mdgat_tpu_torch.utils.counting import tick
 from mdgat_tpu_torch.utils.profiling import span
 
 MAX_GRAPHS = 8
-# clouds above this many keypoints take the kernels' wide arms, which size
-# a scratch tensor from the card's free memory at every call: eager
+# clouds above this many keypoints take MDGAT's kernels' wide arms, which
+# size a scratch tensor from the card's free memory at every call: eager
 WIDE_KEYPOINTS = 1024
 
 _DISABLED = 0                    # depth of open disabled() blocks
@@ -95,7 +95,8 @@ def disabled():
             _DISABLED -= 1
 
 
-def use_graphs(cfg, device, batch: Optional[Dict] = None) -> bool:
+def use_graphs(cfg, device, batch: Optional[Dict] = None,
+               any_size: bool = False) -> bool:
     """Whether a train or eval step of a model of ``cfg`` on ``device``
     runs through :class:`Captured`: ``cfg.cuda_graphs``, a kernel route
     (``cfg.use_kernels``; the plain route is what the kernels are held
@@ -103,12 +104,14 @@ def use_graphs(cfg, device, batch: Optional[Dict] = None) -> bool:
     backend captures on (CUDA), no :func:`disabled` block, no autograd
     anomaly mode (``--debug_nans``, whose checks read values back), and,
     when ``batch`` is given, clouds of at most ``WIDE_KEYPOINTS``
-    keypoints."""
+    keypoints unless ``any_size``: the model's ``captures_any_size``, true
+    of a net whose kernels size their scratch from the shapes alone
+    (LightGlue)."""
     if not (cfg.cuda_graphs and cfg.use_kernels and not _DISABLED
             and not torch.is_anomaly_enabled()
             and BACKEND.supports(torch.device(device))):
         return False
-    if batch is None:
+    if batch is None or any_size:
         return True
     return all(batch[k].shape[1] <= WIDE_KEYPOINTS
                for k in ("keypoints0", "keypoints1") if k in batch)
